@@ -1,0 +1,390 @@
+#!/usr/bin/env python3
+"""On-card smoke test of the PyTorch port (``src/repro_torch``).
+
+Run from the root of a checkout on a machine with one CUDA card:
+
+    python3 chip_smoke.py
+
+Phases, in order; any mismatch or exception exits non-zero:
+
+1. prints the card's name and power limit (``nvidia-smi``);
+2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and
+   prints the build seconds;
+3. kernel phase: each kernel (pack_rows, popcount_rows, coverage_multi,
+   phase_step) against its plain PyTorch version on the card, bit for
+   bit, at the main path's shapes (fig3_weak, W=256) and at edge shapes
+   (ragged columns, W=1, base=-1 rows, INT32_MAX pads); prints each
+   kernel's median time (CUDA events), the plain version's, the
+   ``torch.cumsum`` yardstick for coverage_multi, and the bound;
+4. main-path phase: the W=256 batched points of fig2_strong, fig3_weak,
+   fig5_strong, fig6_weak and fig7_md (samhita and samhita_page, Jacobi
+   and MD in lock and reduction modes) on the 'fused' tier, plus the two
+   fig2_strong points on 'kernels', at the benchmark harness's settings
+   (IB_2013, fetch_batch=16, iters=4).  Every point's traffic must equal
+   its ``BENCH_scale.json`` row field for field and its modeled time must
+   round to the row's ``t_model_s``; the launch counters must show that
+   each run went through the kernels;
+5. profile phase: the device busy share of the two samhita fig6_weak
+   points (lock, reduction) from a separate torch.profiler run.
+
+The line before the last is the kernel table as one JSON object; the last
+line is ``{"ok": true, "device": {...}}``.  Full results also go to
+``chiprun_out/chip_smoke.json``.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
+SOURCE = "src/repro_torch/kernels/csrc/protocol_sweep.cu"
+TPU_KERNELS = {
+    "pack_rows": "src/repro/kernels/protocol_sweep.py:134",
+    "popcount_rows": "src/repro/kernels/protocol_sweep.py:232",
+    "coverage_multi": "src/repro/kernels/protocol_sweep.py:333",
+    "phase_step": "src/repro/kernels/protocol_sweep.py:426",
+}
+ITERS = 4
+W = 256
+PROTO = {"samhita": "fine", "samhita_page": "page"}
+# benchmark sizes (benchmarks/{stream_triad,jacobi,molecular_dynamics}.py)
+N_TRIAD = 16 << 20
+N_JACOBI = 4096
+N_PARTICLES = 8192
+
+
+def fail(msg: str) -> int:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    return 1
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# kernel phase
+# ---------------------------------------------------------------------------
+
+
+def timed_ms(torch, fn, n: int = 50, rounds: int = 5) -> float:
+    """Median over ``rounds`` of the per-call time of ``n`` back-to-back
+    calls, from CUDA events (warm-up first)."""
+    fn()
+    torch.cuda.synchronize()
+    per = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        per.append(start.elapsed_time(end) / n)
+    return statistics.median(per)
+
+
+def phase_step_inputs(torch, rng, R: int, W_: int, C: int, dev,
+                      dead_rows: bool):
+    """Stacked packed dirty planes plus window geometry: rows with
+    base=-1 (dead) hold no bits, live bounds sorted, INT32_MAX pads."""
+    import numpy as np
+    i32max = np.iinfo(np.int32).max
+    nw = -(-C // 32)
+    planes = np.zeros((R, W_, C), bool)
+    base = np.full((R, W_), -1, np.int32)
+    sbs = np.full((R, W_), i32max, np.int32)
+    ses = np.full((R, W_), i32max, np.int32)
+    for r in range(R):
+        nlive = int(rng.integers(1, W_ + 1)) if dead_rows else W_
+        rows = np.sort(rng.choice(W_, nlive, replace=False))
+        # block windows with a one-page overlap, like a prefetching read
+        b = (r * 10_000_000 + rows * (C - 1)).astype(np.int32)
+        ln = rng.integers(C // 2, C + 1, nlive).astype(np.int32)
+        base[r, rows] = b
+        sbs[r, :nlive] = np.sort(b)
+        ses[r, :nlive] = np.sort(b + ln)
+        for i, w in enumerate(rows):
+            planes[r, w, :ln[i]] = rng.random(int(ln[i])) < 0.5
+    rowmask = rng.random((R, W_)) < 0.9
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    from repro_torch.kernels.protocol_sweep import _pack_rows_plain
+    bits = torch.stack([_pack_rows_plain(t(planes[r])) for r in range(R)])
+    assert bits.shape == (R, W_, nw)
+    return bits, t(base), t(rowmask), t(sbs), t(ses)
+
+
+def kernel_phase(torch, np, ps, dev):
+    rng = np.random.default_rng(2013)
+    results = {}
+
+    def same(name, a, b):
+        if isinstance(a, tuple):
+            return max(same(name, x, y) for x, y in zip(a, b))
+        torch.cuda.synchronize()
+        if a.shape != b.shape or not torch.equal(a, b):
+            raise AssertionError(f"{name}: kernel != plain version")
+        if a.dtype == torch.bool:
+            return 0
+        return int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) \
+            if a.numel() else 0
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+
+    # --- pack_rows: the dirty plane of fig3_weak's A region, W=256 ----
+    C = 16384
+    plane = t(rng.random((W, C)) < 0.5)
+    err = same("pack_rows", ps.pack_rows(plane), ps._pack_rows_plain(plane))
+    for (w_, c_) in ((1, 1), (3, 31), (37, 1000), (W, 16385)):
+        p = t(rng.random((w_, c_)) < 0.3)
+        err = max(err, same("pack_rows", ps.pack_rows(p),
+                            ps._pack_rows_plain(p)))
+        wide = torch.full((w_, -(-c_ // 32) + 3), -1, dtype=torch.int32,
+                          device=dev)
+        ref = torch.zeros_like(wide)
+        ref[:, :-3] = ps._pack_rows_plain(p)
+        err = max(err, same("pack_rows(out)", ps.pack_rows(p, out=wide),
+                            ref))
+    nw = -(-C // 32)
+    results["pack_rows"] = dict(
+        err=err, shape=[W, C],
+        ms=timed_ms(torch, lambda: ps.pack_rows(plane)),
+        plain_ms=timed_ms(torch, lambda: ps._pack_rows_plain(plane), 10),
+        library_ms=None, bytes=W * C + W * nw * 4)
+
+    # --- popcount_rows ------------------------------------------------
+    bits = ps._pack_rows_plain(plane)
+    err = same("popcount_rows", ps.popcount_rows(bits),
+               ps._popcount_rows_plain(bits))
+    for (w_, c_) in ((1, 1), (37, 1024), (W, 64 * 32 + 5)):
+        b = ps._pack_rows_plain(t(rng.random((w_, c_)) < 0.4))
+        err = max(err, same("popcount_rows", ps.popcount_rows(b),
+                            ps._popcount_rows_plain(b)))
+    results["popcount_rows"] = dict(
+        err=err, shape=[W, nw],
+        ms=timed_ms(torch, lambda: ps.popcount_rows(bits)),
+        plain_ms=timed_ms(torch, lambda: ps._popcount_rows_plain(bits), 10),
+        library_ms=None, bytes=W * nw * 4 + W * 8)
+
+    # --- coverage_multi: 2W sorted window bounds ----------------------
+    def deltas(n):
+        return t(rng.choice(np.array([1, -1], np.int32), n))
+
+    delta = deltas(2 * W)
+    err = same("coverage_multi", ps.coverage_multi(delta),
+               ps._coverage_multi_plain(delta))
+    for n in (1, 2, 9, 255, 256, 257, 515, 5000):
+        dd = deltas(n)
+        err = max(err, same("coverage_multi", ps.coverage_multi(dd),
+                            ps._coverage_multi_plain(dd)))
+    results["coverage_multi"] = dict(
+        err=err, shape=[2 * W],
+        ms=timed_ms(torch, lambda: ps.coverage_multi(delta)),
+        plain_ms=timed_ms(torch, lambda: ps._coverage_multi_plain(delta)),
+        library_ms=timed_ms(torch, lambda: torch.cumsum(delta, 0)),
+        bytes=2 * W * 4 + 2 * W)
+
+    # --- phase_step: R=3 regions, W=256, nw=512 (fig3_weak) -----------
+    R = 3
+    main = phase_step_inputs(torch, rng, R, W, C, dev, dead_rows=False)
+    err = same("phase_step", ps.phase_step(*main), ps._phase_step_plain(*main))
+    for (r_, w_, c_, dead) in ((3, 7, 150, True), (1, 1, 40, False),
+                               (2, 64, 1000, True), (3, W, 517, True),
+                               (1, ps.MAX_PHASE_STEP_W, 40, True)):
+        inp = phase_step_inputs(torch, rng, r_, w_, c_, dev, dead)
+        err = max(err, same("phase_step", ps.phase_step(*inp),
+                            ps._phase_step_plain(*inp)))
+    results["phase_step"] = dict(
+        err=err, shape=[R, W, nw],
+        ms=timed_ms(torch, lambda: ps.phase_step(*main)),
+        plain_ms=timed_ms(torch, lambda: ps._phase_step_plain(*main), 3, 3),
+        library_ms=None,
+        bytes=2 * R * W * nw * 4 + R * W * (4 + 1 + 4 + 4 + 8))
+    for name, r in results.items():
+        r["bound_ms"] = r["bytes"] / HBM_BYTES_PER_S * 1e3
+        lib = ("" if r["library_ms"] is None
+               else f"  torch.cumsum {r['library_ms'] * 1e3:.2f} us")
+        print(f"kernel {name:15s} shape={r['shape']}  max_abs_err="
+              f"{r['err']}  kernel {r['ms'] * 1e3:.2f} us  plain "
+              f"{r['plain_ms'] * 1e3:.2f} us{lib}  bound "
+              f"{r['bound_ms'] * 1e3:.3f} us (bytes)", flush=True)
+    return results
+
+
+# ---------------------------------------------------------------------------
+# main-path phase
+# ---------------------------------------------------------------------------
+
+
+def main_points():
+    pts = []
+    for series in ("samhita", "samhita_page"):
+        pts.append(("fig2_strong", series, series, "stream", None, N_TRIAD))
+        pts.append(("fig3_weak", series, series, "stream", None, N_TRIAD * W))
+        n_weak = int(N_JACOBI * W ** 0.5)
+        n_weak -= n_weak % max(W, 64)
+        for mode in ("lock", "reduction"):
+            tag = f"{series}_{mode}"
+            pts.append(("fig5_strong", tag, series, "jacobi", mode, N_JACOBI))
+            pts.append(("fig6_weak", tag, series, "jacobi", mode, n_weak))
+            pts.append(("fig7_md", tag, series, "md", mode, N_PARTICLES))
+    return pts
+
+
+def run_point(torch, make_runtime, apps, IB_2013, app, series, mode, n,
+              backend):
+    t0 = time.perf_counter()
+    rt = make_runtime(W, protocol=PROTO[series], cost=IB_2013,
+                      fetch_batch=16, backend=backend, device="cuda")
+    if app == "stream":
+        apps.stream_triad(rt, n, ITERS, driver="batched")
+    elif app == "jacobi":
+        apps.jacobi(rt, n, ITERS, mode=mode, driver="batched")
+    else:
+        apps.molecular_dynamics(rt, n, ITERS, mode=mode, driver="batched")
+    torch.cuda.synchronize()
+    return rt, time.perf_counter() - t0
+
+
+def main_path_phase(torch, ps):
+    import dataclasses
+    from repro_torch.core import make_runtime
+    from repro_torch.dsm import apps
+    from repro_torch.dsm.costmodel import IB_2013
+    rows = {(r["section"], r["protocol"], r["W"], r.get("driver")): r
+            for r in json.loads(
+                (ROOT / "BENCH_scale.json").read_text())["rows"]}
+    runs = [(p, "fused") for p in main_points()]
+    runs += [(p, "kernels") for p in main_points() if p[0] == "fig2_strong"]
+    need = {"fused": ("pack_rows", "phase_step"),
+            "kernels": ("pack_rows", "popcount_rows", "coverage_multi")}
+    out = []
+    ps.reset_launches()
+    for (sec, tag, series, app, mode, n), backend in runs:
+        before = dict(ps.LAUNCHES)
+        rt, wall = run_point(torch, make_runtime, apps, IB_2013, app,
+                             series, mode, n, backend)
+        launched = {k: ps.LAUNCHES[k] - before[k] for k in ps.LAUNCHES}
+        row = rows[(sec, tag, W, "batched")]
+        traffic = {f"tr_{f.name}": getattr(rt.traffic, f.name)
+                   for f in dataclasses.fields(rt.traffic)}
+        bad = {k: (v, row[k]) for k, v in traffic.items() if v != row[k]}
+        t_model = round(rt.time, 6)
+        if bad or t_model != row["t_model_s"]:
+            raise AssertionError(
+                f"{sec} {tag} [{backend}]: traffic drift {bad}, t_model "
+                f"{t_model} vs committed {row['t_model_s']}")
+        idle = [k for k in need[backend] if launched[k] == 0]
+        if idle:
+            raise AssertionError(f"{sec} {tag} [{backend}]: kernels {idle} "
+                                 "never launched")
+        print(f"main {sec:11s} {tag:23s} [{backend:7s}] wall "
+              f"{wall:.3f} s  t_model {t_model}  launches {launched}",
+              flush=True)
+        out.append({"section": sec, "series": tag, "W": W,
+                    "backend": backend, "wall_s": wall, "t_model_s": t_model,
+                    "launches": launched, **traffic})
+    return out, dict(ps.LAUNCHES)
+
+
+def profile_phase(torch):
+    """Device busy share of two fig6_weak points (samhita, lock and
+    reduction mode) in a separate traced run: the union of the intervals
+    of every device activity torch.profiler records (kernels, copies,
+    sets) over the run's wall.  The main-path walls above are untraced."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import make_runtime
+    from repro_torch.dsm import apps
+    from repro_torch.dsm.costmodel import IB_2013
+    out = []
+    for sec, tag, series, app, mode, n in main_points():
+        if sec != "fig6_weak" or series != "samhita":
+            continue
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, wall = run_point(torch, make_runtime, apps, IB_2013, app,
+                                series, mode, n, "fused")
+        spans = sorted((e.time_range.start, e.time_range.end)
+                       for e in prof.events()
+                       if e.device_type == DeviceType.CUDA)
+        row = {"section": sec, "series": tag, "traced_wall_s": wall,
+               "device_activities": len(spans), "device_busy_s": None,
+               "idle_share": None}
+        if not spans:   # the path launches kernels, so the trace failed
+            print(f"profile {sec} {tag}: torch.profiler recorded no device "
+                  "activity; device busy share not measured", flush=True)
+            out.append(row)
+            continue
+        busy_us, end = 0.0, float("-inf")
+        for a, b in spans:
+            busy_us += max(0.0, b - max(a, end))
+            end = max(end, b)
+        busy = busy_us * 1e-6
+        row.update(device_busy_s=busy, idle_share=1 - busy / wall)
+        print(f"profile {sec} {tag} [fused] traced wall {wall:.3f} s  "
+              f"device busy {busy * 1e3:.3f} ms ({len(spans)} device "
+              f"activities)  idle share {1 - busy / wall:.4f}", flush=True)
+        out.append(row)
+    return out
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        return fail("torch finds no CUDA device")
+    src = ROOT / "src"
+    if not (src / "repro_torch").is_dir():
+        return fail(f"no src/repro_torch beside {Path(__file__).name}; run "
+                    "from the root of a checkout")
+    sys.path.insert(0, str(src))
+    import numpy as np
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import protocol_sweep as ps
+
+    card = card_line()
+    print(card, flush=True)
+    t0 = time.perf_counter()
+    _build.build("protocol_sweep.cu")
+    build_s = time.perf_counter() - t0
+    print(f"build: {build_s:.1f} s", flush=True)
+
+    dev = torch.device("cuda")
+    kernels = kernel_phase(torch, np, ps, dev)
+    points, launches = main_path_phase(torch, ps)
+    profiled = profile_phase(torch)
+
+    table = {"kernels": [
+        {"name": name, "route": "cuda", "source": SOURCE,
+         "replaces": TPU_KERNELS[name], "launches": launches[name],
+         "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+         "bound_ms": r["bound_ms"], "bound_by": "bytes",
+         "library_ms": r["library_ms"]}
+        for name, r in kernels.items()]}
+    print(f"launches on the main path: {launches}", flush=True)
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(json.dumps(
+        {"card": card, "build_s": build_s, "kernel_phase": kernels,
+         "points": points, "profile": profiled, **table}, indent=1)
+        + "\n")
+    print(json.dumps(table), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

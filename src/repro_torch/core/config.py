@@ -1,0 +1,159 @@
+"""Public configuration surface for the PyTorch RegC runtime.
+
+One frozen spec (``RuntimeConfig``) and one factory (``make_runtime``)
+build the directory-vectorized ``RegCScaleRuntime`` on a torch device.
+The string-knob vocabularies and the validator ``check_choice`` mirror
+``repro.core.config``; ``BACKENDS`` names this package's three
+plane-reduction tiers instead of numpy/pallas/pallas-jit.
+
+Entry points run on the card: ``device=None`` resolves to ``"cuda"``, and
+a CUDA request on a machine without a card raises.  Only an explicit
+``device="cpu"`` runs on the host (the parity tests do).
+
+This module is the bottom layer of ``repro_torch.core``: it imports
+nothing from the engine modules at import time (they import *us*).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.dsm.costmodel import CostModel, IB_2013
+
+# protocol vocabulary (the paper's three series)
+PAGE_PROTO = "page"    # samhita_page: page invalidation for BOTH region kinds
+FINE_PROTO = "fine"    # samhita: fine-grain diffs for consistency regions
+IDEAL_PROTO = "ideal"  # cache-coherent shared memory (Pthreads baseline)
+
+PROTOCOLS = (FINE_PROTO, PAGE_PROTO, IDEAL_PROTO)
+# plane-reduction tier of the scale engine:
+#   'plain'   boolean-plane torch reductions (CPU only; twin of 'numpy')
+#   'kernels' per-op CUDA kernels popcount_rows / coverage_multi
+#             (twin of 'pallas')
+#   'fused'   one phase_step launch per barrier flush (twin of 'pallas-jit')
+BACKENDS = ("plain", "kernels", "fused")
+DANGER_MODES = ("vec", "scalar")    # mid-op refetch replay path (spill)
+DRIVERS = ("auto", "batched", "loop")   # SPMD phase drivers (Session)
+ENGINES = ("scale", "reference")        # make_runtime targets
+
+# mechanism costs (calibration constants, as in the reference package):
+# instrumented store = call + hash-table update; write fault = trap +
+# mprotect re-arm, order ~microseconds on the paper's Harpertown.
+INSTR_S_PER_WORD = 1.5e-9
+FAULT_S = 4.0e-6
+
+# knobs whose engine paths are not in this package yet: their default and
+# the slice of the port that brings them; any other value raises instead
+# of running
+_LATER = {
+    "cache_pages": (None, "slice B (eviction under cache_pages)"),
+    "danger_mode": ("vec", "slice B (the spill path's refetch replay)"),
+    "detect_races": (False, "slice D (race detection)"),
+    "chaos": (None, "the recovery slice"),
+    "injector": (None, "the recovery slice"),
+    "straggler": (None, "the recovery slice"),
+}
+
+
+def check_choice(name: str, value, allowed) -> str:
+    """Validate a string knob against its canonical vocabulary.
+
+    Raises ``ValueError`` naming the bad value AND the allowed set."""
+    if value not in allowed:
+        raise ValueError(
+            f"invalid {name}={value!r}; allowed: "
+            + ", ".join(repr(c) for c in allowed))
+    return value
+
+
+def resolve_device(device=None, backend: str = "fused") -> torch.device:
+    """The runtime's device: ``None`` means the card.  A CUDA device on a
+    machine without one raises; so does the CPU-only 'plain' tier on a
+    CUDA device.  Nothing falls back to the host quietly."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev!s}; use 'cuda' or 'cpu'")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {dev!s} requested but torch finds no CUDA device; "
+                "pass device='cpu' explicitly to run on the host")
+        if backend == "plain":
+            raise ValueError(
+                "backend='plain' is the CPU-only tier; use 'kernels' or "
+                "'fused' on a CUDA device")
+    return dev
+
+
+@dataclasses.dataclass(frozen=True)
+class RuntimeConfig:
+    """Frozen spec for building a RegC runtime.
+
+    The reference's spec plus ``device``, less the two knobs only the
+    per-page reference engine reads (``track_values``, ``n_mem_servers``;
+    they come with that engine's slice).  Knobs whose engine paths belong
+    to later slices of the port (``cache_pages``, ``danger_mode``,
+    ``detect_races``, ``chaos``, ``injector``, ``straggler``) raise a
+    ``ValueError`` naming that slice when set to other than their
+    default."""
+
+    page_words: int = 1024
+    protocol: str = FINE_PROTO
+    cost: CostModel = IB_2013
+    cache_pages: Optional[int] = None   # per-worker cache (None = infinite)
+    prefetch: int = 1
+    model_mechanism: bool = True        # §IV store tracking
+    instr_s_per_word: float = INSTR_S_PER_WORD
+    fault_s: float = FAULT_S
+    fetch_batch: int = 1                # bulk-fetch batching
+    backend: str = "fused"              # plane-reduction tier
+    danger_mode: str = "vec"            # mid-op refetch replay (spill)
+    detect_races: bool = False
+    chaos: Any = None
+    injector: Any = None
+    straggler: Any = None
+    device: Any = None                  # None = "cuda"
+
+    def __post_init__(self):
+        check_choice("protocol", self.protocol, PROTOCOLS)
+        check_choice("backend", self.backend, BACKENDS)
+        check_choice("danger_mode", self.danger_mode, DANGER_MODES)
+        for name, (default, where) in _LATER.items():
+            if getattr(self, name) != default:
+                raise ValueError(
+                    f"RuntimeConfig({name}={getattr(self, name)!r}) is not "
+                    f"ported yet: it arrives with {where}")
+
+
+def make_runtime(n_workers: int, config: Optional[RuntimeConfig] = None,
+                 *, engine: str = "scale", **overrides):
+    """Build a RegC runtime from one spec.
+
+    ``config`` defaults to ``RuntimeConfig()``; keyword ``overrides`` are
+    applied on top via ``dataclasses.replace`` (unknown field names
+    raise).  Only ``engine="scale"`` exists in this package so far."""
+    check_choice("engine", engine, ENGINES)
+    if engine == "reference":
+        raise ValueError(
+            "make_runtime(engine='reference') is not ported yet: the "
+            "per-page reference engine arrives with its own slice "
+            "(ROADMAP Queue 1 item 8)")
+    cfg = config if config is not None else RuntimeConfig()
+    if overrides:
+        try:
+            cfg = dataclasses.replace(cfg, **overrides)
+        except TypeError as e:
+            known = ", ".join(f.name for f in dataclasses.fields(cfg))
+            raise ValueError(
+                f"make_runtime(): unknown RuntimeConfig override "
+                f"({e}); known fields: {known}") from None
+    from repro_torch.core.regc_scale import RegCScaleRuntime
+    return RegCScaleRuntime(
+        n_workers, page_words=cfg.page_words, protocol=cfg.protocol,
+        cost=cfg.cost, prefetch=cfg.prefetch,
+        model_mechanism=cfg.model_mechanism,
+        instr_s_per_word=cfg.instr_s_per_word, fault_s=cfg.fault_s,
+        fetch_batch=cfg.fetch_batch, backend=cfg.backend,
+        device=cfg.device)

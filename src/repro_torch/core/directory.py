@@ -1,0 +1,546 @@
+"""Region-level sharing directory for the vectorized RegC protocol engine.
+
+``RegionDirectory`` turns the worker axis into a tensor axis: one object
+per allocation region holds ``valid`` / ``dirty`` / ``wprot`` as
+``(W, cap)`` torch bool planes on the runtime's device.  Rows are workers;
+every row carries its own base offset (column ``j`` of row ``w`` is
+absolute page ``base[w] + j``), so memory stays O(pages actually touched)
+while cross-worker protocol events become single gather/scatter ops over
+the worker axis.
+
+Only the planes live on the device.  The window geometry (``base``,
+``length``, ``shift``, ``cap``) and the conservative dirty bounds
+(``dirty_lo``/``dirty_hi``) are host-side int64 numpy, the authoritative
+copy: the engine reads them per row and per op, and a device copy would
+turn each read into a synchronisation.  Methods take and return host
+numpy index arrays and counts; they move index tensors to the device
+only to gather or scatter plane cells.
+
+``IntervalLog`` is the per-lock notice log: a flat, version-segmented
+``(page, lo, hi)`` host array with a per-page segment min/max coalesce.
+
+Every method here is a representation change of the reference's
+``repro.core.directory`` with the same results cell for cell; the parity
+tests hold the two against each other on seeded inputs.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.config import resolve_device
+from repro_torch.kernels import protocol_sweep as _ps
+
+_I64_MAX = np.iinfo(np.int64).max
+_I64_MIN = np.iinfo(np.int64).min
+_I32_MAX = np.iinfo(np.int32).max
+
+
+def use_dense(n_rows: int, l_max: int) -> bool:
+    """Strategy pick for per-op batched plane updates: dense (rows x Lmax)
+    gather/scatter matrices for many narrow intervals or tiny ops;
+    per-group contiguous slice ops otherwise.  Both charge identically,
+    so the cutoff is invisible to traffic and clocks."""
+    return l_max <= 512 or n_rows * l_max <= (1 << 16)
+
+
+class RegionDirectory:
+    """2D per-worker page state of one allocation region.
+
+    Cells outside a row's live window ``[0, length[w])`` always hold the
+    init values (valid=False, dirty=False, wprot=True), so window
+    extension to the right is free and whole-plane reductions are safe.
+    """
+
+    __slots__ = ("W", "region", "page_lo", "page_hi", "device", "base",
+                 "length", "cap", "valid", "dirty", "wprot", "shift",
+                 "maybe_dirty", "_cov_stale", "_sorted_bases",
+                 "_sorted_ends", "backend", "dirty_lo", "dirty_hi",
+                 "span_lo", "span_hi", "stats", "_jit_geom", "_jit_geom_t")
+
+    def __init__(self, n_workers: int, region: int, page_lo: int,
+                 page_hi: int, *, track_wprot: bool = False,
+                 backend: str = "fused", device=None):
+        self.W = n_workers
+        self.region = region
+        self.page_lo = page_lo
+        self.page_hi = page_hi
+        # None means the card, as for the runtime; no card raises
+        self.device = resolve_device(device, backend)
+        self.base = np.full(n_workers, -1, np.int64)
+        self.length = np.zeros(n_workers, np.int64)
+        self.cap = 0
+        self.valid = self._plane(0, False)
+        self.dirty = self._plane(0, False)
+        self.wprot = self._plane(0, True) if track_wprot else None
+        # cumulative left-extension shift per row
+        self.shift = np.zeros(n_workers, np.int64)
+        # span-touch planes of the worker's OPEN depth-1 span: per-cell
+        # word interval [span_lo, span_hi); untouched cells hold
+        # (I64_MAX, I64_MIN).  Allocated on the first span write.
+        self.span_lo: Optional[torch.Tensor] = None
+        self.span_hi: Optional[torch.Tensor] = None
+        # conservative per-row bounding interval of possibly-dirty pages
+        # (absolute pages; empty when lo >= hi), reset on flush
+        self.dirty_lo = np.full(n_workers, _I64_MAX, np.int64)
+        self.dirty_hi = np.full(n_workers, _I64_MIN, np.int64)
+        self.maybe_dirty = False
+        self._cov_stale = True
+        self._sorted_bases: Optional[np.ndarray] = None
+        self._sorted_ends: Optional[np.ndarray] = None
+        # 'plain' | 'kernels' | 'fused' (see config.BACKENDS): 'plain'
+        # reduces the boolean planes with torch ops; the other two pack
+        # them and run the CUDA kernels.  Integer-exact on every tier.
+        self.backend = backend
+        # the runtime's stats dict (fused_dispatches accounting) and the
+        # cached int32 window geometry of the fused flush, on the host and
+        # as a padded device tensor
+        self.stats: Optional[dict] = None
+        self._jit_geom = None
+        self._jit_geom_t: Optional[torch.Tensor] = None
+
+    def _plane(self, cols: int, fill, dtype=torch.bool) -> torch.Tensor:
+        return torch.full((self.W, cols), fill, dtype=dtype,
+                          device=self.device)
+
+    def ix(self, a) -> torch.Tensor:
+        """Host index array -> int64 index tensor on the plane device."""
+        return torch.tensor(np.asarray(a, np.int64), device=self.device)
+
+    # ------------------------------------------------------------------
+    # window management
+    # ------------------------------------------------------------------
+
+    def _grown(self, plane: torch.Tensor, new_cap: int, fill):
+        out = self._plane(new_cap, fill, plane.dtype)
+        out[:, :self.cap] = plane
+        return out
+
+    def _grow_cap(self, need: int):
+        new_cap = max(need, 2 * self.cap)
+        self.valid = self._grown(self.valid, new_cap, False)
+        self.dirty = self._grown(self.dirty, new_cap, False)
+        if self.wprot is not None:
+            self.wprot = self._grown(self.wprot, new_cap, True)
+        if self.span_lo is not None:
+            self.span_lo = self._grown(self.span_lo, new_cap, _I64_MAX)
+            self.span_hi = self._grown(self.span_hi, new_cap, _I64_MIN)
+        self.cap = new_cap
+
+    def ensure_span(self):
+        """Allocate the span-touch planes on first use."""
+        if self.span_lo is None:
+            self.span_lo = self._plane(self.cap, _I64_MAX, torch.int64)
+            self.span_hi = self._plane(self.cap, _I64_MIN, torch.int64)
+
+    def ensure(self, w: int, lo: int, hi: int):
+        """Grow row w's window to cover absolute pages [lo, hi)."""
+        b = self.base[w]
+        if b < 0:
+            if hi - lo > self.cap:
+                self._grow_cap(hi - lo)
+            self.base[w] = lo
+            self.length[w] = hi - lo
+            self._cov_stale = True
+            return
+        changed = False
+        if lo < b:
+            pad = int(b - lo)
+            n = int(self.length[w])
+            if n + pad > self.cap:
+                self._grow_cap(n + pad)
+            for plane, init in ((self.valid, False), (self.dirty, False),
+                                (self.wprot, True),
+                                (self.span_lo, _I64_MAX),
+                                (self.span_hi, _I64_MIN)):
+                if plane is None:
+                    continue
+                row = plane[w]
+                row[pad:pad + n] = row[:n].clone()
+                row[:pad] = init
+            self.base[w] = lo
+            self.length[w] = n + pad
+            self.shift[w] += pad
+            b = lo
+            changed = True
+        if hi > b + self.length[w]:
+            n = int(hi - b)
+            if n > self.cap:
+                self._grow_cap(n)
+            self.length[w] = n
+            changed = True
+        if changed:
+            self._cov_stale = True
+
+    def sl(self, w: int, lo: int, hi: int) -> slice:
+        b = int(self.base[w])
+        return slice(lo - b, hi - b)
+
+    def ensure_rows(self, lo: np.ndarray, hi: np.ndarray,
+                    rows: np.ndarray):
+        """Vectorized ``ensure`` over ``rows``; loops only over rows that
+        actually need to grow (none in the steady state)."""
+        base = self.base[rows]
+        need = (base < 0) | (lo < base) | (hi > base + self.length[rows])
+        for i in np.nonzero(need)[0]:
+            self.ensure(int(rows[i]), int(lo[i]), int(hi[i]))
+
+    # ------------------------------------------------------------------
+    # cross-worker vector primitives
+    # ------------------------------------------------------------------
+
+    def range_cols(self, lo: np.ndarray, hi: np.ndarray,
+                   rows: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """Per-row column-index matrix for the absolute page intervals
+        [lo[i], hi[i]) of rows[i] (windows must cover them).  Returns
+        host (cols (R, Lmax), mask (R, Lmax))."""
+        L = hi - lo
+        j = np.arange(int(L.max()) if L.size else 0)
+        cols = (lo - self.base[rows])[:, None] + j[None, :]
+        return cols, j[None, :] < L[:, None]
+
+    def count_range(self, plane: torch.Tensor, lo: np.ndarray,
+                    hi: np.ndarray,
+                    rows: Optional[np.ndarray] = None) -> np.ndarray:
+        """Per-row counts of True cells of ``plane`` inside [lo[i], hi[i]),
+        out-of-window cells reading False (windows need not cover the
+        intervals).  ``rows`` restricts the count to a row subset."""
+        rows = np.arange(self.W) if rows is None else rows
+        if plane.shape[1] == 0 or rows.size == 0:
+            return np.zeros(rows.size, np.int64)
+        L = hi - lo
+        Lmax = int(L.max())
+        base = self.base[rows]
+        length = self.length[rows]
+        j = np.arange(Lmax)
+        cols = (lo - base)[:, None] + j[None, :]
+        m = ((j[None, :] < L[:, None]) & (cols >= 0)
+             & (cols < length[:, None]) & (base >= 0)[:, None])
+        sub = plane[self.ix(rows)[:, None], self.ix(np.where(m, cols, 0))]
+        sub &= torch.as_tensor(m, device=self.device)
+        return sub.sum(dim=1).cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # dirty bounding intervals
+    # ------------------------------------------------------------------
+
+    def note_dirty(self, rows, lo, hi):
+        """Widen the dirty bounding interval of ``rows`` to cover absolute
+        pages [lo, hi) (scalars or aligned arrays)."""
+        self.dirty_lo[rows] = np.minimum(self.dirty_lo[rows], lo)
+        self.dirty_hi[rows] = np.maximum(self.dirty_hi[rows], hi)
+
+    def clear_dirty_bounds(self, rows=None):
+        """Reset dirty bounds after a flush (``rows=None`` resets all)."""
+        if rows is None:
+            self.dirty_lo[:] = _I64_MAX
+            self.dirty_hi[:] = _I64_MIN
+        else:
+            self.dirty_lo[rows] = _I64_MAX
+            self.dirty_hi[rows] = _I64_MIN
+
+    # ------------------------------------------------------------------
+    # span-touch planes (consistency regions)
+    # ------------------------------------------------------------------
+
+    def span_note(self, w: int, p_lo: int, p_hi: int, wlo, whi):
+        """Merge one span write's per-page word intervals into row w's
+        span planes: cell p becomes (min, max) of itself and
+        [wlo[p-p_lo], whi[p-p_lo]).  ``wlo``/``whi`` are scalars or
+        aligned host arrays; the window must cover [p_lo, p_hi)."""
+        self.ensure_span()
+        s = self.sl(w, p_lo, p_hi)
+        if np.ndim(wlo) == 0 and np.ndim(whi) == 0:
+            self.span_lo[w, s].clamp_(max=int(wlo))
+            self.span_hi[w, s].clamp_(min=int(whi))
+            return
+        lo_t = self.ix(np.broadcast_to(wlo, (p_hi - p_lo,)))
+        hi_t = self.ix(np.broadcast_to(whi, (p_hi - p_lo,)))
+        self.span_lo[w, s] = torch.minimum(self.span_lo[w, s], lo_t)
+        self.span_hi[w, s] = torch.maximum(self.span_hi[w, s], hi_t)
+
+    def span_harvest(self, w: int, p_lo: int, p_hi: int):
+        """Collect and reset row w's span-touched cells inside absolute
+        pages [p_lo, p_hi): host (pages, los, his), pages ascending — the
+        release-publish payload.  Touched cells return to the untouched
+        sentinel."""
+        z = np.zeros(0, np.int64)
+        if self.span_lo is None:
+            return z, z, z
+        b = int(self.base[w])
+        s = self.sl(w, p_lo, p_hi)
+        touched = torch.nonzero(self.span_hi[w, s] != _I64_MIN).flatten()
+        if touched.numel() == 0:
+            return z, z, z
+        cols = touched + s.start
+        vals = torch.stack([cols, self.span_lo[w, cols],
+                            self.span_hi[w, cols]]).cpu().numpy()
+        self.span_lo[w, cols] = _I64_MAX
+        self.span_hi[w, cols] = _I64_MIN
+        return vals[0] + b, vals[1].copy(), vals[2].copy()
+
+    # ------------------------------------------------------------------
+    # row access
+    # ------------------------------------------------------------------
+
+    def row_block(self, rows: np.ndarray):
+        """Row indexer for (rows x column-slice) plane access: a basic
+        slice (a view; in-place updates) when ``rows`` is an ascending
+        contiguous run, else an index tensor.  Contiguity is proven (unit
+        steps), never inferred from size or bounds."""
+        if rows.size > 1:
+            if bool((np.diff(rows) == 1).all()):
+                return slice(int(rows[0]), int(rows[-1]) + 1)
+        elif rows.size == 1:
+            return slice(int(rows[0]), int(rows[0]) + 1)
+        return self.ix(rows)
+
+    def overlap_rows(self, lo: int, hi: int,
+                     exclude: Optional[int] = None) -> np.ndarray:
+        """Workers whose window intersects absolute pages [lo, hi)."""
+        m = ((self.base >= 0) & (self.base < hi)
+             & (self.base + self.length > lo))
+        if exclude is not None:
+            m[exclude] = False
+        return np.nonzero(m)[0]
+
+    def gather_valid(self, rows: np.ndarray,
+                     pages: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """Host (len(rows), len(pages)) validity matrix plus the column
+        matrix (for scattering back).  Out-of-window cells read False."""
+        cols = pages[None, :] - self.base[rows][:, None]
+        inr = (cols >= 0) & (cols < self.length[rows][:, None])
+        sub = self.valid[self.ix(rows)[:, None],
+                         self.ix(np.where(inr, cols, 0))]
+        return sub.cpu().numpy() & inr, cols
+
+    def clear_valid_cells(self, rows: np.ndarray, cols: np.ndarray,
+                          hit: np.ndarray) -> np.ndarray:
+        """Clear valid at the True cells of the host mask ``hit`` (aligned
+        with ``cols``); returns per-row cleared counts."""
+        ri, ci = np.nonzero(hit)
+        if ri.size:
+            self.valid[self.ix(rows[ri]), self.ix(cols[ri, ci])] = False
+        return hit.sum(axis=1)
+
+    # ------------------------------------------------------------------
+    # flush reductions
+    # ------------------------------------------------------------------
+
+    def _refresh_bounds(self):
+        if self._cov_stale:
+            live = self.base >= 0
+            self._sorted_bases = np.sort(self.base[live])
+            self._sorted_ends = np.sort((self.base + self.length)[live])
+            self._jit_geom = None          # window geometry changed
+            self._jit_geom_t = None
+            self._cov_stale = False
+
+    def jit_geometry(self):
+        """Host (base, sorted_bases, sorted_ends) as int32 — the fused
+        flush's window-geometry operands, cached until a window changes."""
+        self._refresh_bounds()
+        if self._jit_geom is None:
+            self._jit_geom = (self.base.astype(np.int32),
+                              self._sorted_bases.astype(np.int32),
+                              self._sorted_ends.astype(np.int32))
+        return self._jit_geom
+
+    def jit_geometry_tensor(self) -> torch.Tensor:
+        """``jit_geometry`` as one (3, W) int32 tensor on the plane device
+        (base, then the sorted bounds padded with INT32_MAX), copied to
+        the device once per window change rather than once per flush."""
+        b32, sb, se = self.jit_geometry()
+        if self._jit_geom_t is None:
+            geom = np.full((3, self.W), _I32_MAX, np.int32)
+            geom[0] = b32
+            geom[1, :sb.size] = sb
+            geom[2, :se.size] = se
+            self._jit_geom_t = torch.as_tensor(geom, device=self.device)
+        return self._jit_geom_t
+
+    def _note_fused(self):
+        if self.backend == "fused" and self.stats is not None:
+            self.stats["fused_dispatches"] += 1
+
+    def shared_intervals(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Absolute page intervals covered by >= 2 worker windows, as host
+        (starts, ends) — a sweep over the 2W sorted window bounds.  The
+        coverage prefix sum runs as ``coverage_multi`` on the kernel
+        tiers and as a torch cumsum on 'plain'."""
+        self._refresh_bounds()
+        b, e = self._sorted_bases, self._sorted_ends
+        if b.size < 2:
+            z = np.zeros(0, np.int64)
+            return z, z
+        pts = np.concatenate([b, e])
+        delta = np.concatenate([np.ones(b.size, np.int32),
+                                np.full(e.size, -1, np.int32)])
+        order = np.argsort(pts, kind="stable")
+        pts = pts[order]
+        delta_t = torch.as_tensor(delta[order], device=self.device)
+        if self.backend == "plain":
+            multi = torch.cumsum(delta_t, dim=0) >= 2
+        else:
+            multi = _ps.coverage_multi(delta_t)
+            self._note_fused()
+        multi = multi.cpu().numpy()
+        edge = np.diff(np.concatenate([[False], multi]).astype(np.int8))
+        starts = pts[np.nonzero(edge == 1)[0]]
+        ends = pts[np.nonzero(edge == -1)[0]]
+        if multi[-1]:
+            ends = np.concatenate([ends, pts[-1:]])
+        keep = ends > starts
+        return starts[keep], ends[keep]
+
+    def dirty_counts(self) -> np.ndarray:
+        """Host (W,) per-row dirty-page counts — the barrier-flush
+        popcount: a packed ``popcount_rows`` on the kernel tiers, a bool
+        row sum on 'plain'.  Cells outside a row's window are always
+        False, so the whole-plane reduction is exact."""
+        if self.cap == 0:
+            return np.zeros(self.W, np.int64)
+        if self.backend == "plain":
+            return self.dirty.sum(dim=1).cpu().numpy()
+        counts = _ps.popcount_rows(_ps.pack_rows(self.dirty))
+        self._note_fused()
+        return counts.cpu().numpy()
+
+    def row_dirty_cols(self, w: int) -> np.ndarray:
+        n = int(self.length[w])
+        return torch.nonzero(self.dirty[w, :n]).flatten().cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # state carried across from the reference (see core.carry)
+    # ------------------------------------------------------------------
+
+    def state_arrays(self) -> Tuple[dict, dict]:
+        """Full plane state as host (arrays, meta), in the reference's
+        ``RegionDirectory.state_arrays`` format."""
+        arrays = {"base": self.base.copy(), "length": self.length.copy(),
+                  "shift": self.shift.copy(),
+                  "valid": self.valid.cpu().numpy().copy(),
+                  "dirty": self.dirty.cpu().numpy().copy(),
+                  "dirty_lo": self.dirty_lo.copy(),
+                  "dirty_hi": self.dirty_hi.copy()}
+        for name in ("wprot", "span_lo", "span_hi"):
+            plane = getattr(self, name)
+            if plane is not None:
+                arrays[name] = plane.cpu().numpy().copy()
+        meta = {"W": self.W, "region": self.region,
+                "page_lo": self.page_lo, "page_hi": self.page_hi,
+                "cap": self.cap, "maybe_dirty": bool(self.maybe_dirty),
+                "track_wprot": self.wprot is not None,
+                "track_touch": False,
+                "has_span": self.span_lo is not None,
+                "has_race": False, "backend": self.backend}
+        return arrays, meta
+
+    @classmethod
+    def from_state(cls, arrays: dict, meta: dict, *, backend: str,
+                   device) -> "RegionDirectory":
+        """Rebuild a directory from ``state_arrays`` output (this
+        package's or the reference's).  Eviction (``track_touch``) and
+        race planes belong to later slices and are refused."""
+        if meta.get("track_touch") or meta.get("has_race"):
+            raise ValueError("RegionDirectory.from_state: eviction and race "
+                             "planes are not ported yet (slices B and D)")
+        d = cls(meta["W"], meta["region"], meta["page_lo"],
+                meta["page_hi"], track_wprot=meta["track_wprot"],
+                backend=backend, device=device)
+        d.cap = int(meta["cap"])
+        d.base = np.asarray(arrays["base"], np.int64).copy()
+        d.length = np.asarray(arrays["length"], np.int64).copy()
+        d.shift = np.asarray(arrays["shift"], np.int64).copy()
+        d.dirty_lo = np.asarray(arrays["dirty_lo"], np.int64).copy()
+        d.dirty_hi = np.asarray(arrays["dirty_hi"], np.int64).copy()
+
+        def plane(name, dtype):
+            return torch.as_tensor(np.asarray(arrays[name]), dtype=dtype,
+                                   device=d.device).clone()
+
+        d.valid = plane("valid", torch.bool)
+        d.dirty = plane("dirty", torch.bool)
+        if meta["track_wprot"]:
+            d.wprot = plane("wprot", torch.bool)
+        if meta["has_span"]:
+            d.span_lo = plane("span_lo", torch.int64)
+            d.span_hi = plane("span_hi", torch.int64)
+        d.maybe_dirty = bool(meta["maybe_dirty"])
+        d._cov_stale = True
+        return d
+
+
+class IntervalLog:
+    """Flat, version-segmented (page, lo, hi) notice log for one lock.
+
+    ``append_version`` records one release's notices; ``pending`` returns
+    the per-page coalesced (min lo, max hi) intervals of every version in
+    ``[v_from, v_to)``, pages ascending (the replay order).  Notices are
+    host metadata read only by host-side charging, so the log is numpy.
+    """
+
+    __slots__ = ("_p", "_lo", "_hi", "_n", "voff")
+
+    def __init__(self):
+        self._p = np.zeros(8, np.int64)
+        self._lo = np.zeros(8, np.int64)
+        self._hi = np.zeros(8, np.int64)
+        self._n = 0
+        self.voff = [0]
+
+    def _reserve(self, k: int):
+        need = self._n + k
+        if need > self._p.size:
+            cap = max(need, 2 * self._p.size)
+            for name in ("_p", "_lo", "_hi"):
+                arr = getattr(self, name)
+                new = np.zeros(cap, np.int64)
+                new[:self._n] = arr[:self._n]
+                setattr(self, name, new)
+
+    def append_version(self, pages, los, his):
+        k = len(pages)
+        self._reserve(k)
+        n = self._n
+        self._p[n:n + k] = pages
+        self._lo[n:n + k] = los
+        self._hi[n:n + k] = his
+        self._n = n + k
+        self.voff.append(self._n)
+
+    def state_arrays(self) -> dict:
+        """Live log contents plus the version offsets (the reference's
+        snapshot format)."""
+        n = self._n
+        return {"p": self._p[:n].copy(), "lo": self._lo[:n].copy(),
+                "hi": self._hi[:n].copy(),
+                "voff": np.asarray(self.voff, np.int64)}
+
+    @classmethod
+    def from_state(cls, arrays: dict) -> "IntervalLog":
+        log = cls()
+        p = np.asarray(arrays["p"], np.int64)
+        n = int(p.size)
+        log._reserve(n)
+        log._p[:n] = p
+        log._lo[:n] = np.asarray(arrays["lo"], np.int64)
+        log._hi[:n] = np.asarray(arrays["hi"], np.int64)
+        log._n = n
+        log.voff = [int(v) for v in np.asarray(arrays["voff"], np.int64)]
+        return log
+
+    def pending(self, v_from: int, v_to: int):
+        """Coalesced (pages, lo_min, hi_max) over versions [v_from, v_to)."""
+        a, b = self.voff[v_from], self.voff[v_to]
+        if a == b:
+            e = np.zeros(0, np.int64)
+            return e, e, e
+        u, inv = np.unique(self._p[a:b], return_inverse=True)
+        lo_min = np.full(u.size, _I64_MAX, np.int64)
+        hi_max = np.full(u.size, _I64_MIN, np.int64)
+        np.minimum.at(lo_min, inv, self._lo[a:b])
+        np.maximum.at(hi_max, inv, self._hi[a:b])
+        return u, lo_min, hi_max

@@ -1,0 +1,184 @@
+"""The paper's applications on the RegC runtime API: STREAM TRIAD, Jacobi
+(OmpSCR) and molecular dynamics (OmpSCR), as in the reference package.
+
+Each bulk phase is described once as (W,) interval arrays — the workers'
+read/write sets declared up front — and handed to a ``dsm.session``
+driver (``batched`` = the engine's ``phase_all``; ``loop`` = per-worker
+phases in worker order).  Consistency-region spans (lock mode) run in a
+per-worker pass AFTER the bulk phase, so the op order is identical
+whichever driver executes the bulk part.
+
+Jacobi and MD take ``mode``:
+* ``lock``       — global accumulators protected by a mutex (consistency
+  region), the paper's threaded port;
+* ``reduction``  — the paper's §V-B extension: ``reduce`` replaces the
+  mutex-accumulate pattern.
+
+Compute costs are charged via per-phase flop/byte counts; ALL protocol
+traffic is exact.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import numpy as np
+
+from repro_torch.dsm.session import session
+
+RES_LOCK = 0
+ENERGY_LOCK = 1
+MODES = ("lock", "reduction")
+
+
+def _check_mode(mode: str):
+    if mode not in MODES:
+        raise ValueError(f"invalid mode={mode!r}; allowed: {MODES}")
+
+
+def _blocks(n: int, W: int):
+    """Block partition of [0, n): (W,) lo/hi arrays, last worker takes the
+    remainder (the paper's static OpenMP-style schedule)."""
+    chunk = n // W
+    lo = np.arange(W, dtype=np.int64) * chunk
+    hi = lo + chunk
+    hi[-1] = n
+    return lo, hi
+
+
+def stream_triad(rt, n: int, iters: int, *, driver: str = "auto",
+                 on_iter: Optional[Callable] = None):
+    """A = B + alpha*C, one barrier per iteration (paper §V-A)."""
+    A, B, C = rt.alloc(n), rt.alloc(n), rt.alloc(n)
+    lo, hi = _blocks(n, rt.W)
+    phase = session(rt, driver).phase
+    flops = 2.0 * (hi - lo)
+    mem_bytes = 3.0 * 4 * (hi - lo)
+    for it in range(iters):
+        phase(reads=((B, lo, hi), (C, lo, hi)), writes=((A, lo, hi),),
+              flops=flops, mem_bytes=mem_bytes)
+        rt.barrier()
+        if on_iter is not None:
+            on_iter(it, rt)
+    return rt
+
+
+def triad_bytes_per_iter(n: int) -> float:
+    return 3.0 * 4 * n
+
+
+def jacobi(rt, n: int, iters: int, *, mode: str = "lock",
+           driver: str = "auto", on_iter: Optional[Callable] = None):
+    """5-point stencil on an n x n grid; per-iteration global residual.
+
+    Phases per iteration (3 barriers, as in the paper):
+      1. uold = u                  (ordinary stores, own block)
+      2. u = stencil(uold, f); local residual; global accumulate
+         (consistency region in 'lock' mode / runtime reduction otherwise)
+      3. all workers read the residual (convergence test)
+    """
+    _check_mode(mode)
+    W = rt.W
+    u = rt.alloc(n * n)
+    uold = rt.alloc(n * n)
+    f = rt.alloc(n * n)
+    res = rt.alloc(1)          # global residual accumulator (one word)
+    r0, r1 = _blocks(n, W)     # row blocks
+    lo_b, hi_b = r0 * n, r1 * n
+    lo_h = np.maximum(r0 - 1, 0) * n         # halo rows from neighbours
+    hi_h = np.minimum(r1 + 1, n) * n
+    pts = (r1 - r0) * n
+    zero = np.zeros(W, np.int64)
+    one = np.ones(W, np.int64)
+    s = session(rt, driver)
+    phase, span_phase = s.phase, s.span
+
+    for it in range(iters):
+        # phase 1: copy own block u -> uold
+        phase(reads=((u, lo_b, hi_b),), writes=((uold, lo_b, hi_b),),
+              mem_bytes=2.0 * 4 * (hi_b - lo_b))
+        rt.barrier()
+
+        # phase 2: stencil + residual (~13 adds/muls + one fp division
+        # per point: ~50 flop-equivalents scalar), then the accumulate
+        phase(reads=((uold, lo_h, hi_h), (f, lo_b, hi_b)),
+              writes=((u, lo_b, hi_b),),
+              flops=50.0 * pts, mem_bytes=4.0 * 4 * pts)
+        if mode == "lock":
+            span_phase(RES_LOCK, reads=((res, zero, one),),
+                       writes=((res, zero, one),))
+        else:
+            s.reduce("residual")
+        rt.barrier()
+
+        # phase 3: convergence test — everyone reads the residual
+        if mode == "lock":
+            phase(reads=((res, zero, one),))
+        rt.barrier()
+        if on_iter is not None:
+            on_iter(it, rt)
+    return rt
+
+
+def jacobi_flops_per_iter(n: int) -> float:
+    return 50.0 * n * n
+
+
+def molecular_dynamics(rt, n_particles: int, iters: int, *,
+                       mode: str = "lock", ndim: int = 3,
+                       driver: str = "auto",
+                       on_iter: Optional[Callable] = None):
+    """Velocity-Verlet n-body with a central pair potential.
+
+    Phase A (forces): every worker reads ALL positions, writes the force
+    rows of its own particles, and accumulates potential+kinetic energy
+    into globals (mutex / reduction).  O(n^2/W) interactions per worker.
+    Phase B (update): positions/velocities/accelerations of own particles.
+    """
+    _check_mode(mode)
+    W = rt.W
+    nw = n_particles * ndim
+    pos = rt.alloc(nw)
+    vel = rt.alloc(nw)
+    acc = rt.alloc(nw)
+    force = rt.alloc(nw)
+    energy = rt.alloc(2)       # [potential, kinetic]
+    p0, p1 = _blocks(n_particles, W)
+    lo_w, hi_w = p0 * ndim, p1 * ndim        # own word blocks
+    inter = (p1 - p0) * n_particles
+    zero = np.zeros(W, np.int64)
+    two = np.full(W, 2, np.int64)
+    all_w = np.full(W, nw, np.int64)
+    s = session(rt, driver)
+    phase, span_phase = s.phase, s.span
+
+    for it in range(iters):
+        # phase A: forces + energies (~60 flop-equivalents per pair); the
+        # pair loop's 3-vector force stores are instrumented under `fine`
+        phase(reads=((pos, zero, all_w),                 # all positions
+                     (vel, lo_w, hi_w)),                 # own vel (KE)
+              writes=((force, lo_w, hi_w),),
+              flops=60.0 * inter,
+              mem_bytes=4.0 * (nw + 2.0 * (hi_w - lo_w)),
+              instr_words=3.0 * inter)
+        if mode == "lock":
+            span_phase(ENERGY_LOCK, reads=((energy, zero, two),),
+                       writes=((energy, zero, two),))
+        else:
+            s.reduce("potential")
+            s.reduce("kinetic")
+        rt.barrier()
+
+        # phase B: velocity-Verlet update of own particles
+        phase(reads=((pos, lo_w, hi_w), (vel, lo_w, hi_w),
+                     (acc, lo_w, hi_w), (force, lo_w, hi_w)),
+              writes=((pos, lo_w, hi_w), (vel, lo_w, hi_w),
+                      (acc, lo_w, hi_w)),
+              flops=12.0 * (hi_w - lo_w), mem_bytes=7.0 * 4 * (hi_w - lo_w))
+        rt.barrier()
+        if on_iter is not None:
+            on_iter(it, rt)
+    return rt
+
+
+def md_flops_per_iter(n_particles: int) -> float:
+    return 60.0 * n_particles * n_particles

@@ -1,0 +1,91 @@
+"""Public SPMD driver façade over a RegC runtime.
+
+``session(rt, driver=...)`` returns a :class:`Session` whose named
+callables drive whole declared-access phases — the programming surface
+the apps use:
+
+* ``s.phase(reads=..., writes=..., flops=..., ...)`` — one bulk ordinary
+  phase.  Interval tuples are ``(ga, lo, hi)`` with (W,) int arrays;
+  flops/mem_bytes/seconds/instr_words scalars or (W,) arrays.
+* ``s.span(lock_ids, reads=..., writes=..., w_mask=None)`` — one whole
+  consistency-region pass: every masked worker acquires its lock, runs
+  the declared interval ops inside the span, and releases.
+* ``s.reduce(name, value=1.0)`` — per-worker reduction contribution
+  (the paper's §V-B extension).
+* ``s.barrier()`` — delegate to ``rt.barrier()``.
+
+Drivers: ``batched`` routes phases through the engine's worker-axis
+``phase_all``; ``loop`` issues per-worker phases in worker order.  The
+two are bit-exact against each other.  Spans run the per-worker body on
+both drivers: the batched ``span_all`` arrives with slice C of the port,
+and the reference proves it bit-equal to this body.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from repro_torch.core.config import DRIVERS, check_choice
+
+
+def _phase_callable(rt, driver: str):
+    if driver == "batched":
+        return rt.phase_all
+    W = rt.W
+
+    def at(v, w):
+        return float(v[w]) if np.ndim(v) else float(v)
+
+    def loop(reads=(), writes=(), *, flops=0.0, mem_bytes=0.0, seconds=0.0,
+             instr_words=0.0):
+        for w in range(W):
+            rt.phase(w,
+                     reads=[(ga, int(lo[w]), int(hi[w]))
+                            for ga, lo, hi in reads],
+                     writes=[(ga, int(lo[w]), int(hi[w]))
+                             for ga, lo, hi in writes],
+                     flops=at(flops, w), mem_bytes=at(mem_bytes, w),
+                     seconds=at(seconds, w), instr_words=at(instr_words, w))
+    return loop
+
+
+def _span_callable(rt):
+    W = rt.W
+
+    def span_loop(lock_ids, reads=(), writes=(), w_mask=None):
+        locks = np.broadcast_to(np.asarray(lock_ids, np.int64), (W,))
+        for w in range(W):
+            if w_mask is not None and not w_mask[w]:
+                continue
+            rt.acquire(w, int(locks[w]))
+            for ga, lo, hi in reads:
+                rt.read(w, ga, int(lo[w]), int(hi[w]))
+            for ga, lo, hi in writes:
+                rt.write(w, ga, int(lo[w]), int(hi[w]))
+            rt.release(w, int(locks[w]))
+    return span_loop
+
+
+class Session:
+    """Named phase/span/reduce drivers bound to one runtime.
+
+    ``driver`` is resolved once at construction (``auto`` picks
+    ``batched``); the resolved name is ``s.driver``."""
+
+    def __init__(self, rt, driver: str = "auto"):
+        check_choice("driver", driver, DRIVERS)
+        self.rt = rt
+        self.driver = "batched" if driver == "auto" else driver
+        self.phase = _phase_callable(rt, self.driver)
+        self.span = _span_callable(rt)
+
+    def reduce(self, name: str, value: float = 1.0):
+        """Per-worker reduction contribution, one batched call."""
+        self.rt.reduce_all(name, value)
+
+    def barrier(self):
+        self.rt.barrier()
+
+
+def session(rt, driver: str = "auto") -> Session:
+    """Factory spelling of :class:`Session` (the public entry point)."""
+    return Session(rt, driver)

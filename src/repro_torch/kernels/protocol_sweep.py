@@ -1,0 +1,290 @@
+"""Bitmask protocol-sweep kernels for the RegC sharing directory.
+
+The directory's boolean page-state planes (one row per worker, see
+``core.directory.RegionDirectory``) pack 32 pages per word: bit ``j`` of
+word ``k`` in row ``w`` is directory column ``32*k + j`` of worker ``w``
+(little-endian).  Packed words are stored as ``torch.int32`` and read as
+unsigned by the kernels; the plain versions do their bit arithmetic in
+int64 (torch's CPU build lacks shifts on uint32).
+
+Four hand-written CUDA kernels (``csrc/protocol_sweep.cu``, ``sm_90a``):
+
+* ``pack_rows``      (W, C) bool plane -> (W, ceil(C/32)) packed words;
+* ``popcount_rows``  per-row set-bit counts (the barrier-flush writeback
+  charge);
+* ``coverage_multi`` running cover of the sorted +1/-1 window-bound
+  deltas, >= 2 (the shared-interval sweep);
+* ``phase_step``     the fused barrier flush over R stacked regions:
+  per-row popcount, coverage stab, and the packed shared-dirty candidate
+  mask (dirty & multi-covered & active row), in one launch.
+
+Each wrapper checks device, dtype, shape and contiguity, allocates its
+outputs with ``torch.empty`` and launches on the current stream, adding
+one to ``LAUNCHES[name]`` per launch.  A tensor on the CPU takes the
+kernel's plain PyTorch version (``_*_plain``) instead; a CUDA tensor gets
+the kernel or an exception, never the plain version.  The plain versions
+mirror the reference's numpy tier bit for bit and are what the tests and
+``chip_smoke.py`` hold the kernels against.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+_SOURCE = "protocol_sweep.cu"
+_M32 = 0xFFFFFFFF
+_I32_MAX = (1 << 31) - 1
+# phase_step stages 2W int32 bounds in dynamic shared memory and opts in
+# past the 48 KiB default: stay within Hopper's 227 KiB a block, less
+# 1 KiB for its static shared memory (72 bytes) and the dynamic array's
+# alignment
+MAX_PHASE_STEP_W = (227 * 1024 - 1024) // 8
+
+# launch counters: one per kernel, bumped only where a kernel launches
+LAUNCHES = {"pack_rows": 0, "popcount_rows": 0, "coverage_multi": 0,
+            "phase_step": 0}
+
+
+def reset_launches():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# kernel binding
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_L = ctypes.c_longlong
+_SIGNATURES = {
+    "rt_pack_rows": (_P, _P, _L, _L, _L, _P),
+    "rt_popcount_rows": (_P, _P, _L, _L, _P),
+    "rt_coverage_multi": (_P, _P, _L, _P),
+    "rt_phase_step": (_P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _P),
+}
+_BOUND: dict = {}
+
+
+def _fn(name: str):
+    fn = _BOUND.get(name)
+    if fn is None:
+        from repro_torch.kernels._build import load
+        lib = load(_SOURCE)
+        for sym, argtypes in _SIGNATURES.items():
+            f = getattr(lib, sym)
+            f.argtypes = list(argtypes)
+            f.restype = ctypes.c_int
+            _BOUND[sym] = f
+        fn = _BOUND[name]
+    return fn
+
+
+def _launch(name: str, device: torch.device, *args):
+    """Launch ``name`` on ``device``'s current stream; raise if the launch
+    was refused."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = _fn("rt_" + name)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed (cudaError {rc})")
+    LAUNCHES[name] += 1
+
+
+def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
+           device: torch.device):
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} must be {ndim}-D, got shape "
+                         f"{tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _on_card(device: torch.device) -> bool:
+    if device.type == "cuda":
+        return True
+    if device.type != "cpu":
+        raise ValueError(f"unsupported device {device}")
+    return False
+
+
+def _ptr(t: torch.Tensor):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+# ---------------------------------------------------------------------------
+# plain versions (CPU tier and the kernels' on-card comparison)
+# ---------------------------------------------------------------------------
+
+
+def _u32(words: torch.Tensor) -> torch.Tensor:
+    """int32 bit patterns -> their unsigned values as int64."""
+    return words.to(torch.int64) & _M32
+
+
+def _as_i32(x: torch.Tensor) -> torch.Tensor:
+    """Unsigned 32-bit values held in int64 -> int32 bit patterns."""
+    return torch.where(x > _I32_MAX, x - (1 << 32), x).to(torch.int32)
+
+
+def _popcount_words_plain(words: torch.Tensor) -> torch.Tensor:
+    """Per-word SWAR popcount (the reference's ``_popcount_words``), in
+    int64; the multiply is masked to 32 bits as uint32 wraps."""
+    v = _u32(words)
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    return ((v * 0x01010101) & _M32) >> 24
+
+
+def _pack_rows_plain(plane: torch.Tensor) -> torch.Tensor:
+    """(W, C) bool -> (W, ceil(C/32)) int32 words, bit j of word k =
+    column 32k + j; zero padding past C."""
+    W, C = plane.shape
+    nw = -(-C // 32)
+    cells = torch.zeros((W, nw * 32), dtype=torch.int64, device=plane.device)
+    cells[:, :C] = plane
+    shifts = torch.arange(32, dtype=torch.int64, device=plane.device)
+    return _as_i32((cells.view(W, nw, 32) << shifts).sum(dim=-1))
+
+
+def unpack_rows(bits: torch.Tensor, n_cols: int) -> torch.Tensor:
+    """Inverse of ``pack_rows``: (W, nw) int32 words -> (W, n_cols) bool."""
+    W, nw = bits.shape
+    shifts = torch.arange(32, dtype=torch.int64, device=bits.device)
+    cells = (_u32(bits).unsqueeze(-1) >> shifts) & 1
+    return cells.reshape(W, nw * 32)[:, :n_cols].bool()
+
+
+def _popcount_rows_plain(bits: torch.Tensor) -> torch.Tensor:
+    return _popcount_words_plain(bits).sum(dim=1)
+
+
+def _coverage_multi_plain(delta: torch.Tensor) -> torch.Tensor:
+    return torch.cumsum(delta.to(torch.int64), dim=0) >= 2
+
+
+def _phase_step_plain(bits, base, rowmask, sbases, sends):
+    """The fused flush chain region by region (the reference's
+    ``_phase_step_np``): counts (R, W) int64, shared (R, W, nw) int32."""
+    R, W, nw = bits.shape
+    dev = bits.device
+    counts = _popcount_words_plain(bits).sum(dim=2)
+    col = (torch.arange(nw, dtype=torch.int64, device=dev)[:, None] * 32
+           + torch.arange(32, dtype=torch.int64, device=dev)[None, :])
+    lanes = torch.ones(32, dtype=torch.int64, device=dev) << torch.arange(
+        32, dtype=torch.int64, device=dev)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    shared = torch.zeros_like(bits)
+    for r in range(R):
+        active = rowmask[r] & (counts[r] > 0)
+        page = base[r].to(torch.int64)[:, None, None] + col[None]
+        flat = page.reshape(-1)
+        cov = (torch.searchsorted(sbases[r].to(torch.int64), flat,
+                                  right=True)
+               - torch.searchsorted(sends[r].to(torch.int64), flat,
+                                    right=True))
+        multi = (cov >= 2).reshape(page.shape)
+        mbits = torch.where(multi, lanes, zero).sum(dim=-1)     # (W, nw)
+        hit = torch.where(active[:, None], _u32(bits[r]) & mbits, zero)
+        shared[r] = _as_i32(hit)
+    return counts, shared
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+
+def pack_rows(plane: torch.Tensor,
+              out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(W, C) bool -> packed (W, ceil(C/32)) int32 words.  ``out`` may be
+    a wider (W, nw_out) int32 buffer; words past ceil(C/32) become 0."""
+    dev = plane.device
+    _check(plane, "plane", torch.bool, 2, dev)
+    W, C = plane.shape
+    nw = -(-C // 32)
+    if out is None:
+        out = torch.empty((W, nw), dtype=torch.int32, device=dev)
+    _check(out, "out", torch.int32, 2, dev)
+    if out.shape[0] != W or out.shape[1] < nw:
+        raise ValueError(f"out shape {tuple(out.shape)} cannot hold "
+                         f"({W}, {nw}) packed words")
+    if not _on_card(dev):
+        out.zero_()
+        out[:, :nw] = _pack_rows_plain(plane)
+        return out
+    if W > 65535:
+        raise ValueError(f"pack_rows: W={W} exceeds the grid's 65535 rows")
+    if W and out.shape[1]:
+        _launch("pack_rows", dev, _ptr(plane), _ptr(out), W, C,
+                out.shape[1])
+    return out
+
+
+def popcount_rows(bits: torch.Tensor) -> torch.Tensor:
+    """(W, nw) int32 packed words -> (W,) int64 per-row set-bit counts."""
+    dev = bits.device
+    _check(bits, "bits", torch.int32, 2, dev)
+    W, nw = bits.shape
+    if not _on_card(dev):
+        return _popcount_rows_plain(bits)
+    if W == 0 or nw == 0:
+        return torch.zeros(W, dtype=torch.int64, device=dev)
+    counts = torch.empty(W, dtype=torch.int64, device=dev)
+    _launch("popcount_rows", dev, _ptr(bits), _ptr(counts), W, nw)
+    return counts
+
+
+def coverage_multi(delta: torch.Tensor) -> torch.Tensor:
+    """Sorted-bound deltas (+1 window start / -1 window end), int32 ->
+    bool mask of sweep points whose running cover count is >= 2."""
+    dev = delta.device
+    _check(delta, "delta", torch.int32, 1, dev)
+    if not _on_card(dev):
+        return _coverage_multi_plain(delta)
+    out = torch.empty(delta.shape[0], dtype=torch.uint8, device=dev)
+    if delta.shape[0]:
+        _launch("coverage_multi", dev, _ptr(delta), _ptr(out),
+                delta.shape[0])
+    return out.view(torch.bool)
+
+
+def phase_step(bits: torch.Tensor, base: torch.Tensor,
+               rowmask: torch.Tensor, sbases: torch.Tensor,
+               sends: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fused barrier-flush chain: R stacked regions' packed dirty
+    planes ``bits`` (R, W, nw) int32, row window offsets ``base`` (R, W)
+    int32 (-1 rows hold no bits), flush mask ``rowmask`` (R, W) bool, and
+    sorted live window bounds ``sbases``/``sends`` (R, W) int32 padded
+    with INT32_MAX.  Returns (counts (R, W) int64, shared (R, W, nw)
+    int32): per-row dirty counts and the packed dirty & >=2-covered &
+    active-row candidate masks."""
+    dev = bits.device
+    _check(bits, "bits", torch.int32, 3, dev)
+    R, W, nw = bits.shape
+    for name, t, dt in (("base", base, torch.int32),
+                        ("rowmask", rowmask, torch.bool),
+                        ("sbases", sbases, torch.int32),
+                        ("sends", sends, torch.int32)):
+        _check(t, name, dt, 2, dev)
+        if tuple(t.shape) != (R, W):
+            raise ValueError(f"{name} shape {tuple(t.shape)} != {(R, W)}")
+    if not _on_card(dev):
+        return _phase_step_plain(bits, base, rowmask, sbases, sends)
+    if W > MAX_PHASE_STEP_W or R > 65535:
+        raise ValueError(f"phase_step: (R, W)=({R}, {W}) exceeds the "
+                         f"kernel's limits (R <= 65535, W <= "
+                         f"{MAX_PHASE_STEP_W})")
+    counts = torch.empty((R, W), dtype=torch.int64, device=dev)
+    shared = torch.empty_like(bits)
+    if R and W:
+        _launch("phase_step", dev, _ptr(bits), _ptr(base), _ptr(rowmask),
+                _ptr(sbases), _ptr(sends), _ptr(counts), _ptr(shared), R,
+                W, nw)
+    return counts, shared

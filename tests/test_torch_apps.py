@@ -1,0 +1,76 @@
+"""The paper's applications on the port against the reference: STREAM
+TRIAD, and Jacobi and molecular dynamics in both lock and reduction
+modes, at W in {4, 16} and small sizes, with the benchmark harness's
+settings (IB_2013, fetch_batch=16).
+
+Each point runs on the reference (numpy tier) and on every port tier
+(``device="cpu"``) under the same driver.  In lock mode the reference's
+batched driver runs its spans through ``span_all`` while the port runs
+the per-worker span body (``span_all`` is slice C); the reference holds
+the two bit-equal, so traffic and clocks must still match exactly.
+Tolerance: traffic exact, clocks and reduction results bit-equal."""
+import dataclasses
+
+import numpy as np
+import pytest
+
+from repro.core import make_runtime as ref_make
+from repro.dsm import apps as ref_apps
+from repro.dsm.costmodel import IB_2013 as REF_IB
+from repro_torch.core import make_runtime as pt_make
+from repro_torch.dsm import apps as pt_apps
+from repro_torch.dsm.costmodel import IB_2013 as PT_IB
+
+# (app, mode, size, page_words): STREAM elements, Jacobi grid side, MD
+# particles; 16-word pages give the acquire flush more than 64 dirty pages
+# per worker (the wide sharer-invalidation path)
+CASES = [("stream_triad", None, 1 << 15, 1024), ("jacobi", "lock", 96, 1024),
+         ("jacobi", "lock", 96, 16), ("jacobi", "reduction", 96, 1024),
+         ("molecular_dynamics", "lock", 512, 1024),
+         ("molecular_dynamics", "reduction", 512, 1024)]
+PROTOS = ("fine", "page", "ideal")
+
+
+def _run(mod, rt, app, mode, n, driver):
+    kw = {} if mode is None else {"mode": mode}
+    getattr(mod, app)(rt, n, 3, driver=driver, **kw)
+    return rt
+
+
+@pytest.mark.parametrize("W", (4, 16))
+@pytest.mark.parametrize("app,mode,n,pw", CASES,
+                         ids=[f"{a}-{m}-{pw}" for a, m, _, pw in CASES])
+def test_app_matches_reference(app, mode, n, pw, W):
+    for proto in PROTOS:
+        for driver in ("batched", "loop"):
+            ref = _run(ref_apps, ref_make(W, protocol=proto, cost=REF_IB,
+                                          fetch_batch=16, page_words=pw),
+                       app, mode, n, driver)
+            for backend in ("plain", "kernels", "fused"):
+                pt = _run(pt_apps, pt_make(W, protocol=proto, cost=PT_IB,
+                                           fetch_batch=16, page_words=pw,
+                                           backend=backend, device="cpu"),
+                          app, mode, n, driver)
+                ctx = (app, mode, W, proto, driver, backend)
+                assert (dataclasses.asdict(pt.traffic)
+                        == dataclasses.asdict(ref.traffic)), ctx
+                np.testing.assert_allclose(pt.clock, ref.clock, rtol=0,
+                                           atol=0, err_msg=str(ctx))
+                for name in ref._reduction_results:
+                    assert (pt.reduction_result(name)
+                            == ref.reduction_result(name)), ctx
+
+
+def test_block_partition_matches():
+    for n, W in ((10, 3), (4096, 256), (7, 7)):
+        for got, want in zip(pt_apps._blocks(n, W), ref_apps._blocks(n, W)):
+            np.testing.assert_array_equal(got, want)
+    for fn, arg in (("triad_bytes_per_iter", 99),
+                    ("jacobi_flops_per_iter", 64), ("md_flops_per_iter", 80)):
+        assert getattr(pt_apps, fn)(arg) == getattr(ref_apps, fn)(arg)
+
+
+def test_invalid_mode_raises():
+    rt = pt_make(2, device="cpu")
+    with pytest.raises(ValueError, match="mode"):
+        pt_apps.jacobi(rt, 8, 1, mode="atomic")

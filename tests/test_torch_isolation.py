@@ -1,0 +1,132 @@
+"""Isolation and entry-point rules of the port:
+
+* no file under ``src/repro_torch/`` and not ``chip_smoke.py`` imports
+  ``jax`` or anything of ``repro`` (AST scan);
+* ``repro_torch`` imports and runs a small CPU trace in a process where
+  ``import jax`` fails;
+* entry points run on the card by default and raise without one;
+* knobs of later slices raise a ``ValueError`` naming the slice;
+* ``chip_smoke.py`` fails, printing no result, without a card and in a
+  directory that holds nothing else of the repo."""
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.core import RegionDirectory, RuntimeConfig, make_runtime
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_port_imports_neither_jax_nor_reference(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), (path, mod)
+
+
+def test_port_runs_without_jax(tmp_path):
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "import numpy as np\n"
+        "from repro_torch.core import make_runtime\n"
+        "from repro_torch.dsm import apps\n"
+        "rt = make_runtime(4, protocol='page', device='cpu')\n"
+        "apps.jacobi(rt, 32, 2, mode='lock')\n"
+        "assert rt.traffic.page_fetches > 0 and rt.time > 0\n"
+        "assert 'jax' not in [m for m in sys.modules if sys.modules[m]]\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=tmp_path, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_default_device_is_the_card():
+    if torch.cuda.is_available():
+        assert make_runtime(4).device.type == "cuda"
+        with pytest.raises(ValueError, match="CPU-only"):
+            make_runtime(4, backend="plain")
+        return
+    # no card: the default entry point raises instead of running on CPU
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_runtime(4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_runtime(4, device="cuda")
+    assert make_runtime(4, device="cpu").device.type == "cpu"
+
+
+def test_directory_default_device_is_the_card():
+    if torch.cuda.is_available():
+        assert RegionDirectory(4, 0, 0, 64).device.type == "cuda"
+        return
+    # built on its own, a directory raises too rather than running on CPU
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        RegionDirectory(4, 0, 0, 64)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        RegionDirectory(4, 0, 0, 64, backend="kernels", device="cuda")
+    d = RegionDirectory(4, 0, 0, 64, device="cpu")
+    assert d.device.type == "cpu" and d.valid.device.type == "cpu"
+
+
+@pytest.mark.parametrize("knob,value,slice_name", [
+    ("cache_pages", 8, "slice B"), ("danger_mode", "scalar", "slice B"),
+    ("detect_races", True, "slice D"),
+    ("chaos", object(), "recovery"), ("injector", object(), "recovery"),
+    ("straggler", object(), "recovery")])
+def test_later_slice_knobs_raise(knob, value, slice_name):
+    with pytest.raises(ValueError, match=slice_name):
+        make_runtime(4, device="cpu", **{knob: value})
+
+
+def test_config_validation():
+    with pytest.raises(ValueError, match="engine='reference'"):
+        make_runtime(4, engine="reference", device="cpu")
+    with pytest.raises(ValueError, match="allowed"):
+        make_runtime(4, engine="magic", device="cpu")
+    with pytest.raises(ValueError, match="unknown RuntimeConfig override"):
+        make_runtime(4, device="cpu", cache_size=3)
+    with pytest.raises(ValueError, match="'numpy'"):
+        RuntimeConfig(backend="numpy")
+    with pytest.raises(ValueError, match="protocol"):
+        RuntimeConfig(protocol="mesi")
+    cfg = RuntimeConfig(protocol="page", fetch_batch=16, device="cpu")
+    rt = make_runtime(8, cfg, backend="kernels")
+    assert (rt.protocol, rt.fetch_batch, rt.backend) == ("page", 16,
+                                                         "kernels")
+
+
+def _smoke(cwd: Path, script: Path):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    return subprocess.run([sys.executable, str(script)], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_chip_smoke_fails_without_card_or_repo(tmp_path):
+    out = _smoke(ROOT, ROOT / "chip_smoke.py")
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+    lone = tmp_path / "chip_smoke.py"
+    shutil.copy(ROOT / "chip_smoke.py", lone)
+    out = _smoke(tmp_path, lone)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
