@@ -10,12 +10,17 @@ Phases, in order; any mismatch or exception exits non-zero:
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and
    prints the build seconds;
-3. kernel phase: each kernel (pack_rows, popcount_rows, coverage_multi,
-   phase_step) against its plain PyTorch version on the card, bit for
-   bit, at the main path's shapes (fig3_weak, W=256) and at edge shapes
-   (ragged columns, W=1, base=-1 rows, INT32_MAX pads); prints each
-   kernel's median time (CUDA events), the plain version's, the
-   ``torch.cumsum`` yardstick for coverage_multi, and the bound;
+3. kernel phase: each kernel against its plain PyTorch version on the
+   card, bit for bit: pack_rows, popcount_rows, coverage_multi and
+   phase_step at the main path's shapes (fig3_weak, W=256) and at edge
+   shapes (ragged columns, W=1, base=-1 rows, INT32_MAX pads); the
+   rank-select kernels take_first_k, kth_set_index and take_and_cut at
+   the lru_take shape of fig4_spill (256 runs of 32768 columns), at the
+   take_upto_row shape of the spill path (one run of a few words) and at
+   edge cases (k = 0, k < 0, k past the popcount, k = INT32_MAX, empty
+   rows, ragged last words, R = 1, nw = 1).  Prints each kernel's median
+   time (CUDA events), the plain version's, the ``torch.cumsum``
+   yardstick for coverage_multi, and the bound;
 4. main-path phase: the W=256 batched points of fig2_strong, fig3_weak,
    fig5_strong, fig6_weak and fig7_md (samhita and samhita_page, Jacobi
    and MD in lock and reduction modes) on the 'fused' tier, plus the two
@@ -24,15 +29,26 @@ Phases, in order; any mismatch or exception exits non-zero:
    its ``BENCH_scale.json`` row field for field and its modeled time must
    round to the row's ``t_model_s``; the launch counters must show that
    each run went through the kernels;
-5. profile phase: the device busy share of the two samhita fig6_weak
+5. spill phase: the six W=256 batched capacity-pressure points
+   (fig4_spill fits and spills, fig4_spill_heavy, fig4_refetch,
+   fig5_spill, fig7_md_spill) on 'fused' at the harness's cache settings,
+   plus fig4_refetch and fig7_md_spill on 'kernels'.  Each must match its
+   ``BENCH_scale.json`` row as above and its committed danger counters
+   (``artifacts/bench/*.csv``); the launch counters must show take_and_cut
+   launched on 'fused' and take_first_k and kth_set_index on 'kernels';
+6. profile phase: the device busy share of the two samhita fig6_weak
    points (lock, reduction) from a separate torch.profiler run.
 
-The line before the last is the kernel table as one JSON object; the last
-line is ``{"ok": true, "device": {...}}``.  Full results also go to
-``chiprun_out/chip_smoke.json``.
+The launch counters are set to 0 just before each of the two path phases
+and read just after; a kernel's ``launches`` in the table is the sum of
+the two readings.  The line before the last is the kernel table as one
+JSON object; the last line is ``{"ok": true, "device": {...}}``.  Full
+results also go to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import csv
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -48,6 +64,9 @@ TPU_KERNELS = {
     "popcount_rows": "src/repro/kernels/protocol_sweep.py:232",
     "coverage_multi": "src/repro/kernels/protocol_sweep.py:333",
     "phase_step": "src/repro/kernels/protocol_sweep.py:426",
+    "take_first_k": "src/repro/kernels/protocol_sweep.py:266",
+    "kth_set_index": "src/repro/kernels/protocol_sweep.py:310",
+    "take_and_cut": "src/repro/kernels/protocol_sweep.py:415",
 }
 ITERS = 4
 W = 256
@@ -56,6 +75,10 @@ PROTO = {"samhita": "fine", "samhita_page": "page"}
 N_TRIAD = 16 << 20
 N_JACOBI = 4096
 N_PARTICLES = 8192
+# columns of one victim run in the refetch replay's take_upto_row: the
+# spill points' runs are 2 to 9 pages long (one packed word), the widest
+# an 8-page refetch window plus its prefetched page
+RUN_COLS = 9
 
 
 def fail(msg: str) -> int:
@@ -211,6 +234,7 @@ def kernel_phase(torch, np, ps, dev):
         plain_ms=timed_ms(torch, lambda: ps._phase_step_plain(*main), 3, 3),
         library_ms=None,
         bytes=2 * R * W * nw * 4 + R * W * (4 + 1 + 4 + 4 + 8))
+    results.update(rank_select_phase(torch, np, ps, rng, same, t))
     for name, r in results.items():
         r["bound_ms"] = r["bytes"] / HBM_BYTES_PER_S * 1e3
         lib = ("" if r["library_ms"] is None
@@ -218,8 +242,71 @@ def kernel_phase(torch, np, ps, dev):
         print(f"kernel {name:15s} shape={r['shape']}  max_abs_err="
               f"{r['err']}  kernel {r['ms'] * 1e3:.2f} us  plain "
               f"{r['plain_ms'] * 1e3:.2f} us{lib}  bound "
-              f"{r['bound_ms'] * 1e3:.3f} us (bytes)", flush=True)
+              f"{r['bound_ms'] * 1e3:.6f} us (bytes)", flush=True)
+        if "lru" in r:
+            lru = r["lru"]
+            lru["bound_ms"] = lru["bytes"] / HBM_BYTES_PER_S * 1e3
+            print(f"kernel {name:15s} shape={lru['shape']}  kernel "
+                  f"{lru['ms'] * 1e3:.2f} us  plain "
+                  f"{lru['plain_ms'] * 1e3:.2f} us  bound "
+                  f"{lru['bound_ms'] * 1e3:.3f} us (bytes)", flush=True)
     return results
+
+
+def rank_select_phase(torch, np, ps, rng, same, t):
+    """take_first_k, kth_set_index and take_and_cut against their plain
+    versions, bit for bit, over random and edge ranks; timed at the
+    take_upto_row shape the spill path gives them (one run of RUN_COLS
+    columns) and at the lru_take shape of fig4_spill (W=256 runs of
+    32768 columns).  Bytes: words read once, the take mask written once,
+    int32 ranks read, int64 cuts written."""
+    i32max = np.iinfo(np.int32).max
+
+    def case(R_, C_):
+        live = rng.random((R_, C_)) < rng.random((R_, 1))
+        live[0] = True
+        if R_ > 2:
+            live[-1] = False                           # an empty row
+        tot = live.sum(axis=1)
+        ks = [rng.integers(0, C_ + 1, R_), np.zeros(R_), np.full(R_, -5),
+              tot, tot + 1, np.maximum(tot - 1, 1), np.full(R_, i32max)]
+        return (ps.pack_rows(t(live)),
+                [t(np.asarray(k, np.int64).astype(np.int32)) for k in ks])
+
+    calls = {
+        "take_first_k": (ps.take_first_k, ps._take_first_k_plain),
+        "kth_set_index": (ps.kth_set_index, ps._kth_set_index_plain),
+        "take_and_cut": (ps.take_and_cut, lambda b, k: (
+            ps._take_first_k_plain(b, k), ps._kth_set_index_plain(b, k))),
+    }
+    errs = dict.fromkeys(calls, 0)
+    shapes = ((W, 32768), (1, RUN_COLS), (1, 1), (1, 32), (3, 31),
+              (5, 1000), (2, 8195))
+    timed = {}
+    for R_, C_ in shapes:
+        bits_, ks = case(R_, C_)
+        for k in ks:
+            for name, (kern, plain) in calls.items():
+                errs[name] = max(errs[name], same(name, kern(bits_, k),
+                                                  plain(bits_, k)))
+        if (R_, C_) in ((W, 32768), (1, RUN_COLS)):
+            timed[(R_, C_)] = (bits_, ks[0])
+    out = {}
+    for name, (kern, plain) in calls.items():
+        res = {}
+        for (R_, C_), (bits_, k) in timed.items():
+            nw_ = bits_.shape[1]
+            nbytes = {"take_first_k": 2 * R_ * nw_ * 4 + R_ * 4,
+                      "kth_set_index": R_ * nw_ * 4 + R_ * 12,
+                      "take_and_cut": 2 * R_ * nw_ * 4 + R_ * 12}[name]
+            res[(R_, C_)] = dict(
+                shape=[R_, nw_],
+                ms=timed_ms(torch, lambda: kern(bits_, k)),
+                plain_ms=timed_ms(torch, lambda: plain(bits_, k), 10, 3),
+                bytes=nbytes)
+        out[name] = dict(err=errs[name], library_ms=None,
+                         lru=res[(W, 32768)], **res[(1, RUN_COLS)])
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -258,7 +345,6 @@ def run_point(torch, make_runtime, apps, IB_2013, app, series, mode, n,
 
 
 def main_path_phase(torch, ps):
-    import dataclasses
     from repro_torch.core import make_runtime
     from repro_torch.dsm import apps
     from repro_torch.dsm.costmodel import IB_2013
@@ -298,24 +384,147 @@ def main_path_phase(torch, ps):
     return out, dict(ps.LAUNCHES)
 
 
+# ---------------------------------------------------------------------------
+# spill phase
+# ---------------------------------------------------------------------------
+
+
+def spill_points():
+    """(section, series, app, app kwargs, n, cache_pages, iters) of the six
+    W=256 capacity-pressure rows, at the harness's settings
+    (benchmarks/stream_triad.py spill/spill_heavy, jacobi.py spill,
+    molecular_dynamics.py spill)."""
+    triad_cache = 3 * (N_TRIAD // 1024) + 64
+    n_rot = (1 << 17) * W                     # 128 pages per worker
+    md_pages = -(-(N_PARTICLES * 3) // 1024)
+    return [
+        ("fig4_spill", "samhita_fits", "stream_triad", {}, N_TRIAD * W,
+         triad_cache, 4),
+        ("fig4_spill", "samhita_spills", "stream_triad", {},
+         N_TRIAD * W * 2, triad_cache, 4),
+        ("fig4_spill_heavy", "samhita_rot", "stream_spill", {"sweeps": 2},
+         n_rot, (3 * (n_rot // 1024)) // (2 * W), 2),
+        ("fig4_refetch", "samhita_refetch", "stream_refetch",
+         {"sweeps": 2, "width_pages": 8}, n_rot, 20, 2),
+        ("fig5_spill", "samhita_spill", "jacobi", {"mode": "reduction"},
+         N_JACOBI, max((3 * (N_JACOBI * N_JACOBI // 1024)) // (2 * W), 8),
+         2),
+        ("fig7_md_spill", "samhita_spill", "molecular_dynamics",
+         {"mode": "reduction"}, N_PARTICLES, max(md_pages // 2, 4), 2),
+    ]
+
+
+def committed_danger():
+    """(section, series, W, driver) -> committed danger counters, from the
+    benchmark CSVs."""
+    out = {}
+    for name in ("stream_triad", "jacobi", "molecular_dynamics"):
+        with open(ROOT / "artifacts" / "bench" / f"{name}.csv") as f:
+            for r in csv.DictReader(f):
+                if r.get("danger_vec"):
+                    out[(r["figure"], r["series"], int(r["p"]),
+                         r["driver"])] = {
+                        k: int(r[k]) for k in ("danger_vec", "danger_scalar",
+                                               "danger_shared")}
+    return out
+
+
+def run_spill_point(torch, point, backend, device="cuda"):
+    """One spill point (an entry of ``spill_points``) on ``backend``:
+    (runtime, wall seconds, host clock ending in a synchronise)."""
+    from repro_torch.core import make_runtime
+    from repro_torch.dsm import apps
+    from repro_torch.dsm.costmodel import IB_2013
+    _sec, _tag, app, kw, n, cache_pages, iters = point
+    t0 = time.perf_counter()
+    rt = make_runtime(W, protocol="fine", cost=IB_2013, fetch_batch=16,
+                      cache_pages=cache_pages, backend=backend,
+                      device=device)
+    getattr(apps, app)(rt, n, iters, driver="batched", **kw)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return rt, time.perf_counter() - t0
+
+
+def spill_phase(torch, ps, device="cuda"):
+    """The six spill rows on 'fused' and the two refetch-replay rows on
+    'kernels'; every check of the main-path phase, plus the committed
+    danger counters and the rank-select launches."""
+    rows = {(r["section"], r["protocol"], r["W"], r.get("driver")): r
+            for r in json.loads(
+                (ROOT / "BENCH_scale.json").read_text())["rows"]}
+    danger = committed_danger()
+    runs = [(pt, "fused") for pt in spill_points()]
+    runs += [(pt, "kernels") for pt in spill_points()
+             if pt[0] in ("fig4_refetch", "fig7_md_spill")]
+    need = {"fused": ("pack_rows", "popcount_rows", "phase_step",
+                      "take_and_cut"),
+            "kernels": ("take_first_k", "kth_set_index")}
+    per_backend = {b: dict.fromkeys(ps.LAUNCHES, 0) for b in need}
+    out = []
+    ps.reset_launches()
+    for point, backend in runs:
+        sec, tag, cache_pages = point[0], point[1], point[5]
+        before = dict(ps.LAUNCHES)
+        rt, wall = run_spill_point(torch, point, backend, device)
+        launched = {k: ps.LAUNCHES[k] - before[k] for k in ps.LAUNCHES}
+        for k, v in launched.items():
+            per_backend[backend][k] += v
+        row = rows[(sec, tag, W, "batched")]
+        traffic = {f"tr_{f.name}": getattr(rt.traffic, f.name)
+                   for f in dataclasses.fields(rt.traffic)}
+        bad = {k: (v, row[k]) for k, v in traffic.items() if v != row[k]}
+        t_model = round(rt.time, 6)
+        counters = {"danger_vec": rt.stats["danger_vec_ops"],
+                    "danger_scalar": rt.stats["danger_scalar_ops"],
+                    "danger_shared": rt.stats["danger_shared_ops"]}
+        want = danger.get((sec, tag, W, "batched"))
+        if want is not None and counters != want:
+            bad["danger"] = (counters, want)
+        if bad or t_model != row["t_model_s"]:
+            raise AssertionError(
+                f"{sec} {tag} [{backend}]: drift {bad}, t_model {t_model} "
+                f"vs committed {row['t_model_s']}")
+        print(f"spill {sec:16s} {tag:15s} [{backend:7s}] wall {wall:.3f} s"
+              f"  t_model {t_model}  {counters}  launches {launched}",
+              flush=True)
+        out.append({"section": sec, "series": tag, "W": W,
+                    "backend": backend, "cache_pages": cache_pages,
+                    "wall_s": wall, "t_model_s": t_model,
+                    "launches": launched, "stats": dict(rt.stats),
+                    **traffic})
+    if device == "cuda":
+        for backend, names in need.items():
+            idle = [k for k in names if per_backend[backend][k] == 0]
+            if idle:
+                raise AssertionError(f"spill phase [{backend}]: kernels "
+                                     f"{idle} never launched")
+    return out, dict(ps.LAUNCHES)
+
+
 def profile_phase(torch):
     """Device busy share of two fig6_weak points (samhita, lock and
-    reduction mode) in a separate traced run: the union of the intervals
-    of every device activity torch.profiler records (kernels, copies,
-    sets) over the run's wall.  The main-path walls above are untraced."""
+    reduction mode) and of the fig7_md_spill point, on 'fused', each in a
+    separate traced run: the union of the intervals of every device
+    activity torch.profiler records (kernels, copies, sets) over the
+    run's wall.  The walls of the path phases above are untraced."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import make_runtime
     from repro_torch.dsm import apps
     from repro_torch.dsm.costmodel import IB_2013
+    runs = [(sec, tag, lambda a=app, s=series, m=mode, n=n: run_point(
+                torch, make_runtime, apps, IB_2013, a, s, m, n, "fused"))
+            for sec, tag, series, app, mode, n in main_points()
+            if sec == "fig6_weak" and series == "samhita"]
+    runs += [(pt[0], pt[1], lambda pt=pt: run_spill_point(torch, pt,
+                                                          "fused"))
+             for pt in spill_points() if pt[0] == "fig7_md_spill"]
     out = []
-    for sec, tag, series, app, mode, n in main_points():
-        if sec != "fig6_weak" or series != "samhita":
-            continue
+    for sec, tag, run in runs:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            _, wall = run_point(torch, make_runtime, apps, IB_2013, app,
-                                series, mode, n, "fused")
+            _, wall = run()
         spans = sorted((e.time_range.start, e.time_range.end)
                        for e in prof.events()
                        if e.device_type == DeviceType.CUDA)
@@ -363,22 +572,26 @@ def main() -> int:
     dev = torch.device("cuda")
     kernels = kernel_phase(torch, np, ps, dev)
     points, launches = main_path_phase(torch, ps)
+    spills, spill_launches = spill_phase(torch, ps)
     profiled = profile_phase(torch)
 
+    total = {k: launches[k] + spill_launches[k] for k in ps.LAUNCHES}
     table = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE,
-         "replaces": TPU_KERNELS[name], "launches": launches[name],
+         "replaces": TPU_KERNELS[name], "launches": total[name],
          "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": "bytes",
          "library_ms": r["library_ms"]}
         for name, r in kernels.items()]}
     print(f"launches on the main path: {launches}", flush=True)
+    print(f"launches on the spill path: {spill_launches}", flush=True)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_s, "kernel_phase": kernels,
-         "points": points, "profile": profiled, **table}, indent=1)
-        + "\n")
+         "points": points, "spill_points": spills,
+         "launches_main": launches, "launches_spill": spill_launches,
+         "profile": profiled, **table}, indent=1) + "\n")
     print(json.dumps(table), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,11 +9,14 @@ trace can start on the reference and finish here with the same traffic
 and bit-equal clocks — the system's counterpart of carrying a model's
 weights across.
 
-Only state this slice of the port can run is accepted: eviction queues
-and ``cache_pages``, chaos and straggler hooks, race-detection state and
-shard slices raise a ``ValueError``.
+Only state the port can run so far is accepted: chaos and straggler
+hooks, race-detection state and shard slices raise a ``ValueError``.
+Eviction state (``cache_pages``, the resident counts, the LRU run queues
+and the directories' touch/incache planes) carries over.
 """
 from __future__ import annotations
+
+from collections import deque
 
 import numpy as np
 
@@ -35,15 +38,11 @@ def runtime_from_snapshot(arrays: dict, meta: dict, *, device=None,
         _refuse("a shard-slice snapshot (compose the slices first;"
                 " the cluster slice)")
     cfg = meta["config"]
-    if cfg.get("cache_pages") is not None:
-        _refuse("cache_pages (slice B)")
     if cfg.get("detect_races") or "race_vc" in arrays:
         _refuse("race-detection state (slice D)")
     if meta.get("chaos") is not None or meta.get("straggler") is not None:
         _refuse("chaos/straggler state (the recovery slice)")
-    if int(np.asarray(arrays["lru_counts"]).sum()) or bool(
-            np.asarray(arrays["resident"]).any()):
-        _refuse("an LRU eviction queue (slice B)")
+    cache_pages = cfg.get("cache_pages")
     rt = RegCScaleRuntime(
         int(cfg["n_workers"]), page_words=int(cfg["page_words"]),
         protocol=cfg["protocol"], cost=CostModel(**meta["cost"]),
@@ -52,7 +51,8 @@ def runtime_from_snapshot(arrays: dict, meta: dict, *, device=None,
         instr_s_per_word=float(cfg["instr_s_per_word"]),
         fault_s=float(cfg["fault_s"]),
         fetch_batch=int(cfg["fetch_batch"]), backend=backend,
-        device=device)
+        cache_pages=None if cache_pages is None else int(cache_pages),
+        danger_mode=cfg.get("danger_mode", "vec"), device=device)
     rt.n_pages = int(meta["n_pages"])
     rt._region_starts = [int(x) for x in meta["region_starts"]]
     rt._region_ends = [int(x) for x in meta["region_ends"]]
@@ -78,6 +78,15 @@ def runtime_from_snapshot(arrays: dict, meta: dict, *, device=None,
         rt.locks[int(lm["id"])] = lk
     rt.clock = np.asarray(arrays["clock"], np.float64).copy()
     rt._bar_clock0 = np.asarray(arrays["bar_clock0"], np.float64).copy()
+    rt.resident = np.asarray(arrays["resident"], np.int64).copy()
+    rt._q_degraded = np.asarray(arrays["q_degraded"], bool).copy()
+    # LRU run queues: flat (N, 7) entries plus per-worker counts
+    ents = np.asarray(arrays["lru_entries"], np.int64).reshape(-1, 7)
+    offs = np.concatenate([[0], np.cumsum(
+        np.asarray(arrays["lru_counts"], np.int64))])
+    rt._lru_q = [deque([int(x) for x in e]
+                       for e in ents[offs[w]:offs[w + 1]])
+                 for w in range(rt.W)]
     counts = np.asarray(arrays["dirty_region_counts"], np.int64)
     flat = np.asarray(arrays["dirty_region_flat"], np.int64)
     offs = np.concatenate([[0], np.cumsum(counts)])

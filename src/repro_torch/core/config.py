@@ -48,8 +48,6 @@ FAULT_S = 4.0e-6
 # the slice of the port that brings them; any other value raises instead
 # of running
 _LATER = {
-    "cache_pages": (None, "slice B (eviction under cache_pages)"),
-    "danger_mode": ("vec", "slice B (the spill path's refetch replay)"),
     "detect_races": (False, "slice D (race detection)"),
     "chaos": (None, "the recovery slice"),
     "injector": (None, "the recovery slice"),
@@ -94,10 +92,9 @@ class RuntimeConfig:
     The reference's spec plus ``device``, less the two knobs only the
     per-page reference engine reads (``track_values``, ``n_mem_servers``;
     they come with that engine's slice).  Knobs whose engine paths belong
-    to later slices of the port (``cache_pages``, ``danger_mode``,
-    ``detect_races``, ``chaos``, ``injector``, ``straggler``) raise a
-    ``ValueError`` naming that slice when set to other than their
-    default."""
+    to later slices of the port (``detect_races``, ``chaos``,
+    ``injector``, ``straggler``) raise a ``ValueError`` naming that slice
+    when set to other than their default."""
 
     page_words: int = 1024
     protocol: str = FINE_PROTO
@@ -156,4 +153,5 @@ def make_runtime(n_workers: int, config: Optional[RuntimeConfig] = None,
         model_mechanism=cfg.model_mechanism,
         instr_s_per_word=cfg.instr_s_per_word, fault_s=cfg.fault_s,
         fetch_batch=cfg.fetch_batch, backend=cfg.backend,
+        cache_pages=cfg.cache_pages, danger_mode=cfg.danger_mode,
         device=cfg.device)

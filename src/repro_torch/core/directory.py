@@ -2,7 +2,9 @@
 
 ``RegionDirectory`` turns the worker axis into a tensor axis: one object
 per allocation region holds ``valid`` / ``dirty`` / ``wprot`` as
-``(W, cap)`` torch bool planes on the runtime's device.  Rows are workers;
+``(W, cap)`` torch bool planes on the runtime's device, and under
+``cache_pages`` the LRU planes ``touch`` (int64 run ticks) and ``incache``
+(bool cache occupancy) beside them.  Rows are workers;
 every row carries its own base offset (column ``j`` of row ``w`` is
 absolute page ``base[w] + j``), so memory stays O(pages actually touched)
 while cross-worker protocol events become single gather/scatter ops over
@@ -38,6 +40,14 @@ _I64_MIN = np.iinfo(np.int64).min
 _I32_MAX = np.iinfo(np.int32).max
 
 
+def host(t: torch.Tensor) -> np.ndarray:
+    """Host numpy copy of ``t`` that shares no memory with it: on the CPU
+    ``.cpu().numpy()`` of a plane slice would alias the plane, and later
+    plane updates would show through."""
+    a = t.cpu().numpy()
+    return a.copy() if t.device.type == "cpu" else a
+
+
 def use_dense(n_rows: int, l_max: int) -> bool:
     """Strategy pick for per-op batched plane updates: dense (rows x Lmax)
     gather/scatter matrices for many narrow intervals or tiny ops;
@@ -50,19 +60,22 @@ class RegionDirectory:
     """2D per-worker page state of one allocation region.
 
     Cells outside a row's live window ``[0, length[w])`` always hold the
-    init values (valid=False, dirty=False, wprot=True), so window
-    extension to the right is free and whole-plane reductions are safe.
+    init values (valid=False, dirty=False, wprot=True, touch=0,
+    incache=False), so window extension to the right is free and
+    whole-plane reductions are safe.
     """
 
     __slots__ = ("W", "region", "page_lo", "page_hi", "device", "base",
-                 "length", "cap", "valid", "dirty", "wprot", "shift",
+                 "length", "cap", "valid", "dirty", "wprot", "touch",
+                 "incache", "shift",
                  "maybe_dirty", "_cov_stale", "_sorted_bases",
                  "_sorted_ends", "backend", "dirty_lo", "dirty_hi",
                  "span_lo", "span_hi", "stats", "_jit_geom", "_jit_geom_t")
 
     def __init__(self, n_workers: int, region: int, page_lo: int,
                  page_hi: int, *, track_wprot: bool = False,
-                 backend: str = "fused", device=None):
+                 track_touch: bool = False, backend: str = "fused",
+                 device=None):
         self.W = n_workers
         self.region = region
         self.page_lo = page_lo
@@ -75,7 +88,14 @@ class RegionDirectory:
         self.valid = self._plane(0, False)
         self.dirty = self._plane(0, False)
         self.wprot = self._plane(0, True) if track_wprot else None
-        # cumulative left-extension shift per row
+        # LRU bookkeeping (cache_pages runs only): the touch tick of each
+        # cell's run, and cache occupancy, which differs from ``valid``:
+        # an invalidated page keeps its cache slot until it is evicted
+        self.touch = (self._plane(0, 0, torch.int64) if track_touch
+                      else None)
+        self.incache = self._plane(0, False) if track_touch else None
+        # cumulative left-extension shift per row (maps LRU queue entries
+        # recorded before a left growth to current columns)
         self.shift = np.zeros(n_workers, np.int64)
         # span-touch planes of the worker's OPEN depth-1 span: per-cell
         # word interval [span_lo, span_hi); untouched cells hold
@@ -124,6 +144,9 @@ class RegionDirectory:
         self.dirty = self._grown(self.dirty, new_cap, False)
         if self.wprot is not None:
             self.wprot = self._grown(self.wprot, new_cap, True)
+        if self.touch is not None:
+            self.touch = self._grown(self.touch, new_cap, 0)
+            self.incache = self._grown(self.incache, new_cap, False)
         if self.span_lo is not None:
             self.span_lo = self._grown(self.span_lo, new_cap, _I64_MAX)
             self.span_hi = self._grown(self.span_hi, new_cap, _I64_MIN)
@@ -152,7 +175,8 @@ class RegionDirectory:
             if n + pad > self.cap:
                 self._grow_cap(n + pad)
             for plane, init in ((self.valid, False), (self.dirty, False),
-                                (self.wprot, True),
+                                (self.wprot, True), (self.touch, 0),
+                                (self.incache, False),
                                 (self.span_lo, _I64_MAX),
                                 (self.span_hi, _I64_MIN)):
                 if plane is None:
@@ -214,6 +238,24 @@ class RegionDirectory:
         Lmax = int(L.max())
         base = self.base[rows]
         length = self.length[rows]
+        if not use_dense(rows.size, Lmax):
+            # wide intervals: rows sharing a clipped window span sum one
+            # 2D slice together, with no (R, Lmax) index matrices
+            livem = base >= 0
+            c0 = np.where(livem, np.maximum(lo - base, 0), 0)
+            c1 = np.maximum(np.where(livem, np.minimum(hi - base, length),
+                                     0), c0)
+            out = np.zeros(rows.size, np.int64)
+            uk, inv = np.unique(np.stack([c0, c1], axis=1), axis=0,
+                                return_inverse=True)
+            inv = inv.reshape(-1)
+            for g in range(uk.shape[0]):
+                a, b = int(uk[g, 0]), int(uk[g, 1])
+                if b > a:
+                    sel = np.nonzero(inv == g)[0]
+                    out[sel] = plane[self.row_block(rows[sel]),
+                                     a:b].sum(dim=1).cpu().numpy()
+            return out
         j = np.arange(Lmax)
         cols = (lo - base)[:, None] + j[None, :]
         m = ((j[None, :] < L[:, None]) & (cols >= 0)
@@ -296,6 +338,111 @@ class RegionDirectory:
         elif rows.size == 1:
             return slice(int(rows[0]), int(rows[0]) + 1)
         return self.ix(rows)
+
+    def cells(self, plane: torch.Tensor, rows: np.ndarray,
+              cols: np.ndarray) -> np.ndarray:
+        """Host copy of ``plane`` at host (rows, cols): rows (R,) against a
+        column matrix (R, n) gathers an (R, n) block, one sync."""
+        return plane[self.ix(rows)[:, None], self.ix(cols)].cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # batched eviction primitives (segment LRU over touch-run spans)
+    # ------------------------------------------------------------------
+
+    def run_live(self, rows: np.ndarray, start: int, length: int,
+                 run_ticks: np.ndarray) -> torch.Tensor:
+        """(R, length) device liveness mask of one LRU touch run per row:
+        a cell is live iff its touch tick still equals the run's tick
+        ``run_ticks[i]`` (ticks are one per run and globally monotone, so
+        a re-touch by a later run exceeds it) and it still occupies a
+        cache slot.  All rows' runs share columns [start, start+length)."""
+        s = slice(start, start + length)
+        rb = self.row_block(rows)
+        return ((self.touch[rb, s] == self.ix(run_ticks)[:, None])
+                & self.incache[rb, s])
+
+    def lru_take(self, live: torch.Tensor, k: np.ndarray,
+                 tot: Optional[np.ndarray] = None) -> torch.Tensor:
+        """Segment-LRU selection: per row, the first (oldest) k[i] live
+        cells of the run, as a device mask.  Fully-live runs (``tot`` ==
+        run length) reduce to a columnar cutoff; otherwise the kernel
+        tiers pack the runs and run ``take_first_k``, and 'plain' takes a
+        boolean prefix count.  The mask never leaves the device."""
+        k = np.asarray(k, np.int64)
+        L = live.shape[1]
+        if tot is not None and bool((tot == L).all()):
+            return (torch.arange(L, device=self.device)[None, :]
+                    < self.ix(k)[:, None])
+        if self.backend != "plain":
+            # int32 ranks, as the kernel takes them (a rank past the run
+            # length keeps the whole run either way)
+            k32 = np.clip(k, -_I32_MAX - 1, _I32_MAX).astype(np.int32)
+            bits = _ps.take_first_k(_ps.pack_rows(live.contiguous()),
+                                    torch.tensor(k32, device=self.device))
+            self._note_fused()
+            return _ps.unpack_rows(bits, L)
+        return live & (torch.cumsum(live, dim=1) <= self.ix(k)[:, None])
+
+    def take_upto_row(self, live: torch.Tensor,
+                      k: int) -> Tuple[torch.Tensor, int]:
+        """Rank-select over ONE run's device live mask (the refetch replay's
+        victim scan): the mask of the first k live cells and the scan cut,
+        the index just past the k-th live cell.  The caller guarantees the
+        run holds more than k live cells.  'fused' computes both in one
+        ``take_and_cut`` launch; 'kernels' runs ``take_first_k`` for the
+        mask and the ``kth_set_index`` rank query for the cut (the
+        reference's pallas tier reads the cut off the mask on the host
+        instead; with more than k live cells the two agree); 'plain' takes
+        a prefix count."""
+        n = live.shape[0]
+        kt = torch.tensor([k], dtype=torch.int32, device=self.device)
+        if self.backend == "plain":
+            cs = torch.cumsum(live, dim=0)
+            cut = int(torch.argmax((cs >= k).to(torch.int8)))
+            return live & (cs <= k), cut + 1
+        bits = _ps.pack_rows(live.contiguous()[None])
+        if self.backend == "fused":
+            take, cut = _ps.take_and_cut(bits, kt)
+            self._note_fused()
+        else:
+            take = _ps.take_first_k(bits, kt)
+            cut = _ps.kth_set_index(bits, kt)
+        return _ps.unpack_rows(take, n)[0], int(cut[0]) + 1
+
+    def evict_rows(self, rows: np.ndarray, start: int, length: int,
+                   take: Optional[torch.Tensor], *,
+                   set_wprot: bool) -> np.ndarray:
+        """Batched eviction of the ``take`` cells (an (R, length) device
+        mask over columns [start, start+length) of ``rows``; None takes
+        the whole span): dirty victims clear and re-arm write protection
+        (when ``set_wprot``), then valid and the cache slot drop.  Returns
+        host per-row dirty-victim counts (the runtime's writeback charge):
+        ``pack_rows`` + ``popcount_rows`` on the kernel tiers, a row sum on
+        'plain'.  Plane updates only; charging stays in the runtime."""
+        s = slice(start, start + length)
+        rb = self.row_block(rows)
+        dm = self.dirty[rb, s]
+        if take is not None:
+            dm = dm & take
+        if self.backend != "plain":
+            db = _ps.popcount_rows(_ps.pack_rows(dm.contiguous()))
+            self._note_fused()
+        else:
+            db = dm.sum(dim=1)
+        db = db.cpu().numpy()
+        if db.any():
+            # wprot first: without a take, dm is a view of the dirty cells
+            if set_wprot and self.wprot is not None:
+                self.wprot[rb, s] = self.wprot[rb, s] | dm
+            self.dirty[rb, s] = self.dirty[rb, s] & ~dm
+        if take is None:
+            self.valid[rb, s] = False
+            self.incache[rb, s] = False
+        else:
+            keep = ~take
+            self.valid[rb, s] = self.valid[rb, s] & keep
+            self.incache[rb, s] = self.incache[rb, s] & keep
+        return db
 
     def overlap_rows(self, lo: int, hi: int,
                      exclude: Optional[int] = None) -> np.ndarray:
@@ -425,7 +572,7 @@ class RegionDirectory:
                   "dirty": self.dirty.cpu().numpy().copy(),
                   "dirty_lo": self.dirty_lo.copy(),
                   "dirty_hi": self.dirty_hi.copy()}
-        for name in ("wprot", "span_lo", "span_hi"):
+        for name in ("wprot", "touch", "incache", "span_lo", "span_hi"):
             plane = getattr(self, name)
             if plane is not None:
                 arrays[name] = plane.cpu().numpy().copy()
@@ -433,7 +580,7 @@ class RegionDirectory:
                 "page_lo": self.page_lo, "page_hi": self.page_hi,
                 "cap": self.cap, "maybe_dirty": bool(self.maybe_dirty),
                 "track_wprot": self.wprot is not None,
-                "track_touch": False,
+                "track_touch": self.touch is not None,
                 "has_span": self.span_lo is not None,
                 "has_race": False, "backend": self.backend}
         return arrays, meta
@@ -442,14 +589,15 @@ class RegionDirectory:
     def from_state(cls, arrays: dict, meta: dict, *, backend: str,
                    device) -> "RegionDirectory":
         """Rebuild a directory from ``state_arrays`` output (this
-        package's or the reference's).  Eviction (``track_touch``) and
-        race planes belong to later slices and are refused."""
-        if meta.get("track_touch") or meta.get("has_race"):
-            raise ValueError("RegionDirectory.from_state: eviction and race "
-                             "planes are not ported yet (slices B and D)")
+        package's or the reference's).  Race planes belong to slice D and
+        are refused."""
+        if meta.get("has_race"):
+            raise ValueError("RegionDirectory.from_state: race planes are "
+                             "not ported yet (slice D)")
         d = cls(meta["W"], meta["region"], meta["page_lo"],
                 meta["page_hi"], track_wprot=meta["track_wprot"],
-                backend=backend, device=device)
+                track_touch=meta["track_touch"], backend=backend,
+                device=device)
         d.cap = int(meta["cap"])
         d.base = np.asarray(arrays["base"], np.int64).copy()
         d.length = np.asarray(arrays["length"], np.int64).copy()
@@ -465,6 +613,9 @@ class RegionDirectory:
         d.dirty = plane("dirty", torch.bool)
         if meta["track_wprot"]:
             d.wprot = plane("wprot", torch.bool)
+        if meta["track_touch"]:
+            d.touch = plane("touch", torch.int64)
+            d.incache = plane("incache", torch.bool)
         if meta["has_span"]:
             d.span_lo = plane("span_lo", torch.int64)
             d.span_hi = plane("span_hi", torch.int64)

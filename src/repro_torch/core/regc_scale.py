@@ -16,10 +16,24 @@ host in float64 in the reference's order of operations, so clocks are
 bit-equal to the reference on the same program (the parity tests check
 this after every event).
 
-This is slice A of the port: the main path without spill.  Eviction
-under ``cache_pages`` (slice B), the batched ``span_all`` driver (slice
-C), race detection (slice D) and the fault-injection hooks are not here
-yet; ``config.RuntimeConfig`` refuses the knobs that would reach them.
+Under ``cache_pages`` each worker holds at most that many pages
+(watermark eviction, exact LRU through a tick-ordered queue of touch
+runs, as in the reference).  ``phase_all`` stays batched under spill: a
+window-disjointness analysis proves which workers' evictions cannot
+interact, those evict with segment-LRU plane ops (``pack_rows`` ->
+``take_first_k`` masks, ``popcount_rows`` dirty-victim counts), and the
+rest replay per worker in tick order.  Ops that can evict a page of their
+own range before touching it resolve through the analytic
+evict-then-refetch schedule (``_danger_replay``), whose victim scan runs
+the rank-select kernels; ``danger_mode="scalar"`` forces the per-page walk
+the reference uses as its oracle.  The LRU queues, the resident counts and
+the ticks are host state, like the window geometry; the touch/incache
+planes live on the device.
+
+The port so far covers slices A (the main path) and B (eviction).  The
+batched ``span_all`` driver (slice C), race detection (slice D) and the
+fault-injection hooks are not here yet; ``config.RuntimeConfig`` refuses
+the knobs that would reach them.
 
 Store-tracking mechanisms (paper §IV), modeled as in the reference:
 
@@ -31,23 +45,25 @@ Store-tracking mechanisms (paper §IV), modeled as in the reference:
 from __future__ import annotations
 
 import bisect
+from collections import deque
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core.config import (BACKENDS, FAULT_S, FINE_PROTO,
-                                     IDEAL_PROTO, INSTR_S_PER_WORD,
-                                     PAGE_PROTO, PROTOCOLS, check_choice,
-                                     resolve_device)
-from repro_torch.core.directory import IntervalLog, RegionDirectory, use_dense
+from repro_torch.core.config import (BACKENDS, DANGER_MODES, FAULT_S,
+                                     FINE_PROTO, IDEAL_PROTO,
+                                     INSTR_S_PER_WORD, PAGE_PROTO, PROTOCOLS,
+                                     check_choice, resolve_device)
+from repro_torch.core.directory import (IntervalLog, RegionDirectory, host,
+                                        use_dense)
 from repro_torch.core.regc import _WORD, GasArray, Traffic
 from repro_torch.dsm.costmodel import IB_2013, CostModel
 from repro_torch.kernels import protocol_sweep as _ps
 
 # the reference's stats keys (its jit_* accounting aside), so stats of the
 # two engines compare key for key; the keys of paths that belong to later
-# slices stay 0 here
+# slices (span_*, race_*) stay 0 here
 _STATS_KEYS = ("batched_phases", "evict_batch_rounds", "danger_ops",
                "residual_replays", "danger_vec_ops", "danger_scalar_ops",
                "danger_shared_ops", "danger_subgroup_ops", "span_all_calls",
@@ -102,9 +118,15 @@ class RegCScaleRuntime:
                  model_mechanism: bool = True,
                  instr_s_per_word: float = INSTR_S_PER_WORD,
                  fault_s: float = FAULT_S, fetch_batch: int = 1,
-                 backend: str = "fused", device=None):
+                 backend: str = "fused", cache_pages: Optional[int] = None,
+                 danger_mode: str = "vec", device=None):
         check_choice("protocol", protocol, PROTOCOLS)
         check_choice("backend", backend, BACKENDS)
+        # 'vec' resolves danger-flagged ops through the analytic refetch
+        # schedule, 'scalar' through the per-page walk (the oracle)
+        check_choice("danger_mode", danger_mode, DANGER_MODES)
+        self.danger_mode = danger_mode
+        self.cache_pages = cache_pages
         self.device = resolve_device(device, backend)
         self.backend = backend
         self.W = n_workers
@@ -120,6 +142,7 @@ class RegCScaleRuntime:
         # pages costs ceil(k/fetch_batch) request/reply pairs, not k
         self.fetch_batch = max(1, fetch_batch)
         self._track_wprot = (protocol == PAGE_PROTO and model_mechanism)
+        self._track_touch = cache_pages is not None
 
         self.n_pages = 0
         self._region_starts: List[int] = []     # sorted page_lo per region
@@ -130,6 +153,20 @@ class RegCScaleRuntime:
         self.locks: Dict[int, _Lock] = {}
         self.clock = np.zeros(n_workers)
         self.traffic = Traffic()
+        # per-worker cache occupancy (valid + invalidated-but-not-evicted
+        # pages): the eviction watermark
+        self.resident = np.zeros(n_workers, np.int64)
+        # per-worker FIFO of touch runs
+        # [t0, region, col0, n, off, shift0, pristine]: one monotone tick
+        # per run, so the queue is tick-ordered and an LRU pop is a front
+        # scan that lazily skips re-touched and evicted cells; pristine
+        # runs were never overlapped by a later op of the same worker, so
+        # their live cells are exactly the [off, n) suffix
+        self._lru_q: List[deque] = [deque() for _ in range(n_workers)]
+        self._q_degraded = np.zeros(n_workers, bool)
+        # when a dict, _danger_replay records its eviction schedule into
+        # it (the shared-schedule leader run, see _danger_shared)
+        self._danger_rec: Optional[dict] = None
         self._dirty_regions: List[set] = [set() for _ in range(n_workers)]
         self._reductions: Dict[str, List[Tuple[float, str]]] = {}
         self._reduction_results: Dict[str, float] = {}
@@ -152,8 +189,8 @@ class RegCScaleRuntime:
         self._region_starts_np = np.asarray(self._region_starts, np.int64)
         d = RegionDirectory(
             self.W, len(self.dirs), self.n_pages, self.n_pages + pages,
-            track_wprot=self._track_wprot, backend=self.backend,
-            device=self.device)
+            track_wprot=self._track_wprot, track_touch=self._track_touch,
+            backend=self.backend, device=self.device)
         d.stats = self.stats
         self.dirs.append(d)
         self.n_pages += pages
@@ -183,8 +220,38 @@ class RegCScaleRuntime:
             self.clock[w] += n_words * self.instr_s_per_word
 
     # ------------------------------------------------------------------
-    # per-worker reads / writes (interval API)
+    # interval fetch / LRU eviction (cache_pages)
     # ------------------------------------------------------------------
+
+    _Q_SCAN_LIMIT = 64
+
+    def _q_append(self, w: int, region: int, col0: int, n: int,
+                  shift0: int) -> int:
+        """Append a touch run to w's tick-ordered LRU queue and return its
+        fresh (monotone) tick.  Older queued runs of the same region whose
+        live span overlaps the new run lose their ``pristine`` flag; queues
+        longer than the scan limit degrade wholesale to non-pristine,
+        keeping appends O(1) amortized."""
+        self._tick += 1
+        q = self._lru_q[w]
+        pristine = True
+        if len(q) > self._Q_SCAN_LIMIT:
+            if not self._q_degraded[w]:
+                for e in q:
+                    e[6] = False
+                self._q_degraded[w] = True
+            pristine = False
+        else:
+            self._q_degraded[w] = False
+            hi = col0 + n
+            for e in q:
+                if e[1] != region or not e[6]:
+                    continue
+                ec0 = e[2] + (shift0 - e[5])
+                if ec0 + e[4] < hi and ec0 + e[3] > col0:
+                    e[6] = False
+        q.append([self._tick, region, col0, n, 0, shift0, pristine])
+        return self._tick
 
     def _fetch_range(self, w: int, region: int, p_lo: int, p_hi: int):
         """Make pages [p_lo, p_hi) valid at w, charging misses."""
@@ -193,6 +260,15 @@ class RegCScaleRuntime:
         s = d.sl(w, p_lo, p_hi)
         n = p_hi - p_lo
         n_miss = n - int(d.valid[w, s].sum())
+        if d.touch is not None:
+            # one monotone tick per touch run: column order within a run
+            # is the per-op LRU order
+            d.touch[w, s] = self._q_append(w, region, s.start, n,
+                                           int(d.shift[w]))
+            n_enter = n - int(d.incache[w, s].sum())
+            if n_enter:
+                d.incache[w, s] = True
+                self.resident[w] += n_enter
         if n_miss:
             if self.protocol != IDEAL_PROTO:
                 self.traffic.page_fetches += n_miss
@@ -201,13 +277,586 @@ class RegCScaleRuntime:
                 self._net(w, n_miss * self.page_bytes, 2 * n_req)
             d.valid[w, s] = True
 
+    def _danger(self, w: int, n_enter: int, n: int) -> bool:
+        """Batched end-of-op eviction is exact unless this op can evict a
+        page of its own range (one already occupying a cache slot) before
+        touching it, which the reference would refetch mid-op: that needs
+        an in-cache page in the range and an eviction this op."""
+        return (self.cache_pages is not None
+                and self.protocol != IDEAL_PROTO
+                and n_enter < n
+                and int(self.resident[w]) + n_enter > self.cache_pages)
+
+    def _evict_now(self, w: int, d: RegionDirectory, vc: np.ndarray):
+        """Evict the host columns ``vc`` (ascending tick order) of w's row
+        in region d: dirty victims write back first (one message per page,
+        as the reference's per-page eviction flush), then valid and the
+        cache slot drop."""
+        lo, hi = int(vc[0]), int(vc[-1]) + 1
+        sl = slice(lo, hi) if hi - lo == vc.size else d.ix(vc)
+        dmask = host(d.dirty[w, sl])
+        if dmask.any():
+            db = vc[dmask]
+            d.dirty[w, sl] = False     # only the db cells were set
+            if self.protocol != IDEAL_PROTO:
+                self.traffic.writeback_bytes += db.size * self.page_bytes
+                self.clock[w] += (self.cost.net_latency_s * db.size
+                                  + db.size * self.page_bytes
+                                  / self.cost.net_bw_Bps)
+                if d.wprot is not None:
+                    d.wprot[w, d.ix(db)] = True
+                self._invalidate_sharers(w, d.region, d.base[w] + db)
+        d.valid[w, sl] = False
+        d.incache[w, sl] = False
+        self.resident[w] -= vc.size
+
+    def _evict_cells(self, w: int, k: int):
+        """Evict w's k least-recently-touched cache occupants, scanning the
+        tick-ordered run queue from the front and lazily skipping cells
+        that were re-touched or already evicted."""
+        q = self._lru_q[w]
+        while k > 0:
+            run = q[0]
+            t0, region, col0, n, off, shift0, pristine = run
+            d = self.dirs[region]
+            c0 = col0 + (int(d.shift[w]) - shift0)
+            if pristine:
+                # never re-touched: the victims are a contiguous prefix
+                tk = min(k, n - off)
+                self._evict_now(w, d, np.arange(c0 + off, c0 + off + tk))
+                k -= tk
+                if off + tk == n:
+                    q.popleft()
+                else:
+                    run[4] = off + tk
+                continue
+            sl = slice(c0 + off, c0 + n)      # run cells are contiguous
+            idx = np.nonzero(host((d.touch[w, sl] == t0)
+                                  & d.incache[w, sl]))[0]
+            if idx.size == 0:
+                q.popleft()
+                continue
+            take = idx[:k]
+            self._evict_now(w, d, c0 + off + take)
+            k -= take.size
+            if take.size == idx.size:
+                q.popleft()          # no live cells remain in this run
+            else:
+                run[4] = off + int(take[-1]) + 1
+
+    def _touch_page_exact(self, w: int, d: RegionDirectory, p: int,
+                          fetch: bool) -> int:
+        """Per-page touch/fetch + immediate LRU eviction, the reference's
+        page-by-page sequence for dangerous ops.  Returns the pages fetched
+        (0/1); the caller charges the op's fetch messages once."""
+        col = p - int(d.base[w])
+        valid, inc = torch.stack([d.valid[w, col], d.incache[w, col]]).tolist()
+        n_miss = 0
+        if not valid:
+            if fetch and self.protocol != IDEAL_PROTO:
+                self.traffic.page_fetches += 1
+                self.traffic.fetch_bytes += self.page_bytes
+                n_miss = 1
+            d.valid[w, col] = True
+        if not inc:
+            d.incache[w, col] = True
+            self.resident[w] += 1
+        d.touch[w, col] = self._q_append(w, d.region, col, 1,
+                                         int(d.shift[w]))
+        if self.resident[w] > self.cache_pages:
+            self._evict_cells(w, int(self.resident[w]) - self.cache_pages)
+        return n_miss
+
+    def _danger_replay(self, w: int, d: RegionDirectory, region: int,
+                       p_lo: int, p_hi: int,
+                       fetch_flag: Optional[np.ndarray], *,
+                       is_write: bool) -> int:
+        """The reference's analytic evict-then-refetch schedule for one
+        danger-flagged op: within the op the touch front sweeps the op's
+        columns while the eviction front consumes the worker's LRU victim
+        stream in tick order, and the two meet only at the op's in-cache
+        segments (maximal column runs owned by one pre-op touch run).  A
+        segment none of whose cells was evicted goes stale at no cost; one
+        whose prefix was evicted evicts-then-refetches whole.  Victims are
+        consumed run by run; a run that outlives the demand goes through
+        ``take_upto_row``'s rank-select kernels on the device.  Once the
+        pre-op stream is dry the op consumes its own oldest columns (a
+        prefix).  ``fetch_flag`` marks the pages that charge a fetch when
+        invalid at touch time (None = all).  Returns the fetch-miss count;
+        the caller charges the op's fetch messages once."""
+        C = int(self.cache_pages)
+        base = int(d.base[w])
+        c0 = int(p_lo) - base
+        n = int(p_hi) - int(p_lo)
+        s = slice(c0, c0 + n)
+        incache0, valid0, dirty0 = torch.stack(
+            [d.incache[w, s], d.valid[w, s], d.dirty[w, s]]).cpu().numpy()
+        touch0 = host(d.touch[w, s])
+        R0 = int(self.resident[w])
+        slack = C - R0
+        q = self._lru_q[w]
+        pb = self.page_bytes
+
+        # maximal op segments of constant (in-cache, owning run): cold
+        # cells key to -1, in-cache cells to their touch tick
+        key = np.where(incache0, touch0, np.int64(-1))
+        cuts = np.flatnonzero(np.diff(key)) + 1
+        seg_lo = np.concatenate(([0], cuts))
+        seg_hi = np.concatenate((cuts, [n]))
+
+        evicted_pre = np.zeros(n, bool)   # evicted before their touch
+        touch_front = 0
+        qi = 0                            # victim stream cursor: run index
+        roff = int(q[0][4]) if q else 0   # ... and scan offset within it
+        rec = self._danger_rec            # shared-schedule leader run
+
+        def note_in_op(vc):
+            ej = vc - c0
+            evicted_pre[ej[(ej >= 0) & (ej < n)]] = True
+
+        def consume(k: int) -> int:
+            """Consume k victims from the pre-op stream in tick order,
+            applying eviction effects; returns the shortfall once the
+            stream is exhausted."""
+            nonlocal qi, roff
+            while k > 0 and qi < len(q):
+                run = q[qi]
+                t0r, rg, col0, nr = run[0], run[1], run[2], run[3]
+                if roff >= nr:
+                    qi += 1
+                    roff = int(q[qi][4]) if qi < len(q) else 0
+                    continue
+                dr = self.dirs[rg]
+                cc0 = col0 + (int(dr.shift[w]) - run[5])
+                a, b = cc0 + roff, cc0 + nr
+                in_op = dr is d and a < c0 + n and b > c0
+                if run[6] and not in_op:
+                    # pristine, outside the op: a contiguous live prefix
+                    take = min(k, nr - roff)
+                    if rec is not None:
+                        rec["events"].append((qi, np.arange(roff,
+                                                            roff + take)))
+                    self._evict_now(w, dr, np.arange(a, a + take))
+                    k -= take
+                    roff += take
+                    continue
+                live = (np.ones(b - a, bool) if run[6]
+                        else host((dr.touch[w, a:b] == t0r)
+                                  & dr.incache[w, a:b]))
+                if in_op:
+                    # cells of the op range already touched are the
+                    # newest copies, never pre-op victims
+                    opj = np.arange(a - c0, b - c0)
+                    live &= ~((opj >= 0) & (opj < n) & (opj < touch_front))
+                tot = int(live.sum())
+                if tot <= k:
+                    vc = np.flatnonzero(live) + a
+                    if vc.size:
+                        if rec is not None:
+                            rec["events"].append((qi, vc - cc0))
+                        self._evict_now(w, dr, vc)
+                        if in_op:
+                            note_in_op(vc)
+                    k -= tot
+                    roff = nr
+                    continue
+                take_mask, cut = dr.take_upto_row(
+                    torch.as_tensor(live, device=dr.device), k)
+                vc = torch.nonzero(take_mask).flatten().cpu().numpy() + a
+                if rec is not None:
+                    rec["events"].append((qi, vc - cc0))
+                self._evict_now(w, dr, vc)
+                if in_op:
+                    note_in_op(vc)
+                roff += cut
+                k = 0
+            return k
+
+        enters = 0
+        ev_done = 0
+        own_done = 0
+        for j0, j1 in zip(seg_lo.tolist(), seg_hi.tolist()):
+            if incache0[j0] and not evicted_pre[j0]:
+                touch_front = j1          # stale touches: no enters
+                continue
+            # cold cells, or an in-cache segment whose prefix was already
+            # evicted (the refetch cascade claims the whole segment)
+            enters += j1 - j0
+            target = enters - slack
+            if target > ev_done:
+                own_done += consume(target - ev_done)
+                ev_done = target
+            touch_front = j1
+
+        # fetch misses: every cell invalid at its touch whose page charges
+        miss = ~valid0 | evicted_pre
+        if fetch_flag is not None:
+            miss &= fetch_flag
+        n_miss = int(miss.sum())
+        if n_miss and self.protocol != IDEAL_PROTO:
+            self.traffic.page_fetches += n_miss
+            self.traffic.fetch_bytes += n_miss * pb
+
+        # final plane state of the op range, then the op's own oldest
+        # columns consumed once the stream ran dry (a prefix) evict through
+        # _evict_now, reading their post-touch dirty state off the planes
+        d.valid[w, s] = True
+        d.incache[w, s] = True
+        if is_write:
+            d.dirty[w, s] = True
+            d.maybe_dirty = True
+            self._dirty_regions[w].add(region)
+        else:
+            d.dirty[w, s] = torch.as_tensor(dirty0 & ~evicted_pre,
+                                            device=d.device)
+        if own_done >= n:
+            raise RuntimeError(f"refetch schedule consumed {own_done} of "
+                               f"the op's own {n} pages")
+        if rec is not None:
+            rec.update(qi=qi, roff=roff, evicted_pre=evicted_pre,
+                       enters=enters, own_done=own_done, n_miss=n_miss)
+        if own_done:
+            self._evict_now(w, d, np.arange(c0, c0 + own_done))
+
+        # queue: drop fully-consumed front runs, advance the partial one,
+        # append the op's own touch run (its consumed prefix starts dead)
+        for _ in range(min(qi, len(q))):
+            q.popleft()
+        if q:
+            if roff >= q[0][3]:       # cursor drained the run exactly
+                q.popleft()
+            else:
+                q[0][4] = roff
+        tick = self._q_append(w, region, c0, n, int(d.shift[w]))
+        d.touch[w, s] = tick
+        if own_done:
+            q[-1][4] = own_done
+        self.resident[w] += enters     # _evict_now debited every victim
+        if int(self.resident[w]) != min(R0 + enters, C):
+            raise RuntimeError(f"refetch schedule left worker {w} with "
+                               f"{self.resident[w]} resident pages, not "
+                               f"{min(R0 + enters, C)}")
+        return n_miss
+
+    _DANGER_SHARE_CELLS = 1 << 18
+
+    def _danger_shared(self, rows: np.ndarray, d: RegionDirectory,
+                       region: int, ga, lo: np.ndarray, hi: np.ndarray,
+                       p_lo: np.ndarray, p_hi: np.ndarray, *,
+                       is_write: bool) -> bool:
+        """Resolve lockstep-isomorphic danger workers through ONE shared
+        evict-then-refetch schedule.  The workers must have the same op
+        geometry, the same pre-op valid/incache/dirty (and wprot) patterns
+        over the op range, the same touch-run boundaries and structurally
+        identical LRU queues, checked run by run until the guaranteed
+        victim supply covers the op's demand.  When the check passes the
+        leader replays once with its schedule recorded and the others
+        apply it as batched plane ops with the per-worker charges
+        replicated term for term; returns False (and the caller replays
+        per worker) otherwise."""
+        R = int(rows.size)
+        w0 = int(rows[0])
+        pw = self.page_words
+        L = p_hi[rows] - p_lo[rows]
+        n = int(L[0])
+        if not (L == n).all() or n == 0:
+            return False
+        if is_write:
+            # uniform page phase => uniform partial-page fetch mask
+            if (not (lo[rows] % pw == int(lo[w0]) % pw).all()
+                    or not (hi[rows] % pw == int(hi[w0]) % pw).all()
+                    or not (hi[rows] - lo[rows]
+                            == int(hi[w0]) - int(lo[w0])).all()):
+                return False
+        if not (self.resident[rows] == self.resident[w0]).all():
+            return False
+        qs = [self._lru_q[int(w)] for w in rows]
+        qlen = len(qs[0])
+        if any(len(q) != qlen for q in qs[1:]) or qlen == 0:
+            return False
+        if not (self._q_degraded[rows] == self._q_degraded[w0]).all():
+            return False
+        d.ensure_rows(p_lo[rows], p_hi[rows], rows)
+        c0 = (p_lo[rows] - d.base[rows]).astype(np.int64)
+        colmat = c0[:, None] + np.arange(n)[None, :]
+        inc0, val0, dir0 = (d.cells(pl, rows, colmat)
+                            for pl in (d.incache, d.valid, d.dirty))
+        if ((inc0 != inc0[0]).any() or (val0 != val0[0]).any()
+                or (dir0 != dir0[0]).any()):
+            return False
+        if n > 1:
+            t0 = d.cells(d.touch, rows, colmat)
+            if ((np.diff(t0, axis=1) != 0)
+                    != (np.diff(t0[0]) != 0)[None, :]).any():
+                return False
+        wp_faults = 0
+        if self._track_wprot:
+            wp0 = d.cells(d.wprot, rows, colmat)
+            if (wp0 != wp0[0]).any():
+                return False
+            wp_faults = int(wp0[0].sum())
+
+        # queue walk: verify every run the schedule could consume.  The op
+        # demands at most n victims; a run's guaranteed supply is its live
+        # cells outside the op range, so once the cumulative supply
+        # reaches n the schedule provably looks no further.
+        cum = 0
+        cells = n * R
+        run_info = []               # per run: (region, members' cc0)
+        for j in range(qlen):
+            metas = [q[j] for q in qs]
+            m0 = metas[0]
+            rg, nr, off, pris = m0[1], m0[3], m0[4], m0[6]
+            for mm in metas[1:]:
+                if (mm[1] != rg or mm[3] != nr or mm[4] != off
+                        or mm[6] != pris):
+                    return False
+            dr = self.dirs[rg]
+            cc0 = np.array(
+                [metas[i][2] + (int(dr.shift[rows[i]]) - metas[i][5])
+                 for i in range(R)], np.int64)
+            if rg == region and not ((cc0 - c0) == (cc0[0] - c0[0])).all():
+                return False
+            run_info.append((rg, cc0))
+            ln = nr - off
+            if ln <= 0:
+                continue
+            cells += ln * R
+            if cells > self._DANGER_SHARE_CELLS:
+                return False
+            cm = cc0[:, None] + np.arange(off, nr)[None, :]
+            dm = dr.cells(dr.dirty, rows, cm)
+            if (dm != dm[0]).any():
+                return False
+            if rg == region:
+                cols0 = cc0[0] + np.arange(off, nr)
+                outside = (cols0 < c0[0]) | (cols0 >= c0[0] + n)
+            else:
+                outside = None
+            if pris:
+                cum += int(outside.sum()) if outside is not None else ln
+            else:
+                tks = np.array([metas[i][0] for i in range(R)], np.int64)
+                lv = ((dr.cells(dr.touch, rows, cm) == tks[:, None])
+                      & dr.cells(dr.incache, rows, cm))
+                if (lv != lv[0]).any():
+                    return False
+                cum += int((lv[0] & outside).sum() if outside is not None
+                           else lv[0].sum())
+            if cum >= n:
+                break
+
+        # the leader runs the ordinary replay, recording the schedule
+        self._danger_rec = rec = {"events": []}
+        try:
+            if is_write:
+                self.write(w0, ga, int(lo[w0]), int(hi[w0]))
+            else:
+                self.read(w0, ga, int(lo[w0]), int(hi[w0]))
+        finally:
+            self._danger_rec = None
+        self._danger_apply(rows, d, region, lo, hi, p_lo, p_hi, rec,
+                           run_info, c0, colmat, dir0[0],
+                           wp_faults, is_write=is_write)
+        # the members resolve vectorized too (the leader's call counted
+        # itself)
+        self.stats["danger_vec_ops"] += R - 1
+        self.stats["danger_shared_ops"] += R
+        return True
+
+    def _danger_apply(self, rows: np.ndarray, d: RegionDirectory,
+                      region: int, lo, hi, p_lo, p_hi, rec: dict,
+                      run_info, c0: np.ndarray, colmat: np.ndarray,
+                      dirty0: np.ndarray, wp_faults: int, *,
+                      is_write: bool):
+        """Apply the leader's recorded schedule to the other isomorphic
+        rows as batched plane ops, replicating the per-worker charge
+        sequence term for term (see _danger_shared)."""
+        m = rows[1:]
+        R = int(m.size)
+        cm_op = colmat[1:]
+        n = int(p_hi[rows[0]] - p_lo[rows[0]])
+        pb = self.page_bytes
+        lat = self.cost.net_latency_s
+        bwd = self.cost.net_bw_Bps
+        op_cells = (d.ix(m)[:, None], d.ix(cm_op))
+
+        if is_write:
+            # write()'s pre-danger charges: instrumented stores, then
+            # write faults (wprot cleared over the range)
+            if self.model_mechanism and self.protocol == FINE_PROTO:
+                self.clock[m] += ((int(hi[rows[0]]) - int(lo[rows[0]]))
+                                  * self.instr_s_per_word)
+            if self._track_wprot:
+                self.clock[m] += wp_faults * self.fault_s
+                d.wprot[op_cells] = False
+            d.note_dirty(m, p_lo[m], p_hi[m])
+
+        def evict_cols(dr: RegionDirectory, cols: np.ndarray):
+            blk = (dr.ix(m)[:, None], dr.ix(cols))
+            dm = host(dr.dirty[blk])
+            db = int(dm[0].sum())
+            if not (dm.sum(axis=1) == db).all():
+                raise RuntimeError("shared danger schedule: rows are not "
+                                   "isomorphic")
+            if db:
+                r_i, c_i = np.nonzero(dm)
+                hot = (dr.ix(m[r_i]), dr.ix(cols[r_i, c_i]))
+                dr.dirty[hot] = False
+                self.traffic.writeback_bytes += db * pb * R
+                self.clock[m] += (lat * db + db * pb / bwd)
+                if dr.wprot is not None:
+                    dr.wprot[hot] = True
+                # sharer invalidation is a proven no-op: shared danger
+                # rows come from the independent set
+            dr.valid[blk] = False
+            dr.incache[blk] = False
+            self.resident[m] -= cols.shape[1]
+
+        for qi_ev, rel in rec["events"]:
+            rg, cc0 = run_info[qi_ev]
+            evict_cols(self.dirs[rg], cc0[1:][:, None] + rel[None, :])
+
+        # fetch-miss traffic + the op's final plane state
+        n_miss = rec["n_miss"]
+        if n_miss:
+            self.traffic.page_fetches += n_miss * R
+            self.traffic.fetch_bytes += n_miss * pb * R
+        d.valid[op_cells] = True
+        d.incache[op_cells] = True
+        if is_write:
+            d.dirty[op_cells] = True
+            d.maybe_dirty = True
+            for w in m:
+                self._dirty_regions[w].add(region)
+        else:
+            d.dirty[op_cells] = torch.as_tensor(
+                dirty0 & ~rec["evicted_pre"], device=d.device)[None, :]
+        own_done = rec["own_done"]
+        if own_done:
+            evict_cols(d, cm_op[:, :own_done])
+
+        # queue cleanup + the op's own touch run, per row
+        qi, roff = rec["qi"], rec["roff"]
+        ticks = np.empty(R, np.int64)
+        for i, w in enumerate(m):
+            q = self._lru_q[w]
+            for _ in range(min(qi, len(q))):
+                q.popleft()
+            if q:
+                if roff >= q[0][3]:
+                    q.popleft()
+                else:
+                    q[0][4] = roff
+            ticks[i] = self._q_append(int(w), region, int(c0[1 + i]), n,
+                                      int(d.shift[w]))
+            if own_done:
+                q[-1][4] = own_done
+        d.touch[op_cells] = d.ix(ticks)[:, None]
+        self.resident[m] += rec["enters"]
+        if not (self.resident[m] == min(int(self.resident[rows[0]]),
+                                        int(self.cache_pages))).all():
+            raise RuntimeError("shared danger schedule: resident counts "
+                               "diverged")
+
+        # the op's fetch messages, once per worker (read/write charge
+        # these after _danger_replay returns)
+        if n_miss:
+            self.clock[m] += self.cost.xfer_s(
+                n_miss * pb, 2 * -(-n_miss // self.fetch_batch))
+
+    def _danger_sig(self, w: int, d: RegionDirectory, lo, hi,
+                    p_lo, p_hi, *, is_write: bool) -> tuple:
+        """Per-row isomorphism-class key for ``_danger_subgroups``: op
+        geometry, occupancy, op-range plane patterns and the LRU queue's
+        run structure.  Equal keys only make candidates:
+        ``_danger_shared`` re-verifies every cross-row condition."""
+        pw = self.page_words
+        p0, p1 = int(p_lo[w]), int(p_hi[w])
+        n = p1 - p0
+        s = d.sl(w, p0, p1)
+        sig: list = [n, int(self.resident[w]), bool(self._q_degraded[w])]
+        if is_write:
+            sig += [int(lo[w]) % pw, int(hi[w]) % pw,
+                    int(hi[w]) - int(lo[w])]
+        planes = [d.incache[w, s], d.valid[w, s], d.dirty[w, s]]
+        if self._track_wprot:
+            planes.append(d.wprot[w, s])
+        sig.append(torch.stack(planes).cpu().numpy().tobytes())
+        if n > 1:
+            sig.append((np.diff(host(d.touch[w, s])) != 0).tobytes())
+        c0 = p0 - int(d.base[w])
+        for _t0, rg, col0, nr, off, shift0, pris in self._lru_q[w]:
+            cc = col0 + (int(self.dirs[rg].shift[w]) - shift0)
+            sig.append((rg, nr, off, bool(pris),
+                        cc - c0 if rg == d.region else -(1 << 30)))
+        return tuple(sig)
+
+    def _danger_subgroups(self, drows: np.ndarray, d: RegionDirectory,
+                          ga, lo, hi, p_lo, p_hi, *,
+                          is_write: bool) -> np.ndarray:
+        """When the whole-group ``_danger_shared`` check fails, partition
+        the danger rows by ``_danger_sig`` and let every class of >= 2 rows
+        (short of the whole group) try the shared schedule on its own.
+        Returns the rows left to replay per worker, ascending."""
+        groups: Dict[tuple, List[int]] = {}
+        d.ensure_rows(p_lo[drows], p_hi[drows], drows)
+        for w in drows.tolist():
+            groups.setdefault(self._danger_sig(w, d, lo, hi, p_lo, p_hi,
+                                               is_write=is_write),
+                              []).append(w)
+        resid: List[int] = []
+        for ws in groups.values():
+            grp = np.asarray(ws, np.int64)
+            if (2 <= grp.size < drows.size
+                    and self._danger_shared(grp, d, d.region, ga, lo, hi,
+                                            p_lo, p_hi,
+                                            is_write=is_write)):
+                self.stats["danger_subgroup_ops"] += int(grp.size)
+                continue
+            resid.extend(ws)
+        resid.sort()
+        return np.asarray(resid, np.int64)
+
+    def _maybe_evict(self, w: int):
+        """Watermark-triggered eviction: no per-op work unless the
+        occupancy counter crossed ``cache_pages``."""
+        if self.cache_pages is None or self.resident[w] <= self.cache_pages:
+            return
+        self._evict_cells(w, int(self.resident[w]) - self.cache_pages)
+
+    # ------------------------------------------------------------------
+    # per-worker reads / writes (interval API)
+    # ------------------------------------------------------------------
+
     def read(self, w: int, ga: GasArray, lo: int, hi: int):
         region = self._region_of(ga.page_lo)
         p_lo = ga.page_lo + lo // self.page_words
         p_hi = ga.page_lo + (max(hi - 1, lo)) // self.page_words + 1
         arr_end = ga.page_lo + -(-ga.n_elems // self.page_words)
         p_hi = max(min(p_hi + self.prefetch, arr_end), p_hi)  # prefetch
+        if self.cache_pages is not None:
+            d = self.dirs[region]
+            d.ensure(w, p_lo, p_hi)
+            s = d.sl(w, p_lo, p_hi)
+            n = p_hi - p_lo
+            n_enter = n - int(d.incache[w, s].sum())
+            if self._danger(w, n_enter, n):
+                if self.danger_mode == "vec" and self.cache_pages >= 1:
+                    self.stats["danger_vec_ops"] += 1
+                    n_miss = self._danger_replay(w, d, region, p_lo, p_hi,
+                                                 None, is_write=False)
+                else:
+                    self.stats["danger_scalar_ops"] += 1
+                    n_miss = 0
+                    for p in range(p_lo, p_hi):
+                        n_miss += self._touch_page_exact(w, d, p, fetch=True)
+                if n_miss:
+                    self._net(w, n_miss * self.page_bytes,
+                              2 * -(-n_miss // self.fetch_batch))
+                return
         self._fetch_range(w, region, p_lo, p_hi)
+        self._maybe_evict(w)
 
     def write(self, w: int, ga: GasArray, lo: int, hi: int):
         region = self._region_of(ga.page_lo)
@@ -229,6 +878,15 @@ class RegCScaleRuntime:
             self.clock[w] += n_faults * self.fault_s
             d.wprot[w, s] = False
 
+        if self.cache_pages is not None and self.protocol != IDEAL_PROTO:
+            s = d.sl(w, p_lo, p_hi)
+            n = p_hi - p_lo
+            n_enter0 = n - int(d.incache[w, s].sum())
+            if self._danger(w, n_enter0, n):
+                self._danger_write(w, ga, d, region, lo, hi, p_lo, p_hi,
+                                   in_span)
+                return
+
         # write-allocate: partial edge pages must be fetched; interior
         # full-page writes just become valid
         if self.protocol != IDEAL_PROTO:
@@ -241,6 +899,14 @@ class RegCScaleRuntime:
                 if hi % self.page_words != 0:
                     self._fetch_range(w, region, p_hi - 1, p_hi)
         s = d.sl(w, p_lo, p_hi)
+        if d.touch is not None:
+            n = p_hi - p_lo
+            d.touch[w, s] = self._q_append(w, region, s.start, n,
+                                           int(d.shift[w]))
+            n_enter = n - int(d.incache[w, s].sum())
+            if n_enter:
+                d.incache[w, s] = True
+                self.resident[w] += n_enter
         d.valid[w, s] = True
 
         if in_span:
@@ -248,15 +914,63 @@ class RegCScaleRuntime:
             if span.plane:
                 self._span_note(w, span, d, region, ga, lo, hi, p_lo, p_hi)
             else:
-                for p in range(p_lo, p_hi):
-                    wlo, whi = ga.word_range_in_page(p, lo, hi)
-                    old = span.touched.get(p)
-                    span.touched[p] = ((min(wlo, old[0]), max(whi, old[1]))
-                                       if old else (wlo, whi))
+                self._span_touch_dict(span, ga, lo, hi, p_lo, p_hi)
         else:
             d.dirty[w, s] = True
             d.maybe_dirty = True
             self._dirty_regions[w].add(region)
+        self._maybe_evict(w)
+
+    @staticmethod
+    def _span_touch_dict(span: _Span, ga, lo: int, hi: int, p_lo: int,
+                         p_hi: int):
+        """Merge one in-span write's per-page word intervals into a nested
+        span's per-page dict."""
+        for p in range(p_lo, p_hi):
+            wlo, whi = ga.word_range_in_page(p, lo, hi)
+            old = span.touched.get(p)
+            span.touched[p] = ((min(wlo, old[0]), max(whi, old[1]))
+                               if old else (wlo, whi))
+
+    def _danger_write(self, w: int, ga, d: RegionDirectory, region: int,
+                      lo: int, hi: int, p_lo: int, p_hi: int,
+                      in_span: bool):
+        """A danger-flagged write: the analytic refetch schedule outside
+        spans (with the partial-page fetch mask), else the reference's
+        exact per-page write-allocate + LRU walk (in-span writes touch few
+        pages; their intervals land in the span planes in one note after
+        the walk, which eviction never reads)."""
+        pw = self.page_words
+        if self.danger_mode == "vec" and self.cache_pages >= 1 \
+                and not in_span:
+            self.stats["danger_vec_ops"] += 1
+            bw_ = (np.arange(p_lo, p_hi) - ga.page_lo) * pw
+            partial = (np.minimum(hi - bw_, pw) - np.maximum(lo - bw_, 0)
+                       < pw)
+            n_miss = self._danger_replay(w, d, region, p_lo, p_hi, partial,
+                                         is_write=True)
+        else:
+            self.stats["danger_scalar_ops"] += 1
+            span = self.spans[w][-1] if in_span else None
+            base = int(d.base[w])
+            n_miss = 0
+            for p in range(p_lo, p_hi):
+                wlo, whi = ga.word_range_in_page(p, lo, hi)
+                n_miss += self._touch_page_exact(w, d, p,
+                                                 fetch=(whi - wlo) < pw)
+                if not in_span:
+                    d.dirty[w, p - base] = True
+                    d.maybe_dirty = True
+                    self._dirty_regions[w].add(region)
+            if in_span:
+                if span.plane:
+                    self._span_note(w, span, d, region, ga, lo, hi, p_lo,
+                                    p_hi)
+                else:
+                    self._span_touch_dict(span, ga, lo, hi, p_lo, p_hi)
+        if n_miss:
+            self._net(w, n_miss * self.page_bytes,
+                      2 * -(-n_miss // self.fetch_batch))
 
     # ------------------------------------------------------------------
     # ordinary flush (page granularity in both protocols)
@@ -646,6 +1360,234 @@ class RegCScaleRuntime:
             p_hi = np.maximum(np.minimum(p_hi + self.prefetch, arr_end), p_hi)
         return self._region_of(int(ga.page_lo)), p_lo, p_hi
 
+    def _may_evict_mask(self, ranges) -> Optional[np.ndarray]:
+        """Per-worker eviction-possibility upper bound for one phase: a
+        page can newly occupy a cache slot only if it is out of cache at
+        phase start and lies in a declared range, so ``resident + sum over
+        ops of (range length - in-cache count)`` bounds each worker's peak
+        occupancy.  None when no worker can cross the watermark."""
+        if self.cache_pages is None:
+            return None
+        quick = self.resident.copy()
+        for region, p_lo, p_hi in ranges:
+            quick += p_hi - p_lo
+        if (quick <= self.cache_pages).all():
+            return None            # even all-cold ranges fit: no gathers
+        ub = self.resident.copy()
+        for region, p_lo, p_hi in ranges:
+            d = self.dirs[region]
+            ub += (p_hi - p_lo) - d.count_range(d.incache, p_lo, p_hi)
+        may = ub > self.cache_pages
+        return may if may.any() else None
+
+    def _residual_workers(self, rranges, wranges,
+                          may: np.ndarray) -> np.ndarray:
+        """Window-disjointness analysis: which workers' phase executions
+        can interact through eviction.  Within a phase the only
+        cross-worker effect is an eviction writeback invalidating another
+        worker's valid copy; an evictor's dirty victims lie inside its
+        dirty bounds (widened by this phase's write ranges), and another
+        worker sees the writeback only if those pages meet its reach
+        (window plus declared ranges).  Workers in no such intersection
+        run batched; the returned mask marks the rest, which replay in
+        tick order."""
+        resid = np.zeros(self.W, bool)
+
+        def hull(ranges):
+            out: Dict[int, list] = {}
+            for region, p_lo, p_hi in ranges:
+                r = out.get(region)
+                if r is None:
+                    out[region] = [p_lo.copy(), p_hi.copy()]
+                else:
+                    np.minimum(r[0], p_lo, out=r[0])
+                    np.maximum(r[1], p_hi, out=r[1])
+            return out
+
+        reach = hull(rranges + wranges)
+        wr = hull(wranges)
+        imax = np.iinfo(np.int64).max
+        imin = np.iinfo(np.int64).min
+        for ri, d in enumerate(self.dirs):
+            dlo, dhi = d.dirty_lo, d.dirty_hi
+            if ri in wr:
+                dlo = np.minimum(dlo, wr[ri][0])
+                dhi = np.maximum(dhi, wr[ri][1])
+            e = may & (dlo < dhi)
+            if not e.any():
+                continue
+            live = d.base >= 0
+            rlo = np.where(live, d.base, imax)
+            rhi = np.where(live, d.base + d.length, imin)
+            if ri in reach:
+                rlo = np.minimum(rlo, reach[ri][0])
+                rhi = np.maximum(rhi, reach[ri][1])
+                live = np.ones(self.W, bool)
+            E = np.nonzero(e)[0]
+            M = ((rlo[None, :] < dhi[E][:, None])
+                 & (rhi[None, :] > dlo[E][:, None]) & live[None, :])
+            M[np.arange(E.size), E] = False
+            if M.any():
+                ei, vi = np.nonzero(M)
+                resid[E[ei]] = True
+                resid[vi] = True
+        return resid
+
+    def _op_danger_split(self, d: RegionDirectory, ga, lo, hi, p_lo, p_hi,
+                         rows: np.ndarray, may: np.ndarray, *,
+                         is_write: bool) -> np.ndarray:
+        """Per-op ``_danger`` screen for the batched path: workers whose op
+        could evict a still-cached page of its own range before touching
+        it resolve THIS op through ``read``/``write`` (the refetch
+        schedule, shared across isomorphic rows where possible); the rest
+        stay batched.  Exact because the rows are proven independent.
+        Returns the rows that stay batched."""
+        if self.protocol == IDEAL_PROTO:
+            return rows
+        L = p_hi - p_lo
+        cand = may[rows] & (self.resident[rows] + L[rows] > self.cache_pages)
+        if not cand.any():
+            return rows
+        crows = rows[cand]
+        n_in = d.count_range(d.incache, p_lo[crows], p_hi[crows], rows=crows)
+        n_enter = L[crows] - n_in
+        danger = (n_enter < L[crows]) & (
+            self.resident[crows] + n_enter > self.cache_pages)
+        if not danger.any():
+            return rows
+        drows = crows[danger]
+        self.stats["danger_ops"] += int(drows.size)
+        shareable = (drows.size >= 2 and self.danger_mode == "vec"
+                     and self.cache_pages >= 1)
+        if not (shareable
+                and self._danger_shared(drows, d, d.region, ga, lo, hi,
+                                        p_lo, p_hi, is_write=is_write)):
+            # a group that failed the whole-group check may still hold a
+            # lockstep subgroup
+            resid = (self._danger_subgroups(drows, d, ga, lo, hi,
+                                            p_lo, p_hi, is_write=is_write)
+                     if shareable and drows.size >= 3 else drows)
+            op = self.write if is_write else self.read
+            for w in resid:
+                op(int(w), ga, int(lo[w]), int(hi[w]))
+        keep = np.ones(rows.size, bool)
+        keep[np.nonzero(cand)[0][danger]] = False
+        return rows[keep]
+
+    def _evict_rows_batch(self, rows: np.ndarray):
+        """Watermark eviction for ``rows`` after a batched op: each worker
+        over the watermark evicts its least-recently-touched pages run by
+        run from its queue (the victims and per-run charges of
+        ``_evict_cells``), but rows whose front runs cover the same column
+        span apply liveness, segment-LRU selection and plane updates as
+        single 2D ops (``run_live``/``lru_take``/``evict_rows``).  Only
+        called for workers proven independent, so the sharer-invalidation
+        step is skipped as a no-op."""
+        if rows.size == 0 or self.cache_pages is None:
+            return
+        k = self.resident[rows] - self.cache_pages
+        over = k > 0
+        if not over.any():
+            return
+        rows = rows[over]
+        k = k[over].astype(np.int64)
+        charge = self.protocol != IDEAL_PROTO
+        while rows.size:
+            if rows.size < 4:
+                for w, kw in zip(rows, k):
+                    self._evict_cells(int(w), int(kw))
+                return
+            self.stats["evict_batch_rounds"] += 1
+            # one front run per needy worker, grouped by column span
+            groups: Dict[Tuple[int, int, int, bool], list] = {}
+            bts = np.empty(rows.size, np.int64)
+            for i, w in enumerate(rows):
+                t0, region, col0, n, off, shift0, pris = self._lru_q[w][0]
+                d = self.dirs[region]
+                c0 = col0 + (int(d.shift[w]) - shift0)
+                bts[i] = t0
+                groups.setdefault((region, c0 + off, n - off, pris),
+                                  []).append(i)
+            keep_rows, keep_k = [], []
+            for (region, start, length, pris), idxs in groups.items():
+                idxs = np.asarray(idxs, np.int64)
+                R, kk = rows[idxs], k[idxs]
+                d = self.dirs[region]
+                if R.size < 4:
+                    for w, kw in zip(R, kk):
+                        self._evict_cells(int(w), int(kw))
+                    continue
+                if pris:
+                    live = None
+                    tot = np.full(R.size, length, np.int64)
+                else:
+                    live = d.run_live(R, start, length, bts[idxs])
+                    tot = live.sum(dim=1).cpu().numpy()
+                part = kk < tot
+                for si in (np.nonzero(~part)[0], np.nonzero(part)[0]):
+                    if si.size == 0:
+                        continue
+                    is_part = bool(part[si[0]])
+                    whole = si.size == R.size
+                    Rs, ks = R[si], kk[si]
+                    tots = tot[si]
+                    fully = pris or bool((tots == length).all())
+                    # segment-LRU selection only where the run outlives the
+                    # demand; whole-run and prefix takes of fully-live
+                    # runs skip masks
+                    span = length
+                    if not is_part:
+                        take = (None if fully
+                                else live if whole else live[d.ix(si)])
+                    elif pris and int(ks.min()) == int(ks.max()):
+                        span = int(ks[0])      # uniform prefix: short span
+                        take = None
+                    elif pris:
+                        take = (torch.arange(length, device=d.device)[None]
+                                < d.ix(ks)[:, None])
+                    else:
+                        lv = live if whole else live[d.ix(si)]
+                        take = d.lru_take(lv, ks, tots)
+                    db = d.evict_rows(Rs, start, span, take,
+                                      set_wprot=charge)
+                    if charge and db.any():
+                        self.traffic.writeback_bytes += (int(db.sum())
+                                                         * self.page_bytes)
+                        hit = db > 0
+                        self.clock[Rs[hit]] += (
+                            self.cost.net_latency_s * db[hit]
+                            + db[hit] * self.page_bytes
+                            / self.cost.net_bw_Bps)
+                    if is_part:
+                        # advance each run past its last taken cell
+                        self.resident[Rs] -= ks
+                        if fully:          # columnar take: cutoff is k
+                            last = ks - 1
+                        else:
+                            last = (take.shape[1] - 1 - torch.argmax(
+                                torch.flip(take, dims=[1]).to(torch.int8),
+                                dim=1)).cpu().numpy()
+                        for i, w in enumerate(Rs):
+                            self._lru_q[w][0][4] += int(last[i]) + 1
+                    else:
+                        self.resident[Rs] -= tots
+                        for w in Rs:
+                            self._lru_q[w].popleft()
+                        rem = ks - tots
+                        m = rem > 0
+                        if m.any():
+                            keep_rows.append(Rs[m])
+                            keep_k.append(rem[m])
+            if not keep_rows:
+                return
+            rows = np.concatenate(keep_rows)
+            k = np.concatenate(keep_k)
+            # leftovers concatenate in group order: restore the ascending
+            # row order every plane primitive assumes
+            order = np.argsort(rows)
+            rows = rows[order]
+            k = k[order]
+
     def _fetch_range_all(self, region: int, p_lo: np.ndarray,
                          p_hi: np.ndarray, rows: np.ndarray):
         """Vectorized ``_fetch_range`` over ``rows``: identical per-worker
@@ -657,14 +1599,14 @@ class RegCScaleRuntime:
         d.ensure_rows(p_lo, p_hi, rows)
         L = p_hi - p_lo
         if use_dense(rows.size, int(L.max())):
-            self._fetch_dense(d, p_lo, p_hi, rows)
+            self._fetch_dense(d, region, p_lo, p_hi, rows)
             return
         c0 = p_lo - d.base[rows]
         uk, inv = np.unique(np.stack([c0, L], axis=1), axis=0,
                             return_inverse=True)
         inv = inv.reshape(-1)
         for g in range(uk.shape[0]):
-            self._fetch_uniform(d, rows[inv == g], int(uk[g, 0]),
+            self._fetch_uniform(d, region, rows[inv == g], int(uk[g, 0]),
                                 int(uk[g, 1]))
 
     def _charge_misses(self, rows: np.ndarray, n_miss: np.ndarray):
@@ -681,52 +1623,114 @@ class RegCScaleRuntime:
             self.clock[rows[hit]] += t[hit]
         return tot_miss
 
-    def _fetch_uniform(self, d: RegionDirectory, rows: np.ndarray, c0: int,
-                       n: int):
+    def _touch_runs(self, d: RegionDirectory, region: int,
+                    rows: np.ndarray, c0, n) -> np.ndarray:
+        """Append one touch run per row (columns [c0[i], c0[i]+n[i]) of
+        row rows[i]; scalars broadcast) and return the rows' fresh ticks,
+        host int64."""
+        c0 = np.broadcast_to(c0, rows.shape)
+        n = np.broadcast_to(n, rows.shape)
+        shifts = d.shift[rows]
+        return np.array([self._q_append(int(w), region, int(c0[i]),
+                                        int(n[i]), int(shifts[i]))
+                         for i, w in enumerate(rows)], np.int64)
+
+    def _touch_block(self, d: RegionDirectory, region: int,
+                     rows: np.ndarray, rb, s: slice, c0: int, n: int):
+        """Touch-run bookkeeping of a uniform-span group: fresh ticks on
+        columns ``s`` of ``rows`` (row indexer ``rb``), which enter the
+        cache."""
+        d.touch[rb, s] = d.ix(self._touch_runs(d, region, rows, c0, n))[:,
+                                                                       None]
+        n_enter = n - d.incache[rb, s].sum(dim=1).cpu().numpy()
+        d.incache[rb, s] = True
+        self.resident[rows] += n_enter
+
+    def _touch_cells(self, d: RegionDirectory, region: int,
+                     rows: np.ndarray, cols: np.ndarray, mask: np.ndarray,
+                     n: np.ndarray):
+        """Touch-run bookkeeping of a dense group: fresh ticks on the
+        ``mask`` cells of the (R, Lmax) column matrix ``cols``, which
+        enter the cache."""
+        t0 = self._touch_runs(d, region, rows, cols[:, 0], n)
+        ri, ci = np.nonzero(mask)
+        d.touch[d.ix(rows[ri]), d.ix(cols[ri, ci])] = d.ix(t0[ri])
+        isub = d.cells(d.incache, rows, np.where(mask, cols, 0)) & mask
+        ri, ci = np.nonzero(mask & ~isub)
+        if ri.size:
+            d.incache[d.ix(rows[ri]), d.ix(cols[ri, ci])] = True
+        self.resident[rows] += n - isub.sum(axis=1)
+
+    def _fetch_uniform(self, d: RegionDirectory, region: int,
+                       rows: np.ndarray, c0: int, n: int):
         """One uniform-span fetch group: all ``rows`` fetch columns
         [c0, c0+n) of their windows — 2D slice ops, no gather."""
         s = slice(c0, c0 + n)
         rb = d.row_block(rows)
         n_miss = n - d.valid[rb, s].sum(dim=1).cpu().numpy()
+        if d.touch is not None:
+            self._touch_block(d, region, rows, rb, s, c0, n)
         if self._charge_misses(rows, n_miss):
             d.valid[rb, s] = True
 
-    def _fetch_dense(self, d: RegionDirectory, p_lo: np.ndarray,
-                     p_hi: np.ndarray, rows: np.ndarray):
+    def _fetch_dense(self, d: RegionDirectory, region: int,
+                     p_lo: np.ndarray, p_hi: np.ndarray, rows: np.ndarray):
         cols, mask = d.range_cols(p_lo, p_hi, rows)
-        r2 = d.ix(rows)[:, None]
-        c2 = d.ix(np.where(mask, cols, 0))
-        vsub = d.valid[r2, c2].cpu().numpy() & mask
+        vsub = d.cells(d.valid, rows, np.where(mask, cols, 0)) & mask
         n_miss = (p_hi - p_lo) - vsub.sum(axis=1)
+        if d.touch is not None:
+            self._touch_cells(d, region, rows, cols, mask, p_hi - p_lo)
         if self._charge_misses(rows, n_miss):
             ri, ci = np.nonzero(mask & ~vsub)
             d.valid[d.ix(rows[ri]), d.ix(cols[ri, ci])] = True
 
-    def _read_all(self, ga, lo: np.ndarray, hi: np.ndarray):
+    def _read_all(self, ga, lo: np.ndarray, hi: np.ndarray,
+                  rows: Optional[np.ndarray] = None,
+                  may: Optional[np.ndarray] = None):
+        """One batched read op over ``rows`` (default all); with ``may``
+        (the phase's eviction mask) the danger screen runs first and the
+        op ends in watermark eviction."""
         region, p_lo, p_hi = self._page_range_all(ga, lo, hi, prefetch=True)
-        self._fetch_range_all(region, p_lo, p_hi, self._rows_all)
+        rows = self._rows_all if rows is None else rows
+        if may is not None:
+            rows = self._op_danger_split(self.dirs[region], ga, lo, hi,
+                                         p_lo, p_hi, rows, may,
+                                         is_write=False)
+        if rows.size:
+            self._fetch_range_all(region, p_lo[rows], p_hi[rows], rows)
+        if may is not None:
+            self._evict_rows_batch(rows)
 
-    def _write_all(self, ga, lo: np.ndarray, hi: np.ndarray):
+    def _write_all(self, ga, lo: np.ndarray, hi: np.ndarray,
+                   rows: Optional[np.ndarray] = None,
+                   may: Optional[np.ndarray] = None):
+        """One batched write op; ``rows``/``may`` as for ``_read_all``."""
         region, p_lo, p_hi = self._page_range_all(ga, lo, hi, prefetch=False)
         d = self.dirs[region]
-        rows = self._rows_all
-        d.ensure_rows(p_lo, p_hi, rows)
-        d.note_dirty(rows, p_lo, p_hi)
-        L = p_hi - p_lo
-        if use_dense(rows.size, int(L.max())):
-            self._write_dense(d, region, lo, hi, p_lo, p_hi, rows)
-        else:
-            c0 = p_lo - d.base[rows]
-            uk, inv = np.unique(np.stack([c0, L], axis=1), axis=0,
-                                return_inverse=True)
-            inv = inv.reshape(-1)
-            for g in range(uk.shape[0]):
-                self._write_uniform(d, region, lo, hi, p_lo, p_hi,
-                                    rows[inv == g],
-                                    int(uk[g, 0]), int(uk[g, 1]))
-        d.maybe_dirty = True
-        for w in rows:
-            self._dirty_regions[w].add(region)
+        rows = self._rows_all if rows is None else rows
+        if may is not None:
+            rows = self._op_danger_split(d, ga, lo, hi, p_lo, p_hi, rows,
+                                         may, is_write=True)
+        if rows.size:
+            d.ensure_rows(p_lo[rows], p_hi[rows], rows)
+            d.note_dirty(rows, p_lo[rows], p_hi[rows])
+            L = (p_hi - p_lo)[rows]
+            if use_dense(rows.size, int(L.max())):
+                self._write_dense(d, region, lo, hi, p_lo, p_hi, rows)
+            else:
+                c0 = p_lo[rows] - d.base[rows]
+                uk, inv = np.unique(np.stack([c0, L], axis=1), axis=0,
+                                    return_inverse=True)
+                inv = inv.reshape(-1)
+                for g in range(uk.shape[0]):
+                    self._write_uniform(d, region, lo, hi, p_lo, p_hi,
+                                        rows[inv == g],
+                                        int(uk[g, 0]), int(uk[g, 1]))
+            d.maybe_dirty = True
+            for w in rows:
+                self._dirty_regions[w].add(region)
+        if may is not None:
+            self._evict_rows_batch(rows)
 
     def _write_edges(self, region: int, first: np.ndarray, last: np.ndarray,
                      p_lo: np.ndarray, p_hi: np.ndarray, rows: np.ndarray):
@@ -764,6 +1768,8 @@ class RegCScaleRuntime:
             first = np.where(single, n_words < pw, lo[rows] % pw != 0)
             last = (~single) & (hi[rows] % pw != 0)
             self._write_edges(region, first, last, p_lo, p_hi, rows)
+        if d.touch is not None:
+            self._touch_cells(d, region, rows, cols, mask, n_pg)
         d.valid[cells] = True
         d.dirty[cells] = True
 
@@ -791,6 +1797,8 @@ class RegCScaleRuntime:
                 first = lo[rows] % pw != 0
                 last = hi[rows] % pw != 0
             self._write_edges(region, first, last, p_lo, p_hi, rows)
+        if d.touch is not None:
+            self._touch_block(d, region, rows, rb, s, c0, n)
         d.valid[rb, s] = True
         d.dirty[rb, s] = True
 
@@ -802,10 +1810,19 @@ class RegCScaleRuntime:
         ``lo``/``hi`` as (W,) int arrays (scalars broadcast);
         ``flops``/``mem_bytes``/``seconds``/``instr_words`` may be scalars
         or (W,) arrays.  Bit-exactly equivalent to
-        ``for w in range(W): phase(w, ...)``: without eviction, workers
-        do not interact within a phase, so ops run op-major as single
-        vectorized passes over the (W, window) planes.  Must be called
-        outside spans."""
+        ``for w in range(W): phase(w, ...)``.  Within a phase workers
+        interact only through eviction writebacks, so:
+
+        * when no worker can cross the eviction watermark
+          (``_may_evict_mask``), ops run op-major as single vectorized
+          passes over the (W, window) planes;
+        * otherwise the workers that ``_residual_workers`` proves
+          independent run batched too, with per-op watermark eviction
+          (``_evict_rows_batch``) and the per-op danger screen;
+        * only the residual interacting workers replay through the
+          per-worker ``phase``, in worker order.
+
+        Must be called outside spans."""
         if any(self.spans):
             raise RuntimeError("phase_all must run outside spans")
         self._phase_idx += 1
@@ -814,23 +1831,55 @@ class RegCScaleRuntime:
                  for ga, lo, hi in reads]
         writes = [(ga, self._w_arr(lo), self._w_arr(hi))
                   for ga, lo, hi in writes]
+        rranges = [self._page_range_all(ga, lo, hi, prefetch=True)
+                   for ga, lo, hi in reads]
+        wranges = [self._page_range_all(ga, lo, hi, prefetch=False)
+                   for ga, lo, hi in writes]
+        may = self._may_evict_mask(rranges + wranges)
+        resid = None
+        if may is not None and self.protocol != IDEAL_PROTO:
+            r = self._residual_workers(rranges, wranges, may)
+            if r.any():
+                resid = r
+        rows = None if resid is None else np.nonzero(~resid)[0]
         self.stats["batched_phases"] += 1
-        for ga, lo, hi in reads:
-            self._read_all(ga, lo, hi)
-        for ga, lo, hi in writes:
-            self._write_all(ga, lo, hi)
+        if rows is None or rows.size:
+            for ga, lo, hi in reads:
+                self._read_all(ga, lo, hi, rows=rows, may=may)
+            for ga, lo, hi in writes:
+                self._write_all(ga, lo, hi, rows=rows, may=may)
         fl = np.asarray(flops, np.float64)
         mb = np.asarray(mem_bytes, np.float64)
         sec = np.asarray(seconds, np.float64)
         iw = np.asarray(instr_words, np.float64)
-        if fl.any() or mb.any() or sec.any():
-            sharing = self.cost.workers_on_node(W)
-            bw = self.cost.node_bw(sharing) / max(1, sharing)
-            self.clock += np.broadcast_to(
-                sec + np.maximum(fl / self.cost.flops_per_worker, mb / bw),
-                (W,))
-        if self.model_mechanism and self.protocol == FINE_PROTO and iw.any():
-            self.clock += np.broadcast_to(iw * self.instr_s_per_word, (W,))
+        crows = self._rows_all if rows is None else rows
+        if crows.size:
+            if fl.any() or mb.any() or sec.any():
+                sharing = self.cost.workers_on_node(W)
+                bw = self.cost.node_bw(sharing) / max(1, sharing)
+                t = np.broadcast_to(
+                    sec + np.maximum(fl / self.cost.flops_per_worker,
+                                     mb / bw), (W,))
+                self.clock[crows] += t[crows]
+            if (self.model_mechanism and self.protocol == FINE_PROTO
+                    and iw.any()):
+                self.clock[crows] += np.broadcast_to(
+                    iw * self.instr_s_per_word, (W,))[crows]
+        if resid is not None:
+            # tick-ordered replay of the interacting workers, in worker
+            # order (the loop driver's order within each dependence class)
+            self.stats["residual_replays"] += int(resid.sum())
+            flb, mbb, secb, iwb = (np.broadcast_to(v, (W,))
+                                   for v in (fl, mb, sec, iw))
+            for w in np.nonzero(resid)[0]:
+                self.phase(
+                    int(w),
+                    reads=[(ga, int(lo[w]), int(hi[w]))
+                           for ga, lo, hi in reads],
+                    writes=[(ga, int(lo[w]), int(hi[w]))
+                            for ga, lo, hi in writes],
+                    flops=float(flb[w]), mem_bytes=float(mbb[w]),
+                    seconds=float(secb[w]), instr_words=float(iwb[w]))
 
     # ------------------------------------------------------------------
     def reduce(self, w: int, name: str, value: float, op: str = "sum"):

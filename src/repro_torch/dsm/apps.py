@@ -1,5 +1,7 @@
 """The paper's applications on the RegC runtime API: STREAM TRIAD, Jacobi
-(OmpSCR) and molecular dynamics (OmpSCR), as in the reference package.
+(OmpSCR) and molecular dynamics (OmpSCR), as in the reference package,
+plus the two capacity-pressure STREAM variants of Fig. 4
+(``stream_spill``, ``stream_refetch``) that run under ``cache_pages``.
 
 Each bulk phase is described once as (W,) interval arrays — the workers'
 read/write sets declared up front — and handed to a ``dsm.session``
@@ -64,6 +66,69 @@ def stream_triad(rt, n: int, iters: int, *, driver: str = "auto",
 
 def triad_bytes_per_iter(n: int) -> float:
     return 3.0 * 4 * n
+
+
+def stream_spill(rt, n: int, iters: int, *, sweeps: int = 2,
+                 rotate: bool = True, driver: str = "auto",
+                 on_iter: Optional[Callable] = None):
+    """Capacity-pressure STREAM (paper Fig. 4, the spill-heavy series):
+    every barrier epoch runs ``sweeps`` read+write passes, and with
+    ``rotate`` each pass shifts the block assignment by one (worker w
+    takes block ``(w + pass) % W``), so each worker's dirty block lands in
+    its neighbours' reach: under a small cache the interacting workers
+    replay in tick order.  ``rotate=False`` keeps blocks disjoint (fully
+    batched eviction)."""
+    A, B = rt.alloc(n), rt.alloc(n)
+    W = rt.W
+    chunk = n // W
+    ids = np.arange(W, dtype=np.int64)
+    phase = session(rt, driver).phase
+    for it in range(iters):
+        for s in range(sweeps):
+            r = (ids + it * sweeps + s) % W if rotate else ids
+            lo = r * chunk
+            hi = np.where(r == W - 1, n, lo + chunk)
+            phase(reads=((B, lo, hi),), writes=((A, lo, hi),),
+                  flops=2.0 * (hi - lo), mem_bytes=2.0 * 4 * (hi - lo))
+        rt.barrier()
+        if on_iter is not None:
+            on_iter(it, rt)
+    return rt
+
+
+def stream_refetch(rt, n: int, iters: int, *, sweeps: int = 2,
+                   width_pages: int = 8, driver: str = "auto",
+                   on_iter: Optional[Callable] = None):
+    """Mid-op refetch pressure (paper Fig. 4's refetch series): each worker
+    owns a disjoint block and every pass slides a read+write window
+    across it by half the window width, under a cache that holds barely
+    more than one window pair, so every op half-overlaps pages still in
+    cache while its cold half pushes occupancy over the watermark: the
+    evict-then-refetch interleave of the danger path."""
+    A, B = rt.alloc(n), rt.alloc(n)
+    W = rt.W
+    chunk = n // W
+    Lw = width_pages * rt.page_words        # window width in words
+    if chunk < 2 * Lw:
+        raise ValueError(f"stream_refetch: blocks of {chunk} words cannot "
+                         f"hold a sliding window of {Lw}")
+    step = Lw // 2
+    n_offs = (chunk - Lw) // step + 1       # window positions per block
+    ids = np.arange(W, dtype=np.int64)
+    phase = session(rt, driver).phase
+    k = 0
+    for it in range(iters):
+        for s in range(sweeps):
+            off = (k * step) % (n_offs * step)
+            k += 1
+            lo = ids * chunk + off
+            hi = lo + Lw
+            phase(reads=((B, lo, hi),), writes=((A, lo, hi),),
+                  flops=2.0 * (hi - lo), mem_bytes=2.0 * 4 * (hi - lo))
+        rt.barrier()
+        if on_iter is not None:
+            on_iter(it, rt)
+    return rt
 
 
 def jacobi(rt, n: int, iters: int, *, mode: str = "lock",

@@ -2,7 +2,6 @@
 
 Importing this package builds nothing: each CUDA source is compiled at
 its first launch (``_build``)."""
-from repro_torch.kernels.protocol_sweep import (LAUNCHES,  # noqa: F401
-                                                coverage_multi, pack_rows,
-                                                phase_step, popcount_rows,
-                                                reset_launches, unpack_rows)
+from repro_torch.kernels.protocol_sweep import (  # noqa: F401
+    LAUNCHES, coverage_multi, kth_set_index, pack_rows, phase_step,
+    popcount_rows, reset_launches, take_and_cut, take_first_k, unpack_rows)

@@ -195,9 +195,104 @@ __global__ void phase_step_kernel(const uint32_t* __restrict__ bits,
   }
 }
 
+// rank_select: the eviction engine's per-row rank-select over packed
+// run-liveness masks, one template for three entries, replacing these
+// TPU kernels of src/repro/kernels/protocol_sweep.py:
+//   take_first_k  <- _take_first_k_pallas   (:266)
+//   kth_set_index <- _kth_set_index_pallas  (:310)
+//   take_and_cut  <- _take_and_cut_jit      (:415)
+// The TPU kernels padded rows to 8-row blocks of 128 lanes and ran 32
+// static shift steps per word.  Here one block takes one row: threads
+// read consecutive words (coalesced), each word's __popc feeds a
+// block-wide exclusive scan (cub::BlockScan) chunk by chunk with a running
+// carry, so every thread knows excl = the set bits before its word.
+//   take: need = clamp(k - excl, 0, 32); the word stays whole when
+//         need >= popc, becomes 0 when need == 0, and otherwise keeps the
+//         bits below its (need+1)-th set bit (__fns);
+//   cut:  the one thread whose word holds the k-th set bit
+//         (excl < k <= excl + popc) writes 32*wi + __fns(word, 0, k - excl)
+//         to shared memory; the row's cut stays -1 when k <= 0 or the row
+//         has fewer than k set bits.
+// Bound: bytes, 2*R*nw*4 + R*12 for take_and_cut (words read once, take
+// written once, k read, cut written); a handful of integer operations per
+// word.  At the path's shapes (R = 1 row of a few words in the refetch
+// replay; R <= 256 rows of <= 1024 words in lru_take) the launch dominates.
+template <bool kTake, bool kCut>
+__global__ void rank_select_kernel(const uint32_t* __restrict__ bits,
+                                   const int* __restrict__ k,
+                                   uint32_t* __restrict__ take,
+                                   long long* __restrict__ cut,
+                                   long long nw) {
+  using Scan = cub::BlockScan<int, kThreads>;
+  __shared__ typename Scan::TempStorage tmp;
+  __shared__ int chunk_total;
+  __shared__ long long found;
+  const long long r = blockIdx.x;
+  const uint32_t* row = bits + r * nw;
+  const long long kk = k[r];
+  if (kCut && threadIdx.x == 0) found = -1;
+  __syncthreads();
+  long long carry = 0;
+  for (long long start = 0; start < nw; start += kThreads) {
+    const long long wi = start + threadIdx.x;
+    const uint32_t word = wi < nw ? row[wi] : 0u;
+    const int pc = __popc(word);
+    int excl_in;
+    Scan(tmp).ExclusiveSum(pc, excl_in);
+    const long long excl = carry + excl_in;
+    if (kTake && wi < nw) {
+      const long long need = kk - excl;
+      uint32_t out = 0u;
+      if (need >= pc) {
+        out = word;
+      } else if (need > 0) {
+        out = word & ((1u << __fns(word, 0, static_cast<int>(need) + 1)) - 1u);
+      }
+      take[r * nw + wi] = out;
+    }
+    if (kCut && excl < kk && kk <= excl + pc) {
+      found = 32 * wi + __fns(word, 0, static_cast<int>(kk - excl));
+    }
+    if (threadIdx.x == kThreads - 1) chunk_total = excl_in + pc;
+    __syncthreads();
+    carry += chunk_total;
+    __syncthreads();  // chunk_total and tmp are reused by the next chunk
+  }
+  if (kCut && threadIdx.x == 0) cut[r] = found;
+}
+
+template <bool kTake, bool kCut>
+int launch_rank_select(const void* bits, const void* k, void* take, void* cut,
+                       long long R, long long nw, void* stream) {
+  if (R > 0 && nw > 0) {
+    rank_select_kernel<kTake, kCut>
+        <<<static_cast<unsigned>(R), kThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const uint32_t*>(bits), static_cast<const int*>(k),
+            static_cast<uint32_t*>(take), static_cast<long long*>(cut), nw);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
+
+int rt_take_first_k(const void* bits, const void* k, void* take, long long R,
+                    long long nw, void* stream) {
+  return launch_rank_select<true, false>(bits, k, take, nullptr, R, nw,
+                                         stream);
+}
+
+int rt_kth_set_index(const void* bits, const void* k, void* cut, long long R,
+                     long long nw, void* stream) {
+  return launch_rank_select<false, true>(bits, k, nullptr, cut, R, nw, stream);
+}
+
+int rt_take_and_cut(const void* bits, const void* k, void* take, void* cut,
+                    long long R, long long nw, void* stream) {
+  return launch_rank_select<true, true>(bits, k, take, cut, R, nw, stream);
+}
 
 int rt_pack_rows(const void* plane, void* out, long long W, long long C,
                  long long nw_out, void* stream) {

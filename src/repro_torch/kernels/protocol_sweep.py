@@ -7,16 +7,21 @@ word ``k`` in row ``w`` is directory column ``32*k + j`` of worker ``w``
 unsigned by the kernels; the plain versions do their bit arithmetic in
 int64 (torch's CPU build lacks shifts on uint32).
 
-Four hand-written CUDA kernels (``csrc/protocol_sweep.cu``, ``sm_90a``):
+Hand-written CUDA kernels (``csrc/protocol_sweep.cu``, ``sm_90a``):
 
 * ``pack_rows``      (W, C) bool plane -> (W, ceil(C/32)) packed words;
 * ``popcount_rows``  per-row set-bit counts (the barrier-flush writeback
-  charge);
+  charge and the eviction engine's dirty-victim counts);
 * ``coverage_multi`` running cover of the sorted +1/-1 window-bound
   deltas, >= 2 (the shared-interval sweep);
 * ``phase_step``     the fused barrier flush over R stacked regions:
   per-row popcount, coverage stab, and the packed shared-dirty candidate
-  mask (dirty & multi-covered & active row), in one launch.
+  mask (dirty & multi-covered & active row), in one launch;
+* ``take_first_k``   per-row rank-select: each row's first k[i] set bits
+  (the segment-LRU victim mask of batched eviction);
+* ``kth_set_index``  per-row rank query: the column of the k[i]-th set
+  bit, -1 out of range (the refetch replay's victim-scan cut);
+* ``take_and_cut``   both of the last two in one launch.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty`` and launches on the current stream, adding
@@ -44,7 +49,8 @@ MAX_PHASE_STEP_W = (227 * 1024 - 1024) // 8
 
 # launch counters: one per kernel, bumped only where a kernel launches
 LAUNCHES = {"pack_rows": 0, "popcount_rows": 0, "coverage_multi": 0,
-            "phase_step": 0}
+            "phase_step": 0, "take_first_k": 0, "kth_set_index": 0,
+            "take_and_cut": 0}
 
 
 def reset_launches():
@@ -63,6 +69,9 @@ _SIGNATURES = {
     "rt_popcount_rows": (_P, _P, _L, _L, _P),
     "rt_coverage_multi": (_P, _P, _L, _P),
     "rt_phase_step": (_P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _P),
+    "rt_take_first_k": (_P, _P, _P, _L, _L, _P),
+    "rt_kth_set_index": (_P, _P, _P, _L, _L, _P),
+    "rt_take_and_cut": (_P, _P, _P, _P, _L, _L, _P),
 }
 _BOUND: dict = {}
 
@@ -196,6 +205,50 @@ def _phase_step_plain(bits, base, rowmask, sbases, sends):
     return counts, shared
 
 
+def _take_first_k_plain(bits: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Each row's first k[i] set bits (the reference's ``_take_first_k_np``):
+    word-prefix popcounts bound how many bits each word still needs, then
+    32 shift steps keep bit j iff its rank in the word is below that
+    need."""
+    v = _u32(bits)
+    pc = _popcount_words_plain(bits)
+    excl = torch.cumsum(pc, dim=1) - pc
+    need = torch.clamp(k.to(torch.int64)[:, None] - excl, 0, 32)
+    out = torch.zeros_like(v)
+    run = torch.zeros_like(v)
+    for j in range(32):
+        bit = (v >> j) & 1
+        out |= (bit.bool() & (run < need)).to(torch.int64) << j
+        run += bit
+    return _as_i32(out)
+
+
+def _kth_set_index_plain(bits: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Column of each row's k[i]-th (1-based) set bit, -1 when k[i] <= 0 or
+    the row has fewer set bits (the reference's ``_kth_set_index_np``)."""
+    R = bits.shape[0]
+    kk = k.to(torch.int64)
+    v = _u32(bits)
+    pc = _popcount_words_plain(bits)
+    cum = torch.cumsum(pc, dim=1)
+    total = cum[:, -1]
+    # first word whose running count reaches k; argmax returns the first
+    # maximum, as numpy's does (an all-False row gives 0, masked below)
+    wi = torch.argmax((cum >= kk[:, None]).to(torch.int8), dim=1)
+    rows = torch.arange(R, device=bits.device)
+    need = kk - (cum[rows, wi] - pc[rows, wi])
+    word = v[rows, wi]
+    run = torch.zeros(R, dtype=torch.int64, device=bits.device)
+    idx = torch.full((R,), -1, dtype=torch.int64, device=bits.device)
+    for j in range(32):
+        bit = (word >> j) & 1
+        run += bit
+        hit = (idx < 0) & (bit == 1) & (run == need)
+        idx = torch.where(hit, 32 * wi + j, idx)
+    return torch.where((kk >= 1) & (total >= kk), idx,
+                       torch.full_like(idx, -1))
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
@@ -288,3 +341,70 @@ def phase_step(bits: torch.Tensor, base: torch.Tensor,
                 _ptr(sbases), _ptr(sends), _ptr(counts), _ptr(shared), R,
                 W, nw)
     return counts, shared
+
+
+def _rank_operands(bits: torch.Tensor, k: torch.Tensor):
+    """Check a rank-select call's operands: (R, nw) int32 words and (R,)
+    int32 or int64 ranks on the same device.  Returns the ranks as int32
+    for the kernel, clipped to the int32 range (the rank of any real row
+    is far below it, so clipping changes no result)."""
+    dev = bits.device
+    _check(bits, "bits", torch.int32, 2, dev)
+    if k.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"k must be int32 or int64, got {k.dtype}")
+    _check(k, "k", k.dtype, 1, dev)
+    if k.shape[0] != bits.shape[0]:
+        raise ValueError(f"k has {k.shape[0]} ranks for {bits.shape[0]} rows")
+    if k.dtype == torch.int64:
+        k = torch.clamp(k, -_I32_MAX - 1, _I32_MAX).to(torch.int32)
+    return dev, k
+
+
+def take_first_k(bits: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """(R, nw) int32 packed rows + (R,) ranks -> (R, nw) int32: each row's
+    first k[i] set bits in little-endian column order."""
+    dev, k32 = _rank_operands(bits, k)
+    R, nw = bits.shape
+    if not _on_card(dev):
+        return _take_first_k_plain(bits, k)
+    take = torch.empty_like(bits)
+    if R and nw:
+        _launch("take_first_k", dev, _ptr(bits), _ptr(k32), _ptr(take), R,
+                nw)
+    return take
+
+
+def kth_set_index(bits: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """(R, nw) int32 packed rows + (R,) 1-based ranks -> (R,) int64 column
+    of each row's k[i]-th set bit, -1 when k[i] <= 0 or the row has fewer
+    set bits."""
+    dev, k32 = _rank_operands(bits, k)
+    R, nw = bits.shape
+    if nw == 0:
+        return torch.full((R,), -1, dtype=torch.int64, device=dev)
+    if not _on_card(dev):
+        return _kth_set_index_plain(bits, k)
+    cut = torch.empty(R, dtype=torch.int64, device=dev)
+    if R:
+        _launch("kth_set_index", dev, _ptr(bits), _ptr(k32), _ptr(cut), R,
+                nw)
+    return cut
+
+
+def take_and_cut(bits: torch.Tensor,
+                 k: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``take_first_k`` and ``kth_set_index`` of the same operands in one
+    launch: (take (R, nw) int32, cut (R,) int64)."""
+    dev, k32 = _rank_operands(bits, k)
+    R, nw = bits.shape
+    if nw == 0:
+        return (torch.empty_like(bits),
+                torch.full((R,), -1, dtype=torch.int64, device=dev))
+    if not _on_card(dev):
+        return _take_first_k_plain(bits, k), _kth_set_index_plain(bits, k)
+    take = torch.empty_like(bits)
+    cut = torch.empty(R, dtype=torch.int64, device=dev)
+    if R:
+        _launch("take_and_cut", dev, _ptr(bits), _ptr(k32), _ptr(take),
+                _ptr(cut), R, nw)
+    return take, cut

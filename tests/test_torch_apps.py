@@ -8,6 +8,12 @@ Each point runs on the reference (numpy tier) and on every port tier
 batched driver runs its spans through ``span_all`` while the port runs
 the per-worker span body (``span_all`` is slice C); the reference holds
 the two bit-equal, so traffic and clocks must still match exactly.
+The capacity-pressure points (``stream_spill``, ``stream_refetch`` and
+the spill settings of Jacobi and MD) run the same way under the
+harness's cache rules, with 64-word pages so that small problems keep the
+harness's page geometry; there ``stats`` (the danger and eviction path
+counters) must match too.
+
 Tolerance: traffic exact, clocks and reduction results bit-equal."""
 import dataclasses
 
@@ -59,6 +65,64 @@ def test_app_matches_reference(app, mode, n, pw, W):
                 for name in ref._reduction_results:
                     assert (pt.reduction_result(name)
                             == ref.reduction_result(name)), ctx
+
+
+def _spill_case(app, W):
+    """(app, kwargs, cache_pages, n) of one spill point: the harness's
+    cache rules (benchmarks/{stream_triad,jacobi,molecular_dynamics}.py)
+    at 64-word pages."""
+    pw = 64
+    if app in ("stream_spill", "stream_refetch"):
+        n = (1 << 13) * W                       # 128 pages per worker
+        if app == "stream_spill":
+            return {"sweeps": 2}, (3 * (n // pw)) // (2 * W), n
+        return {"sweeps": 2, "width_pages": 8}, 20, n
+    if app == "jacobi":
+        n = 96
+        return ({"mode": "reduction"},
+                max((3 * (n * n // pw)) // (2 * W), 8), n)
+    n = 512
+    return {"mode": "reduction"}, max(-(-(n * 3) // pw) // 2, 4), n
+
+
+SPILL_APPS = ("stream_spill", "stream_refetch", "jacobi",
+              "molecular_dynamics")
+
+
+@pytest.mark.parametrize("W", (4, 16))
+@pytest.mark.parametrize("app", SPILL_APPS)
+def test_spill_app_matches_reference(app, W):
+    kw, cache_pages, n = _spill_case(app, W)
+    cfg = dict(protocol="fine", fetch_batch=16, page_words=64,
+               cache_pages=cache_pages)
+    for driver in ("batched", "loop"):
+        ref = ref_make(W, cost=REF_IB, **cfg)
+        getattr(ref_apps, app)(ref, n, 2, driver=driver, **kw)
+        for backend in ("plain", "kernels", "fused"):
+            pt = pt_make(W, cost=PT_IB, backend=backend, device="cpu",
+                         **cfg)
+            getattr(pt_apps, app)(pt, n, 2, driver=driver, **kw)
+            ctx = (app, W, driver, backend)
+            assert (dataclasses.asdict(pt.traffic)
+                    == dataclasses.asdict(ref.traffic)), ctx
+            np.testing.assert_allclose(pt.clock, ref.clock, rtol=0, atol=0,
+                                       err_msg=str(ctx))
+            assert {k: v for k, v in pt.stats.items() if k in ref.stats
+                    and not k.startswith("jit_")} == {
+                k: v for k, v in ref.stats.items()
+                if not k.startswith("jit_")}, ctx
+            for name in ref._reduction_results:
+                assert (pt.reduction_result(name)
+                        == ref.reduction_result(name)), ctx
+        if app == "stream_refetch" and driver == "batched":
+            # every op of the refetch adversary is danger-flagged
+            assert ref.stats["danger_vec_ops"] > 0
+
+
+def test_refetch_rejects_blocks_too_small():
+    rt = pt_make(4, device="cpu", page_words=64, cache_pages=20)
+    with pytest.raises(ValueError, match="sliding window"):
+        pt_apps.stream_refetch(rt, 4 * 64 * 8, 1)
 
 
 def test_block_partition_matches():

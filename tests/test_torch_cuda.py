@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import trace_fuzz
 from repro_torch.core import make_runtime
 from repro_torch.dsm import apps
 from repro_torch.kernels import protocol_sweep as ps
@@ -90,3 +91,60 @@ def test_cuda_runtime_matches_cpu(dev, backend):
     assert dataclasses.asdict(runs["cpu"].traffic) == dataclasses.asdict(
         runs["cuda"].traffic)
     np.testing.assert_array_equal(runs["cpu"].clock, runs["cuda"].clock)
+
+
+def test_rank_select_kernels_match_plain_versions(dev):
+    """take_first_k, kth_set_index and take_and_cut against their plain
+    versions on the card: random and edge ranks (0, negative, the row's
+    popcount and one past it, INT32_MAX), ragged last words, an empty
+    row, all-ones rows, and R=1 / nw=1; int32 and int64 ranks."""
+    rng = np.random.default_rng(12)
+    i32max = np.iinfo(np.int32).max
+    for R, C in ((1, 1), (1, 32), (3, 31), (5, 300), (256, 32768),
+                 (2, 256 * 32 * 3 + 7)):
+        plane = rng.random((R, C)) < rng.random((R, 1))
+        plane[0] = True
+        if R > 2:
+            plane[-1] = False
+        bits = ps.pack_rows(torch.as_tensor(plane, device=dev))
+        tot = plane.sum(axis=1)
+        for k in (rng.integers(-3, C + 5, R), np.zeros(R), np.full(R, -4),
+                  tot, tot + 1, np.maximum(tot - 1, 1), np.full(R, i32max)):
+            kt = torch.as_tensor(np.asarray(k, np.int64), device=dev)
+            for kk in (kt, kt.to(torch.int32)):
+                want_t = ps._take_first_k_plain(bits, kk)
+                want_c = ps._kth_set_index_plain(bits, kk)
+                assert torch.equal(ps.take_first_k(bits, kk), want_t)
+                assert torch.equal(ps.kth_set_index(bits, kk), want_c)
+                got_t, got_c = ps.take_and_cut(bits, kk)
+                assert torch.equal(got_t, want_t)
+                assert torch.equal(got_c, want_c)
+
+
+@pytest.mark.parametrize("backend", ("kernels", "fused"))
+def test_cuda_spill_runtime_matches_cpu(dev, backend):
+    """One gen_danger_program trace (mid-op refetch under a small cache)
+    on the card and on the CPU: equal traffic and stats, bit-equal clocks
+    after every event, and the rank-select kernels launched."""
+    p = trace_fuzz.danger_trace_params(5)
+    prog = trace_fuzz.gen_danger_program(p["rng"], p["W"], p["n_words"],
+                                         p["page_words"], p["cache_pages"])
+    runs = {d: make_runtime(p["W"], protocol=p["proto"],
+                            page_words=p["page_words"],
+                            cache_pages=p["cache_pages"], backend=backend,
+                            device=d) for d in ("cpu", "cuda")}
+    gas = {d: [rt.alloc(p["n_words"]) for _ in range(2)]
+           for d, rt in runs.items()}
+    before = dict(ps.LAUNCHES)
+    for ev in prog:
+        for d, rt in runs.items():
+            trace_fuzz.apply_event(rt, ev, gas[d], "batched")
+        assert dataclasses.asdict(runs["cpu"].traffic) == dataclasses.asdict(
+            runs["cuda"].traffic)
+        np.testing.assert_array_equal(runs["cpu"].clock, runs["cuda"].clock)
+    assert runs["cpu"].stats == runs["cuda"].stats
+    assert runs["cuda"].stats["danger_vec_ops"] > 0
+    launched = {k: ps.LAUNCHES[k] - before[k] for k in ps.LAUNCHES}
+    rank = ("take_and_cut",) if backend == "fused" else ("take_first_k",
+                                                          "kth_set_index")
+    assert all(launched[k] > 0 for k in rank), launched

@@ -5,7 +5,8 @@
 * ``repro_torch`` imports and runs a small CPU trace in a process where
   ``import jax`` fails;
 * entry points run on the card by default and raise without one;
-* knobs of later slices raise a ``ValueError`` naming the slice;
+* knobs of later slices raise a ``ValueError`` naming the slice, and
+  the knobs of ported slices build a runtime;
 * ``chip_smoke.py`` fails, printing no result, without a card and in a
   directory that holds nothing else of the repo."""
 import ast
@@ -88,8 +89,21 @@ def test_directory_default_device_is_the_card():
     assert d.device.type == "cpu" and d.valid.device.type == "cpu"
 
 
+@pytest.mark.parametrize("knob,value", [("cache_pages", 8),
+                                        ("danger_mode", "scalar")])
+def test_slice_b_knobs_build_a_runtime(knob, value):
+    """Eviction (slice B) is ported: its knobs reach the runtime."""
+    rt = make_runtime(4, device="cpu", **{knob: value})
+    assert getattr(rt, knob) == value
+    ga = rt.alloc(64 * 1024)
+    rt.phase_all(reads=[(ga, 0, 64 * 1024)])
+    rt.barrier()
+    assert rt.traffic.page_fetches > 0
+    if knob == "cache_pages":
+        assert (rt.resident <= value).all() and rt.resident.max() == value
+
+
 @pytest.mark.parametrize("knob,value,slice_name", [
-    ("cache_pages", 8, "slice B"), ("danger_mode", "scalar", "slice B"),
     ("detect_races", True, "slice D"),
     ("chaos", object(), "recovery"), ("injector", object(), "recovery"),
     ("straggler", object(), "recovery")])

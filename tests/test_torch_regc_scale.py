@@ -131,14 +131,17 @@ def test_snapshot_handoff_finishes_bit_equal(seed):
 
 
 def test_snapshot_outside_the_slice_is_refused():
-    rt = RefRuntime(3, page_words=16, cache_pages=4)
+    """State of paths the port does not run yet is refused by name: race
+    detection (slice D) and a shard slice of a snapshot (the cluster
+    slice).  Eviction state carries over (``test_torch_evict.py``)."""
+    rt = RefRuntime(3, page_words=16, detect_races=True)
     ga = rt.alloc(200)
     rt.phase_all(reads=[(ga, np.zeros(3, np.int64),
                          np.full(3, 200, np.int64))])
     arrays, meta = rt.snapshot()
-    with pytest.raises(ValueError, match="slice B"):
-        runtime_from_snapshot(arrays, meta, device="cpu")
-    rt = RefRuntime(3, page_words=16, detect_races=True)
-    arrays, meta = rt.snapshot()
     with pytest.raises(ValueError, match="slice D"):
+        runtime_from_snapshot(arrays, meta, device="cpu")
+    rt = RefRuntime(3, page_words=16, cache_pages=4)
+    arrays, meta = rt.snapshot(rows=(0, 2))
+    with pytest.raises(ValueError, match="shard-slice"):
         runtime_from_snapshot(arrays, meta, device="cpu")
