@@ -18,9 +18,13 @@ Phases, in order; any mismatch or exception exits non-zero:
    the lru_take shape of fig4_spill (256 runs of 32768 columns), at the
    take_upto_row shape of the spill path (one run of a few words) and at
    edge cases (k = 0, k < 0, k past the popcount, k = INT32_MAX, empty
-   rows, ragged last words, R = 1, nw = 1).  Prints each kernel's median
-   time (CUDA events), the plain version's, the ``torch.cumsum``
-   yardstick for coverage_multi, and the bound;
+   rows, ragged last words, R = 1, nw = 1); the page_diff kernels
+   diff_encode and diff_apply at the reference path's shapes (1, 256) and
+   (1, 1024), a batched (4096, 1024) and a ragged (5, 1001), with -0.0,
+   NaN-payload, equal-NaN and denormal words and mask bytes of -1 and 2
+   (compared on their bits).  Prints each kernel's median time (CUDA
+   events), the plain version's, the yardstick (``torch.cumsum`` for
+   coverage_multi, ``torch.where`` for diff_apply) and the bound;
 4. main-path phase: the W=256 batched points of fig2_strong, fig3_weak,
    fig5_strong, fig6_weak and fig7_md (samhita and samhita_page, Jacobi
    and MD in lock and reduction modes) on the 'fused' tier, plus the two
@@ -36,12 +40,23 @@ Phases, in order; any mismatch or exception exits non-zero:
    ``BENCH_scale.json`` row as above and its committed danger counters
    (``artifacts/bench/*.csv``); the launch counters must show take_and_cut
    launched on 'fused' and take_first_k and kth_set_index on 'kernels';
-6. profile phase: the device busy share of the two samhita fig6_weak
-   points (lock, reduction) from a separate torch.profiler run.
+6. reference phase: the per-page reference engine with page values on
+   the card.  The program of ``examples/dsm_jacobi.py`` at n=32, W=4
+   (fine/lock for 700 iterations, converging to max error < 0.05;
+   fine/reduction and page/lock for 100), and the W=256 samhita Jacobi
+   (lock), MD (lock) and STREAM points at the harness's sizes, iters 2:
+   metadata-only against the scale engine (traffic exact, clocks allclose
+   1e-9), with values bit-equal to the same run on the CPU (traffic,
+   clocks, final values).  Each run's diff_encode and diff_apply launches
+   must equal its CPU twin's wrapper calls; prints walls and peak device
+   memory;
+7. profile phase: the device busy share of the two samhita fig6_weak
+   points (lock, reduction) and of fig7_md_spill, each from a separate
+   torch.profiler run.
 
-The launch counters are set to 0 just before each of the two path phases
-and read just after; a kernel's ``launches`` in the table is the sum of
-the two readings.  The line before the last is the kernel table as one
+The launch counters are set to 0 just before each of the three path
+phases and read just after; a kernel's ``launches`` in the table is the
+sum of the readings.  The line before the last is the kernel table as one
 JSON object; the last line is ``{"ok": true, "device": {...}}``.  Full
 results also go to ``chiprun_out/chip_smoke.json``.
 """
@@ -58,7 +73,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
-SOURCE = "src/repro_torch/kernels/csrc/protocol_sweep.cu"
+SOURCES = {"protocol_sweep": "src/repro_torch/kernels/csrc/protocol_sweep.cu",
+           "page_diff": "src/repro_torch/kernels/csrc/page_diff.cu"}
 TPU_KERNELS = {
     "pack_rows": "src/repro/kernels/protocol_sweep.py:134",
     "popcount_rows": "src/repro/kernels/protocol_sweep.py:232",
@@ -67,6 +83,8 @@ TPU_KERNELS = {
     "take_first_k": "src/repro/kernels/protocol_sweep.py:266",
     "kth_set_index": "src/repro/kernels/protocol_sweep.py:310",
     "take_and_cut": "src/repro/kernels/protocol_sweep.py:415",
+    "diff_encode": "src/repro/kernels/page_diff.py:54",
+    "diff_apply": "src/repro/kernels/page_diff.py:78",
 }
 ITERS = 4
 W = 256
@@ -92,6 +110,71 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def host(x):
+    """A read's values as a host numpy array (a tensor is copied back)."""
+    import numpy as np
+    return x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
+
+
+def dsm_jacobi(rt, n: int = 32, iters: int = 700, mode: str = "lock"):
+    """The program of ``examples/dsm_jacobi.py`` (its ``run``) on a
+    reference runtime with values: the 2-D Poisson problem -lap(u) = f
+    with a manufactured solution, row blocks across ``rt.W`` workers, the
+    residual accumulated under a lock span (``lock``) or through the
+    reduction extension.  The stencil and residual arithmetic stay numpy
+    on the host; each read is copied back, so any difference between two
+    runs is the engine's.  Returns (final u (n, n) float32, max error
+    against the analytic solution)."""
+    import numpy as np
+    res_lock = 0
+    W = rt.W
+    u, uold, fga, res = (rt.alloc(n * n), rt.alloc(n * n), rt.alloc(n * n),
+                         rt.alloc(1))
+    xs = np.linspace(0, 1, n)
+    uu, vv = np.meshgrid(xs, xs)
+    u_star = np.sin(np.pi * uu) * np.sin(np.pi * vv)
+    h = 1.0 / (n - 1)
+    f_np = (2 * np.pi ** 2 * u_star).astype(np.float32)
+    rt.write(0, fga, 0, n * n, f_np.ravel())
+    rt.barrier()
+    rows = n // W
+    for _ in range(iters):
+        for w in range(W):                                # uold = u
+            lo = w * rows * n
+            hi = ((w + 1) * rows if w < W - 1 else n) * n
+            rt.write(w, uold, lo, hi, rt.read(w, u, lo, hi))
+        rt.barrier()
+        for w in range(W):                                # stencil
+            r0 = max(w * rows, 1)
+            r1 = min((w + 1) * rows if w < W - 1 else n, n - 1)
+            block = host(rt.read(w, uold, (r0 - 1) * n,
+                                 (r1 + 1) * n)).reshape(-1, n)
+            fblk = host(rt.read(w, fga, r0 * n, r1 * n)).reshape(-1, n)
+            new = block[1:-1].copy()
+            new[:, 1:-1] = 0.25 * (block[:-2, 1:-1] + block[2:, 1:-1]
+                                   + block[1:-1, :-2] + block[1:-1, 2:]
+                                   + h * h * fblk[:, 1:-1])
+            local_res = float(np.abs(new - block[1:-1]).sum())
+            rt.write(w, u, r0 * n, r1 * n, new.ravel())
+            if mode == "lock":
+                with rt.span(w, res_lock):
+                    cur = host(rt.read(w, res, 0, 1))
+                    rt.write(w, res, 0, 1, np.array(
+                        [float(cur[0]) + local_res], np.float32))
+            else:
+                rt.reduce(w, "residual", local_res)
+        rt.barrier()
+        if mode == "lock":                                # residual read
+            host(rt.read(0, res, 0, 1))
+            with rt.span(0, res_lock):                    # and reset
+                rt.write(0, res, 0, 1, np.zeros(1, np.float32))
+        else:
+            rt.reduction_result("residual")
+        rt.barrier()
+    final = host(rt.read(0, u, 0, n * n)).reshape(n, n)
+    return final, float(np.abs(final - u_star).max())
 
 
 # ---------------------------------------------------------------------------
@@ -234,23 +317,117 @@ def kernel_phase(torch, np, ps, dev):
         plain_ms=timed_ms(torch, lambda: ps._phase_step_plain(*main), 3, 3),
         library_ms=None,
         bytes=2 * R * W * nw * 4 + R * W * (4 + 1 + 4 + 4 + 8))
+    results["coverage_multi"]["library"] = "torch.cumsum"
     results.update(rank_select_phase(torch, np, ps, rng, same, t))
+    results.update(page_diff_phase(torch, np, rng, dev))
     for name, r in results.items():
-        r["bound_ms"] = r["bytes"] / HBM_BYTES_PER_S * 1e3
-        lib = ("" if r["library_ms"] is None
-               else f"  torch.cumsum {r['library_ms'] * 1e3:.2f} us")
-        print(f"kernel {name:15s} shape={r['shape']}  max_abs_err="
-              f"{r['err']}  kernel {r['ms'] * 1e3:.2f} us  plain "
-              f"{r['plain_ms'] * 1e3:.2f} us{lib}  bound "
-              f"{r['bound_ms'] * 1e3:.6f} us (bytes)", flush=True)
-        if "lru" in r:
-            lru = r["lru"]
-            lru["bound_ms"] = lru["bytes"] / HBM_BYTES_PER_S * 1e3
-            print(f"kernel {name:15s} shape={lru['shape']}  kernel "
-                  f"{lru['ms'] * 1e3:.2f} us  plain "
-                  f"{lru['plain_ms'] * 1e3:.2f} us  bound "
-                  f"{lru['bound_ms'] * 1e3:.3f} us (bytes)", flush=True)
+        # a second timed shape: the fig4_spill lru_take shape of the
+        # rank-select kernels, a batched page_diff call
+        for shape in [r] + [r[k] for k in ("lru", "batched") if k in r]:
+            shape["bound_ms"] = shape["bytes"] / HBM_BYTES_PER_S * 1e3
+            lib = ("" if shape.get("library_ms") is None else
+                   f"  {r['library']} {shape['library_ms'] * 1e3:.2f} us")
+            err = f"  max_abs_err={r['err']}" if shape is r else ""
+            if "device_ms" in shape:
+                err += f"  C entry alone {shape['device_ms'] * 1e3:.2f} us"
+            print(f"kernel {name:15s} shape={shape['shape']}{err}  kernel "
+                  f"{shape['ms'] * 1e3:.2f} us  plain "
+                  f"{shape['plain_ms'] * 1e3:.2f} us{lib}  bound "
+                  f"{shape['bound_ms'] * 1e3:.6f} us (bytes)", flush=True)
     return results
+
+
+def page_diff_inputs(np, rng, n: int, w: int):
+    """Pages and twins with ~10% of the words changed plus every edge bit
+    pattern (-0.0 against +0.0, two NaN payloads, equal NaN bits,
+    denormals), and an apply mask of 0, 1, -1 and 2 bytes."""
+    twin = rng.standard_normal((n, w)).astype(np.float32)
+    curr = np.where(rng.random((n, w)) < 0.1,
+                    rng.standard_normal((n, w)).astype(np.float32), twin)
+    cb, tb = curr.view(np.int32), twin.view(np.int32)
+    edges = [(0x80000000, 0x00000000), (0x7FC00001, 0x7FC00002),
+             (0x7FC00005, 0x7FC00005), (0x00000001, 0x00000000),
+             (0x807FFFFF, 0x00000002)]
+    for k, (c, t) in enumerate(edges):
+        i, j = k % n, (7 * k + 3) % w
+        cb[i, j] = np.uint32(c).view(np.int32)
+        tb[i, j] = np.uint32(t).view(np.int32)
+    mask = rng.choice(np.array([0, 0, 0, 1, -1, 2], np.int8), (n, w))
+    return curr, twin, mask
+
+
+def page_diff_phase(torch, np, rng, dev):
+    """diff_encode and diff_apply against their plain versions bit for bit
+    (on int32 views: NaN payloads compare as bits) at the path's shapes
+    (1, 256) and (1, 1024), a batched (4096, 1024) and a ragged
+    (5, 1001), with every edge bit pattern; timed at (1, 1024) and
+    (4096, 1024).  ``torch.where`` on a bool mask made beforehand is
+    diff_apply's yardstick; no single call computes diff_encode's three
+    outputs.  Bytes: 13 a word for both, plus 4 a page of counts."""
+    from repro_torch.kernels import page_diff as pd
+    from repro_torch.kernels._build import ptr
+
+    def bits_err(name, got, want):
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            a = a.view(torch.int32) if a.dtype == torch.float32 else a
+            b = b.view(torch.int32) if b.dtype == torch.float32 else b
+            if a.shape != b.shape or not torch.equal(a, b):
+                raise AssertionError(f"{name}: kernel != plain version")
+        return 0
+
+    errs = {"diff_encode": 0, "diff_apply": 0}
+    timed = {}
+    for n, w in ((1, 256), (1, 1024), (4096, 1024), (5, 1001)):
+        curr, twin, mask = (torch.as_tensor(a, device=dev) for a in
+                            page_diff_inputs(np, rng, n, w))
+        enc = pd.diff_encode(curr, twin)
+        errs["diff_encode"] = max(errs["diff_encode"], bits_err(
+            "diff_encode", enc, pd._diff_encode_plain(curr, twin)))
+        for m in (mask, enc[0]):
+            errs["diff_apply"] = max(errs["diff_apply"], bits_err(
+                "diff_apply", [pd.diff_apply(twin, m, curr)],
+                [pd._diff_apply_plain(twin, m, curr)]))
+        rebuilt = pd.diff_apply(twin, enc[0], enc[1])
+        bits_err("diff round trip", [rebuilt], [curr])
+        if (n, w) in ((1, 1024), (4096, 1024)):
+            timed[(n, w)] = (curr, twin, mask)
+    # the C entries called with operands bound once (no checks, no
+    # allocation): the events then time the kernel where the wrapper's
+    # host cost is below the device time
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+    for name in ("diff_encode", "diff_apply"):
+        res = {}
+        for (n, w), (curr, twin, mask) in timed.items():
+            fn = pd._KERNELS.entry(name)
+            if name == "diff_encode":
+                kern = lambda c=curr, t=twin: pd.diff_encode(c, t)  # noqa
+                plain = lambda c=curr, t=twin: pd._diff_encode_plain(c, t)  # noqa
+                m_, v_, k_ = pd.diff_encode(curr, twin)
+                args = (ptr(curr), ptr(twin), ptr(m_), ptr(v_), ptr(k_), n,
+                        w, stream)
+                lib, nbytes = None, 13 * n * w + 4 * n
+            else:
+                bmask = mask != 0
+                kern = lambda c=curr, t=twin, m=mask: pd.diff_apply(t, m, c)  # noqa
+                plain = lambda c=curr, t=twin, m=mask: (  # noqa
+                    pd._diff_apply_plain(t, m, c))
+                o_ = torch.empty_like(twin)
+                args = (ptr(twin), ptr(mask), ptr(curr), ptr(o_), n * w,
+                        stream)
+                lib = timed_ms(torch, lambda c=curr, t=twin, b=bmask:
+                               torch.where(b, c, t))
+                nbytes = 13 * n * w
+            res[(n, w)] = dict(shape=[n, w], ms=timed_ms(torch, kern),
+                               device_ms=timed_ms(torch, lambda f=fn, a=args:
+                                                  f(*a)),
+                               plain_ms=timed_ms(torch, plain, 10),
+                               library_ms=lib, bytes=nbytes)
+        out[name] = dict(err=errs[name], library=(
+            "torch.where" if name == "diff_apply" else None),
+                         batched=res[(4096, 1024)], **res[(1, 1024)])
+    return out
 
 
 def rank_select_phase(torch, np, ps, rng, same, t):
@@ -502,12 +679,139 @@ def spill_phase(torch, ps, device="cuda"):
     return out, dict(ps.LAUNCHES)
 
 
+# ---------------------------------------------------------------------------
+# reference phase
+# ---------------------------------------------------------------------------
+
+
+def same_run(a, b, ctx: str):
+    """Two reference runtimes' traffic, per-worker traffic and clocks,
+    bit for bit."""
+    fields = [f.name for f in dataclasses.fields(a.traffic)]
+    tr = [[getattr(t, f) for f in fields]
+          for t in [a.traffic] + a.per_worker_traffic]
+    tr_b = [[getattr(t, f) for f in fields]
+            for t in [b.traffic] + b.per_worker_traffic]
+    if tr != tr_b or a.clock.tobytes() != b.clock.tobytes():
+        raise AssertionError(f"{ctx}: traffic or clocks differ "
+                             f"({a.traffic} vs {b.traffic})")
+
+
+def reference_phase(torch, np, device="cuda", W_=W,
+                    sizes=(N_JACOBI, N_PARTICLES, N_TRIAD),
+                    jacobi_iters=(700, 100, 100), iters=2):
+    """The per-page reference engine (slice C).  (a) the program of
+    examples/dsm_jacobi.py with values at n=32, W=4, 256-word pages:
+    fine/lock (converges, max error < 0.05), fine/reduction and page/lock;
+    (b) the paper's apps at W_ on the reference, samhita: Jacobi and MD in
+    lock mode and STREAM at the harness's sizes, ``iters`` iterations:
+    metadata-only against the scale engine (traffic exact, clocks
+    allclose 1e-9), and with page values on ``device`` against the same
+    run on the CPU (bit-equal traffic, clocks, page values).  On the card
+    every run's diff_encode/diff_apply launches must equal the wrapper
+    calls its CPU twin counted.  Returns (rows, launches of the phase)."""
+    from repro_torch.core import make_runtime
+    from repro_torch.dsm import apps
+    from repro_torch.dsm.costmodel import IB_2013
+    from repro_torch.kernels import page_diff as pd
+    on_card = device != "cpu"
+
+    def timed(run, d):
+        if d != "cpu":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        before, calls = dict(pd.LAUNCHES), dict(pd.CALLS)
+        t0 = time.perf_counter()
+        out = run(d)
+        if d != "cpu":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = {k: pd.LAUNCHES[k] - before[k] for k in pd.LAUNCHES}
+        called = {k: pd.CALLS[k] - calls[k] for k in pd.CALLS}
+        mem = torch.cuda.max_memory_allocated() if d != "cpu" else None
+        return out, wall, launched, called, mem
+
+    def twins(name, run, values_of):
+        """``run`` on the device and on the CPU, checked bit for bit."""
+        (rt, *rest), wall, launched, _, mem = timed(run, device)
+        row = {"point": name, "wall_s": wall, "max_memory_allocated": mem,
+               "launches": launched, "traffic": dataclasses.asdict(
+                   rt.traffic), "t_model_s": rt.time}
+        if on_card:
+            (cpu, *cpu_rest), cpu_wall, _, cpu_calls, _ = timed(run, "cpu")
+            same_run(rt, cpu, name)
+            got, want = values_of(rt, rest), values_of(cpu, cpu_rest)
+            if got.tobytes() != want.tobytes():
+                raise AssertionError(f"{name}: values differ from the CPU run")
+            if launched != cpu_calls:
+                raise AssertionError(f"{name}: launches {launched} != CPU "
+                                     f"wrapper calls {cpu_calls}")
+            row["cpu_wall_s"] = cpu_wall
+        print(f"reference {name:34s} wall {wall:.3f} s  cpu twin "
+              f"{row.get('cpu_wall_s', float('nan')):.3f} s  peak "
+              f"{mem} B  launches {launched}  t_model {rt.time:.6f}",
+              flush=True)
+        return row, rt, rest
+
+    rows = []
+    pd.reset_launches()
+    for proto, mode, it in zip(("fine", "fine", "page"),
+                               ("lock", "reduction", "lock"), jacobi_iters):
+        def run(d, proto=proto, mode=mode, it=it):
+            rt = make_runtime(4, engine="reference", page_words=256,
+                              protocol=proto, device=d)
+            return (rt, *dsm_jacobi(rt, 32, it, mode))
+        row, _, (u, err) = twins(f"dsm_jacobi {proto}/{mode} x{it}", run,
+                                 lambda rt, rest: rest[0])
+        if it >= 700 and not err < 0.05:
+            raise AssertionError(f"dsm_jacobi {proto}/{mode}: max error "
+                                 f"{err} >= 0.05, the solver diverged")
+        row["max_error"] = err
+        rows.append(row)
+    n_jac, n_md, n_triad = sizes
+    for app, n, kw in (("jacobi", n_jac, {"mode": "lock"}),
+                       ("molecular_dynamics", n_md, {"mode": "lock"}),
+                       ("stream_triad", n_triad, {})):
+        def run(d, app=app, n=n, kw=kw, values=True):
+            rt = make_runtime(W_, engine="reference", cost=IB_2013,
+                              track_values=values, device=d)
+            getattr(apps, app)(rt, n, iters, **kw)
+            return (rt,)
+        name = f"{app} {kw.get('mode', '')} W={W_} n={n}"
+        (meta,), meta_wall, _, _, _ = timed(
+            lambda d: run(d, values=False), device)
+        scale = make_runtime(W_, cost=IB_2013, model_mechanism=False,
+                             fetch_batch=1, device=device)
+        getattr(apps, app)(scale, n, iters, **kw)
+        if (dataclasses.asdict(meta.traffic)
+                != dataclasses.asdict(scale.traffic)
+                or not np.allclose(scale.clock, meta.clock, rtol=1e-9,
+                                   atol=1e-12)):
+            raise AssertionError(f"{name}: reference {meta.traffic} / "
+                                 f"{meta.time} vs scale {scale.traffic} / "
+                                 f"{scale.time}")
+        print(f"reference {name:34s} metadata-only wall {meta_wall:.3f} s"
+              f"  = scale engine  t_model {meta.time:.6f}", flush=True)
+        row, _, _ = twins(name + " values", run,
+                          lambda rt, rest: rt.home.cpu().numpy())
+        row.update(meta_wall_s=meta_wall, meta_traffic=dataclasses.asdict(
+            meta.traffic), meta_t_model_s=meta.time)
+        rows.append(row)
+    if on_card:
+        idle = [k for k, v in pd.LAUNCHES.items() if v == 0]
+        if idle:
+            raise AssertionError(f"reference phase: kernels {idle} never "
+                                 "launched")
+    return rows, dict(pd.LAUNCHES)
+
+
 def profile_phase(torch):
     """Device busy share of two fig6_weak points (samhita, lock and
-    reduction mode) and of the fig7_md_spill point, on 'fused', each in a
-    separate traced run: the union of the intervals of every device
-    activity torch.profiler records (kernels, copies, sets) over the
-    run's wall.  The walls of the path phases above are untraced."""
+    reduction mode) and of the fig7_md_spill point, on 'fused', and of the
+    reference engine's W=256 Jacobi (lock, page values on the card, iters
+    2), each in a separate traced run: the union of the intervals of every
+    device activity torch.profiler records (kernels, copies, sets) over
+    the run's wall.  The walls of the path phases above are untraced."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import make_runtime
@@ -520,6 +824,14 @@ def profile_phase(torch):
     runs += [(pt[0], pt[1], lambda pt=pt: run_spill_point(torch, pt,
                                                           "fused"))
              for pt in spill_points() if pt[0] == "fig7_md_spill"]
+
+    def reference_jacobi():
+        t0 = time.perf_counter()
+        rt = make_runtime(W, engine="reference", cost=IB_2013, device="cuda")
+        apps.jacobi(rt, N_JACOBI, 2, mode="lock")
+        torch.cuda.synchronize()
+        return rt, time.perf_counter() - t0
+    runs.append(("reference", "jacobi_lock_values", reference_jacobi))
     out = []
     for sec, tag, run in runs:
         with profile(activities=[ProfilerActivity.CPU,
@@ -542,7 +854,7 @@ def profile_phase(torch):
             end = max(end, b)
         busy = busy_us * 1e-6
         row.update(device_busy_s=busy, idle_share=1 - busy / wall)
-        print(f"profile {sec} {tag} [fused] traced wall {wall:.3f} s  "
+        print(f"profile {sec} {tag} traced wall {wall:.3f} s  "
               f"device busy {busy * 1e3:.3f} ms ({len(spans)} device "
               f"activities)  idle share {1 - busy / wall:.4f}", flush=True)
         out.append(row)
@@ -565,7 +877,7 @@ def main() -> int:
     card = card_line()
     print(card, flush=True)
     t0 = time.perf_counter()
-    _build.build("protocol_sweep.cu")
+    _build.build("protocol_sweep.cu", "page_diff.cu")
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.1f} s", flush=True)
 
@@ -573,11 +885,15 @@ def main() -> int:
     kernels = kernel_phase(torch, np, ps, dev)
     points, launches = main_path_phase(torch, ps)
     spills, spill_launches = spill_phase(torch, ps)
+    references, ref_launches = reference_phase(torch, np)
     profiled = profile_phase(torch)
 
     total = {k: launches[k] + spill_launches[k] for k in ps.LAUNCHES}
+    total.update(ref_launches)
     table = {"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE,
+        {"name": name, "route": "cuda",
+         "source": SOURCES["page_diff" if name in ref_launches
+                           else "protocol_sweep"],
          "replaces": TPU_KERNELS[name], "launches": total[name],
          "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": "bytes",
@@ -585,12 +901,15 @@ def main() -> int:
         for name, r in kernels.items()]}
     print(f"launches on the main path: {launches}", flush=True)
     print(f"launches on the spill path: {spill_launches}", flush=True)
+    print(f"launches on the reference path: {ref_launches}", flush=True)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_s, "kernel_phase": kernels,
          "points": points, "spill_points": spills,
+         "reference_points": references,
          "launches_main": launches, "launches_spill": spill_launches,
+         "launches_reference": ref_launches,
          "profile": profiled, **table}, indent=1) + "\n")
     print(json.dumps(table), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,29 +1,115 @@
 """Carry a protocol state across from the reference package.
 
-The reference's ``RegCScaleRuntime.snapshot()`` serializes its complete
-state at a barrier cut as plain numpy arrays plus JSON-serializable meta
-(its directory planes in ``RegionDirectory.state_arrays`` format, its lock
-logs in ``IntervalLog.state_arrays`` format).  ``runtime_from_snapshot``
-builds this package's runtime from that payload, on any device, so a
-trace can start on the reference and finish here with the same traffic
-and bit-equal clocks — the system's counterpart of carrying a model's
-weights across.
+Two carriers, one per engine:
 
-Only state the port can run so far is accepted: chaos and straggler
-hooks, race-detection state and shard slices raise a ``ValueError``.
-Eviction state (``cache_pages``, the resident counts, the LRU run queues
-and the directories' touch/incache planes) carries over.
+* ``reference_from_state`` turns a live reference ``RegCRuntime`` (the
+  per-page engine) into this package's ``RegCRuntime`` on any device,
+  reading its attributes by duck typing: page values, caches, dirty
+  intervals and masks, LRU order, locks with their notices, open spans
+  with their twins, traffic, clocks, pending reductions and race state.
+* ``runtime_from_snapshot`` builds the scale engine from a snapshot.
+  The reference's ``RegCScaleRuntime.snapshot()`` serializes its complete
+  state at a barrier cut as plain numpy arrays plus JSON-serializable
+  meta (its directory planes in ``RegionDirectory.state_arrays`` format,
+  its lock logs in ``IntervalLog.state_arrays`` format).  Only state the
+  scale port can run so far is accepted: chaos and straggler hooks,
+  race-detection state and shard slices raise a ``ValueError``.
+  Eviction state (``cache_pages``, the resident counts, the LRU run
+  queues and the directories' touch/incache planes) carries over.
+
+Either way a trace can start on the reference and finish here with the
+same traffic and bit-equal clocks: the system's counterpart of carrying
+a model's weights across.
 """
 from __future__ import annotations
 
-from collections import deque
+import dataclasses
+from collections import OrderedDict, deque
 
 import numpy as np
+import torch
 
+from repro_torch.core import regc
 from repro_torch.core.directory import IntervalLog, RegionDirectory
-from repro_torch.core.regc import Traffic
+from repro_torch.core.regc import RegCRuntime, Traffic
 from repro_torch.core.regc_scale import RegCScaleRuntime, _Lock
 from repro_torch.dsm.costmodel import CostModel
+
+
+def _traffic(t) -> Traffic:
+    return Traffic(**{f.name: int(getattr(t, f.name))
+                      for f in dataclasses.fields(Traffic)})
+
+
+def reference_from_state(src, *, device=None) -> RegCRuntime:
+    """This package's per-page ``RegCRuntime``, on ``device``, in the state
+    of the reference runtime ``src``: every later event on the two gives
+    the same traffic, bit-equal clocks, the same page values and the same
+    race set."""
+    cost = CostModel(**{f.name: getattr(src.cost, f.name)
+                        for f in dataclasses.fields(CostModel)})
+    rt = RegCRuntime(int(src.W), page_words=int(src.page_words),
+                     protocol=src.protocol, cost=cost,
+                     track_values=bool(src.track_values),
+                     cache_pages=(None if src.cache_pages is None
+                                  else int(src.cache_pages)),
+                     prefetch=int(src.prefetch),
+                     detect_races=bool(src.detect_races), device=device)
+
+    def page(a):
+        return torch.as_tensor(np.array(a, np.float32), device=rt.device)
+
+    rt.n_pages = int(src.n_pages)
+    if src.home is not None:
+        rt.home = page(src.home)
+    rt.cache_data = {(int(w), int(p)): page(v)
+                     for (w, p), v in src.cache_data.items()}
+    rt.valid = np.array(src.valid, bool)
+    rt.lru = [OrderedDict((int(p), True) for p in lru) for lru in src.lru]
+    rt.ord_dirty = [{} for _ in range(rt.W)]
+    for (w, p), (lo, hi) in src.ord_dirty.items():
+        rt.ord_dirty[int(w)][int(p)] = (int(lo), int(hi))
+    rt.ord_mask = {(int(w), int(p)): torch.as_tensor(
+        np.asarray(m, bool).astype(np.int8), device=rt.device)
+        for (w, p), m in src.ord_mask.items()}
+    rt.spans = []
+    for stack in src.spans:
+        ours = []
+        for sp in stack:
+            s = regc._Span(int(sp.lock))
+            s.touched = {int(p): (int(lo), int(hi))
+                         for p, (lo, hi) in sp.touched.items()}
+            s.twins = {int(p): page(v) for p, v in sp.twins.items()}
+            ours.append(s)
+        rt.spans.append(ours)
+    rt.locks = {}
+    for lock_id, lk in src.locks.items():
+        ours = regc._Lock(rt.W)
+        ours.version = int(lk.version)
+        ours.notices = [[(int(p), int(lo), int(hi), None)
+                         for (p, lo, hi, _v) in notes]
+                        for notes in lk.notices]
+        ours.last_release_time = float(lk.last_release_time)
+        ours.seen = np.array(lk.seen, np.int64)
+        ours.race_vc = np.array(lk.race_vc, np.int64)
+        rt.locks[int(lock_id)] = ours
+    rt.clock = np.array(src.clock, np.float64)
+    rt.traffic = _traffic(src.traffic)
+    rt.per_worker_traffic = [_traffic(t) for t in src.per_worker_traffic]
+    rt._reductions = {name: [(float(v), str(op)) for v, op in contribs]
+                      for name, contribs in src._reductions.items()}
+    rt._reduction_results = {name: float(v) for name, v in
+                             src._reduction_results.items()}
+    rt._barrier_count = int(src._barrier_count)
+    if rt.detect_races:
+        rt.race_vc = np.array(src.race_vc, np.int64)
+        rt._race_wpage = {int(p): np.array(v, np.int64)
+                          for p, v in src._race_wpage.items()}
+        rt._race_rpage = {int(p): np.array(v, np.int64)
+                          for p, v in src._race_rpage.items()}
+        rt.races = {(int(p), int(a), int(b), str(k))
+                    for p, a, b, k in src.races}
+    return rt
 
 
 def _refuse(why: str):
@@ -39,7 +125,7 @@ def runtime_from_snapshot(arrays: dict, meta: dict, *, device=None,
                 " the cluster slice)")
     cfg = meta["config"]
     if cfg.get("detect_races") or "race_vc" in arrays:
-        _refuse("race-detection state (slice D)")
+        _refuse("race-detection state (slice E)")
     if meta.get("chaos") is not None or meta.get("straggler") is not None:
         _refuse("chaos/straggler state (the recovery slice)")
     cache_pages = cfg.get("cache_pages")

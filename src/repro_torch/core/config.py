@@ -1,7 +1,9 @@
 """Public configuration surface for the PyTorch RegC runtime.
 
 One frozen spec (``RuntimeConfig``) and one factory (``make_runtime``)
-build the directory-vectorized ``RegCScaleRuntime`` on a torch device.
+build either protocol engine on a torch device: the directory-vectorized
+``RegCScaleRuntime`` (``engine="scale"``) or the per-page reference
+``RegCRuntime`` (``engine="reference"``).
 The string-knob vocabularies and the validator ``check_choice`` mirror
 ``repro.core.config``; ``BACKENDS`` names this package's three
 plane-reduction tiers instead of numpy/pallas/pallas-jit.
@@ -44,15 +46,18 @@ ENGINES = ("scale", "reference")        # make_runtime targets
 INSTR_S_PER_WORD = 1.5e-9
 FAULT_S = 4.0e-6
 
-# knobs whose engine paths are not in this package yet: their default and
-# the slice of the port that brings them; any other value raises instead
-# of running
+# knobs whose scale-engine paths are not in this package yet: their default
+# and the slice of the port that brings them; any other value raises
+# instead of running
 _LATER = {
-    "detect_races": (False, "slice D (race detection)"),
+    "detect_races": (False, "slice E (race detection)"),
     "chaos": (None, "the recovery slice"),
     "injector": (None, "the recovery slice"),
     "straggler": (None, "the recovery slice"),
 }
+# the reference engine's race oracle is ported; its fault-injection hooks
+# never existed (the reference package refuses them too)
+_REFERENCE_REFUSES = ("chaos", "injector", "straggler")
 
 
 def check_choice(name: str, value, allowed) -> str:
@@ -87,11 +92,12 @@ def resolve_device(device=None, backend: str = "fused") -> torch.device:
 
 @dataclasses.dataclass(frozen=True)
 class RuntimeConfig:
-    """Frozen spec for building a RegC runtime.
+    """Frozen spec for building a RegC runtime (either engine).
 
-    The reference's spec plus ``device``, less the two knobs only the
-    per-page reference engine reads (``track_values``, ``n_mem_servers``;
-    they come with that engine's slice).  Knobs whose engine paths belong
+    The reference's spec plus ``device``, less ``n_mem_servers`` (which
+    neither engine reads).  The reference engine ignores
+    the scale engine's performance and mechanism knobs and refuses the
+    fault-injection hooks.  On the scale engine, knobs whose paths belong
     to later slices of the port (``detect_races``, ``chaos``,
     ``injector``, ``straggler``) raise a ``ValueError`` naming that slice
     when set to other than their default."""
@@ -101,13 +107,14 @@ class RuntimeConfig:
     cost: CostModel = IB_2013
     cache_pages: Optional[int] = None   # per-worker cache (None = infinite)
     prefetch: int = 1
-    model_mechanism: bool = True        # §IV store tracking
-    instr_s_per_word: float = INSTR_S_PER_WORD
-    fault_s: float = FAULT_S
-    fetch_batch: int = 1                # bulk-fetch batching
-    backend: str = "fused"              # plane-reduction tier
-    danger_mode: str = "vec"            # mid-op refetch replay (spill)
-    detect_races: bool = False
+    track_values: bool = True           # reference only: materialize pages
+    model_mechanism: bool = True        # scale only: §IV store tracking
+    instr_s_per_word: float = INSTR_S_PER_WORD   # scale only
+    fault_s: float = FAULT_S                     # scale only
+    fetch_batch: int = 1                # scale only: bulk-fetch batching
+    backend: str = "fused"              # scale only: plane-reduction tier
+    danger_mode: str = "vec"            # scale only: mid-op refetch replay
+    detect_races: bool = False          # pure-observer race detection
     chaos: Any = None
     injector: Any = None
     straggler: Any = None
@@ -117,11 +124,6 @@ class RuntimeConfig:
         check_choice("protocol", self.protocol, PROTOCOLS)
         check_choice("backend", self.backend, BACKENDS)
         check_choice("danger_mode", self.danger_mode, DANGER_MODES)
-        for name, (default, where) in _LATER.items():
-            if getattr(self, name) != default:
-                raise ValueError(
-                    f"RuntimeConfig({name}={getattr(self, name)!r}) is not "
-                    f"ported yet: it arrives with {where}")
 
 
 def make_runtime(n_workers: int, config: Optional[RuntimeConfig] = None,
@@ -130,13 +132,10 @@ def make_runtime(n_workers: int, config: Optional[RuntimeConfig] = None,
 
     ``config`` defaults to ``RuntimeConfig()``; keyword ``overrides`` are
     applied on top via ``dataclasses.replace`` (unknown field names
-    raise).  Only ``engine="scale"`` exists in this package so far."""
+    raise).  ``engine="scale"`` returns the directory-vectorized
+    ``RegCScaleRuntime``; ``engine="reference"`` the per-page
+    ``RegCRuntime``.  Both are driven through ``repro_torch.dsm.session``."""
     check_choice("engine", engine, ENGINES)
-    if engine == "reference":
-        raise ValueError(
-            "make_runtime(engine='reference') is not ported yet: the "
-            "per-page reference engine arrives with its own slice "
-            "(ROADMAP Queue 1 item 8)")
     cfg = config if config is not None else RuntimeConfig()
     if overrides:
         try:
@@ -146,6 +145,24 @@ def make_runtime(n_workers: int, config: Optional[RuntimeConfig] = None,
             raise ValueError(
                 f"make_runtime(): unknown RuntimeConfig override "
                 f"({e}); known fields: {known}") from None
+    if engine == "reference":
+        for hook in _REFERENCE_REFUSES:
+            if getattr(cfg, hook) is not None:
+                raise ValueError(
+                    f"make_runtime(engine='reference'): the reference "
+                    f"engine does not support the {hook!r} fault-injection "
+                    f"hook (use engine='scale')")
+        from repro_torch.core.regc import RegCRuntime
+        return RegCRuntime(
+            n_workers, page_words=cfg.page_words, protocol=cfg.protocol,
+            cost=cfg.cost, track_values=cfg.track_values,
+            cache_pages=cfg.cache_pages, prefetch=cfg.prefetch,
+            detect_races=cfg.detect_races, device=cfg.device)
+    for name, (default, where) in _LATER.items():
+        if getattr(cfg, name) != default:
+            raise ValueError(
+                f"make_runtime({name}={getattr(cfg, name)!r}) is not ported "
+                f"to the scale engine yet: it arrives with {where}")
     from repro_torch.core.regc_scale import RegCScaleRuntime
     return RegCScaleRuntime(
         n_workers, page_words=cfg.page_words, protocol=cfg.protocol,

@@ -589,11 +589,11 @@ class RegionDirectory:
     def from_state(cls, arrays: dict, meta: dict, *, backend: str,
                    device) -> "RegionDirectory":
         """Rebuild a directory from ``state_arrays`` output (this
-        package's or the reference's).  Race planes belong to slice D and
+        package's or the reference's).  Race planes belong to slice E and
         are refused."""
         if meta.get("has_race"):
             raise ValueError("RegionDirectory.from_state: race planes are "
-                             "not ported yet (slice D)")
+                             "not ported yet (slice E)")
         d = cls(meta["W"], meta["region"], meta["page_lo"],
                 meta["page_hi"], track_wprot=meta["track_wprot"],
                 track_touch=meta["track_touch"], backend=backend,

@@ -30,9 +30,10 @@ the reference uses as its oracle.  The LRU queues, the resident counts and
 the ticks are host state, like the window geometry; the touch/incache
 planes live on the device.
 
-The port so far covers slices A (the main path) and B (eviction).  The
-batched ``span_all`` driver (slice C), race detection (slice D) and the
-fault-injection hooks are not here yet; ``config.RuntimeConfig`` refuses
+This engine covers slices A (the main path) and B (eviction) of the port;
+slice C is the per-page reference engine (``core/regc.py``).  The batched
+``span_all`` driver (slice D), race detection (slice E) and the
+fault-injection hooks are not here yet; ``config.make_runtime`` refuses
 the knobs that would reach them.
 
 Store-tracking mechanisms (paper §IV), modeled as in the reference:

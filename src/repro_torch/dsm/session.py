@@ -15,10 +15,13 @@ the apps use:
 * ``s.barrier()`` — delegate to ``rt.barrier()``.
 
 Drivers: ``batched`` routes phases through the engine's worker-axis
-``phase_all``; ``loop`` issues per-worker phases in worker order.  The
-two are bit-exact against each other.  Spans run the per-worker body on
-both drivers: the batched ``span_all`` arrives with slice C of the port,
-and the reference proves it bit-equal to this body.
+``phase_all``; ``loop`` issues per-worker phases in worker order, as
+``rt.phase`` where the runtime has one and as per-op ``read``/``write``/
+``compute``/``instr_stores`` otherwise (the per-page reference engine,
+for which ``auto`` picks ``loop``).  The two are bit-exact against each
+other.  Spans run the per-worker body on both drivers: the batched
+``span_all`` arrives with slice D of the port, and the reference proves
+it bit-equal to this body.
 """
 from __future__ import annotations
 
@@ -29,8 +32,14 @@ from repro_torch.core.config import DRIVERS, check_choice
 
 def _phase_callable(rt, driver: str):
     if driver == "batched":
-        return rt.phase_all
+        batched = getattr(rt, "phase_all", None)
+        if batched is None:
+            raise ValueError(
+                "session(driver='batched'): runtime has no phase_all "
+                "(use driver='loop' for the reference engine)")
+        return batched
     W = rt.W
+    per_worker = getattr(rt, "phase", None)
 
     def at(v, w):
         return float(v[w]) if np.ndim(v) else float(v)
@@ -38,13 +47,22 @@ def _phase_callable(rt, driver: str):
     def loop(reads=(), writes=(), *, flops=0.0, mem_bytes=0.0, seconds=0.0,
              instr_words=0.0):
         for w in range(W):
-            rt.phase(w,
-                     reads=[(ga, int(lo[w]), int(hi[w]))
-                            for ga, lo, hi in reads],
-                     writes=[(ga, int(lo[w]), int(hi[w]))
-                             for ga, lo, hi in writes],
-                     flops=at(flops, w), mem_bytes=at(mem_bytes, w),
-                     seconds=at(seconds, w), instr_words=at(instr_words, w))
+            r = [(ga, int(lo[w]), int(hi[w])) for ga, lo, hi in reads]
+            wr = [(ga, int(lo[w]), int(hi[w])) for ga, lo, hi in writes]
+            fl, mb = at(flops, w), at(mem_bytes, w)
+            sec, iw = at(seconds, w), at(instr_words, w)
+            if per_worker is not None:
+                per_worker(w, reads=r, writes=wr, flops=fl, mem_bytes=mb,
+                           seconds=sec, instr_words=iw)
+                continue
+            for ga, lo, hi in r:
+                rt.read(w, ga, lo, hi)
+            for ga, lo, hi in wr:
+                rt.write(w, ga, lo, hi)
+            if fl or mb or sec:
+                rt.compute(w, flops=fl, mem_bytes=mb, seconds=sec)
+            if iw:
+                rt.instr_stores(w, iw)
     return loop
 
 
@@ -69,18 +87,29 @@ class Session:
     """Named phase/span/reduce drivers bound to one runtime.
 
     ``driver`` is resolved once at construction (``auto`` picks
-    ``batched``); the resolved name is ``s.driver``."""
+    ``batched`` iff the runtime has ``phase_all``); the resolved name is
+    ``s.driver``."""
 
     def __init__(self, rt, driver: str = "auto"):
         check_choice("driver", driver, DRIVERS)
         self.rt = rt
-        self.driver = "batched" if driver == "auto" else driver
-        self.phase = _phase_callable(rt, self.driver)
+        if driver == "auto":
+            driver = ("batched" if getattr(rt, "phase_all", None) is not None
+                      else "loop")
+        self.driver = driver
+        self.phase = _phase_callable(rt, driver)
         self.span = _span_callable(rt)
 
     def reduce(self, name: str, value: float = 1.0):
-        """Per-worker reduction contribution, one batched call."""
-        self.rt.reduce_all(name, value)
+        """Per-worker reduction contribution: one ``reduce_all`` call where
+        the runtime has it, else ``rt.reduce`` per worker (the same combine
+        and traffic either way)."""
+        reduce_all = getattr(self.rt, "reduce_all", None)
+        if reduce_all is not None:
+            reduce_all(name, value)
+        else:
+            for w in range(self.rt.W):
+                self.rt.reduce(w, name, value)
 
     def barrier(self):
         self.rt.barrier()

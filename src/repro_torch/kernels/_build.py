@@ -1,4 +1,5 @@
-"""Build the package's CUDA sources at first use and load them with ctypes.
+"""Build the package's CUDA sources at first use, load them with ctypes,
+and launch their entries.
 
 Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers), so
 ``nvcc`` builds it in seconds:
@@ -12,6 +13,11 @@ an edited source is rebuilt and an unchanged one is loaded as it is.
 Sources are compiled in parallel, one ``nvcc`` process each, all started
 together.  Nothing here runs at import time: the first wrapper that
 launches a kernel triggers the build.
+
+``Kernels`` binds one source's C entries (``rt_<name>``, each taking its
+operands and a stream and returning a cudaError) and counts launches and
+wrapper calls; ``check``, ``on_card`` and ``ptr`` are the wrappers' shared
+operand helpers.
 """
 from __future__ import annotations
 
@@ -21,7 +27,9 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -86,3 +94,78 @@ def load(source: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build(source)[source]))
         _LOADED[source] = lib
     return lib
+
+
+def check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
+          device: torch.device):
+    """Raise unless ``t`` has ``dtype``, ``ndim`` dimensions, lies on
+    ``device`` and is contiguous."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} must be {ndim}-D, got shape "
+                         f"{tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def on_card(device: torch.device) -> bool:
+    """True for a CUDA device (launch the kernel), False for the CPU (run
+    the plain version); any other device raises."""
+    if device.type == "cuda":
+        return True
+    if device.type != "cpu":
+        raise ValueError(f"unsupported device {device}")
+    return False
+
+
+def ptr(t: torch.Tensor):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+class Kernels:
+    """The C entries of ``csrc/<source>``: ``signatures`` maps each kernel
+    name to the ctypes types of its operands (the stream comes last and is
+    added here).  ``launches[name]`` counts the launches of each kernel
+    and is bumped nowhere else; ``calls[name]`` counts the calls of its
+    wrapper on any device (``called``), so a CPU run says how many
+    launches the same run makes on the card."""
+
+    def __init__(self, source: str, signatures: Dict[str, Tuple]):
+        self.source = source
+        self.signatures = signatures
+        self.launches = dict.fromkeys(signatures, 0)
+        self.calls = dict.fromkeys(signatures, 0)
+        self._bound: Dict[str, object] = {}
+
+    def reset(self):
+        for counts in (self.launches, self.calls):
+            for k in counts:
+                counts[k] = 0
+
+    def called(self, name: str):
+        self.calls[name] += 1
+
+    def entry(self, name: str):
+        """The bound C function ``rt_<name>``, built and loaded on first
+        use."""
+        if not self._bound:
+            lib = load(self.source)
+            for kernel, argtypes in self.signatures.items():
+                f = getattr(lib, "rt_" + kernel)
+                f.argtypes = [*argtypes, ctypes.c_void_p]
+                f.restype = ctypes.c_int
+                self._bound[kernel] = f
+        return self._bound[name]
+
+    def launch(self, name: str, device: torch.device, *args):
+        """Launch ``name`` on ``device``'s current stream; raise if the
+        launch was refused."""
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            rc = self.entry(name)(*args, stream)
+        if rc != 0:
+            raise RuntimeError(f"{name}: CUDA launch failed (cudaError {rc})")
+        self.launches[name] += 1

@@ -25,7 +25,8 @@ Hand-written CUDA kernels (``csrc/protocol_sweep.cu``, ``sm_90a``):
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty`` and launches on the current stream, adding
-one to ``LAUNCHES[name]`` per launch.  A tensor on the CPU takes the
+one to ``LAUNCHES[name]`` per launch and to ``CALLS[name]`` per call on
+any device.  A tensor on the CPU takes the
 kernel's plain PyTorch version (``_*_plain``) instead; a CUDA tensor gets
 the kernel or an exception, never the plain version.  The plain versions
 mirror the reference's numpy tier bit for bit and are what the tests and
@@ -38,7 +39,8 @@ from typing import Optional, Tuple
 
 import torch
 
-_SOURCE = "protocol_sweep.cu"
+from repro_torch.kernels._build import Kernels, check, on_card, ptr
+
 _M32 = 0xFFFFFFFF
 _I32_MAX = (1 << 31) - 1
 # phase_step stages 2W int32 bounds in dynamic shared memory and opts in
@@ -47,83 +49,24 @@ _I32_MAX = (1 << 31) - 1
 # alignment
 MAX_PHASE_STEP_W = (227 * 1024 - 1024) // 8
 
-# launch counters: one per kernel, bumped only where a kernel launches
-LAUNCHES = {"pack_rows": 0, "popcount_rows": 0, "coverage_multi": 0,
-            "phase_step": 0, "take_first_k": 0, "kth_set_index": 0,
-            "take_and_cut": 0}
-
-
-def reset_launches():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-# ---------------------------------------------------------------------------
-# kernel binding
-# ---------------------------------------------------------------------------
-
 _P = ctypes.c_void_p
 _L = ctypes.c_longlong
-_SIGNATURES = {
-    "rt_pack_rows": (_P, _P, _L, _L, _L, _P),
-    "rt_popcount_rows": (_P, _P, _L, _L, _P),
-    "rt_coverage_multi": (_P, _P, _L, _P),
-    "rt_phase_step": (_P, _P, _P, _P, _P, _P, _P, _L, _L, _L, _P),
-    "rt_take_first_k": (_P, _P, _P, _L, _L, _P),
-    "rt_kth_set_index": (_P, _P, _P, _L, _L, _P),
-    "rt_take_and_cut": (_P, _P, _P, _P, _L, _L, _P),
-}
-_BOUND: dict = {}
-
-
-def _fn(name: str):
-    fn = _BOUND.get(name)
-    if fn is None:
-        from repro_torch.kernels._build import load
-        lib = load(_SOURCE)
-        for sym, argtypes in _SIGNATURES.items():
-            f = getattr(lib, sym)
-            f.argtypes = list(argtypes)
-            f.restype = ctypes.c_int
-            _BOUND[sym] = f
-        fn = _BOUND[name]
-    return fn
-
-
-def _launch(name: str, device: torch.device, *args):
-    """Launch ``name`` on ``device``'s current stream; raise if the launch
-    was refused."""
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = _fn("rt_" + name)(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed (cudaError {rc})")
-    LAUNCHES[name] += 1
-
-
-def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
-           device: torch.device):
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if t.dim() != ndim:
-        raise ValueError(f"{name} must be {ndim}-D, got shape "
-                         f"{tuple(t.shape)}")
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _on_card(device: torch.device) -> bool:
-    if device.type == "cuda":
-        return True
-    if device.type != "cpu":
-        raise ValueError(f"unsupported device {device}")
-    return False
-
-
-def _ptr(t: torch.Tensor):
-    return ctypes.c_void_p(t.data_ptr())
+_KERNELS = Kernels("protocol_sweep.cu", {
+    "pack_rows": (_P, _P, _L, _L, _L),
+    "popcount_rows": (_P, _P, _L, _L),
+    "coverage_multi": (_P, _P, _L),
+    "phase_step": (_P, _P, _P, _P, _P, _P, _P, _L, _L, _L),
+    "take_first_k": (_P, _P, _P, _L, _L),
+    "kth_set_index": (_P, _P, _P, _L, _L),
+    "take_and_cut": (_P, _P, _P, _P, _L, _L),
+})
+# launch counters: one per kernel, bumped only where a kernel launches;
+# CALLS counts each wrapper's calls on any device
+LAUNCHES = _KERNELS.launches
+CALLS = _KERNELS.calls
+reset_launches = _KERNELS.reset
+_launch = _KERNELS.launch
+_called = _KERNELS.called
 
 
 # ---------------------------------------------------------------------------
@@ -258,52 +201,55 @@ def pack_rows(plane: torch.Tensor,
               out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(W, C) bool -> packed (W, ceil(C/32)) int32 words.  ``out`` may be
     a wider (W, nw_out) int32 buffer; words past ceil(C/32) become 0."""
+    _called("pack_rows")
     dev = plane.device
-    _check(plane, "plane", torch.bool, 2, dev)
+    check(plane, "plane", torch.bool, 2, dev)
     W, C = plane.shape
     nw = -(-C // 32)
     if out is None:
         out = torch.empty((W, nw), dtype=torch.int32, device=dev)
-    _check(out, "out", torch.int32, 2, dev)
+    check(out, "out", torch.int32, 2, dev)
     if out.shape[0] != W or out.shape[1] < nw:
         raise ValueError(f"out shape {tuple(out.shape)} cannot hold "
                          f"({W}, {nw}) packed words")
-    if not _on_card(dev):
+    if not on_card(dev):
         out.zero_()
         out[:, :nw] = _pack_rows_plain(plane)
         return out
     if W > 65535:
         raise ValueError(f"pack_rows: W={W} exceeds the grid's 65535 rows")
     if W and out.shape[1]:
-        _launch("pack_rows", dev, _ptr(plane), _ptr(out), W, C,
+        _launch("pack_rows", dev, ptr(plane), ptr(out), W, C,
                 out.shape[1])
     return out
 
 
 def popcount_rows(bits: torch.Tensor) -> torch.Tensor:
     """(W, nw) int32 packed words -> (W,) int64 per-row set-bit counts."""
+    _called("popcount_rows")
     dev = bits.device
-    _check(bits, "bits", torch.int32, 2, dev)
+    check(bits, "bits", torch.int32, 2, dev)
     W, nw = bits.shape
-    if not _on_card(dev):
+    if not on_card(dev):
         return _popcount_rows_plain(bits)
     if W == 0 or nw == 0:
         return torch.zeros(W, dtype=torch.int64, device=dev)
     counts = torch.empty(W, dtype=torch.int64, device=dev)
-    _launch("popcount_rows", dev, _ptr(bits), _ptr(counts), W, nw)
+    _launch("popcount_rows", dev, ptr(bits), ptr(counts), W, nw)
     return counts
 
 
 def coverage_multi(delta: torch.Tensor) -> torch.Tensor:
     """Sorted-bound deltas (+1 window start / -1 window end), int32 ->
     bool mask of sweep points whose running cover count is >= 2."""
+    _called("coverage_multi")
     dev = delta.device
-    _check(delta, "delta", torch.int32, 1, dev)
-    if not _on_card(dev):
+    check(delta, "delta", torch.int32, 1, dev)
+    if not on_card(dev):
         return _coverage_multi_plain(delta)
     out = torch.empty(delta.shape[0], dtype=torch.uint8, device=dev)
     if delta.shape[0]:
-        _launch("coverage_multi", dev, _ptr(delta), _ptr(out),
+        _launch("coverage_multi", dev, ptr(delta), ptr(out),
                 delta.shape[0])
     return out.view(torch.bool)
 
@@ -318,17 +264,18 @@ def phase_step(bits: torch.Tensor, base: torch.Tensor,
     with INT32_MAX.  Returns (counts (R, W) int64, shared (R, W, nw)
     int32): per-row dirty counts and the packed dirty & >=2-covered &
     active-row candidate masks."""
+    _called("phase_step")
     dev = bits.device
-    _check(bits, "bits", torch.int32, 3, dev)
+    check(bits, "bits", torch.int32, 3, dev)
     R, W, nw = bits.shape
     for name, t, dt in (("base", base, torch.int32),
                         ("rowmask", rowmask, torch.bool),
                         ("sbases", sbases, torch.int32),
                         ("sends", sends, torch.int32)):
-        _check(t, name, dt, 2, dev)
+        check(t, name, dt, 2, dev)
         if tuple(t.shape) != (R, W):
             raise ValueError(f"{name} shape {tuple(t.shape)} != {(R, W)}")
-    if not _on_card(dev):
+    if not on_card(dev):
         return _phase_step_plain(bits, base, rowmask, sbases, sends)
     if W > MAX_PHASE_STEP_W or R > 65535:
         raise ValueError(f"phase_step: (R, W)=({R}, {W}) exceeds the "
@@ -337,8 +284,8 @@ def phase_step(bits: torch.Tensor, base: torch.Tensor,
     counts = torch.empty((R, W), dtype=torch.int64, device=dev)
     shared = torch.empty_like(bits)
     if R and W:
-        _launch("phase_step", dev, _ptr(bits), _ptr(base), _ptr(rowmask),
-                _ptr(sbases), _ptr(sends), _ptr(counts), _ptr(shared), R,
+        _launch("phase_step", dev, ptr(bits), ptr(base), ptr(rowmask),
+                ptr(sbases), ptr(sends), ptr(counts), ptr(shared), R,
                 W, nw)
     return counts, shared
 
@@ -349,10 +296,10 @@ def _rank_operands(bits: torch.Tensor, k: torch.Tensor):
     for the kernel, clipped to the int32 range (the rank of any real row
     is far below it, so clipping changes no result)."""
     dev = bits.device
-    _check(bits, "bits", torch.int32, 2, dev)
+    check(bits, "bits", torch.int32, 2, dev)
     if k.dtype not in (torch.int32, torch.int64):
         raise TypeError(f"k must be int32 or int64, got {k.dtype}")
-    _check(k, "k", k.dtype, 1, dev)
+    check(k, "k", k.dtype, 1, dev)
     if k.shape[0] != bits.shape[0]:
         raise ValueError(f"k has {k.shape[0]} ranks for {bits.shape[0]} rows")
     if k.dtype == torch.int64:
@@ -363,13 +310,14 @@ def _rank_operands(bits: torch.Tensor, k: torch.Tensor):
 def take_first_k(bits: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """(R, nw) int32 packed rows + (R,) ranks -> (R, nw) int32: each row's
     first k[i] set bits in little-endian column order."""
+    _called("take_first_k")
     dev, k32 = _rank_operands(bits, k)
     R, nw = bits.shape
-    if not _on_card(dev):
+    if not on_card(dev):
         return _take_first_k_plain(bits, k)
     take = torch.empty_like(bits)
     if R and nw:
-        _launch("take_first_k", dev, _ptr(bits), _ptr(k32), _ptr(take), R,
+        _launch("take_first_k", dev, ptr(bits), ptr(k32), ptr(take), R,
                 nw)
     return take
 
@@ -378,15 +326,16 @@ def kth_set_index(bits: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """(R, nw) int32 packed rows + (R,) 1-based ranks -> (R,) int64 column
     of each row's k[i]-th set bit, -1 when k[i] <= 0 or the row has fewer
     set bits."""
+    _called("kth_set_index")
     dev, k32 = _rank_operands(bits, k)
     R, nw = bits.shape
     if nw == 0:
         return torch.full((R,), -1, dtype=torch.int64, device=dev)
-    if not _on_card(dev):
+    if not on_card(dev):
         return _kth_set_index_plain(bits, k)
     cut = torch.empty(R, dtype=torch.int64, device=dev)
     if R:
-        _launch("kth_set_index", dev, _ptr(bits), _ptr(k32), _ptr(cut), R,
+        _launch("kth_set_index", dev, ptr(bits), ptr(k32), ptr(cut), R,
                 nw)
     return cut
 
@@ -395,16 +344,17 @@ def take_and_cut(bits: torch.Tensor,
                  k: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """``take_first_k`` and ``kth_set_index`` of the same operands in one
     launch: (take (R, nw) int32, cut (R,) int64)."""
+    _called("take_and_cut")
     dev, k32 = _rank_operands(bits, k)
     R, nw = bits.shape
     if nw == 0:
         return (torch.empty_like(bits),
                 torch.full((R,), -1, dtype=torch.int64, device=dev))
-    if not _on_card(dev):
+    if not on_card(dev):
         return _take_first_k_plain(bits, k), _kth_set_index_plain(bits, k)
     take = torch.empty_like(bits)
     cut = torch.empty(R, dtype=torch.int64, device=dev)
     if R:
-        _launch("take_and_cut", dev, _ptr(bits), _ptr(k32), _ptr(take),
-                _ptr(cut), R, nw)
+        _launch("take_and_cut", dev, ptr(bits), ptr(k32), ptr(take),
+                ptr(cut), R, nw)
     return take, cut

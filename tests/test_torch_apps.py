@@ -6,7 +6,7 @@ settings (IB_2013, fetch_batch=16).
 Each point runs on the reference (numpy tier) and on every port tier
 (``device="cpu"``) under the same driver.  In lock mode the reference's
 batched driver runs its spans through ``span_all`` while the port runs
-the per-worker span body (``span_all`` is slice C); the reference holds
+the per-worker span body (``span_all`` is slice D); the reference holds
 the two bit-equal, so traffic and clocks must still match exactly.
 The capacity-pressure points (``stream_spill``, ``stream_refetch`` and
 the spill settings of Jacobi and MD) run the same way under the

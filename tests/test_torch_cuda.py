@@ -148,3 +148,81 @@ def test_cuda_spill_runtime_matches_cpu(dev, backend):
     rank = ("take_and_cut",) if backend == "fused" else ("take_first_k",
                                                           "kth_set_index")
     assert all(launched[k] > 0 for k in rank), launched
+
+
+def _bits_equal(a, b):
+    a = a.view(torch.int32) if a.dtype == torch.float32 else a
+    b = b.view(torch.int32) if b.dtype == torch.float32 else b
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def test_page_diff_kernels_match_plain_versions(dev):
+    """diff_encode and diff_apply against their plain versions, bit for
+    bit, at the reference path's shapes, a batched and a ragged shape,
+    with the edge bit patterns (-0.0, NaN payloads, equal NaN bits,
+    denormals) and mask bytes of -1 and 2; also on rows that start off
+    the 16-byte alignment (the scalar path)."""
+    import chip_smoke
+    from repro_torch.kernels import page_diff as pd
+    rng = np.random.default_rng(13)
+    for n, w in ((1, 256), (1, 1024), (4096, 1024), (5, 1001), (3, 4)):
+        curr, twin, mask = (torch.as_tensor(a, device=dev) for a in
+                            chip_smoke.page_diff_inputs(np, rng, n, w))
+        flat = torch.empty(2 * n * w + 1, device=dev)
+        shifted = flat[1:n * w + 1].view(n, w)       # 4 bytes off alignment
+        shifted.copy_(curr)
+        for c in (curr, shifted):
+            enc = pd.diff_encode(c, twin)
+            assert all(_bits_equal(a, b) for a, b in
+                       zip(enc, pd._diff_encode_plain(c, twin)))
+            assert _bits_equal(pd.diff_apply(twin, enc[0], enc[1]), curr)
+            assert _bits_equal(pd.diff_apply(twin, mask, c),
+                               pd._diff_apply_plain(twin, mask, c))
+    empty = pd.diff_encode(torch.zeros(0, 8, device=dev),
+                           torch.zeros(0, 8, device=dev))
+    assert empty[2].shape == (0,)
+
+
+def test_cuda_reference_matches_cpu(dev):
+    """The per-page reference engine with page values on the card against
+    the same runs on the CPU: a seeded DRF program (span writes of one
+    lock, then every worker's read) and the dsm_jacobi program.  Traffic,
+    clocks, reads and home bit-equal; the page_diff launches equal the
+    CPU run's wrapper calls."""
+    import chip_smoke
+    from repro_torch.kernels import page_diff as pd
+    rng = np.random.default_rng(21)
+    ops = [(int(rng.integers(0, 3)), int(lo), int(lo + rng.integers(1, 9)),
+            float(rng.uniform(-100, 100)))
+           for lo in rng.integers(0, 120, 12)]
+    for proto in ("fine", "page"):
+        runs, reads, called = {}, {}, {}
+        for d in ("cpu", "cuda"):
+            rt = make_runtime(3, engine="reference", page_words=64,
+                              protocol=proto, device=d)
+            g = rt.alloc(128)
+            before, calls = dict(pd.LAUNCHES), dict(pd.CALLS)
+            for w, lo, hi in ((w, lo, hi) for w, lo, hi, _ in ops):
+                with rt.span(w, 0):
+                    rt.write(w, g, lo, hi, np.full(hi - lo, w + 0.5,
+                                                   np.float32))
+            rt.barrier()
+            reads[d] = [rt.read(w, g, 0, 128).cpu() for w in range(3)]
+            runs[d] = rt
+            called[d] = {k: pd.CALLS[k] - calls[k] for k in pd.CALLS}
+        launched = {k: pd.LAUNCHES[k] - before[k] for k in pd.LAUNCHES}
+        assert launched == called["cpu"]
+        assert dataclasses.asdict(runs["cpu"].traffic) == dataclasses.asdict(
+            runs["cuda"].traffic)
+        np.testing.assert_array_equal(runs["cpu"].clock, runs["cuda"].clock)
+        assert all(_bits_equal(a, b) for a, b in zip(reads["cpu"],
+                                                     reads["cuda"]))
+        assert _bits_equal(runs["cpu"].home, runs["cuda"].home.cpu())
+    jac = {}
+    encodes = pd.LAUNCHES["diff_encode"]
+    for d in ("cpu", "cuda"):
+        rt = make_runtime(4, engine="reference", page_words=256, device=d)
+        jac[d] = (rt, chip_smoke.dsm_jacobi(rt, 32, 40, "lock")[0])
+    assert jac["cpu"][1].tobytes() == jac["cuda"][1].tobytes()
+    np.testing.assert_array_equal(jac["cpu"][0].clock, jac["cuda"][0].clock)
+    assert pd.LAUNCHES["diff_encode"] > encodes

@@ -33,6 +33,7 @@ import torch
 import trace_fuzz
 from repro.core import directory as ref_dir
 from repro.core.regc_scale import RegCScaleRuntime as RefRuntime
+from repro.kernels import protocol_sweep as ref_ps
 from repro_torch.core import GasArray, runtime_from_snapshot
 from repro_torch.core import directory as pt_dir
 from repro_torch.core.regc_scale import RegCScaleRuntime as PortRuntime
@@ -46,6 +47,19 @@ PORT_TIERS = ("plain", "kernels", "fused")
 DRIVERS = ("batched", "loop")
 # the port's tier and the reference tier it twins
 TIERS = (("plain", "numpy"), ("kernels", "pallas"), ("fused", "pallas-jit"))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _restore_jit_accounting():
+    """The reference's 'pallas-jit' tier notes every (kernel, shape) it
+    dispatches in a process-wide set that feeds its ``jit_cache_misses``
+    counter.  Restore the set when this module ends, so test files that
+    run later in the same process count their own first dispatches (the
+    cluster suite compares that counter with fresh shard processes)."""
+    seen = set(ref_ps._JIT_SEEN)
+    yield
+    ref_ps._JIT_SEEN.clear()
+    ref_ps._JIT_SEEN.update(seen)
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,7 @@
   ``import jax`` fails;
 * entry points run on the card by default and raise without one;
 * knobs of later slices raise a ``ValueError`` naming the slice, and
-  the knobs of ported slices build a runtime;
+  the knobs of ported slices (and the reference engine) build a runtime;
 * ``chip_smoke.py`` fails, printing no result, without a card and in a
   directory that holds nothing else of the repo."""
 import ast
@@ -104,7 +104,7 @@ def test_slice_b_knobs_build_a_runtime(knob, value):
 
 
 @pytest.mark.parametrize("knob,value,slice_name", [
-    ("detect_races", True, "slice D"),
+    ("detect_races", True, "slice E"),
     ("chaos", object(), "recovery"), ("injector", object(), "recovery"),
     ("straggler", object(), "recovery")])
 def test_later_slice_knobs_raise(knob, value, slice_name):
@@ -113,8 +113,10 @@ def test_later_slice_knobs_raise(knob, value, slice_name):
 
 
 def test_config_validation():
-    with pytest.raises(ValueError, match="engine='reference'"):
-        make_runtime(4, engine="reference", device="cpu")
+    # the per-page reference engine (slice C) builds on the CPU on request
+    rt = make_runtime(4, engine="reference", device="cpu")
+    assert type(rt).__name__ == "RegCRuntime" and rt.device.type == "cpu"
+    assert rt.track_values and rt.home is None
     with pytest.raises(ValueError, match="allowed"):
         make_runtime(4, engine="magic", device="cpu")
     with pytest.raises(ValueError, match="unknown RuntimeConfig override"):
