@@ -8,8 +8,8 @@ Run from the root of a checkout on a machine with one CUDA card:
 Phases, in order; any mismatch or exception exits non-zero:
 
 1. prints the card's name and power limit (``nvidia-smi``);
-2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and
-   prints the build seconds;
+2. builds the four CUDA sources in ``src/repro_torch/kernels/csrc`` (one
+   ``nvcc`` each, in parallel) and prints the build seconds;
 3. kernel phase: each kernel against its plain PyTorch version on the
    card, bit for bit: pack_rows, popcount_rows, coverage_multi and
    phase_step at the main path's shapes (fig3_weak, W=256) and at edge
@@ -22,9 +22,18 @@ Phases, in order; any mismatch or exception exits non-zero:
    diff_encode and diff_apply at the reference path's shapes (1, 256) and
    (1, 1024), a batched (4096, 1024) and a ragged (5, 1001), with -0.0,
    NaN-payload, equal-NaN and denormal words and mask bytes of -1 and 2
-   (compared on their bits).  Prints each kernel's median time (CUDA
-   events), the plain version's, the yardstick (``torch.cumsum`` for
-   coverage_multi, ``torch.where`` for diff_apply) and the bound;
+   (compared on their bits); the model kernels flash_attention (at the
+   internlm2-1.8b prefill shape in float32 and bfloat16, a ragged S, a
+   window with a softcap, MQA and the reduced shape; 2e-5 in float32,
+   rtol 8e-3 / atol 2e-3 in bfloat16) and
+   ssd_chunk (at the mamba2-2.7b prefill shape with grouped and per-cell
+   B/C rows, in bfloat16, reduced and ragged; 1e-4).  Prints each
+   kernel's median time (CUDA events), the plain version's, the
+   yardstick (``torch.cumsum`` for coverage_multi, ``torch.where`` for
+   diff_apply, ``scaled_dot_product_attention`` for flash_attention) and
+   the bound: the larger of the bytes over the HBM rate and the
+   operations over the peak for the operands' type (float32 on CUDA
+   cores, bfloat16 on tensor cores), and which of the two it is;
 4. main-path phase: the W=256 batched points of fig2_strong, fig3_weak,
    fig5_strong, fig6_weak and fig7_md (samhita and samhita_page, Jacobi
    and MD in lock and reduction modes) on the 'fused' tier, plus the two
@@ -52,11 +61,22 @@ Phases, in order; any mismatch or exception exits non-zero:
    memory;
 7. profile phase: the device busy share of the two samhita fig6_weak
    points (lock, reduction) and of fig7_md_spill, each from a separate
-   torch.profiler run.
+   torch.profiler run;
+8. model phase (slice M): internlm2-1.8b and then mamba2-2.7b at full
+   width and depth, float32 weights drawn on the card from seed 0, serve
+   8 requests (the reference server's, prompts up to 511 tokens, 16 new
+   tokens) in waves of 4 through ``launch.serve.serve``; flash_attention
+   must launch 24 x 2 times and ssd_chunk 64 x 2, decode neither; logits
+   finite, tokens in range; prints prefill and per-token decode walls,
+   tokens/s, peak device memory and a traced wave's device time by
+   kernel.  Then each model with depth cut to 2 layers (the only cut)
+   against the same weights and requests on the CPU: greedy tokens and
+   teacher-forced logits equal within 1e-3.
 
-The launch counters are set to 0 just before each of the three path
-phases and read just after; a kernel's ``launches`` in the table is the
-sum of the readings.  The line before the last is the kernel table as one
+TF32 is off for every float comparison (printed at the start).  The
+launch counters are set to 0 just before each of the path phases (the
+model phase: before each serve run) and read just after; a kernel's
+``launches`` in the table is the sum of the readings.  The line before the last is the kernel table as one
 JSON object; the last line is ``{"ok": true, "device": {...}}``.  Full
 results also go to ``chiprun_out/chip_smoke.json``.
 """
@@ -73,8 +93,15 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
+# H100 SXM dense peaks (NVIDIA data sheet): float32 outside the tensor
+# cores, and bfloat16 on the tensor cores; a shape's FLOP bound takes the
+# rate of its operands' type
+F32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 SOURCES = {"protocol_sweep": "src/repro_torch/kernels/csrc/protocol_sweep.cu",
-           "page_diff": "src/repro_torch/kernels/csrc/page_diff.cu"}
+           "page_diff": "src/repro_torch/kernels/csrc/page_diff.cu",
+           "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "ssd_chunk": "src/repro_torch/kernels/csrc/ssd_chunk.cu"}
 TPU_KERNELS = {
     "pack_rows": "src/repro/kernels/protocol_sweep.py:134",
     "popcount_rows": "src/repro/kernels/protocol_sweep.py:232",
@@ -85,7 +112,13 @@ TPU_KERNELS = {
     "take_and_cut": "src/repro/kernels/protocol_sweep.py:415",
     "diff_encode": "src/repro/kernels/page_diff.py:54",
     "diff_apply": "src/repro/kernels/page_diff.py:78",
+    "flash_attention": "src/repro/kernels/flash_attention.py:79",
+    "ssd_chunk": "src/repro/kernels/ssd_chunk.py:52",
 }
+# the CUDA source of each kernel
+SOURCE_OF = {**dict.fromkeys(TPU_KERNELS, "protocol_sweep"),
+             "diff_encode": "page_diff", "diff_apply": "page_diff",
+             "flash_attention": "flash_attention", "ssd_chunk": "ssd_chunk"}
 ITERS = 4
 W = 256
 PROTO = {"samhita": "fine", "samhita_page": "page"}
@@ -320,11 +353,18 @@ def kernel_phase(torch, np, ps, dev):
     results["coverage_multi"]["library"] = "torch.cumsum"
     results.update(rank_select_phase(torch, np, ps, rng, same, t))
     results.update(page_diff_phase(torch, np, rng, dev))
+    results.update(model_kernel_phase(torch, np, dev))
     for name, r in results.items():
         # a second timed shape: the fig4_spill lru_take shape of the
-        # rank-select kernels, a batched page_diff call
-        for shape in [r] + [r[k] for k in ("lru", "batched") if k in r]:
-            shape["bound_ms"] = shape["bytes"] / HBM_BYTES_PER_S * 1e3
+        # rank-select kernels, a batched page_diff call, flash_attention
+        # in bfloat16, ssd_chunk on the per-cell B/C layout
+        for shape in [r] + [r[k] for k in ("lru", "batched", "bf16",
+                                           "per_cell") if k in r]:
+            t_bytes = shape["bytes"] / HBM_BYTES_PER_S * 1e3
+            peak = shape.get("flops_per_s", F32_FLOPS_PER_S)
+            t_ops = shape.get("flops", 0) / peak * 1e3
+            shape["bound_ms"] = max(t_bytes, t_ops)
+            shape["bound_by"] = "operations" if t_ops > t_bytes else "bytes"
             lib = ("" if shape.get("library_ms") is None else
                    f"  {r['library']} {shape['library_ms'] * 1e3:.2f} us")
             err = f"  max_abs_err={r['err']}" if shape is r else ""
@@ -333,7 +373,9 @@ def kernel_phase(torch, np, ps, dev):
             print(f"kernel {name:15s} shape={shape['shape']}{err}  kernel "
                   f"{shape['ms'] * 1e3:.2f} us  plain "
                   f"{shape['plain_ms'] * 1e3:.2f} us{lib}  bound "
-                  f"{shape['bound_ms'] * 1e3:.6f} us (bytes)", flush=True)
+                  f"{shape['bound_ms'] * 1e3:.6f} us ({shape['bound_by']}: "
+                  f"{t_bytes * 1e3:.3f} us of bytes, {t_ops * 1e3:.3f} us "
+                  f"of operations at {peak / 1e12:g} TFLOP/s)", flush=True)
     return results
 
 
@@ -484,6 +526,362 @@ def rank_select_phase(torch, np, ps, rng, same, t):
         out[name] = dict(err=errs[name], library_ms=None,
                          lru=res[(W, 32768)], **res[(1, RUN_COLS)])
     return out
+
+
+def flash_inputs(torch, np, rng, B, Hq, Hkv, S, D, dtype, dev):
+    """q (B, Hq, S, D), k and v (B, Hkv, S, D): N(0, 0.25) values made in
+    float32 and rounded once to ``dtype``, as tests/test_kernels.py."""
+    return [torch.as_tensor(rng.standard_normal(shape) * 0.5,
+                            dtype=torch.float32, device=dev).to(dtype)
+            for shape in ((B, Hq, S, D), (B, Hkv, S, D), (B, Hkv, S, D))]
+
+
+def ssd_inputs(torch, np, rng, M, Q, P, N, rep, dtype, dev):
+    """x (M, Q, P), dt and cum (M, Q, 1) float32, B and C (M // rep, Q, N),
+    as tests/test_kernels.py makes them: dt = softplus(normal), cum the
+    running sum of -softplus(normal), B and C at 0.3 scale."""
+    def sp(a):
+        return np.log1p(np.exp(a))
+
+    def t(a, dt=torch.float32):
+        return torch.as_tensor(a, dtype=torch.float32, device=dev).to(dt)
+    return (t(rng.standard_normal((M, Q, P)), dtype),
+            t(sp(rng.standard_normal((M, Q, 1)))),
+            t(np.cumsum(-sp(rng.standard_normal((M, Q, 1))), axis=1)),
+            t(rng.standard_normal((M // rep, Q, N)) * 0.3, dtype),
+            t(rng.standard_normal((M // rep, Q, N)) * 0.3, dtype))
+
+
+def flash_work(B, Hq, S, D, itemsize, Hkv):
+    """(flops, bytes) causal flash_attention needs: 4 D flops per unmasked
+    (query, key) pair, S(S+1)/2 of them, in each of the B*Hq heads (q.k and
+    p.v; the softmax's few operations a pair are not counted), q, k and v
+    read once and the output written once."""
+    pairs = S * (S + 1) // 2
+    return (4 * D * pairs * B * Hq,
+            itemsize * (2 * B * Hq * S * D + 2 * B * Hkv * S * D))
+
+
+def ssd_work(M, Q, P, N, rep, itemsize):
+    """(flops, bytes) ssd_chunk needs: C.B^T over the Q(Q+1)/2 causal
+    pairs (2N flops each) once per B/C group, i.e. for M // rep of the
+    cells (the rep heads of a group share it, as the reference's
+    ssd_chunked forms it once per group); per cell the scores times x
+    (2P a pair) and the (P, N) state over Q rows (2PN each); x, B and C
+    read once (B and C one row per group of ``rep`` cells), dt and cum in
+    float32, y and the state written once in float32."""
+    pairs = Q * (Q + 1) // 2
+    flops = ((M // rep) * pairs * 2 * N
+             + M * (pairs * 2 * P + 2 * Q * P * N))
+    return flops, (itemsize * (M * Q * P + 2 * (M // rep) * Q * N)
+                   + 4 * (2 * M * Q + M * Q * P + M * P * N))
+
+
+def model_kernel_phase(torch, np, dev):
+    """flash_attention and ssd_chunk against their plain versions on the
+    card, absolute and relative: attention in float32 within 2e-5 and SSD
+    within 1e-4, as in tests/test_kernels.py; attention in bfloat16 within
+    rtol 8e-3 / atol 2e-3 (both sides sum in float32 from the same
+    bfloat16 inputs and round once to bfloat16, so they differ by the
+    float32 reordering and at most one bfloat16 ulp, 2^-7 of the value):
+    attention at the internlm2-1.8b prefill shape (B=4, Hq=16,
+    Hkv=8, S=512, D=128) in float32 and bfloat16, at a ragged S=333, with
+    window 64 and softcap 50, with MQA (Hkv=1) and at the reduced shape
+    (D=16, window 16, softcap 30); SSD at the mamba2-2.7b shape (M=640
+    cells = 4 rows x 2 chunks x 80 heads, Q=256, P=64, N=128) with one B/C
+    row per 80 heads as the model passes it, the same per cell, in
+    bfloat16, and at the reduced Q=32, P=16, N=16.  Timed at the first
+    shapes (and in bfloat16, and per cell); the library yardstick of
+    attention is scaled_dot_product_attention (timed, used nowhere in the
+    port); SSD has none."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_chunk as sc
+    rng = np.random.default_rng(2024)
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [("internlm2 prefill", (4, 16, 8, 512, 128), f32, {}),
+             ("internlm2 prefill bf16", (4, 16, 8, 512, 128), bf16, {}),
+             ("ragged S=333", (4, 16, 8, 333, 128), f32, {}),
+             ("window 64 softcap 50", (4, 16, 8, 512, 128), f32,
+              {"window": 64, "softcap": 50.0}),
+             ("MQA", (4, 16, 1, 512, 128), f32, {}),
+             ("reduced D=16", (4, 4, 2, 40, 16), f32,
+              {"window": 16, "softcap": 30.0})]
+    errs, timed = [], {}
+    for label, (B, Hq, Hkv, S, D), dtype, kw in cases:
+        q, k, v = flash_inputs(torch, np, rng, B, Hq, Hkv, S, D, dtype, dev)
+        got = fa.flash_attention(q, k, v, **kw)
+        want = fa.flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        rtol, atol = (8e-3, 2e-3) if dtype == bf16 else (2e-5, 2e-5)
+        err = float((got.float() - want.float()).abs().max())
+        if not torch.allclose(got.float(), want.float(), rtol=rtol,
+                              atol=atol):
+            raise AssertionError(f"flash_attention {label}: kernel != plain "
+                                 f"version (max abs err {err}, rtol {rtol}, "
+                                 f"atol {atol})")
+        print(f"kernel flash_attention {label:22s} {(B, Hq, Hkv, S, D)} "
+              f"{dtype} {kw}: max_abs_err {err:.3e} (rtol {rtol}, atol "
+              f"{atol})", flush=True)
+        errs.append({"case": label, "max_abs_err": err, "rtol": rtol,
+                     "atol": atol})
+        if label.startswith("internlm2 prefill"):
+            timed[dtype] = (q, k, v)
+    out = {}
+    for dtype, (q, k, v) in timed.items():
+        B, Hq, S, D = q.shape
+        flops, nbytes = flash_work(B, Hq, S, D, q.element_size(), k.shape[1])
+        out[dtype] = dict(
+            shape=[B, Hq, k.shape[1], S, D, str(dtype)],
+            ms=timed_ms(torch, lambda: fa.flash_attention(q, k, v), 20),
+            plain_ms=timed_ms(torch, lambda: fa.flash_attention_plain(
+                q, k, v), 5, 3),
+            library_ms=timed_ms(torch, lambda: (
+                torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, scale=D ** -0.5,
+                    enable_gqa=True)), 20),
+            flops=flops, bytes=nbytes, flops_per_s=(
+                BF16_FLOPS_PER_S if dtype == bf16 else F32_FLOPS_PER_S))
+    results = {"flash_attention": dict(
+        err=max(e["max_abs_err"] for e in errs), cases=errs,
+        library="scaled_dot_product_attention", bf16=out[bf16],
+        **out[f32])}
+
+    cases = [("mamba2 prefill, grouped B/C", (640, 256, 64, 128, 80), f32),
+             ("mamba2 prefill, per-cell B/C", (640, 256, 64, 128, 1), f32),
+             ("mamba2 prefill bf16", (640, 256, 64, 128, 80), bf16),
+             ("reduced", (32, 32, 16, 16, 8), f32),
+             ("ragged Q=100", (6, 100, 64, 128, 2), f32)]
+    errs, timed = [], {}
+    for label, (M, Q, P, N, rep), dtype in cases:
+        args = ssd_inputs(torch, np, rng, M, Q, P, N, rep, dtype, dev)
+        got, want = sc.ssd_chunk(*args), sc.ssd_chunk_plain(*args)
+        torch.cuda.synchronize()
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        if not all(torch.allclose(g, w, rtol=1e-4, atol=1e-4)
+                   for g, w in zip(got, want)):
+            raise AssertionError(f"ssd_chunk {label}: kernel != plain "
+                                 f"version (max abs err {err}, tol 1e-4)")
+        print(f"kernel ssd_chunk {label:30s} {(M, Q, P, N, rep)} {dtype}: "
+              f"max_abs_err {err:.3e} (tol 1e-4)", flush=True)
+        errs.append({"case": label, "max_abs_err": err, "tol": 1e-4})
+        if label.startswith("mamba2 prefill,"):
+            timed[rep] = args
+    out = {}
+    for rep, args in timed.items():
+        M, Q, P = args[0].shape
+        N = args[3].shape[2]
+        flops, nbytes = ssd_work(M, Q, P, N, rep, 4)
+        out[rep] = dict(
+            shape=[M, Q, P, N, rep], ms=timed_ms(
+                torch, lambda a=args: sc.ssd_chunk(*a), 20),
+            plain_ms=timed_ms(torch, lambda a=args: sc.ssd_chunk_plain(*a),
+                              5, 3),
+            library_ms=None, flops=flops, bytes=nbytes)
+    results["ssd_chunk"] = dict(
+        err=max(e["max_abs_err"] for e in errs), cases=errs,
+        per_cell=out[1], **out[80])
+    return results
+
+
+# ---------------------------------------------------------------------------
+# model phase
+# ---------------------------------------------------------------------------
+
+
+def step_logits(torch, cfg, params, wave, forced, device):
+    """Every step's logits of one wave through the serving steps a user
+    calls (``make_prefill_step``, then ``make_serve_step``), the decode
+    fed the tokens ``forced`` (B, T) instead of its own argmax (teacher
+    forcing, so a near tie cannot change what follows): (T, B, V) float32
+    on the host.  Float32 caches, as ``generate``."""
+    from repro_torch.serve.decode import make_prefill_step, make_serve_step
+    toks = torch.as_tensor(wave, device=device)
+    S, T = toks.shape[1], forced.shape[1]
+    logits, caches = make_prefill_step(cfg, max_len=S + T,
+                                       cache_dtype=torch.float32)(
+        params, {"tokens": toks})
+    out = [logits.cpu()]
+    step = make_serve_step(cfg)
+    f = torch.as_tensor(forced, device=device)
+    for i in range(T - 1):
+        _, logits, caches = step(params, {"tokens": f[:, i:i + 1]}, caches,
+                                 S + i)
+        out.append(logits.cpu())
+    return torch.stack(out)
+
+
+def trace_generate(torch, cfg, params, wave, max_new):
+    """One traced ``generate`` of ``wave`` on the card (outside the
+    counted serve run): its wall, the device busy share (the union of the
+    intervals of every device activity torch.profiler records) and the
+    device time by kernel name, largest first."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serve.decode import generate
+    walls = {}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        generate(cfg, params, {"tokens": torch.as_tensor(wave)},
+                 max_new_tokens=max_new, device="cuda", walls=walls)
+        wall = time.perf_counter() - t0
+    acts = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not acts:
+        print(f"trace {cfg.name}: torch.profiler recorded no device "
+              "activity; busy share not measured", flush=True)
+        return {"traced_wall_s": wall, "device_busy_s": None}
+    by_name = {}
+    for e in acts:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (
+            e.time_range.end - e.time_range.start) * 1e-6
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end)
+                       for e in acts):
+        busy += max(0.0, b - max(a, end)) * 1e-6
+        end = max(end, b)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    print(f"trace {cfg.name} one wave (prompt {wave.shape[1]}, {max_new} "
+          f"tokens): traced wall {wall:.3f} s (prefill {walls['prefill_s']:.3f}"
+          f" s, decode {walls['decode_s']:.3f} s), device busy {busy:.3f} s, "
+          f"idle share {1 - busy / wall:.4f}, {len(acts)} device "
+          "activities; device seconds by kernel: "
+          + "; ".join(f"{n[:60]} {t:.4f}" for n, t in top), flush=True)
+    return {"traced_wall_s": wall, "walls": walls, "device_busy_s": busy,
+            "idle_share": 1 - busy / wall, "device_activities": len(acts),
+            "device_s_by_kernel": dict(top)}
+
+
+def model_phase(torch, np):
+    """The model serving path (slice M) on the card.
+
+    (a) internlm2-1.8b, then mamba2-2.7b (one resident at a time), at full
+    width and full depth, float32 parameters drawn on the card from a
+    torch.Generator seeded 0: ``launch.serve.serve`` answers 8 requests
+    made as the reference's server makes them (seed 0, prompt lengths in
+    [4, 512), max_new 16) in waves of 4.  The launch counters are set to 0
+    just before and read just after: flash_attention must launch once per
+    attention layer per wave (24 x 2) and ssd_chunk once per SSD layer per
+    wave (64 x 2), decode launching neither.  Every token lies in the
+    vocabulary; the serving steps, teacher-forced with the served tokens,
+    give finite logits whose argmax is the served token.
+    (b) the same two models with depth cut to 2 layers (width and every
+    other setting full), parameters drawn on the CPU from seed 0 and moved
+    to the card: served on the card, then each wave's step logits on the
+    card against the CPU (plain kernel versions), the CPU teacher-forced
+    with the card's tokens.  Logits within 1e-3 (absolute and
+    relative: float32 sums of up to 8192 terms in another order on each
+    side, through two layers and the LM head), and the CPU's greedy token
+    equal to the card's except where the CPU's top two logits lie within
+    1e-3 (counted as near ties).
+    Returns (rows, the model path's launches)."""
+    import dataclasses as dc
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_chunk as sc
+    from repro_torch.launch.serve import make_requests, serve, waves
+    from repro_torch.models.model import init_model_params
+    n_req, batch, max_len, max_new = 8, 4, 528, 16
+    twin_tol = 1e-3
+    counters = {"flash_attention": fa, "ssd_chunk": sc}
+    rows, launches = [], {}
+    for arch, kernel in (("internlm2-1.8b", "flash_attention"),
+                         ("mamba2-2.7b", "ssd_chunk")):
+        cfg = get_config(arch)
+        requests = make_requests(cfg.vocab_size, n_req, max_len, max_new, 0)
+        n_waves = len(waves(requests, batch))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = init_model_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0),
+            device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        for mod in counters.values():
+            mod.reset_launches()
+        t0 = time.perf_counter()
+        tokens, walls = serve(cfg, params, requests, batch=batch,
+                              max_new=max_new, device="cuda")
+        serve_s = time.perf_counter() - t0
+        launched = {k: m.LAUNCHES[k] for k, m in counters.items()}
+        want = {k: (cfg.n_layers * n_waves if k == kernel else 0)
+                for k in counters}
+        if launched != want:
+            raise AssertionError(f"{arch}: launches {launched}, expected "
+                                 f"{want}")
+        launches[kernel] = launched[kernel]
+        peak = torch.cuda.max_memory_allocated()
+        for wave, toks in zip(waves(requests, batch), tokens):
+            if toks.min() < 0 or toks.max() >= cfg.vocab_size:
+                raise AssertionError(f"{arch}: token out of range")
+            lg = step_logits(torch, cfg, params, wave, toks, "cuda")
+            if not torch.isfinite(lg).all():
+                raise AssertionError(f"{arch}: non-finite logits")
+            if not np.array_equal(lg.argmax(-1).T.numpy(), toks):
+                raise AssertionError(f"{arch}: the serving steps' greedy "
+                                     "tokens differ from serve's")
+        prefill = [w["prefill_s"] for w in walls]
+        per_tok = [w["decode_s"] / (max_new - 1) for w in walls]
+        tok_s = n_req * max_new / sum(w["wall_s"] for w in walls)
+        row = {"arch": arch, "depth": cfg.n_layers, "width": cfg.d_model,
+               "params": cfg.param_count(), "init_s": init_s,
+               "serve_s": serve_s, "walls": walls, "tokens_per_s": tok_s,
+               "max_memory_allocated": peak, "launches": launched,
+               "sample": tokens[0][0, :8].tolist()}
+        print(f"model {arch} full width, {cfg.n_layers} layers "
+              f"({cfg.param_count()} params, f32): init {init_s:.3f} s, "
+              f"serve {serve_s:.3f} s; prefill wall per wave "
+              f"{[round(x, 4) for x in prefill]} s at prompt lengths "
+              f"{[w['prompt_len'] for w in walls]}; decode wall per token "
+              f"{[round(x * 1e3, 3) for x in per_tok]} ms (the f32 "
+              f"weights read once at the HBM rate: "
+              f"{cfg.param_count() * 4 / HBM_BYTES_PER_S * 1e3:.3f} ms); "
+              f"{tok_s:.2f} tokens/s; peak device memory {peak} B; "
+              f"launches {launched}", flush=True)
+        row["trace"] = trace_generate(torch, cfg, params, waves(
+            requests, batch)[0], max_new)
+        del params
+        torch.cuda.empty_cache()
+
+        # (b) the card against the CPU, depth cut to 2 layers
+        cfg2 = dc.replace(cfg, n_layers=2)
+        t0 = time.perf_counter()
+        cpu_params = init_model_params(cfg2, torch.Generator().manual_seed(0),
+                                       device="cpu")
+        card_params = {k: ([{n: t.cuda() for n, t in b.items()}
+                            for b in v] if k == "blocks" else v.cuda())
+                       for k, v in cpu_params.items()}
+        tokens, _ = serve(cfg2, card_params, requests, batch=batch,
+                          max_new=max_new, device="cuda")
+        err, ties = 0.0, 0
+        for wave, toks in zip(waves(requests, batch), tokens):
+            card = step_logits(torch, cfg2, card_params, wave, toks, "cuda")
+            if not np.array_equal(card.argmax(-1).T.numpy(), toks):
+                raise AssertionError(f"{arch} 2 layers: the serving steps' "
+                                     "tokens differ from serve's")
+            cpu = step_logits(torch, cfg2, cpu_params, wave, toks, "cpu")
+            err = max(err, float((card - cpu).abs().max()))
+            if not torch.allclose(card, cpu, rtol=twin_tol, atol=twin_tol):
+                raise AssertionError(f"{arch} 2 layers: card logits differ "
+                                     f"from the CPU's (max abs err {err})")
+            top2 = cpu.topk(2, dim=-1).values
+            tied = (top2[..., 0] - top2[..., 1]) <= twin_tol
+            differ = cpu.argmax(-1).T.numpy() != toks
+            if (differ & ~tied.T.numpy()).any():
+                raise AssertionError(f"{arch} 2 layers: greedy tokens differ "
+                                     "from the CPU's away from a near tie")
+            ties += int(differ.sum())
+        twin_s = time.perf_counter() - t0
+        print(f"model {arch} full width, depth cut to 2 layers: card vs CPU "
+              f"logits max abs err {err:.3e} (tol {twin_tol}), greedy "
+              f"tokens equal ({ties} near-tie differences), {twin_s:.1f} s",
+              flush=True)
+        row.update(twin_max_abs_err=err, twin_tol=twin_tol,
+                   twin_near_ties=ties, twin_s=twin_s)
+        rows.append(row)
+        del card_params, cpu_params
+        torch.cuda.empty_cache()
+    return rows, launches
 
 
 # ---------------------------------------------------------------------------
@@ -876,8 +1274,14 @@ def main() -> int:
 
     card = card_line()
     print(card, flush=True)
+    # float32 products in full float32 (no TF32) for every comparison
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}; "
+          f"allow_tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, "
+          f"cudnn {torch.backends.cudnn.allow_tf32}", flush=True)
     t0 = time.perf_counter()
-    _build.build("protocol_sweep.cu", "page_diff.cu")
+    _build.build(*(Path(p).name for p in SOURCES.values()))
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.1f} s", flush=True)
 
@@ -887,29 +1291,30 @@ def main() -> int:
     spills, spill_launches = spill_phase(torch, ps)
     references, ref_launches = reference_phase(torch, np)
     profiled = profile_phase(torch)
+    models, model_launches = model_phase(torch, np)
 
     total = {k: launches[k] + spill_launches[k] for k in ps.LAUNCHES}
     total.update(ref_launches)
+    total.update(model_launches)
     table = {"kernels": [
-        {"name": name, "route": "cuda",
-         "source": SOURCES["page_diff" if name in ref_launches
-                           else "protocol_sweep"],
+        {"name": name, "route": "cuda", "source": SOURCES[SOURCE_OF[name]],
          "replaces": TPU_KERNELS[name], "launches": total[name],
          "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-         "bound_ms": r["bound_ms"], "bound_by": "bytes",
+         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"]}
         for name, r in kernels.items()]}
     print(f"launches on the main path: {launches}", flush=True)
     print(f"launches on the spill path: {spill_launches}", flush=True)
     print(f"launches on the reference path: {ref_launches}", flush=True)
+    print(f"launches on the model path: {model_launches}", flush=True)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_s, "kernel_phase": kernels,
          "points": points, "spill_points": spills,
-         "reference_points": references,
+         "reference_points": references, "models": models,
          "launches_main": launches, "launches_spill": spill_launches,
-         "launches_reference": ref_launches,
+         "launches_reference": ref_launches, "launches_model": model_launches,
          "profile": profiled, **table}, indent=1) + "\n")
     print(json.dumps(table), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,14 @@ on the card.  Every test here needs a CUDA device and skips without one
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_cuda.py -q
 
 Tolerance: exact (integer kernels; clocks bit-equal, since charging runs
-on the host in the same order whatever the device)."""
+on the host in the same order whatever the device).  The model path's
+float kernels use tests/test_kernels.py's tolerances in float32
+(flash_attention 2e-5, ssd_chunk 1e-4); flash_attention in bfloat16 is
+held to rtol 8e-3 / atol 2e-3 (both sides sum in float32 from the same
+inputs and round once to bfloat16, so they differ by at most one bfloat16
+ulp, 2^-7 of the value, plus float32 reordering), and the reduced
+models on the card match the CPU to 1e-4 (float32 sums in another
+order), with TF32 off."""
 import dataclasses
 
 import numpy as np
@@ -226,3 +233,95 @@ def test_cuda_reference_matches_cpu(dev):
     assert jac["cpu"][1].tobytes() == jac["cuda"][1].tobytes()
     np.testing.assert_array_equal(jac["cpu"][0].clock, jac["cuda"][0].clock)
     assert pd.LAUNCHES["diff_encode"] > encodes
+
+
+@pytest.fixture
+def f32_card(dev):
+    """The card with float32 products in full float32 (TF32 off)."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield dev
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = saved
+
+
+def test_flash_attention_matches_plain_version(f32_card):
+    """Every head dim, GQA/MQA/MHA, ragged S, window and softcap, causal
+    or not, float32 and bfloat16, and strided (B, S, H, D) operands."""
+    import chip_smoke
+    from repro_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(31)
+    for (B, Hq, Hkv, S, D) in ((1, 4, 4, 1, 16), (2, 4, 2, 40, 16),
+                               (1, 8, 1, 100, 32), (2, 4, 4, 257, 64),
+                               (1, 16, 8, 333, 128)):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = chip_smoke.flash_inputs(torch, np, rng, B, Hq, Hkv, S,
+                                              D, dtype, f32_card)
+            rtol, atol = ((8e-3, 2e-3) if dtype == torch.bfloat16
+                          else (2e-5, 2e-5))
+            for kw in ({}, {"causal": False}, {"window": 16, "softcap": 30.0},
+                       {"scale": 0.1, "window": 3}):
+                got = fa.flash_attention(q, k, v, **kw)
+                want = fa.flash_attention_plain(q, k, v, **kw)
+                assert got.dtype == dtype
+                torch.testing.assert_close(got.float(), want.float(),
+                                           rtol=rtol, atol=atol)
+            strided = [t.transpose(1, 2).contiguous().transpose(1, 2)
+                       for t in (q, k, v)]
+            assert torch.equal(fa.flash_attention(*strided),
+                               fa.flash_attention(q, k, v))
+
+
+def test_ssd_chunk_matches_plain_version(f32_card):
+    """Every (P, N), grouped and per-cell B/C rows, ragged Q, float32 and
+    bfloat16."""
+    import chip_smoke
+    from repro_torch.kernels import ssd_chunk as sc
+    rng = np.random.default_rng(32)
+    for (M, Q, P, N, rep) in ((4, 64, 32, 64, 1), (2, 128, 64, 128, 1),
+                              (8, 32, 16, 32, 4), (6, 7, 16, 16, 3),
+                              (160, 256, 64, 128, 80), (3, 300, 128, 16, 1)):
+        for dtype in (torch.float32, torch.bfloat16):
+            args = chip_smoke.ssd_inputs(torch, np, rng, M, Q, P, N, rep,
+                                         dtype, f32_card)
+            for g, w in zip(sc.ssd_chunk(*args), sc.ssd_chunk_plain(*args)):
+                torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "mamba2-2.7b",
+                                  "gemma2-27b", "granite-20b"])
+def test_reduced_models_match_cpu(f32_card, arch):
+    """A reduced model on the card against the same parameters on the
+    CPU: greedy tokens equal, every step's logits (teacher-forced with the
+    card's tokens) within 1e-4, and the card run through the kernels."""
+    import chip_smoke
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_chunk as sc
+    from repro_torch.models.model import init_model_params
+    from repro_torch.serve.decode import generate
+    cfg = get_reduced(arch)
+    cpu = init_model_params(cfg, torch.Generator().manual_seed(3),
+                            device="cpu")
+    card = {k: ([{n: t.cuda() for n, t in b.items()} for b in v]
+                if k == "blocks" else v.cuda()) for k, v in cpu.items()}
+    toks = np.random.default_rng(4).integers(0, cfg.vocab_size, (3, 45),
+                                             dtype=np.int32)
+    before = (fa.LAUNCHES["flash_attention"], sc.LAUNCHES["ssd_chunk"])
+    got = generate(cfg, card, {"tokens": torch.from_numpy(toks)},
+                   max_new_tokens=6, device="cuda").cpu()
+    launched = (fa.LAUNCHES["flash_attention"] - before[0],
+                sc.LAUNCHES["ssd_chunk"] - before[1])
+    want = generate(cfg, cpu, {"tokens": torch.from_numpy(toks)},
+                    max_new_tokens=6, device="cpu")
+    assert torch.equal(got, want)
+    kinds = {spec.kind for spec in cfg.pattern}
+    assert launched == (cfg.n_layers if "attn" in kinds else 0,
+                        cfg.n_layers if "ssm" in kinds else 0)
+    forced = got.numpy()
+    torch.testing.assert_close(
+        chip_smoke.step_logits(torch, cfg, card, toks, forced, "cuda"),
+        chip_smoke.step_logits(torch, cfg, cpu, toks, forced, "cpu"),
+        rtol=1e-4, atol=1e-4)

@@ -7,6 +7,7 @@
 * entry points run on the card by default and raise without one;
 * knobs of later slices raise a ``ValueError`` naming the slice, and
   the knobs of ported slices (and the reference engine) build a runtime;
+  so do model configs that need a later slice (MoE, M-RoPE, embeds);
 * ``chip_smoke.py`` fails, printing no result, without a card and in a
   directory that holds nothing else of the repo."""
 import ast
@@ -129,6 +130,47 @@ def test_config_validation():
     rt = make_runtime(8, cfg, backend="kernels")
     assert (rt.protocol, rt.fetch_batch, rt.backend) == ("page", 16,
                                                          "kernels")
+
+
+def test_model_entry_points_default_to_the_card():
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.model import init_model_params
+    from repro_torch.serve.decode import generate
+    cfg = get_reduced("internlm2-1.8b")
+    params = init_model_params(cfg, device="cpu")
+    prompt = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
+    if torch.cuda.is_available():
+        assert init_model_params(cfg)["embed"].device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_model_params(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        generate(cfg, params, prompt, max_new_tokens=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve(cfg, params, [prompt["tokens"][0].numpy()], batch=1, max_new=2)
+    out = generate(cfg, params, prompt, max_new_tokens=2, device="cpu")
+    assert out.shape == (1, 2) and out.device.type == "cpu"
+
+
+@pytest.mark.parametrize("arch,slice_name", [
+    ("grok-1-314b", "MoE slice"), ("jamba-1.5-large-398b", "MoE slice"),
+    ("qwen2-vl-72b", "M-RoPE slice"), ("musicgen-medium", "embeds slice")])
+def test_later_slice_models_raise(arch, slice_name):
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import model as M
+    cfg = get_reduced(arch)
+    with pytest.raises(ValueError, match=slice_name):
+        M.init_model_params(cfg, device="cpu")
+    with pytest.raises(ValueError, match=slice_name):
+        M.param_specs(cfg)
+    # a config that only borrows the parameters of a ported one still
+    # refuses to run
+    dense = get_reduced("internlm2-1.8b")
+    params = M.init_model_params(dense, device="cpu")
+    tokens = {"tokens": torch.zeros((1, 3), dtype=torch.int64)}
+    with pytest.raises(ValueError, match=slice_name):
+        M.prefill(cfg, params, tokens, max_len=4)
 
 
 def _smoke(cwd: Path, script: Path):
