@@ -9,7 +9,9 @@ Phases, in order; any mismatch or exception exits non-zero:
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds the four CUDA sources in ``src/repro_torch/kernels/csrc`` (one
-   ``nvcc`` each, in parallel) and prints the build seconds;
+   ``nvcc`` each, in parallel), prints the build seconds and, for every
+   kernel, its registers, static shared memory, stack and local-memory
+   spills (``ptxas -v``);
 3. kernel phase: each kernel against its plain PyTorch version on the
    card, bit for bit: pack_rows, popcount_rows, coverage_multi and
    phase_step at the main path's shapes (fig3_weak, W=256) and at edge
@@ -19,7 +21,8 @@ Phases, in order; any mismatch or exception exits non-zero:
    take_upto_row shape of the spill path (one run of a few words) and at
    edge cases (k = 0, k < 0, k past the popcount, k = INT32_MAX, empty
    rows, ragged last words, R = 1, nw = 1); the page_diff kernels
-   diff_encode and diff_apply at the reference path's shapes (1, 256) and
+   diff_encode, diff_apply and the in-place merges diff_apply_ and
+   diff_apply_rows_ at the reference path's shapes (1, 256) and
    (1, 1024), a batched (4096, 1024) and a ragged (5, 1001), with -0.0,
    NaN-payload, equal-NaN and denormal words and mask bytes of -1 and 2
    (compared on their bits); the model kernels flash_attention (at the
@@ -30,10 +33,12 @@ Phases, in order; any mismatch or exception exits non-zero:
    B/C rows, in bfloat16, reduced and ragged; 1e-4).  Prints each
    kernel's median time (CUDA events), the plain version's, the
    yardstick (``torch.cumsum`` for coverage_multi, ``torch.where`` for
-   diff_apply, ``scaled_dot_product_attention`` for flash_attention) and
+   the merges, ``scaled_dot_product_attention`` for flash_attention) and
    the bound: the larger of the bytes over the HBM rate and the
-   operations over the peak for the operands' type (float32 on CUDA
-   cores, bfloat16 on tensor cores), and which of the two it is;
+   operations over the peak of the units that run them (float32 on CUDA
+   cores and bfloat16 on tensor cores for attention; ssd_chunk's three
+   TF32 tensor-core products, a third of the TF32 peak), and which of the
+   two it is;
 4. main-path phase: the W=256 batched points of fig2_strong, fig3_weak,
    fig5_strong, fig6_weak and fig7_md (samhita and samhita_page, Jacobi
    and MD in lock and reduction modes) on the 'fused' tier, plus the two
@@ -56,8 +61,11 @@ Phases, in order; any mismatch or exception exits non-zero:
    (lock), MD (lock) and STREAM points at the harness's sizes, iters 2:
    metadata-only against the scale engine (traffic exact, clocks allclose
    1e-9), with values bit-equal to the same run on the CPU (traffic,
-   clocks, final values).  Each run's diff_encode and diff_apply launches
-   must equal its CPU twin's wrapper calls; prints walls and peak device
+   clocks, final values); and a false-sharing program (ordinary writes of
+   disjoint words of shared pages, fine and page protocols), bit-equal to
+   the CPU and every word at its last write.  Each run's page_diff
+   launches must equal its CPU twin's wrapper calls, and each of the
+   four page_diff kernels must launch; prints walls and peak device
    memory;
 7. profile phase: the device busy share of the two samhita fig6_weak
    points (lock, reduction) and of fig7_md_spill, each from a separate
@@ -98,6 +106,10 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 # rate of its operands' type
 F32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
+# ssd_chunk runs its float32 products (and its bfloat16 ones, widened) on
+# the tensor cores as three TF32 products of split operands: a third of
+# the 495 TFLOP/s TF32 peak
+TF32_SPLIT_FLOPS_PER_S = 495e12 / 3
 SOURCES = {"protocol_sweep": "src/repro_torch/kernels/csrc/protocol_sweep.cu",
            "page_diff": "src/repro_torch/kernels/csrc/page_diff.cu",
            "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -112,12 +124,15 @@ TPU_KERNELS = {
     "take_and_cut": "src/repro/kernels/protocol_sweep.py:415",
     "diff_encode": "src/repro/kernels/page_diff.py:54",
     "diff_apply": "src/repro/kernels/page_diff.py:78",
+    "diff_apply_": "src/repro/kernels/page_diff.py:78",
+    "diff_apply_rows_": "src/repro/kernels/page_diff.py:78",
     "flash_attention": "src/repro/kernels/flash_attention.py:79",
     "ssd_chunk": "src/repro/kernels/ssd_chunk.py:52",
 }
 # the CUDA source of each kernel
 SOURCE_OF = {**dict.fromkeys(TPU_KERNELS, "protocol_sweep"),
              "diff_encode": "page_diff", "diff_apply": "page_diff",
+             "diff_apply_": "page_diff", "diff_apply_rows_": "page_diff",
              "flash_attention": "flash_attention", "ssd_chunk": "ssd_chunk"}
 ITERS = 4
 W = 256
@@ -208,6 +223,36 @@ def dsm_jacobi(rt, n: int = 32, iters: int = 700, mode: str = "lock"):
         rt.barrier()
     final = host(rt.read(0, u, 0, n * n)).reshape(n, n)
     return final, float(np.abs(final - u_star).max())
+
+
+def false_sharing(rt, rounds: int = 8, seed: int = 0):
+    """Ordinary writes of disjoint words of four shared pages by every
+    worker (each word has one owner), a span of another worker flushing
+    between two rounds of writes, then a barrier: the second round
+    refetches pages invalidated while dirty and overlays the pending
+    words on them (the fetch overlay, ``diff_apply``), and every flush
+    merges only its dirty words onto home (``diff_apply_``).  Returns
+    (the values worker 0 reads at the end, the last value written to each
+    word): equal for a correct engine."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    n = 4 * rt.page_words
+    g = rt.alloc(n)
+    owner = rng.integers(0, rt.W, n)
+    last = np.zeros(n, np.float32)
+    for r in range(rounds):
+        for half in range(2):
+            for w in range(rt.W):
+                mine = np.flatnonzero(owner == w)
+                for wd in np.unique(rng.choice(mine, 8)):
+                    v = np.float32(rng.standard_normal())
+                    rt.write(w, g, int(wd), int(wd) + 1, np.array([v]))
+                    last[wd] = v
+            if half == 0:
+                with rt.span(r % rt.W, 0):
+                    pass
+        rt.barrier()
+    return host(rt.read(0, g, 0, n)), last
 
 
 # ---------------------------------------------------------------------------
@@ -399,15 +444,22 @@ def page_diff_inputs(np, rng, n: int, w: int):
 
 
 def page_diff_phase(torch, np, rng, dev):
-    """diff_encode and diff_apply against their plain versions bit for bit
-    (on int32 views: NaN payloads compare as bits) at the path's shapes
-    (1, 256) and (1, 1024), a batched (4096, 1024) and a ragged
-    (5, 1001), with every edge bit pattern; timed at (1, 1024) and
-    (4096, 1024).  ``torch.where`` on a bool mask made beforehand is
-    diff_apply's yardstick; no single call computes diff_encode's three
-    outputs.  Bytes: 13 a word for both, plus 4 a page of counts."""
+    """diff_encode and the merges (diff_apply, in place diff_apply_, the
+    row-indexed diff_apply_rows_) against their plain versions bit for
+    bit (on int32 views: NaN payloads compare as bits) at the path's
+    shapes (1, 256) and (1, 1024), a batched (4096, 1024) and a ragged
+    (5, 1001), with every edge bit pattern; the in-place merge also on one
+    page (W,), the row merge into a home of 2n + 3 pages; timed at
+    (1, 1024) and (4096, 1024), wrapper and C entry.  ``torch.where`` on a
+    bool mask made beforehand is the merges' yardstick (``out=`` the
+    destination for the in-place one); no single call computes
+    diff_encode's three outputs or the row merge.  Bytes: 13 a word for
+    diff_encode (plus 4 a page of counts) and diff_apply, each input read
+    once and the output written once; the in-place merges need only the
+    mask (1 a word) and, for the words whose mask is set in this run's
+    data, vals read and dst written (8 a set word), plus 8 a row index
+    for diff_apply_rows_."""
     from repro_torch.kernels import page_diff as pd
-    from repro_torch.kernels._build import ptr
 
     def bits_err(name, got, want):
         torch.cuda.synchronize()
@@ -418,7 +470,16 @@ def page_diff_phase(torch, np, rng, dev):
                 raise AssertionError(f"{name}: kernel != plain version")
         return 0
 
-    errs = {"diff_encode": 0, "diff_apply": 0}
+    def home_rows(n, w):
+        n_home = 2 * n + 3
+        home = torch.as_tensor(rng.standard_normal((n_home, w)),
+                               dtype=torch.float32, device=dev)
+        rows = torch.as_tensor(np.sort(rng.choice(n_home, n, replace=False)),
+                               device=dev)
+        return home, rows
+
+    names = ("diff_encode", "diff_apply", "diff_apply_", "diff_apply_rows_")
+    errs = dict.fromkeys(names, 0)
     timed = {}
     for n, w in ((1, 256), (1, 1024), (4096, 1024), (5, 1001)):
         curr, twin, mask = (torch.as_tensor(a, device=dev) for a in
@@ -426,48 +487,78 @@ def page_diff_phase(torch, np, rng, dev):
         enc = pd.diff_encode(curr, twin)
         errs["diff_encode"] = max(errs["diff_encode"], bits_err(
             "diff_encode", enc, pd._diff_encode_plain(curr, twin)))
+        home, rows = home_rows(n, w)
         for m in (mask, enc[0]):
-            errs["diff_apply"] = max(errs["diff_apply"], bits_err(
-                "diff_apply", [pd.diff_apply(twin, m, curr)],
-                [pd._diff_apply_plain(twin, m, curr)]))
+            want = pd._diff_apply_plain(twin, m, curr)
+            bits_err("diff_apply", [pd.diff_apply(twin, m, curr)], [want])
+            got = twin.clone()
+            pd.diff_apply_(got, m, curr)
+            bits_err("diff_apply_", [got], [want])
+            page, ref = twin[-1].clone(), twin[-1].clone()
+            pd.diff_apply_(page, m[-1], curr[-1])
+            bits_err("diff_apply_ (W,)", [page],
+                     [pd._diff_apply_plain_(ref, m[-1], curr[-1])])
+            got, ref = home.clone(), home.clone()
+            pd.diff_apply_rows_(got, rows, m, curr)
+            bits_err("diff_apply_rows_", [got], [
+                pd._diff_apply_rows_plain_(ref, rows, m, curr)])
         rebuilt = pd.diff_apply(twin, enc[0], enc[1])
         bits_err("diff round trip", [rebuilt], [curr])
         if (n, w) in ((1, 1024), (4096, 1024)):
-            timed[(n, w)] = (curr, twin, mask)
+            timed[(n, w)] = (curr, twin, mask, home, rows)
     # the C entries called with operands bound once (no checks, no
     # allocation): the events then time the kernel where the wrapper's
     # host cost is below the device time
     stream = torch.cuda.current_stream().cuda_stream
     out = {}
-    for name in ("diff_encode", "diff_apply"):
+    for name in names:
         res = {}
-        for (n, w), (curr, twin, mask) in timed.items():
-            fn = pd._KERNELS.entry(name)
+        fn = pd._KERNELS.entry(name)
+        for (n, w), (curr, twin, mask, home, rows) in timed.items():
+            bmask = mask != 0
+            lib, nbytes = None, 13 * n * w
+            merged = n * w + 8 * int(bmask.sum())  # the in-place merges
             if name == "diff_encode":
                 kern = lambda c=curr, t=twin: pd.diff_encode(c, t)  # noqa
                 plain = lambda c=curr, t=twin: pd._diff_encode_plain(c, t)  # noqa
                 m_, v_, k_ = pd.diff_encode(curr, twin)
-                args = (ptr(curr), ptr(twin), ptr(m_), ptr(v_), ptr(k_), n,
-                        w, stream)
-                lib, nbytes = None, 13 * n * w + 4 * n
-            else:
-                bmask = mask != 0
+                args = (curr.data_ptr(), twin.data_ptr(), m_.data_ptr(),
+                        v_.data_ptr(), k_.data_ptr(), n, w, stream)
+                nbytes += 4 * n
+            elif name == "diff_apply":
                 kern = lambda c=curr, t=twin, m=mask: pd.diff_apply(t, m, c)  # noqa
                 plain = lambda c=curr, t=twin, m=mask: (  # noqa
                     pd._diff_apply_plain(t, m, c))
                 o_ = torch.empty_like(twin)
-                args = (ptr(twin), ptr(mask), ptr(curr), ptr(o_), n * w,
-                        stream)
+                args = (twin.data_ptr(), mask.data_ptr(), curr.data_ptr(),
+                        o_.data_ptr(), n * w, stream)
                 lib = timed_ms(torch, lambda c=curr, t=twin, b=bmask:
                                torch.where(b, c, t))
-                nbytes = 13 * n * w
+            elif name == "diff_apply_":
+                d = twin.clone()
+                kern = lambda c=curr, d=d, m=mask: pd.diff_apply_(d, m, c)  # noqa
+                plain = lambda c=curr, d=d, m=mask: (  # noqa
+                    pd._diff_apply_plain_(d, m, c))
+                args = (d.data_ptr(), mask.data_ptr(), curr.data_ptr(),
+                        n * w, stream)
+                lib = timed_ms(torch, lambda c=curr, d=d, b=bmask:
+                               torch.where(b, c, d, out=d))
+                nbytes = merged
+            else:
+                kern = lambda c=curr, h=home, r=rows, m=mask: (  # noqa
+                    pd.diff_apply_rows_(h, r, m, c))
+                plain = lambda c=curr, h=home, r=rows, m=mask: (  # noqa
+                    pd._diff_apply_rows_plain_(h, r, m, c))
+                args = (home.data_ptr(), rows.data_ptr(), mask.data_ptr(),
+                        curr.data_ptr(), n, w, home.shape[0], stream)
+                nbytes = merged + 8 * n
             res[(n, w)] = dict(shape=[n, w], ms=timed_ms(torch, kern),
                                device_ms=timed_ms(torch, lambda f=fn, a=args:
                                                   f(*a)),
                                plain_ms=timed_ms(torch, plain, 10),
                                library_ms=lib, bytes=nbytes)
         out[name] = dict(err=errs[name], library=(
-            "torch.where" if name == "diff_apply" else None),
+            "torch.where" if name in ("diff_apply", "diff_apply_") else None),
                          batched=res[(4096, 1024)], **res[(1, 1024)])
     return out
 
@@ -569,7 +660,9 @@ def ssd_work(M, Q, P, N, rep, itemsize):
     ssd_chunked forms it once per group); per cell the scores times x
     (2P a pair) and the (P, N) state over Q rows (2PN each); x, B and C
     read once (B and C one row per group of ``rep`` cells), dt and cum in
-    float32, y and the state written once in float32."""
+    float32, y and the state written once in float32.  The flops go over
+    TF32_SPLIT_FLOPS_PER_S: the kernel keeps f32 accuracy with three TF32
+    tensor-core products per product."""
     pairs = Q * (Q + 1) // 2
     flops = ((M // rep) * pairs * 2 * N
              + M * (pairs * 2 * P + 2 * Q * P * N))
@@ -676,7 +769,8 @@ def model_kernel_phase(torch, np, dev):
                 torch, lambda a=args: sc.ssd_chunk(*a), 20),
             plain_ms=timed_ms(torch, lambda a=args: sc.ssd_chunk_plain(*a),
                               5, 3),
-            library_ms=None, flops=flops, bytes=nbytes)
+            library_ms=None, flops=flops, bytes=nbytes,
+            flops_per_s=TF32_SPLIT_FLOPS_PER_S)
     results["ssd_chunk"] = dict(
         err=max(e["max_abs_err"] for e in errs), cases=errs,
         per_cell=out[1], **out[80])
@@ -1166,6 +1260,17 @@ def reference_phase(torch, np, device="cuda", W_=W,
                                  f"{err} >= 0.05, the solver diverged")
         row["max_error"] = err
         rows.append(row)
+    for proto in ("fine", "page"):
+        def run(d, proto=proto):
+            rt = make_runtime(4, engine="reference", page_words=256,
+                              protocol=proto, device=d)
+            return (rt, *false_sharing(rt))
+        row, _, (got, last) = twins(f"false sharing {proto} x8", run,
+                                    lambda rt, rest: rest[0])
+        if got.tobytes() != last.tobytes():
+            raise AssertionError(f"false sharing {proto}: a word lost its "
+                                 "last write")
+        rows.append(row)
     n_jac, n_md, n_triad = sizes
     for app, n, kw in (("jacobi", n_jac, {"mode": "lock"}),
                        ("molecular_dynamics", n_md, {"mode": "lock"}),
@@ -1259,6 +1364,47 @@ def profile_phase(torch):
     return out
 
 
+def kernel_resources(_build):
+    """Print each kernel's registers, static shared memory, stack and
+    local-memory spills as ``ptxas -v`` reported them when its source was
+    built (names demangled by ``cu++filt`` where the toolkit has it); the
+    dynamic shared memory a kernel opts in to at launch is not in it.
+    Returns the rows."""
+    import shutil
+    rows = [dict(k, source=src) for src in SOURCES
+            for k in _build.resources(f"{src}.cu")]
+    filt = shutil.which("cu++filt") or "/usr/local/cuda/bin/cu++filt"
+    names = [r["name"] for r in rows]
+    if Path(filt).exists():
+        out = subprocess.run([filt], input="\n".join(names), text=True,
+                             capture_output=True, timeout=60).stdout
+        demangled = out.splitlines()
+        if len(demangled) == len(names):
+            names = demangled
+    for r, name in zip(rows, names):
+        short = name.strip()
+        if short.endswith(")"):  # drop the parameter list
+            depth = 0
+            for i in range(len(short) - 1, -1, -1):
+                depth += {")": 1, "(": -1}.get(short[i], 0)
+                if depth == 0:
+                    short = short[:i]
+                    break
+        for noise in ("void ", "(anonymous namespace)::", "<unnamed>::",
+                      "(int)", "(bool)"):
+            short = short.replace(noise, "")
+        r["kernel"] = short
+        print(f"ptxas {r['source']:15s} {short[:90]:90s} {r['registers']:3d} "
+              f"registers, {r['smem_bytes']} B static shared, stack "
+              f"{r['stack_bytes']} B, spill stores {r['spill_stores']} B, "
+              f"spill loads {r['spill_loads']} B", flush=True)
+    spills = [r["kernel"] for r in rows if r["spill_stores"] or
+              r["spill_loads"]]
+    print(f"ptxas: {len(rows)} kernels, {len(spills)} with local-memory "
+          f"spills {spills}", flush=True)
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1284,6 +1430,7 @@ def main() -> int:
     _build.build(*(Path(p).name for p in SOURCES.values()))
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.1f} s", flush=True)
+    resources = kernel_resources(_build)
 
     dev = torch.device("cuda")
     kernels = kernel_phase(torch, np, ps, dev)
@@ -1310,7 +1457,8 @@ def main() -> int:
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
-        {"card": card, "build_s": build_s, "kernel_phase": kernels,
+        {"card": card, "build_s": build_s, "resources": resources,
+         "kernel_phase": kernels,
          "points": points, "spill_points": spills,
          "reference_points": references, "models": models,
          "launches_main": launches, "launches_spill": spill_launches,

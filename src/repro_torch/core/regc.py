@@ -17,8 +17,10 @@ Two value modes, as in the reference:
   cached copies, the span twins and the word-exact ordinary dirty masks
   (int8) are (page_words,) tensors beside it.  A fine-protocol release
   diffs the span's pages against their twins in one ``diff_encode``
-  launch, and the merges onto home (release, ordinary flush) and onto a
-  refetched copy (the false-sharing overlay) run through ``diff_apply``.
+  launch and merges them onto home in place with one
+  ``diff_apply_rows_``; the ordinary flush merges its dirty words onto
+  home in place (``diff_apply_``), and the false-sharing overlay onto a
+  fresh copy of home (``diff_apply``), which must stay as it is.
   ``read`` returns a tensor on the device; ``write`` takes its values as
   one (a host array is copied over once per call).
 * ``track_values=False`` -- metadata only: writes record word intervals
@@ -41,7 +43,8 @@ import torch
 from repro_torch.core.config import (FINE_PROTO, IDEAL_PROTO, PROTOCOLS,
                                      check_choice, resolve_device)
 from repro_torch.dsm.costmodel import CostModel, IB_2013
-from repro_torch.kernels.page_diff import diff_apply, diff_encode
+from repro_torch.kernels.page_diff import (diff_apply, diff_apply_,
+                                           diff_apply_rows_, diff_encode)
 
 _WORD = 4  # fp32 words
 
@@ -197,11 +200,6 @@ class RegCRuntime:
     # page values
     # ------------------------------------------------------------------
 
-    def _merge(self, dst: torch.Tensor, mask: torch.Tensor,
-               src: torch.Tensor) -> torch.Tensor:
-        """A new page: ``src`` where ``mask`` is set, ``dst`` elsewhere."""
-        return diff_apply(dst[None], mask[None], src[None])[0]
-
     def _values(self, values) -> torch.Tensor:
         if isinstance(values, torch.Tensor):
             dev = self.device
@@ -248,7 +246,7 @@ class RegCRuntime:
             mask = self.ord_mask.get((w, p))
             stale = self.cache_data.get((w, p))
             if mask is not None and stale is not None:
-                fresh = self._merge(self.home[p], mask, stale)
+                fresh = diff_apply(self.home[p], mask, stale)
             else:
                 fresh = self.home[p].clone()
             self.cache_data[(w, p)] = fresh
@@ -379,8 +377,8 @@ class RegCRuntime:
             if mask is not None:
                 # merge ONLY our dirty words: concurrent disjoint writers
                 # of the same page (false sharing) must not clobber each
-                # other's words at the home copy
-                self.home[p] = self._merge(self.home[p], mask, cached)
+                # other's words at the home copy; merged in place
+                diff_apply_(self.home[p], mask, cached)
             else:
                 self.home[p] = cached
         # invalidate other cached copies; a sharer that is itself DIRTY on
@@ -450,7 +448,8 @@ class RegCRuntime:
 
     def _diff_span(self, w: int, span: _Span, pages: List[int]):
         """The fine release's twin diff of ``pages`` (sorted) in one
-        ``diff_encode`` launch, merged onto home with one ``diff_apply``.
+        ``diff_encode`` launch, merged onto home's rows in place with one
+        ``diff_apply_rows_``.
         Returns host (count, first changed word, last changed word) per
         page, read back in one copy (first/last are meaningless where the
         count is 0)."""
@@ -463,8 +462,8 @@ class RegCRuntime:
         last = torch.where(changed, col, -1).amax(1)
         # vals equals curr wherever the mask is set, so the merge is the
         # reference's home[p][mask] = curr[mask], bit for bit
-        rows = torch.as_tensor(pages, device=self.device)
-        self.home[rows] = diff_apply(self.home[rows], mask, vals)
+        rows = torch.as_tensor(pages, dtype=torch.int64, device=self.device)
+        diff_apply_rows_(self.home, rows, mask, vals)
         return torch.stack([count.to(torch.int64), first, last]).cpu().numpy()
 
     def release(self, w: int, lock_id: int):

@@ -14,27 +14,40 @@ Sources are compiled in parallel, one ``nvcc`` process each, all started
 together.  Nothing here runs at import time: the first wrapper that
 launches a kernel triggers the build.
 
+``ptxas -v`` reports each kernel's registers, shared memory and spills;
+the report is kept beside the library (``lib<name>_<hash>.ptxas.txt``)
+and ``resources`` parses it.
+
 ``Kernels`` binds one source's C entries (``rt_<name>``, each taking its
 operands and a stream and returning a cudaError) and counts launches and
-wrapper calls; ``check``, ``on_card`` and ``ptr`` are the wrappers' shared
-operand helpers.
+wrapper calls; ``check`` and ``on_card`` are the wrappers' shared operand
+helpers.
+
+The launch path is lean, because at the reference engine's shapes (one
+page of 256 or 1024 words) the host's work per call is most of a
+wrapper's time: each entry is bound once, pointers go to ctypes as
+plain ``data_ptr()`` integers, the stream is the raw handle of the
+current stream (no ``torch.cuda.Stream`` object), and the device is
+switched only when the operands lie on another card than the current
+one.  A launch the card refuses still raises.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
@@ -81,10 +94,45 @@ def build(*sources: str) -> Dict[str, Path]:
         if proc.returncode:
             failed.append(f"{s}:\n{out}")
         else:
+            report_path(p).write_text(out)
             os.replace(tmp, p)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return paths
+
+
+def report_path(library: Path) -> Path:
+    return library.with_name(library.stem + ".ptxas.txt")
+
+
+def resources(source: str) -> List[Dict[str, object]]:
+    """The ``ptxas -v`` report of ``csrc/<source>``'s built library: one
+    dict per kernel (its mangled ``name``, ``registers``, static
+    ``smem_bytes``, ``stack_bytes``, ``spill_stores`` and
+    ``spill_loads`` in bytes)."""
+    text = report_path(library_path(source)).read_text()
+    out: List[Dict[str, object]] = []
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            out.append({"name": m.group(1), "registers": 0, "smem_bytes": 0,
+                        "stack_bytes": 0, "spill_stores": 0,
+                        "spill_loads": 0})
+            continue
+        if not out:
+            continue
+        k = out[-1]
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            k["stack_bytes"], k["spill_stores"], k["spill_loads"] = map(
+                int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            k["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            k["smem_bytes"] = int(m.group(1)) if m else 0
+    return out
 
 
 def load(source: str) -> ctypes.CDLL:
@@ -99,7 +147,10 @@ def load(source: str) -> ctypes.CDLL:
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
           device: torch.device):
     """Raise unless ``t`` has ``dtype``, ``ndim`` dimensions, lies on
-    ``device`` and is contiguous."""
+    ``device`` and is contiguous (one combined test when all hold)."""
+    if (t.dtype is dtype and t.dim() == ndim and t.is_contiguous()
+            and t.device == device):
+        return
     if t.dtype != dtype:
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if t.dim() != ndim:
@@ -111,18 +162,14 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
         raise ValueError(f"{name} must be contiguous")
 
 
-def on_card(device: torch.device) -> bool:
-    """True for a CUDA device (launch the kernel), False for the CPU (run
-    the plain version); any other device raises."""
-    if device.type == "cuda":
+def on_card(t: torch.Tensor) -> bool:
+    """True for a tensor on a CUDA device (launch the kernel), False for
+    one on the CPU (run the plain version); any other device raises."""
+    if t.is_cuda:
         return True
-    if device.type != "cpu":
-        raise ValueError(f"unsupported device {device}")
+    if not t.is_cpu:
+        raise ValueError(f"unsupported device {t.device}")
     return False
-
-
-def ptr(t: torch.Tensor):
-    return ctypes.c_void_p(t.data_ptr())
 
 
 class Kernels:
@@ -160,12 +207,18 @@ class Kernels:
                 self._bound[kernel] = f
         return self._bound[name]
 
-    def launch(self, name: str, device: torch.device, *args):
-        """Launch ``name`` on ``device``'s current stream; raise if the
-        launch was refused."""
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            rc = self.entry(name)(*args, stream)
+    def launch(self, name: str, device, *args):
+        """Launch ``name`` on the current stream of ``device`` (a CUDA
+        ``torch.device`` or its index); raise if the launch was
+        refused."""
+        f = self._bound.get(name) or self.entry(name)
+        index = device if device.__class__ is int else device.index
+        current = torch._C._cuda_getDevice()
+        if index is None or index == current:
+            rc = f(*args, torch._C._cuda_getCurrentRawStream(current))
+        else:
+            with torch.cuda.device(index):
+                rc = f(*args, torch._C._cuda_getCurrentRawStream(index))
         if rc != 0:
             raise RuntimeError(f"{name}: CUDA launch failed (cudaError {rc})")
         self.launches[name] += 1

@@ -9,16 +9,20 @@
 // bits.  The library is built without --use_fast_math, and nothing here
 // would read it anyway.
 //
-// Both are elementwise passes that read and write each word once with a
+// All are elementwise passes that read and write each word once with a
 // handful of integer operations, so each is bound by memory traffic on
 // the card (HBM3 at 3.35 TB/s): diff_encode moves 13 bytes a word (two
 // 4-byte inputs, a 1-byte mask, a 4-byte value) plus 4 bytes of count a
-// page, diff_apply 13 bytes a word (three inputs of 4 + 1 + 4 bytes, a
+// page, the merges 13 bytes a word (three inputs of 4 + 1 + 4 bytes, a
 // 4-byte output).  The design aims at one coalesced pass: 16-byte vector
 // loads and stores (uint4 words, char4 mask bytes) whenever the row
 // length and the pointers allow, and a scalar path otherwise.  At the
 // protocol's shapes (one page of 256 or 1024 words per call) the launch
-// itself is the real cost.
+// itself is the real cost, so the engine merges in place where it
+// overwrites the destination anyway: diff_apply_inplace writes only the
+// words whose mask byte is set (and never reads the rest of dst), and
+// diff_apply_rows does so for rows[i] of a home array, all rows in one
+// launch, with no gather or scatter around it.
 //
 // Every C entry returns cudaGetLastError() so the Python wrapper can raise
 // when a launch is refused.
@@ -141,6 +145,77 @@ __global__ void diff_apply_kernel(const uint32_t* __restrict__ dst,
   }
 }
 
+// The in-place merge of one 16-byte group: the words whose mask byte is
+// set take vals' bits; one uint4 store when all four are set.
+__device__ __forceinline__ void merge4(uint4* d, char4 m, const uint4* v) {
+  if (!(m.x | m.y | m.z | m.w)) return;
+  const uint4 w = *v;
+  if (m.x && m.y && m.z && m.w) {
+    *d = w;
+    return;
+  }
+  uint32_t* o = reinterpret_cast<uint32_t*>(d);
+  if (m.x) o[0] = w.x;
+  if (m.y) o[1] = w.y;
+  if (m.z) o[2] = w.z;
+  if (m.w) o[3] = w.w;
+}
+
+// diff_apply in place (the ordinary flush's merge onto its home page):
+// dst = mask != 0 ? vals : dst over the flat array, dst read never.
+template <bool kVec>
+__global__ void diff_apply_inplace_kernel(uint32_t* __restrict__ dst,
+                                          const int8_t* __restrict__ mask,
+                                          const uint32_t* __restrict__ vals,
+                                          long long total) {
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (kVec) {
+    uint4* d4 = reinterpret_cast<uint4*>(dst);
+    const char4* m4 = reinterpret_cast<const char4*>(mask);
+    const uint4* v4 = reinterpret_cast<const uint4*>(vals);
+    for (const long long nv = total / 4; i < nv; i += stride)
+      merge4(d4 + i, m4[i], v4 + i);
+  } else {
+    for (; i < total; i += stride)
+      if (mask[i]) dst[i] = vals[i];
+  }
+}
+
+// diff_apply in place on rows[r] of home (the fine release's merge of its
+// span's pages): block b merges words [c * 4 * kThreads, ...) of row
+// r = b / chunks, home[rows[r]] = mask[r] != 0 ? vals[r] : home[rows[r]].
+// rows must be sorted, unique and within home (no two blocks write one
+// word): a row out of range or out of order stops the kernel with a trap
+// (a device-side fault, like an index assert) instead of writing
+// elsewhere.
+template <bool kVec>
+__global__ void diff_apply_rows_kernel(uint32_t* __restrict__ home,
+                                       const long long* __restrict__ rows,
+                                       const int8_t* __restrict__ mask,
+                                       const uint32_t* __restrict__ vals,
+                                       long long n, long long pw,
+                                       long long chunks, long long n_home) {
+  const long long r = blockIdx.x / chunks;
+  const long long c = blockIdx.x % chunks;
+  const long long row = rows[r];
+  if (row < 0 || row >= n_home || (r + 1 < n && rows[r + 1] <= row))
+    __trap();
+  uint32_t* h = home + row * pw;
+  const int8_t* m = mask + r * pw;
+  const uint32_t* v = vals + r * pw;
+  if (kVec) {
+    const long long i = c * kThreads + threadIdx.x;
+    if (i < pw / 4)
+      merge4(reinterpret_cast<uint4*>(h) + i,
+             reinterpret_cast<const char4*>(m)[i],
+             reinterpret_cast<const uint4*>(v) + i);
+  } else {
+    const long long i = c * kThreads + threadIdx.x;
+    if (i < pw && m[i]) h[i] = v[i];
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -185,6 +260,59 @@ int rt_diff_apply(const void* dst, const void* mask, const void* vals,
       diff_apply_kernel<true><<<grid, kThreads, 0, s>>>(d, m, v, o, total);
     } else {
       diff_apply_kernel<false><<<grid, kThreads, 0, s>>>(d, m, v, o, total);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int rt_diff_apply_(void* dst, const void* mask, const void* vals,
+                   long long total, void* stream) {
+  if (total > 0) {
+    const bool vec = total % 4 == 0 && aligned(dst, 16) &&
+                     aligned(vals, 16) && aligned(mask, 4);
+    const long long items = vec ? total / 4 : total;
+    long long blocks = (items + kThreads - 1) / kThreads;
+    if (blocks > kMaxApplyBlocks) blocks = kMaxApplyBlocks;
+    auto* d = static_cast<uint32_t*>(dst);
+    const auto* m = static_cast<const int8_t*>(mask);
+    const auto* v = static_cast<const uint32_t*>(vals);
+    const auto s = static_cast<cudaStream_t>(stream);
+    const unsigned grid = static_cast<unsigned>(blocks);
+    if (vec) {
+      diff_apply_inplace_kernel<true><<<grid, kThreads, 0, s>>>(d, m, v,
+                                                                total);
+    } else {
+      diff_apply_inplace_kernel<false><<<grid, kThreads, 0, s>>>(d, m, v,
+                                                                 total);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// home (n_home, pw) float32, rows (n,) int64, mask (n, pw) int8 and vals
+// (n, pw) float32, all contiguous.
+int rt_diff_apply_rows_(void* home, const void* rows, const void* mask,
+                        const void* vals, long long n, long long pw,
+                        long long n_home, void* stream) {
+  if (n > 0 && pw > 0) {
+    const bool vec = pw % 4 == 0 && aligned(home, 16) && aligned(vals, 16) &&
+                     aligned(mask, 4);
+    const long long items = vec ? pw / 4 : pw;
+    const long long chunks = (items + kThreads - 1) / kThreads;
+    if (n * chunks > 0x7fffffffLL)
+      return static_cast<int>(cudaErrorInvalidValue);
+    auto* h = static_cast<uint32_t*>(home);
+    const auto* r = static_cast<const long long*>(rows);
+    const auto* m = static_cast<const int8_t*>(mask);
+    const auto* v = static_cast<const uint32_t*>(vals);
+    const auto s = static_cast<cudaStream_t>(stream);
+    const unsigned grid = static_cast<unsigned>(n * chunks);
+    if (vec) {
+      diff_apply_rows_kernel<true><<<grid, kThreads, 0, s>>>(
+          h, r, m, v, n, pw, chunks, n_home);
+    } else {
+      diff_apply_rows_kernel<false><<<grid, kThreads, 0, s>>>(
+          h, r, m, v, n, pw, chunks, n_home);
     }
   }
   return static_cast<int>(cudaGetLastError());

@@ -30,7 +30,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels._build import Kernels, on_card, ptr
+from repro_torch.kernels._build import Kernels, on_card
 
 _NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
@@ -107,7 +107,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q (B, Hq, S, D), k/v (B, Hkv, S, D) -> (B, Hq, S, D) in q's dtype."""
     _KERNELS.called("flash_attention")
     _check(q, k, v, window, softcap)
-    if not on_card(q.device):
+    if not on_card(q):
         return flash_attention_plain(q, k, v, scale=scale, causal=causal,
                                      window=window, softcap=softcap)
     B, Hq, S, D = q.shape
@@ -124,7 +124,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if out.numel():
         strides = [t.stride(i) for t in (q, k, v, out) for i in (0, 1, 2)]
         _KERNELS.launch(
-            "flash_attention", q.device, ptr(q), ptr(k), ptr(v), ptr(out),
+            "flash_attention", q.device, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(),
             DTYPES[q.dtype], B, Hq, k.shape[1], S, D, *strides,
             D ** -0.5 if scale is None else float(scale), int(causal),
             0 if window is None else int(window),

@@ -11,15 +11,35 @@ Hand-written CUDA kernels (``csrc/page_diff.cu``, ``sm_90a``):
 * ``diff_encode(curr, twin)`` -> (mask int8 (n, W), vals float32 (n, W),
   count int32 (n,)): mask = curr != twin bitwise, vals = curr where
   changed and +0.0 elsewhere, count = changed words per page;
-* ``diff_apply(dst, mask, vals)`` -> float32 (n, W): vals where
-  mask != 0, dst elsewhere (the merge onto a home copy or a cached copy).
+* ``diff_apply(dst, mask, vals)`` -> a new float32 array: vals where
+  mask != 0, dst elsewhere (the merge onto a refetched cached copy);
+* ``diff_apply_(dst, mask, vals)`` -> ``dst``, merged in place;
+* ``diff_apply_rows_(home, rows, mask, vals)`` -> ``home``, with row
+  ``rows[i]`` of ``home`` merged in place with ``mask[i]``/``vals[i]``,
+  all rows in one launch.
 
-Each wrapper checks device, dtype, shape and contiguity, allocates its
-outputs with ``torch.empty`` and launches on the current stream, adding
-one to ``LAUNCHES[name]`` per launch and to ``CALLS[name]`` per call on
-any device.  A tensor on the CPU takes the kernel's plain PyTorch
-version (``_*_plain``, on ``int32`` views so it is bit-exact); a CUDA
-tensor gets the kernel or an exception, never the plain version.
+The merges take one page (W,) or a stack of pages (n, W); the three
+operands of one call have one shape.
+
+Where the port updates in place: JAX's arrays are immutable, so the
+reference's merges return a new page that the engine stores back.  The
+port's reference engine (``core.regc``) overwrites the home copy with
+the merge in both places it merges onto home -- the ordinary flush
+(``diff_apply_``) and the fine release (``diff_apply_rows_``, given the
+sorted, unique home rows of the released pages) -- so merging in place
+saves the second device copy of the flush and the gather and scatter of
+the release, and writes only the changed words.  The fetch overlay must
+leave home as it is, and keeps the functional ``diff_apply``.
+
+Each wrapper checks device, dtype, shape and contiguity and launches on
+the current stream, adding one to ``LAUNCHES[name]`` per launch and to
+``CALLS[name]`` per call on any device.  A tensor on the CPU takes the
+kernel's plain PyTorch version (``_*_plain``, on ``int32`` views so it is
+bit-exact); a CUDA tensor gets the kernel or an exception, never the
+plain version.  ``rows`` must be sorted and unique, within ``home``: the
+plain version checks it, and on the card the kernel stops with a
+device-side fault on a row out of range or out of order, since checking
+it on the host would wait for the card.
 """
 from __future__ import annotations
 
@@ -28,7 +48,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels._build import Kernels, check, on_card, ptr
+from repro_torch.kernels._build import Kernels, check, on_card
 
 _I32_MAX = (1 << 31) - 1
 
@@ -37,6 +57,8 @@ _L = ctypes.c_longlong
 _KERNELS = Kernels("page_diff.cu", {
     "diff_encode": (_P, _P, _P, _P, _P, _L, _L),
     "diff_apply": (_P, _P, _P, _P, _L),
+    "diff_apply_": (_P, _P, _P, _L),
+    "diff_apply_rows_": (_P, _P, _P, _P, _L, _L, _L),
 })
 # launch counters: one per kernel, bumped only where a kernel launches;
 # CALLS counts each wrapper's calls on any device
@@ -44,7 +66,7 @@ LAUNCHES = _KERNELS.launches
 CALLS = _KERNELS.calls
 reset_launches = _KERNELS.reset
 _launch = _KERNELS.launch
-_called = _KERNELS.called
+_F32, _I8 = torch.float32, torch.int8
 
 
 # ---------------------------------------------------------------------------
@@ -67,6 +89,21 @@ def _diff_apply_plain(dst: torch.Tensor, mask: torch.Tensor,
                        dst.view(torch.int32)).view(torch.float32)
 
 
+def _diff_apply_plain_(dst: torch.Tensor, mask: torch.Tensor,
+                       vals: torch.Tensor) -> torch.Tensor:
+    d = dst.view(torch.int32)
+    d.copy_(torch.where(mask != 0, vals.view(torch.int32), d))
+    return dst
+
+
+def _diff_apply_rows_plain_(home: torch.Tensor, rows: torch.Tensor,
+                            mask: torch.Tensor,
+                            vals: torch.Tensor) -> torch.Tensor:
+    h = home.view(torch.int32)
+    h[rows] = torch.where(mask != 0, vals.view(torch.int32), h[rows])
+    return home
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
@@ -79,41 +116,107 @@ def _pages(name: str, t: torch.Tensor, dtype: torch.dtype, shape,
         raise ValueError(f"{name} shape {tuple(t.shape)} != {tuple(shape)}")
 
 
+def _merge_operands(dst: torch.Tensor, mask: torch.Tensor,
+                    vals: torch.Tensor) -> int:
+    """Raise unless ``dst`` and ``vals`` are float32, ``mask`` int8, all
+    contiguous, one page (W,) or pages (n, W) of one shape, on one
+    device (one combined test when all hold).  Returns the device index
+    (-1 for the CPU)."""
+    shape = dst.shape
+    if (dst.dtype is _F32 and mask.dtype is _I8 and vals.dtype is _F32
+            and mask.shape == shape and vals.shape == shape
+            and 1 <= len(shape) <= 2 and dst.is_contiguous()
+            and mask.is_contiguous() and vals.is_contiguous()):
+        index = dst.get_device()
+        if mask.get_device() == index and vals.get_device() == index:
+            return index
+    if dst.dim() not in (1, 2):
+        raise ValueError(f"dst must be a page (W,) or pages (n, W), got "
+                         f"shape {tuple(shape)}")
+    for name, t, dtype in (("dst", dst, _F32), ("mask", mask, _I8),
+                           ("vals", vals, _F32)):
+        check(t, name, dtype, dst.dim(), dst.device)
+        if t.shape != shape:
+            raise ValueError(f"{name} shape {tuple(t.shape)} != "
+                             f"{tuple(shape)}")
+    raise AssertionError("unreachable")
+
+
 def diff_encode(curr: torch.Tensor, twin: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(n, W) float32 pages and their twins -> (mask int8 (n, W), vals
     float32 (n, W), count int32 (n,))."""
-    _called("diff_encode")
+    CALLS["diff_encode"] += 1
     dev = curr.device
-    _pages("curr", curr, torch.float32, curr.shape, dev)
-    _pages("twin", twin, torch.float32, curr.shape, dev)
-    if not on_card(dev):
+    _pages("curr", curr, _F32, curr.shape, dev)
+    _pages("twin", twin, _F32, curr.shape, dev)
+    if not on_card(curr):
         return _diff_encode_plain(curr, twin)
     n, w = curr.shape
     if n > _I32_MAX:
         raise ValueError(f"diff_encode: {n} pages exceed the grid")
     mask = torch.empty((n, w), dtype=torch.int8, device=dev)
-    vals = torch.empty((n, w), dtype=torch.float32, device=dev)
+    vals = torch.empty((n, w), dtype=_F32, device=dev)
     count = torch.empty(n, dtype=torch.int32, device=dev)
     if n:
-        _launch("diff_encode", dev, ptr(curr), ptr(twin), ptr(mask),
-                ptr(vals), ptr(count), n, w)
+        _launch("diff_encode", dev, curr.data_ptr(), twin.data_ptr(),
+                mask.data_ptr(), vals.data_ptr(), count.data_ptr(), n, w)
     return mask, vals, count
 
 
 def diff_apply(dst: torch.Tensor, mask: torch.Tensor,
                vals: torch.Tensor) -> torch.Tensor:
-    """(n, W) float32 ``dst``, int8 ``mask`` and float32 ``vals`` -> a new
-    (n, W) float32 array: ``vals`` where ``mask != 0``, ``dst`` elsewhere."""
-    _called("diff_apply")
-    dev = dst.device
-    _pages("dst", dst, torch.float32, dst.shape, dev)
-    _pages("mask", mask, torch.int8, dst.shape, dev)
-    _pages("vals", vals, torch.float32, dst.shape, dev)
-    if not on_card(dev):
+    """float32 ``dst``, int8 ``mask`` and float32 ``vals`` of one shape
+    ((W,) or (n, W)) -> a new float32 array: ``vals`` where ``mask != 0``,
+    ``dst`` elsewhere."""
+    CALLS["diff_apply"] += 1
+    index = _merge_operands(dst, mask, vals)
+    if not on_card(dst):
         return _diff_apply_plain(dst, mask, vals)
     out = torch.empty_like(dst)
-    if out.numel():
-        _launch("diff_apply", dev, ptr(dst), ptr(mask), ptr(vals),
-                ptr(out), out.numel())
+    total = out.numel()
+    if total:
+        _launch("diff_apply", index, dst.data_ptr(), mask.data_ptr(),
+                vals.data_ptr(), out.data_ptr(), total)
     return out
+
+
+def diff_apply_(dst: torch.Tensor, mask: torch.Tensor,
+                vals: torch.Tensor) -> torch.Tensor:
+    """``diff_apply`` into ``dst``: its words where ``mask != 0`` become
+    ``vals``' (bit for bit), the rest stay; returns ``dst``."""
+    CALLS["diff_apply_"] += 1
+    index = _merge_operands(dst, mask, vals)
+    if not on_card(dst):
+        return _diff_apply_plain_(dst, mask, vals)
+    total = dst.numel()
+    if total:
+        _launch("diff_apply_", index, dst.data_ptr(), mask.data_ptr(),
+                vals.data_ptr(), total)
+    return dst
+
+
+def diff_apply_rows_(home: torch.Tensor, rows: torch.Tensor,
+                     mask: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """Merge (n, W) ``mask``/``vals`` into rows ``rows`` (int64 (n,),
+    sorted, unique, within ``home``) of the float32 (n_pages, W) ``home``
+    in place, in one launch: ``home[rows[i]]`` takes ``vals[i]`` where
+    ``mask[i] != 0``.  Returns ``home``."""
+    CALLS["diff_apply_rows_"] += 1
+    dev = home.device
+    check(home, "home", _F32, 2, dev)
+    check(rows, "rows", torch.int64, 1, dev)
+    n, w = rows.shape[0], home.shape[1]
+    _pages("mask", mask, _I8, (n, w), dev)
+    _pages("vals", vals, _F32, (n, w), dev)
+    if not on_card(home):
+        if n and (int(rows[0]) < 0 or int(rows[-1]) >= home.shape[0]
+                  or bool((rows[1:] <= rows[:-1]).any())):
+            raise ValueError("rows must be sorted, unique and within home")
+        return _diff_apply_rows_plain_(home, rows, mask, vals)
+    if n > _I32_MAX:
+        raise ValueError(f"diff_apply_rows_: {n} rows exceed the grid")
+    if n and w:
+        _launch("diff_apply_rows_", dev, home.data_ptr(), rows.data_ptr(),
+                mask.data_ptr(), vals.data_ptr(), n, w, home.shape[0])
+    return home

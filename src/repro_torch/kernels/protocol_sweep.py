@@ -39,7 +39,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels._build import Kernels, check, on_card, ptr
+from repro_torch.kernels._build import Kernels, check, on_card
 
 _M32 = 0xFFFFFFFF
 _I32_MAX = (1 << 31) - 1
@@ -212,14 +212,14 @@ def pack_rows(plane: torch.Tensor,
     if out.shape[0] != W or out.shape[1] < nw:
         raise ValueError(f"out shape {tuple(out.shape)} cannot hold "
                          f"({W}, {nw}) packed words")
-    if not on_card(dev):
+    if not on_card(plane):
         out.zero_()
         out[:, :nw] = _pack_rows_plain(plane)
         return out
     if W > 65535:
         raise ValueError(f"pack_rows: W={W} exceeds the grid's 65535 rows")
     if W and out.shape[1]:
-        _launch("pack_rows", dev, ptr(plane), ptr(out), W, C,
+        _launch("pack_rows", dev, plane.data_ptr(), out.data_ptr(), W, C,
                 out.shape[1])
     return out
 
@@ -230,12 +230,12 @@ def popcount_rows(bits: torch.Tensor) -> torch.Tensor:
     dev = bits.device
     check(bits, "bits", torch.int32, 2, dev)
     W, nw = bits.shape
-    if not on_card(dev):
+    if not on_card(bits):
         return _popcount_rows_plain(bits)
     if W == 0 or nw == 0:
         return torch.zeros(W, dtype=torch.int64, device=dev)
     counts = torch.empty(W, dtype=torch.int64, device=dev)
-    _launch("popcount_rows", dev, ptr(bits), ptr(counts), W, nw)
+    _launch("popcount_rows", dev, bits.data_ptr(), counts.data_ptr(), W, nw)
     return counts
 
 
@@ -245,11 +245,11 @@ def coverage_multi(delta: torch.Tensor) -> torch.Tensor:
     _called("coverage_multi")
     dev = delta.device
     check(delta, "delta", torch.int32, 1, dev)
-    if not on_card(dev):
+    if not on_card(delta):
         return _coverage_multi_plain(delta)
     out = torch.empty(delta.shape[0], dtype=torch.uint8, device=dev)
     if delta.shape[0]:
-        _launch("coverage_multi", dev, ptr(delta), ptr(out),
+        _launch("coverage_multi", dev, delta.data_ptr(), out.data_ptr(),
                 delta.shape[0])
     return out.view(torch.bool)
 
@@ -275,7 +275,7 @@ def phase_step(bits: torch.Tensor, base: torch.Tensor,
         check(t, name, dt, 2, dev)
         if tuple(t.shape) != (R, W):
             raise ValueError(f"{name} shape {tuple(t.shape)} != {(R, W)}")
-    if not on_card(dev):
+    if not on_card(bits):
         return _phase_step_plain(bits, base, rowmask, sbases, sends)
     if W > MAX_PHASE_STEP_W or R > 65535:
         raise ValueError(f"phase_step: (R, W)=({R}, {W}) exceeds the "
@@ -284,9 +284,9 @@ def phase_step(bits: torch.Tensor, base: torch.Tensor,
     counts = torch.empty((R, W), dtype=torch.int64, device=dev)
     shared = torch.empty_like(bits)
     if R and W:
-        _launch("phase_step", dev, ptr(bits), ptr(base), ptr(rowmask),
-                ptr(sbases), ptr(sends), ptr(counts), ptr(shared), R,
-                W, nw)
+        _launch("phase_step", dev, bits.data_ptr(), base.data_ptr(),
+                rowmask.data_ptr(), sbases.data_ptr(), sends.data_ptr(),
+                counts.data_ptr(), shared.data_ptr(), R, W, nw)
     return counts, shared
 
 
@@ -313,12 +313,12 @@ def take_first_k(bits: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     _called("take_first_k")
     dev, k32 = _rank_operands(bits, k)
     R, nw = bits.shape
-    if not on_card(dev):
+    if not on_card(bits):
         return _take_first_k_plain(bits, k)
     take = torch.empty_like(bits)
     if R and nw:
-        _launch("take_first_k", dev, ptr(bits), ptr(k32), ptr(take), R,
-                nw)
+        _launch("take_first_k", dev, bits.data_ptr(), k32.data_ptr(),
+                take.data_ptr(), R, nw)
     return take
 
 
@@ -331,12 +331,12 @@ def kth_set_index(bits: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     R, nw = bits.shape
     if nw == 0:
         return torch.full((R,), -1, dtype=torch.int64, device=dev)
-    if not on_card(dev):
+    if not on_card(bits):
         return _kth_set_index_plain(bits, k)
     cut = torch.empty(R, dtype=torch.int64, device=dev)
     if R:
-        _launch("kth_set_index", dev, ptr(bits), ptr(k32), ptr(cut), R,
-                nw)
+        _launch("kth_set_index", dev, bits.data_ptr(), k32.data_ptr(),
+                cut.data_ptr(), R, nw)
     return cut
 
 
@@ -350,11 +350,11 @@ def take_and_cut(bits: torch.Tensor,
     if nw == 0:
         return (torch.empty_like(bits),
                 torch.full((R,), -1, dtype=torch.int64, device=dev))
-    if not on_card(dev):
+    if not on_card(bits):
         return _take_first_k_plain(bits, k), _kth_set_index_plain(bits, k)
     take = torch.empty_like(bits)
     cut = torch.empty(R, dtype=torch.int64, device=dev)
     if R:
-        _launch("take_and_cut", dev, ptr(bits), ptr(k32), ptr(take),
-                ptr(cut), R, nw)
+        _launch("take_and_cut", dev, bits.data_ptr(), k32.data_ptr(),
+                take.data_ptr(), cut.data_ptr(), R, nw)
     return take, cut

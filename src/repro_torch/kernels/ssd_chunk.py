@@ -16,6 +16,12 @@ per-cell layout).  x, B_ and C_ are float32 or bfloat16 (one dtype);
 dt and cum float32 or that dtype (bfloat16 is widened exactly before the
 launch).  Any Q >= 1; P and N in {16, 32, 64, 128}.
 
+The kernel forms C.B^T once per (B/C row, 64-row query stripe, slice of
+the row's heads) and runs every product on the tensor cores as three
+TF32 products of split operands (hi*hi + hi*lo + lo*hi, f32
+accumulation), which keeps f32 accuracy with TF32 off
+(``ssd_chunk_tf32_products`` emulates that arithmetic in plain torch).
+
 The wrapper checks its operands, allocates the outputs with
 ``torch.empty`` and launches on the current stream, adding one to
 ``LAUNCHES[name]`` per launch and to ``CALLS[name]`` per call on any
@@ -30,11 +36,10 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels._build import Kernels, on_card, ptr
+from repro_torch.kernels._build import Kernels, on_card
 
 DIMS = (16, 32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_GRID_Y = 65535            # row tiles of 64 (plus the state block) on y
 
 _P = ctypes.c_void_p
 _L = ctypes.c_longlong
@@ -68,6 +73,58 @@ def ssd_chunk_plain(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
     y = torch.matmul(scores, xf)
     w_in = torch.exp(cumf[:, -1:] - cumf) * dtf        # (M, Q)
     state = torch.einsum("mq,mqp,mqn->mpn", w_in, xf, Bf)
+    return y, state
+
+
+def _tf32(t: torch.Tensor) -> torch.Tensor:
+    """Round float32 to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, as ``cvt.rna.tf32.f32`` does."""
+    b = t.contiguous().view(torch.int32).to(torch.int64)
+    finite = (b & 0x7F800000) != 0x7F800000
+    # int32 patterns sign-extended: the magnitude is rounded at bit 13
+    r = torch.where(finite, (b + 0x1000) & ~0x1FFF, b)
+    return r.to(torch.int32).view(torch.float32)
+
+
+def _mm_tf32(a: torch.Tensor, b: torch.Tensor, products: int) -> torch.Tensor:
+    """``a @ b`` on TF32 operands, summed in float64 and rounded once to
+    float32: one product of the rounded operands, or (``products`` = 3)
+    the split hi*hi + hi*lo + lo*hi, hi = tf32(v) and lo = tf32(v - hi),
+    as the kernel takes it."""
+    ah, bh = _tf32(a), _tf32(b)
+    out = torch.matmul(ah.double(), bh.double()).float()
+    if products == 3:
+        al, bl = _tf32(a - ah), _tf32(b - bh)
+        out = (torch.matmul(al.double(), bh.double())
+               + torch.matmul(ah.double(), bl.double())).float() + out
+    return out
+
+
+def ssd_chunk_tf32_products(x: torch.Tensor, dt: torch.Tensor,
+                            cum: torch.Tensor, B_: torch.Tensor,
+                            C_: torch.Tensor, products: int = 3
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``ssd_chunk_plain`` with each of its three products (C.B^T, scores
+    times x, the state) taken on TF32 operands: ``products=3`` is the
+    kernel's split (f32 accuracy), ``products=1`` a single TF32 product.
+    Each product's sums are exact (float64) and rounded once, so the
+    error left is the operands' rounding, which is what the split
+    removes.  A model of the kernel's arithmetic for the CPU tests."""
+    rep = x.shape[0] // B_.shape[0]
+    xf = x.float()
+    dtf = dt[..., 0].float()
+    cumf = cum[..., 0].float()
+    Bf = B_.float().repeat_interleave(rep, dim=0)
+    Cf = C_.float().repeat_interleave(rep, dim=0)
+    Q = x.shape[1]
+    cb = _mm_tf32(Cf, Bf.transpose(1, 2), products)
+    causal = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    delta = torch.where(causal, cumf[:, :, None] - cumf[:, None, :],
+                        torch.full((), -torch.inf, device=x.device))
+    scores = cb * torch.exp(delta) * dtf[:, None, :]
+    y = _mm_tf32(scores, xf, products)
+    w_in = torch.exp(cumf[:, -1:] - cumf) * dtf
+    state = _mm_tf32((xf * w_in[..., None]).transpose(1, 2), Bf, products)
     return y, state
 
 
@@ -108,21 +165,25 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
     -> y (M, Q, P) float32, state (M, P, N) float32."""
     _KERNELS.called("ssd_chunk")
     _check(x, dt, cum, B_, C_)
-    if not on_card(x.device):
+    if not on_card(x):
         return ssd_chunk_plain(x, dt, cum, B_, C_)
     M, Q, P = x.shape
     N = B_.shape[2]
     if P not in DIMS or N not in DIMS:
         raise ValueError(f"ssd_chunk: P={P}, N={N} not in {DIMS}")
-    if M >= 1 << 31 or -(-Q // 64) + 1 > _GRID_Y:
+    if M >= 1 << 31 or Q >= 1 << 31:
         raise ValueError(f"ssd_chunk: (M, Q)=({M}, {Q}) exceeds the grid")
-    x, B_, C_ = x.contiguous(), B_.contiguous(), C_.contiguous()
+    # the kernel copies x, B and C in 16-byte pieces (cp.async)
+    x, B_, C_ = (t if t.is_contiguous() and t.data_ptr() % 16 == 0
+                 else t.clone(memory_format=torch.contiguous_format)
+                 for t in (x, B_, C_))
     dt = dt.float().contiguous()
     cum = cum.float().contiguous()
     y = torch.empty((M, Q, P), dtype=torch.float32, device=x.device)
     state = torch.empty((M, P, N), dtype=torch.float32, device=x.device)
     if M:
-        _KERNELS.launch("ssd_chunk", x.device, ptr(x), ptr(dt), ptr(cum),
-                        ptr(B_), ptr(C_), ptr(y), ptr(state),
-                        DTYPES[x.dtype], M, Q, P, N, M // B_.shape[0])
+        _KERNELS.launch("ssd_chunk", x.device, x.data_ptr(), dt.data_ptr(),
+                        cum.data_ptr(), B_.data_ptr(), C_.data_ptr(),
+                        y.data_ptr(), state.data_ptr(), DTYPES[x.dtype], M,
+                        Q, P, N, M // B_.shape[0])
     return y, state

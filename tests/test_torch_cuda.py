@@ -290,6 +290,71 @@ def test_ssd_chunk_matches_plain_version(f32_card):
                 torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("rep", [1, 2, 80])
+@pytest.mark.parametrize("Q", [1, 100, 256])
+def test_ssd_chunk_every_width_and_group(f32_card, rep, Q):
+    """The split-TF32 tensor-core kernel at every (P, N) in {16, 64,
+    128}^2, one B/C row per 1, 2 or 80 heads, ragged Q, float32 and
+    bfloat16, within 1e-4 of the plain version; also from operands 4
+    bytes off the 16-byte alignment its cp.async copies need."""
+    import chip_smoke
+    from repro_torch.kernels import ssd_chunk as sc
+    rng = np.random.default_rng(33 + rep + Q)
+    for P in (16, 64, 128):
+        for N in (16, 64, 128):
+            for dtype in (torch.float32, torch.bfloat16):
+                args = chip_smoke.ssd_inputs(torch, np, rng, 2 * rep, Q, P,
+                                             N, rep, dtype, f32_card)
+                for g, w in zip(sc.ssd_chunk(*args),
+                                sc.ssd_chunk_plain(*args)):
+                    torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+    x = args[0]
+    flat = torch.empty(x.numel() + 2, dtype=x.dtype, device=f32_card)
+    shifted = flat[2:].view(x.shape)
+    shifted.copy_(x)
+    moved = [shifted] + list(args[1:])
+    for g, w in zip(sc.ssd_chunk(*moved), sc.ssd_chunk(*args)):
+        assert torch.equal(g, w)
+
+
+def test_inplace_merges_match_plain_versions(dev):
+    """diff_apply_ and diff_apply_rows_ on the card against their plain
+    versions, bit for bit, with the edge bit patterns and mask bytes of
+    -1 and 2, at the reference path's shapes, a batched and a ragged
+    shape, on one page (W,) and on rows that start off the 16-byte
+    alignment (the scalar path)."""
+    import chip_smoke
+    from repro_torch.kernels import page_diff as pd
+    rng = np.random.default_rng(14)
+    for n, w in ((1, 256), (1, 1024), (4096, 1024), (5, 1001), (3, 4)):
+        curr, twin, mask = (torch.as_tensor(a, device=dev) for a in
+                            chip_smoke.page_diff_inputs(np, rng, n, w))
+        got, want = twin.clone(), twin.clone()
+        assert pd.diff_apply_(got, mask, curr) is got
+        pd._diff_apply_plain_(want, mask, curr)
+        assert _bits_equal(got, want)
+        assert _bits_equal(got, pd.diff_apply(twin, mask, curr))
+        page, ref = twin[-1].clone(), twin[-1].clone()
+        pd.diff_apply_(page, mask[-1], curr[-1])
+        pd._diff_apply_plain_(ref, mask[-1], curr[-1])
+        assert _bits_equal(page, ref)
+        flat = torch.empty(n * w + 1, device=dev)
+        shifted = flat[1:].view(n, w)
+        shifted.copy_(twin)
+        pd.diff_apply_(shifted, mask, curr)
+        assert _bits_equal(shifted, want)
+        n_home = 3 * n + 2
+        home = torch.as_tensor(rng.standard_normal((n_home, w)),
+                               dtype=torch.float32, device=dev)
+        rows = torch.as_tensor(np.sort(rng.choice(n_home, n, replace=False)),
+                               device=dev)
+        got, want = home.clone(), home.clone()
+        assert pd.diff_apply_rows_(got, rows, mask, curr) is got
+        pd._diff_apply_rows_plain_(want, rows, mask, curr)
+        assert _bits_equal(got, want)
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("arch", ["internlm2-1.8b", "mamba2-2.7b",
                                   "gemma2-27b", "granite-20b"])
 def test_reduced_models_match_cpu(f32_card, arch):

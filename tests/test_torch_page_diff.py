@@ -1,5 +1,6 @@
-"""The page_diff kernels' plain versions (the CPU tier of ``diff_encode``
-and ``diff_apply``) against the reference's Pallas kernels, run in
+"""The page_diff kernels' plain versions (the CPU tier of ``diff_encode``,
+``diff_apply`` and the in-place merges ``diff_apply_`` and
+``diff_apply_rows_``) against the reference's Pallas kernels, run in
 interpret mode as ``tests/test_kernels.py`` runs them, against the
 reference's jnp oracles (``repro.kernels.ref``) and, at shapes the
 Pallas grid refuses, against a numpy oracle.
@@ -136,7 +137,8 @@ def test_empty_and_bad_operands():
     assert diff_apply(torch.zeros(0, 8), torch.zeros(0, 8, dtype=torch.int8),
                       torch.zeros(0, 8)).shape == (0, 8)
     # each wrapper call counts once on any device, empty ones too
-    assert pd.CALLS == {"diff_encode": 1, "diff_apply": 1}
+    assert pd.CALLS == {"diff_encode": 1, "diff_apply": 1, "diff_apply_": 0,
+                        "diff_apply_rows_": 0}
     with pytest.raises(TypeError, match="float32"):
         diff_encode(torch.zeros(2, 8, dtype=torch.float64),
                     torch.zeros(2, 8, dtype=torch.float64))
@@ -148,4 +150,121 @@ def test_empty_and_bad_operands():
     with pytest.raises(ValueError, match="contiguous"):
         diff_encode(torch.zeros(8, 2).t(), torch.zeros(2, 8))
     # the CPU tier never counts a launch
-    assert pd.LAUNCHES == {"diff_encode": 0, "diff_apply": 0}
+    assert pd.LAUNCHES == {"diff_encode": 0, "diff_apply": 0,
+                           "diff_apply_": 0, "diff_apply_rows_": 0}
+
+
+def _merge_inputs(seed: int, n: int, w: int):
+    """dst and vals (n, w) float32 with every edge bit pattern among the
+    values (-0.0, NaN payloads, denormals), and a mask of 0, 1, -1 and 2
+    bytes."""
+    rng = np.random.default_rng(seed)
+    dst = rng.standard_normal((n, w)).astype(np.float32)
+    vals = rng.standard_normal((n, w)).astype(np.float32)
+    mask = rng.choice(np.array([0, 0, 0, 1, -1, 2], np.int8), (n, w))
+    vb, db = vals.view(np.int32), dst.view(np.int32)
+    for k, (v, d) in enumerate([(0x80000000, 0x00000000),
+                                (0x7FC00001, 0x7FC00002),
+                                (0x00000001, 0x80000000),
+                                (0x807FFFFF, 0x7F800000)]):
+        i, j = k % n, (5 * k + 1) % w
+        vb[i, j] = np.uint32(v).view(np.int32)
+        db[i, j] = np.uint32(d).view(np.int32)
+        mask[i, j] = (1, -1, 2, 1)[k]                  # the edge words set
+    return dst, mask, vals
+
+
+@pytest.mark.parametrize("n,w", SHAPES + [(5, 1001), (3, 4), (1, 1)])
+def test_apply_inplace_matches_functional_and_pallas(n, w):
+    """``diff_apply_`` writes into ``dst`` exactly what ``diff_apply``
+    returns, bit for bit, and what the Pallas kernel (interpret mode)
+    returns where its grid takes the shape; a single page (W,) too."""
+    dst, mask, vals = _merge_inputs(n * 3 + w, n, w)
+    want = diff_apply(*(torch.from_numpy(a) for a in (dst, mask, vals)))
+    got = torch.from_numpy(dst.copy())
+    out = pd.diff_apply_(got, torch.from_numpy(mask), torch.from_numpy(vals))
+    assert out is got
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(want.numpy()))
+    np.testing.assert_array_equal(_bits(got.numpy()),
+                                  _bits(ref.diff_apply_ref(dst, mask, vals)))
+    if (n, w) in SHAPES:
+        np.testing.assert_array_equal(
+            _bits(got.numpy()),
+            _bits(np.asarray(jax_apply(dst, mask, vals, interpret=True))))
+    page = torch.from_numpy(dst[-1].copy())
+    pd.diff_apply_(page, torch.from_numpy(mask[-1]),
+                   torch.from_numpy(vals[-1]))
+    np.testing.assert_array_equal(_bits(page.numpy()),
+                                  _bits(want[-1].numpy()))
+    single = diff_apply(torch.from_numpy(dst[0]), torch.from_numpy(mask[0]),
+                        torch.from_numpy(vals[0]))
+    np.testing.assert_array_equal(_bits(single.numpy()),
+                                  _bits(want[0].numpy()))
+
+
+@pytest.mark.parametrize("n_home,rows", [(16, [0, 3, 4, 15]), (8, [5]),
+                                         (32, list(range(0, 32, 2))),
+                                         (8, list(range(8)))])
+@pytest.mark.parametrize("w", [256, 1001])
+def test_apply_rows_matches_gather_apply_scatter(n_home, rows, w):
+    """``diff_apply_rows_`` merges row i of mask/vals into home[rows[i]]
+    in place: bit-equal to gathering the rows, merging them with the
+    functional plain version and the Pallas kernel (interpret mode, at
+    the shapes its grid takes) and scattering them back; rows not named
+    keep their bits."""
+    n = len(rows)
+    home_np, mask, vals = _merge_inputs(n_home + w, n_home, w)
+    _, mask, vals = _merge_inputs(n + w + 1, n, w)
+    home = torch.from_numpy(home_np.copy())
+    idx = torch.tensor(rows, dtype=torch.int64)
+    want = home.clone()
+    want[idx] = diff_apply(home[idx], torch.from_numpy(mask),
+                           torch.from_numpy(vals))
+    out = pd.diff_apply_rows_(home, idx, torch.from_numpy(mask),
+                              torch.from_numpy(vals))
+    assert out is home
+    np.testing.assert_array_equal(_bits(home.numpy()), _bits(want.numpy()))
+    if w % 128 == 0 and (n < 8 or n % 8 == 0):
+        merged = np.asarray(jax_apply(home_np[rows], mask, vals,
+                                      interpret=True))
+        np.testing.assert_array_equal(_bits(home.numpy()[rows]),
+                                      _bits(merged))
+    others = np.setdiff1d(np.arange(n_home), rows)
+    np.testing.assert_array_equal(_bits(home.numpy()[others]),
+                                  _bits(home_np[others]))
+
+
+def test_inplace_merges_empty_and_bad_operands():
+    pd.reset_launches()
+    e = torch.zeros(0, 8)
+    em = torch.zeros(0, 8, dtype=torch.int8)
+    assert pd.diff_apply_(e, em, e) is e
+    home = torch.zeros(4, 8)
+    assert pd.diff_apply_rows_(home, torch.zeros(0, dtype=torch.int64), em,
+                               e) is home
+    assert pd.CALLS["diff_apply_"] == 1 and pd.CALLS["diff_apply_rows_"] == 1
+    m = torch.ones(2, 8, dtype=torch.int8)
+    v = torch.ones(2, 8)
+    with pytest.raises(TypeError, match="int8"):
+        pd.diff_apply_(torch.zeros(2, 8), m.bool(), v)
+    with pytest.raises(TypeError, match="float32"):
+        pd.diff_apply_(torch.zeros(2, 8, dtype=torch.float64), m, v)
+    with pytest.raises(ValueError, match="shape"):
+        pd.diff_apply_(torch.zeros(2, 9), m, v)
+    with pytest.raises(ValueError, match="contiguous"):
+        pd.diff_apply_(torch.zeros(8, 2).t(), m, v)
+    with pytest.raises(ValueError, match=r"\(W,\) or pages"):
+        pd.diff_apply_(torch.zeros(1, 2, 8), m[None], v[None])
+    for rows in ([1, 1], [2, 1], [3, 4], [-1, 0]):
+        with pytest.raises(ValueError, match="sorted, unique"):
+            pd.diff_apply_rows_(home, torch.tensor(rows), m, v)
+    with pytest.raises(TypeError, match="int64"):
+        pd.diff_apply_rows_(home, torch.tensor([0, 1], dtype=torch.int32),
+                            m, v)
+    with pytest.raises(ValueError, match="shape"):
+        pd.diff_apply_rows_(home, torch.tensor([0, 1, 2]), m, v)
+    with pytest.raises(ValueError, match="shape"):
+        pd.diff_apply_rows_(torch.zeros(4, 9), torch.tensor([0, 1]), m, v)
+    assert torch.equal(home, torch.zeros(4, 8))
+    # the CPU tier never counts a launch
+    assert all(v == 0 for v in pd.LAUNCHES.values())

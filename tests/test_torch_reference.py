@@ -382,8 +382,10 @@ def test_dsm_jacobi_program(proto, mode):
 
 def test_release_batches_the_span_diff():
     """A fine release with values diffs every touched page in one
-    ``diff_encode`` call and merges them with one ``diff_apply``; an
-    untouched-value page is charged by the empty-diff rule."""
+    ``diff_encode`` call and merges them onto home in place with one
+    ``diff_apply_rows_`` (no functional ``diff_apply``, no gather or
+    scatter); an untouched-value page is charged by the empty-diff
+    rule."""
     rt = Pair(2, page_words=16, protocol="fine")
     g = rt.alloc(80)
     rt.acquire(0, 3)
@@ -392,7 +394,9 @@ def test_release_batches_the_span_diff():
     calls = dict(pd.CALLS)
     rt.release(0, 3)
     assert pd.CALLS["diff_encode"] == calls["diff_encode"] + 1
-    assert pd.CALLS["diff_apply"] == calls["diff_apply"] + 1
+    assert pd.CALLS["diff_apply_rows_"] == calls["diff_apply_rows_"] + 1
+    assert pd.CALLS["diff_apply"] == calls["diff_apply"]
+    assert pd.CALLS["diff_apply_"] == calls["diff_apply_"]
     assert [n[:3] for n in rt.pt.locks[3].notices[0]] == [
         (0, 4, 16), (1, 0, 16), (2, 0, 8), (3, 2, 2)]
     rt.acquire(1, 3)

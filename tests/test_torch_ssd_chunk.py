@@ -1,7 +1,10 @@
 """The port's ``ssd_chunk`` wrapper on the CPU (its plain version) against
 the reference's Pallas kernel run in interpret mode, as
 ``tests/test_kernels.py`` runs it, and against the oracle
-``ref.ssd_chunk_ref`` for what the port adds (grouped B/C rows, any Q).
+``ref.ssd_chunk_ref`` for what the port adds (grouped B/C rows, any Q);
+and a plain-torch model of the kernel's arithmetic
+(``ssd_chunk_tf32_products``: every product on TF32 operands, split in
+three or taken once) against both.
 Inputs are made with numpy from a seed and handed to both.
 
 Tolerance 1e-4 (absolute and relative), ``tests/test_kernels.py``'s: the
@@ -84,3 +87,38 @@ def test_counts_and_bad_operands():
         sc.ssd_chunk(x, dt, cum, B_[:, :4], C_[:, :4])
     with pytest.raises(ValueError, match="Q >= 1"):
         sc.ssd_chunk(x[:, :0], dt[:, :0], cum[:, :0], B_[:, :0], C_[:, :0])
+
+
+@pytest.mark.parametrize("M,rep", [(80, 80), (8, 1)], ids=["grouped", "cell"])
+def test_three_tf32_products_meet_the_check(M, rep):
+    """At mamba2-2.7b's cell shape (Q=256, P=64, N=128; one B/C row for
+    80 heads, and per cell) the kernel's split, hi*hi + hi*lo + lo*hi on
+    TF32 operands, stays within the 1e-4 the kernel is held to against
+    the f32 plain version and the Pallas kernel; a single TF32 product
+    does not, which is why the kernel takes three."""
+    arrs = _inputs(3, M, 256, 64, 128, M // rep)
+    args = list(map(torch.from_numpy, arrs))
+    want = sc.ssd_chunk_plain(*args)
+    three = sc.ssd_chunk_tf32_products(*args, products=3)
+    _close(three, [w.numpy() for w in want])
+    if rep == 1:
+        _close(three, pallas_ssd(*arrs, interpret=True))
+    one = sc.ssd_chunk_tf32_products(*args, products=1)
+    assert not all(torch.allclose(g, w, rtol=1e-4, atol=1e-4)
+                   for g, w in zip(one, want))
+    err1 = max(float((g - w).abs().max()) for g, w in zip(one, want))
+    err3 = max(float((g - w).abs().max()) for g, w in zip(three, want))
+    assert err3 < 1e-4 < err1 and err1 > 100 * err3
+
+
+def test_tf32_rounding():
+    """Round to nearest, ties away from zero, at the 10th mantissa bit;
+    infinities and NaN pass as they are."""
+    v = torch.tensor([1.0 + 2 ** -12, 1.0 + 2 ** -11, -(1.0 + 3 * 2 ** -11),
+                      1.0 + 2 ** -11 - 2 ** -23, 3.0, float("inf"),
+                      -float("inf"), 2.0 ** -130])
+    got = sc._tf32(v)
+    want = [1.0, 1.0 + 2 ** -10, -(1.0 + 2 ** -9), 1.0, 3.0,
+            float("inf"), -float("inf"), 2.0 ** -130]
+    assert got.tolist() == want
+    assert torch.isnan(sc._tf32(torch.tensor([float("nan")]))).all()
