@@ -21,8 +21,9 @@ Phases, in order; any mismatch or exception exits non-zero:
    take_upto_row shape of the spill path (one run of a few words) and at
    edge cases (k = 0, k < 0, k past the popcount, k = INT32_MAX, empty
    rows, ragged last words, R = 1, nw = 1); the page_diff kernels
-   diff_encode, diff_apply and the in-place merges diff_apply_ and
-   diff_apply_rows_ at the reference path's shapes (1, 256) and
+   diff_encode (with and without its change bounds), diff_apply and the
+   in-place merges diff_apply_ and diff_apply_rows_ at the reference
+   path's shapes (1, 256) and
    (1, 1024), a batched (4096, 1024) and a ragged (5, 1001), with -0.0,
    NaN-payload, equal-NaN and denormal words and mask bytes of -1 and 2
    (compared on their bits); the model kernels flash_attention (at the
@@ -35,10 +36,10 @@ Phases, in order; any mismatch or exception exits non-zero:
    yardstick (``torch.cumsum`` for coverage_multi, ``torch.where`` for
    the merges, ``scaled_dot_product_attention`` for flash_attention) and
    the bound: the larger of the bytes over the HBM rate and the
-   operations over the peak of the units that run them (float32 on CUDA
-   cores and bfloat16 on tensor cores for attention; ssd_chunk's three
-   TF32 tensor-core products, a third of the TF32 peak), and which of the
-   two it is;
+   operations over the peak of the units that run them (bfloat16
+   attention on the tensor cores; float32 attention and ssd_chunk as
+   three TF32 tensor-core products each, a third of the TF32 peak), and
+   which of the two it is;
 4. main-path phase: the W=256 batched points of fig2_strong, fig3_weak,
    fig5_strong, fig6_weak and fig7_md (samhita and samhita_page, Jacobi
    and MD in lock and reduction modes) on the 'fused' tier, plus the two
@@ -77,7 +78,8 @@ Phases, in order; any mismatch or exception exits non-zero:
    must launch 24 x 2 times and ssd_chunk 64 x 2, decode neither; logits
    finite, tokens in range; prints prefill and per-token decode walls,
    tokens/s, peak device memory and a traced wave's device time by
-   kernel.  Then each model with depth cut to 2 layers (the only cut)
+   kernel (the eight largest, and the port's own kernels whatever their
+   rank).  Then each model with depth cut to 2 layers (the only cut)
    against the same weights and requests on the CPU: greedy tokens and
    teacher-forced logits equal within 1e-3.
 
@@ -103,12 +105,12 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 # H100 SXM dense peaks (NVIDIA data sheet): float32 outside the tensor
 # cores, and bfloat16 on the tensor cores; a shape's FLOP bound takes the
-# rate of its operands' type
+# rate of the units its kernel runs it on
 F32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
-# ssd_chunk runs its float32 products (and its bfloat16 ones, widened) on
-# the tensor cores as three TF32 products of split operands: a third of
-# the 495 TFLOP/s TF32 peak
+# ssd_chunk (float32, and bfloat16 widened) and float32 flash_attention
+# run their products on the tensor cores as three TF32 products of split
+# operands: a third of the 495 TFLOP/s TF32 peak
 TF32_SPLIT_FLOPS_PER_S = 495e12 / 3
 SOURCES = {"protocol_sweep": "src/repro_torch/kernels/csrc/protocol_sweep.cu",
            "page_diff": "src/repro_torch/kernels/csrc/page_diff.cu",
@@ -443,18 +445,50 @@ def page_diff_inputs(np, rng, n: int, w: int):
     return curr, twin, mask
 
 
+BOUNDS_CASES = ("none", "first", "last", "signed_zero", "nan", "random")
+
+
+def page_diff_bounds_inputs(np, rng, case: str, n: int, w: int):
+    """curr and twin (n, w) float32 whose diff is one edge of the change
+    bounds: no changed word, one at word 0, one at word w - 1, -0.0
+    against +0.0, NaN payloads (beside equal NaN bits, no change), or ~10%
+    of the words (``BOUNDS_CASES``)."""
+    twin = rng.standard_normal((n, w)).astype(np.float32)
+    curr = twin.copy()
+    cb, tb = curr.view(np.int32), twin.view(np.int32)
+    if case == "first":
+        curr[:, 0] += 1.0
+    elif case == "last":
+        curr[:, w - 1] += 1.0
+    elif case == "signed_zero":
+        twin[:, w // 3] = 0.0
+        curr[:, w // 3] = -0.0
+    elif case == "nan":
+        tb[:, w // 2] = 0x7FC00002
+        cb[:, w // 2] = 0x7FC00001
+        cb[:, w // 5] = tb[:, w // 5] = 0x7FC00005
+    elif case == "random":
+        curr = np.where(rng.random((n, w)) < 0.1,
+                        rng.standard_normal((n, w)).astype(np.float32), twin)
+    return curr, twin
+
+
 def page_diff_phase(torch, np, rng, dev):
     """diff_encode and the merges (diff_apply, in place diff_apply_, the
     row-indexed diff_apply_rows_) against their plain versions bit for
     bit (on int32 views: NaN payloads compare as bits) at the path's
     shapes (1, 256) and (1, 1024), a batched (4096, 1024) and a ragged
-    (5, 1001), with every edge bit pattern; the in-place merge also on one
+    (5, 1001), with every edge bit pattern; diff_encode also with its
+    change bounds (``bounds=True``, the release's form) on every case of
+    ``page_diff_bounds_inputs``; the in-place merge also on one
     page (W,), the row merge into a home of 2n + 3 pages; timed at
-    (1, 1024) and (4096, 1024), wrapper and C entry.  ``torch.where`` on a
+    (1, 1024) and (4096, 1024), wrapper and C entry (diff_encode in the
+    release's form).  ``torch.where`` on a
     bool mask made beforehand is the merges' yardstick (``out=`` the
     destination for the in-place one); no single call computes
     diff_encode's three outputs or the row merge.  Bytes: 13 a word for
-    diff_encode (plus 4 a page of counts) and diff_apply, each input read
+    diff_encode (plus 12 a page of counts and bounds) and diff_apply, each
+    input read
     once and the output written once; the in-place merges need only the
     mask (1 a word) and, for the words whose mask is set in this run's
     data, vals read and dst written (8 a set word), plus 8 a row index
@@ -487,6 +521,12 @@ def page_diff_phase(torch, np, rng, dev):
         enc = pd.diff_encode(curr, twin)
         errs["diff_encode"] = max(errs["diff_encode"], bits_err(
             "diff_encode", enc, pd._diff_encode_plain(curr, twin)))
+        for case in BOUNDS_CASES:  # the change bounds' edges
+            c, t_ = (torch.as_tensor(a, device=dev) for a in
+                     page_diff_bounds_inputs(np, rng, case, n, w))
+            bits_err(f"diff_encode(bounds=True) {case}",
+                     pd.diff_encode(c, t_, bounds=True),
+                     pd._diff_encode_plain(c, t_, True))
         home, rows = home_rows(n, w)
         for m in (mask, enc[0]):
             want = pd._diff_apply_plain(twin, m, curr)
@@ -519,12 +559,15 @@ def page_diff_phase(torch, np, rng, dev):
             lib, nbytes = None, 13 * n * w
             merged = n * w + 8 * int(bmask.sum())  # the in-place merges
             if name == "diff_encode":
-                kern = lambda c=curr, t=twin: pd.diff_encode(c, t)  # noqa
-                plain = lambda c=curr, t=twin: pd._diff_encode_plain(c, t)  # noqa
-                m_, v_, k_ = pd.diff_encode(curr, twin)
+                # the release's form: the change bounds with the count
+                kern = lambda c=curr, t=twin: pd.diff_encode(  # noqa
+                    c, t, bounds=True)
+                plain = lambda c=curr, t=twin: pd._diff_encode_plain(  # noqa
+                    c, t, True)
+                m_, v_, k_ = pd.diff_encode(curr, twin, bounds=True)
                 args = (curr.data_ptr(), twin.data_ptr(), m_.data_ptr(),
                         v_.data_ptr(), k_.data_ptr(), n, w, stream)
-                nbytes += 4 * n
+                nbytes += 12 * n
             elif name == "diff_apply":
                 kern = lambda c=curr, t=twin, m=mask: pd.diff_apply(t, m, c)  # noqa
                 plain = lambda c=curr, t=twin, m=mask: (  # noqa
@@ -647,7 +690,9 @@ def flash_work(B, Hq, S, D, itemsize, Hkv):
     """(flops, bytes) causal flash_attention needs: 4 D flops per unmasked
     (query, key) pair, S(S+1)/2 of them, in each of the B*Hq heads (q.k and
     p.v; the softmax's few operations a pair are not counted), q, k and v
-    read once and the output written once."""
+    read once and the output written once.  The flops go over
+    BF16_FLOPS_PER_S in bfloat16 and TF32_SPLIT_FLOPS_PER_S in float32,
+    which the kernel takes as three TF32 tensor-core products."""
     pairs = S * (S + 1) // 2
     return (4 * D * pairs * B * Hq,
             itemsize * (2 * B * Hq * S * D + 2 * B * Hkv * S * D))
@@ -675,8 +720,9 @@ def model_kernel_phase(torch, np, dev):
     card, absolute and relative: attention in float32 within 2e-5 and SSD
     within 1e-4, as in tests/test_kernels.py; attention in bfloat16 within
     rtol 8e-3 / atol 2e-3 (both sides sum in float32 from the same
-    bfloat16 inputs and round once to bfloat16, so they differ by the
-    float32 reordering and at most one bfloat16 ulp, 2^-7 of the value):
+    bfloat16 inputs, the kernel with p kept to 16 bits, and round once to
+    bfloat16, so they differ by the float32 reordering and at most one
+    bfloat16 ulp, 2^-7 of the value):
     attention at the internlm2-1.8b prefill shape (B=4, Hq=16,
     Hkv=8, S=512, D=128) in float32 and bfloat16, at a ragged S=333, with
     window 64 and softcap 50, with MQA (Hkv=1) and at the reduced shape
@@ -733,7 +779,8 @@ def model_kernel_phase(torch, np, dev):
                     q, k, v, is_causal=True, scale=D ** -0.5,
                     enable_gqa=True)), 20),
             flops=flops, bytes=nbytes, flops_per_s=(
-                BF16_FLOPS_PER_S if dtype == bf16 else F32_FLOPS_PER_S))
+                BF16_FLOPS_PER_S if dtype == bf16
+                else TF32_SPLIT_FLOPS_PER_S))
     results = {"flash_attention": dict(
         err=max(e["max_abs_err"] for e in errs), cases=errs,
         library="scaled_dot_product_attention", bf16=out[bf16],
@@ -834,6 +881,10 @@ def trace_generate(torch, cfg, params, wave, max_new):
         busy += max(0.0, b - max(a, end)) * 1e-6
         end = max(end, b)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    # the port's own kernels are reported whatever their rank
+    top += [(n, t) for n, t in by_name.items()
+            if ("flash_kernel" in n or "ssd_chunk_kernel" in n)
+            and (n, t) not in top]
     print(f"trace {cfg.name} one wave (prompt {wave.shape[1]}, {max_new} "
           f"tokens): traced wall {wall:.3f} s (prefill {walls['prefill_s']:.3f}"
           f" s, decode {walls['decode_s']:.3f} s), device busy {busy:.3f} s, "

@@ -451,20 +451,16 @@ class RegCRuntime:
         ``diff_encode`` launch, merged onto home's rows in place with one
         ``diff_apply_rows_``.
         Returns host (count, first changed word, last changed word) per
-        page, read back in one copy (first/last are meaningless where the
-        count is 0)."""
+        page, the kernel's stats block read back in one copy (first/last
+        are meaningless where the count is 0)."""
         curr = torch.stack([self._page_view(w, p) for p in pages])
         twin = torch.stack([span.twins[p] for p in pages])
-        mask, vals, count = diff_encode(curr, twin)
-        changed = mask != 0
-        col = torch.arange(self.page_words, device=self.device)
-        first = torch.where(changed, col, self.page_words).amin(1)
-        last = torch.where(changed, col, -1).amax(1)
+        mask, vals, stats = diff_encode(curr, twin, bounds=True)
         # vals equals curr wherever the mask is set, so the merge is the
         # reference's home[p][mask] = curr[mask], bit for bit
         rows = torch.as_tensor(pages, dtype=torch.int64, device=self.device)
         diff_apply_rows_(self.home, rows, mask, vals)
-        return torch.stack([count.to(torch.int64), first, last]).cpu().numpy()
+        return stats.cpu().numpy()
 
     def release(self, w: int, lock_id: int):
         span = self.spans[w].pop()

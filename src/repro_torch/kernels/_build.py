@@ -8,8 +8,9 @@ Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers), so
          -Xcompiler -fPIC -o build/repro_torch/lib<name>_<hash>.so <name>.cu
 
 The library lands in ``build/repro_torch/`` at the root of the checkout
-(listed in ``.gitignore``), named by a hash of the source and the flags, so
-an edited source is rebuilt and an unchanged one is loaded as it is.
+(listed in ``.gitignore``), named by a hash of the source, the shared
+headers (``csrc/*.cuh``) and the flags, so an edited source or header is
+rebuilt and an unchanged one is loaded as it is.
 Sources are compiled in parallel, one ``nvcc`` process each, all started
 together.  Nothing here runs at import time: the first wrapper that
 launches a kernel triggers the build.
@@ -66,8 +67,9 @@ def _nvcc() -> str:
 
 def library_path(source: str) -> Path:
     src = CSRC / source
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{src.stem}_{digest}.so"
 
 

@@ -12,11 +12,12 @@
 // All are elementwise passes that read and write each word once with a
 // handful of integer operations, so each is bound by memory traffic on
 // the card (HBM3 at 3.35 TB/s): diff_encode moves 13 bytes a word (two
-// 4-byte inputs, a 1-byte mask, a 4-byte value) plus 4 bytes of count a
-// page, the merges 13 bytes a word (three inputs of 4 + 1 + 4 bytes, a
-// 4-byte output).  The design aims at one coalesced pass: 16-byte vector
-// loads and stores (uint4 words, char4 mask bytes) whenever the row
-// length and the pointers allow, and a scalar path otherwise.  At the
+// 4-byte inputs, a 1-byte mask, a 4-byte value) plus 12 bytes of count
+// and change bounds a page, the merges 13 bytes a word (three inputs of
+// 4 + 1 + 4 bytes, a 4-byte output).  The design aims at one coalesced
+// pass: 16-byte vector loads and stores (uint4 words, char4 mask bytes)
+// whenever the row length and the pointers allow, and a scalar path
+// otherwise.  At the
 // protocol's shapes (one page of 256 or 1024 words per call) the launch
 // itself is the real cost, so the engine merges in place where it
 // overwrites the destination anyway: diff_apply_inplace writes only the
@@ -57,20 +58,24 @@ __device__ __forceinline__ int changed_word(uint32_t c, uint32_t t,
 // page row (the TPU kernel tiled 8 pages per VMEM block and required
 // n % 8 == 0; here any n >= 1 and any page_words run).  Each thread walks
 // its words of the row (uint4 + char4 when kVec), writes the mask byte and
-// the value bits, and counts its changed words; a warp shuffle sum, a
-// shared-memory sum over the 8 warps, and one int32 store per row.
+// the value bits, and keeps its count of changed words and the first and
+// last of them; one block reduction (warp shuffles, then shared memory
+// over the 8 warps) gives the row's count (sum), first changed word (min;
+// page_words where none) and last (max; -1 where none), the release's
+// change bounds, stored as stats[0][row], stats[1][row], stats[2][row].
 template <bool kVec>
 __global__ void diff_encode_kernel(const uint32_t* __restrict__ curr,
                                    const uint32_t* __restrict__ twin,
                                    int8_t* __restrict__ mask,
                                    uint32_t* __restrict__ vals,
-                                   int* __restrict__ count, long long pw) {
+                                   int* __restrict__ stats, long long pw) {
   const long long base = static_cast<long long>(blockIdx.x) * pw;
   const uint32_t* c = curr + base;
   const uint32_t* t = twin + base;
   int8_t* m = mask + base;
   uint32_t* v = vals + base;
   int n = 0;
+  long long first = pw, last = -1;
   if (kVec) {
     const long long nv = pw / 4;
     const uint4* c4 = reinterpret_cast<const uint4*>(c);
@@ -83,30 +88,62 @@ __global__ void diff_encode_kernel(const uint32_t* __restrict__ curr,
       char4 mo;
       uint4 vo;
       int8_t mb;
-      n += changed_word(a.x, b.x, &mb, &vo.x);
+      int d0, d1, d2, d3;
+      d0 = changed_word(a.x, b.x, &mb, &vo.x);
       mo.x = mb;
-      n += changed_word(a.y, b.y, &mb, &vo.y);
+      d1 = changed_word(a.y, b.y, &mb, &vo.y);
       mo.y = mb;
-      n += changed_word(a.z, b.z, &mb, &vo.z);
+      d2 = changed_word(a.z, b.z, &mb, &vo.z);
       mo.z = mb;
-      n += changed_word(a.w, b.w, &mb, &vo.w);
+      d3 = changed_word(a.w, b.w, &mb, &vo.w);
       mo.w = mb;
       m4[i] = mo;
       v4[i] = vo;
+      const int any = d0 + d1 + d2 + d3;
+      if (any) {
+        n += any;
+        const long long w0 = 4 * i;
+        first = min(first, w0 + (d0 ? 0 : d1 ? 1 : d2 ? 2 : 3));
+        last = w0 + (d3 ? 3 : d2 ? 2 : d1 ? 1 : 0);
+      }
     }
   } else {
     for (long long i = threadIdx.x; i < pw; i += kThreads) {
-      n += changed_word(c[i], t[i], m + i, v + i);
+      if (changed_word(c[i], t[i], m + i, v + i)) {
+        ++n;
+        first = min(first, i);
+        last = i;
+      }
     }
   }
   __shared__ int partial[kWarps];
-  for (int o = 16; o > 0; o >>= 1) n += __shfl_down_sync(kFull, n, o);
-  if ((threadIdx.x & 31) == 0) partial[threadIdx.x >> 5] = n;
+  __shared__ long long lo[kWarps], hi[kWarps];
+  for (int o = 16; o > 0; o >>= 1) {
+    n += __shfl_down_sync(kFull, n, o);
+    first = min(first, __shfl_down_sync(kFull, first, o));
+    last = max(last, __shfl_down_sync(kFull, last, o));
+  }
+  if ((threadIdx.x & 31) == 0) {
+    partial[threadIdx.x >> 5] = n;
+    lo[threadIdx.x >> 5] = first;
+    hi[threadIdx.x >> 5] = last;
+  }
   __syncthreads();
   if (threadIdx.x < 32) {
-    n = threadIdx.x < kWarps ? partial[threadIdx.x] : 0;
-    for (int o = 16; o > 0; o >>= 1) n += __shfl_down_sync(kFull, n, o);
-    if (threadIdx.x == 0) count[blockIdx.x] = n;
+    const bool in = threadIdx.x < kWarps;
+    n = in ? partial[threadIdx.x] : 0;
+    first = in ? lo[threadIdx.x] : pw;
+    last = in ? hi[threadIdx.x] : -1;
+    for (int o = 16; o > 0; o >>= 1) {
+      n += __shfl_down_sync(kFull, n, o);
+      first = min(first, __shfl_down_sync(kFull, first, o));
+      last = max(last, __shfl_down_sync(kFull, last, o));
+    }
+    if (threadIdx.x == 0) {
+      stats[blockIdx.x] = n;
+      stats[gridDim.x + blockIdx.x] = static_cast<int>(first);
+      stats[2 * gridDim.x + blockIdx.x] = static_cast<int>(last);
+    }
   }
 }
 
@@ -220,8 +257,10 @@ __global__ void diff_apply_rows_kernel(uint32_t* __restrict__ home,
 
 extern "C" {
 
+// curr, twin (n, pw) float32, mask (n, pw) int8, vals (n, pw) float32 and
+// stats (3, n) int32 (count, first, last), all contiguous; pw < 2^31.
 int rt_diff_encode(const void* curr, const void* twin, void* mask, void* vals,
-                   void* count, long long n, long long pw, void* stream) {
+                   void* stats, long long n, long long pw, void* stream) {
   if (n > 0) {
     const bool vec = pw % 4 == 0 && aligned(curr, 16) && aligned(twin, 16) &&
                      aligned(vals, 16) && aligned(mask, 4);
@@ -229,7 +268,7 @@ int rt_diff_encode(const void* curr, const void* twin, void* mask, void* vals,
     const auto* t = static_cast<const uint32_t*>(twin);
     auto* m = static_cast<int8_t*>(mask);
     auto* v = static_cast<uint32_t*>(vals);
-    auto* k = static_cast<int*>(count);
+    auto* k = static_cast<int*>(stats);
     const auto s = static_cast<cudaStream_t>(stream);
     const unsigned grid = static_cast<unsigned>(n);
     if (vec) {

@@ -20,10 +20,11 @@
 // the 1e-4 check), so each runs on the tensor cores as three TF32
 // products of split operands, a = hi + lo with hi = tf32(a) and
 // lo = tf32(a - hi): lo*hi + hi*lo + hi*hi with f32 accumulation
-// (mma.sync m16n8k8 .tf32).  The least time is then the work at a third
-// of the 495 TFLOP/s TF32 peak, 165 TFLOP/s: 33.0 us for the grouped
-// mamba2 call (bytes 32.3 us), and 81.8 us of bytes for the per-cell
-// layout (rep = 1, 10.8 GFLOP: 65.3 us).
+// (mma.sync m16n8k8 .tf32; the split and the products are
+// split_tf32.cuh's, shared with flash_attention.cu).  The least time is
+// then the work at a third of the 495 TFLOP/s TF32 peak, 165 TFLOP/s:
+// 33.0 us for the grouped mamba2 call (bytes 32.3 us), and 81.8 us of
+// bytes for the per-cell layout (rep = 1, 10.8 GFLOP: 65.3 us).
 //
 // Design.
 //   * C.B^T once per (B/C row g, 64-row query stripe, slice of heads): a
@@ -80,6 +81,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "split_tf32.cuh"
+
 namespace {
 
 constexpr int kThreads = 512;  // 16 warps
@@ -87,72 +90,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 64;      // query rows of a stripe
 constexpr int kKT = 32;        // key rows of a staged tile
 constexpr int kChunk = 256;    // keys of C.B^T (or rows of B) held at once
-
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = hi + lo, both TF32 (lo carries the bits hi drops)
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(x);
-  lo = tf32(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// A fragment split into TF32 (hi, lo), for reuse across column tiles
-struct FragA {
-  uint32_t h[4], l[4];
-};
-
-__device__ __forceinline__ FragA split_a(const float (&a)[4]) {
-  FragA f;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) split(a[k], f.h[k], f.l[k]);
-  return f;
-}
-
-// d += a * b at f32 accuracy: the three TF32 products, small ones first
-__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a,
-                                     const float (&b)[2]) {
-  uint32_t bh[2], bl[2];
-  split(b[0], bh[0], bl[0]);
-  split(b[1], bh[1], bl[1]);
-  mma(d, a.l, bh);
-  mma(d, a.h, bl);
-  mma(d, a.h, bh);
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const void* src,
-                                           bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const void* src,
-                                          bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(s),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;");
-}
-
-template <int K>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(K));
-}
 
 // dst[r][c] = src[(row0 + r) * src_ld + col0 + c] (as f32) for r < ROWS,
 // c < COLS (a multiple of 16), 0 where row0 + r >= limit.  float goes by

@@ -16,6 +16,12 @@ last dimension is contiguous, so the model passes its (B, S, H, D)
 activations transposed without a copy; the result is a (B, Hq, S, D) view
 of a tensor laid out (B, S, Hq, D), the model's layout.
 
+The kernel runs both products on the tensor cores: bfloat16 as bf16
+``mma.sync`` with p taken as two bf16 terms in P.V; float32 as three
+split-TF32 products, which keep float32 accuracy with TF32 off.
+``flash_attention_tf32_products`` and ``flash_attention_bf16_products``
+model that arithmetic in plain torch for the CPU tests.
+
 The wrapper checks its operands, allocates the output with ``torch.empty``
 and launches on the current stream, adding one to ``LAUNCHES[name]`` per
 launch and to ``CALLS[name]`` per call on any device.  A tensor on the
@@ -31,11 +37,14 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels._build import Kernels, on_card
+from repro_torch.kernels._tf32 import _mm_tf32
 
 _NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _GRID_Y = 65535            # query tiles of 64 rows on the grid's y axis
+# keys of the kernel's KV tile in each dtype
+KEY_TILE = {torch.float32: 32, torch.bfloat16: 64}
 
 _P = ctypes.c_void_p
 _L = ctypes.c_longlong
@@ -74,6 +83,89 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = torch.where(mask, s, torch.full((), _NEG_INF, device=q.device))
     p = torch.softmax(s, dim=-1)
     return torch.matmul(p, vr).to(q.dtype)
+
+
+def _tiled(q, k, v, scale, causal, window, softcap, qk, pv):
+    """The kernel's online softmax over key tiles of ``KEY_TILE[q.dtype]``:
+    the scores of a tile from ``qk(q, k^T)``, scaled, softcapped and
+    masked in the reference's order, the running max and sum, and
+    ``pv(p, v)`` added to the rescaled accumulator; the final divide by
+    max(l, 1e-30)."""
+    B, Hq, S, D = q.shape
+    G = Hq // k.shape[1]
+    scale = D ** -0.5 if scale is None else scale
+    qf = q.float()
+    kr = k.repeat_interleave(G, dim=1).float()
+    vr = v.repeat_interleave(G, dim=1).float()
+    pos = torch.arange(S, device=q.device)
+    m = torch.full((B, Hq, S, 1), _NEG_INF, device=q.device)
+    l = torch.zeros((B, Hq, S, 1), device=q.device)
+    acc = torch.zeros((B, Hq, S, D), device=q.device)
+    tile = KEY_TILE[q.dtype]
+    for k0 in range(0, S, tile):
+        keys = slice(k0, k0 + tile)
+        s = qk(qf, kr[:, :, keys].transpose(-1, -2)) * scale
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        kp = pos[keys]
+        mask = torch.ones((S, kp.numel()), dtype=torch.bool,
+                          device=q.device)
+        if causal:
+            mask &= pos[:, None] >= kp[None, :]
+        if window is not None:
+            mask &= pos[:, None] - kp[None, :] < window
+        s = torch.where(mask, s, torch.full((), _NEG_INF, device=q.device))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + pv(p, vr[:, :, keys])
+        m = m_new
+    return (acc / torch.clamp_min(l, 1e-30)).to(q.dtype)
+
+
+def flash_attention_tf32_products(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, *,
+                                  scale: Optional[float] = None,
+                                  causal: bool = True,
+                                  window: Optional[int] = None,
+                                  softcap: Optional[float] = None,
+                                  products: int = 3) -> torch.Tensor:
+    """A model of the float32 kernel's arithmetic: the online softmax over
+    32-key tiles with q.k^T and p.v each taken on TF32 operands,
+    ``products=3`` the kernel's split (hi*hi + hi*lo + lo*hi, float32
+    accuracy), ``products=1`` a single TF32 product.  Each product's sums
+    are exact (float64) and rounded once, so the error left is the
+    operands' rounding, which is what the split removes."""
+    def mm(a, b):
+        return _mm_tf32(a, b, products)
+    return _tiled(q, k, v, scale, causal, window, softcap, mm, mm)
+
+
+def flash_attention_bf16_products(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, *,
+                                  scale: Optional[float] = None,
+                                  causal: bool = True,
+                                  window: Optional[int] = None,
+                                  softcap: Optional[float] = None,
+                                  p_terms: int = 2) -> torch.Tensor:
+    """A model of the bfloat16 kernel's arithmetic: the online softmax
+    over 64-key tiles, q.k^T of the bfloat16 operands with exact sums, and
+    p in bfloat16 for p.v while the row sums take the unrounded p:
+    ``p_terms=2`` the kernel's two terms, hi = bf16(p) and lo = bf16(p -
+    hi); ``p_terms=1`` p rounded once, as the reference's Pallas kernel
+    does (``p.astype(v.dtype)``).  The result is rounded once to
+    bfloat16."""
+    def exact(a, b):
+        return torch.matmul(a.double(), b.double()).float()
+
+    def pv(p, vv):
+        hi = p.to(torch.bfloat16).float()
+        out = exact(hi, vv)
+        if p_terms == 2:
+            out = out + exact((p - hi).to(torch.bfloat16).float(), vv)
+        return out
+    return _tiled(q, k, v, scale, causal, window, softcap, exact, pv)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

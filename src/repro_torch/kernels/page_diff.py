@@ -11,6 +11,9 @@ Hand-written CUDA kernels (``csrc/page_diff.cu``, ``sm_90a``):
 * ``diff_encode(curr, twin)`` -> (mask int8 (n, W), vals float32 (n, W),
   count int32 (n,)): mask = curr != twin bitwise, vals = curr where
   changed and +0.0 elsewhere, count = changed words per page;
+  ``bounds=True`` returns an int32 (3, n) block in place of count: count,
+  first changed word (W where none) and last changed word (-1 where
+  none) per page, the fine release's change bounds, from the same pass;
 * ``diff_apply(dst, mask, vals)`` -> a new float32 array: vals where
   mask != 0, dst elsewhere (the merge onto a refetched cached copy);
 * ``diff_apply_(dst, mask, vals)`` -> ``dst``, merged in place;
@@ -74,13 +77,24 @@ _F32, _I8 = torch.float32, torch.int8
 # ---------------------------------------------------------------------------
 
 
-def _diff_encode_plain(curr: torch.Tensor, twin: torch.Tensor):
+def _diff_encode_plain(curr: torch.Tensor, twin: torch.Tensor,
+                       bounds: bool = False):
     c = curr.view(torch.int32)
     changed = c != twin.view(torch.int32)
     vals = torch.where(changed, c, torch.zeros((), dtype=torch.int32,
                                                device=c.device))
-    return (changed.to(torch.int8), vals.view(torch.float32),
-            changed.sum(1, dtype=torch.int32))
+    count = changed.sum(1, dtype=torch.int32)
+    if bounds:
+        n, w = changed.shape
+        if w:
+            col = torch.arange(w, dtype=torch.int32, device=c.device)
+            first = torch.where(changed, col, w).amin(1)
+            last = torch.where(changed, col, -1).amax(1)
+        else:
+            first = torch.zeros(n, dtype=torch.int32, device=c.device)
+            last = torch.full((n,), -1, dtype=torch.int32, device=c.device)
+        count = torch.stack([count, first, last])
+    return changed.to(torch.int8), vals.view(torch.float32), count
 
 
 def _diff_apply_plain(dst: torch.Tensor, mask: torch.Tensor,
@@ -142,26 +156,47 @@ def _merge_operands(dst: torch.Tensor, mask: torch.Tensor,
     raise AssertionError("unreachable")
 
 
-def diff_encode(curr: torch.Tensor, twin: torch.Tensor
-                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(n, W) float32 pages and their twins -> (mask int8 (n, W), vals
-    float32 (n, W), count int32 (n,))."""
-    CALLS["diff_encode"] += 1
+def _encode_operands(curr: torch.Tensor, twin: torch.Tensor) -> int:
+    """Raise unless ``curr`` and ``twin`` are contiguous float32 pages
+    (n, W) of one shape on one device (one combined test when all hold).
+    Returns the device index (-1 for the CPU)."""
+    if (curr.dtype is _F32 and twin.dtype is _F32 and curr.dim() == 2
+            and twin.shape == curr.shape and curr.is_contiguous()
+            and twin.is_contiguous()):
+        index = curr.get_device()
+        if twin.get_device() == index:
+            return index
     dev = curr.device
     _pages("curr", curr, _F32, curr.shape, dev)
     _pages("twin", twin, _F32, curr.shape, dev)
+    raise AssertionError("unreachable")
+
+
+def diff_encode(curr: torch.Tensor, twin: torch.Tensor, *,
+                bounds: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(n, W) float32 pages and their twins -> (mask int8 (n, W), vals
+    float32 (n, W), count int32 (n,)).  With ``bounds``, the third output
+    is an int32 (3, n) block in place of ``count``: each page's count,
+    first changed word (W where none) and last changed word (-1 where
+    none), from the same pass."""
+    CALLS["diff_encode"] += 1
+    index = _encode_operands(curr, twin)
     if not on_card(curr):
-        return _diff_encode_plain(curr, twin)
+        return _diff_encode_plain(curr, twin, bounds)
     n, w = curr.shape
-    if n > _I32_MAX:
-        raise ValueError(f"diff_encode: {n} pages exceed the grid")
-    mask = torch.empty((n, w), dtype=torch.int8, device=dev)
-    vals = torch.empty((n, w), dtype=_F32, device=dev)
-    count = torch.empty(n, dtype=torch.int32, device=dev)
+    if n > _I32_MAX or w > _I32_MAX:
+        raise ValueError(f"diff_encode: {n} pages of {w} words exceed the "
+                         "grid")
+    # three allocations: carving one buffer into the three outputs takes
+    # more host time (its slices and dtype views) than it saves
+    mask = torch.empty((n, w), dtype=_I8, device=index)
+    vals = torch.empty((n, w), dtype=_F32, device=index)
+    stats = torch.empty((3, n), dtype=torch.int32, device=index)
     if n:
-        _launch("diff_encode", dev, curr.data_ptr(), twin.data_ptr(),
-                mask.data_ptr(), vals.data_ptr(), count.data_ptr(), n, w)
-    return mask, vals, count
+        _launch("diff_encode", index, curr.data_ptr(), twin.data_ptr(),
+                mask.data_ptr(), vals.data_ptr(), stats.data_ptr(), n, w)
+    return mask, vals, stats if bounds else stats[0]
 
 
 def diff_apply(dst: torch.Tensor, mask: torch.Tensor,

@@ -37,6 +37,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels._build import Kernels, on_card
+from repro_torch.kernels._tf32 import _mm_tf32
 
 DIMS = (16, 32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -74,30 +75,6 @@ def ssd_chunk_plain(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
     w_in = torch.exp(cumf[:, -1:] - cumf) * dtf        # (M, Q)
     state = torch.einsum("mq,mqp,mqn->mpn", w_in, xf, Bf)
     return y, state
-
-
-def _tf32(t: torch.Tensor) -> torch.Tensor:
-    """Round float32 to TF32 (10 mantissa bits), to nearest with ties away
-    from zero, as ``cvt.rna.tf32.f32`` does."""
-    b = t.contiguous().view(torch.int32).to(torch.int64)
-    finite = (b & 0x7F800000) != 0x7F800000
-    # int32 patterns sign-extended: the magnitude is rounded at bit 13
-    r = torch.where(finite, (b + 0x1000) & ~0x1FFF, b)
-    return r.to(torch.int32).view(torch.float32)
-
-
-def _mm_tf32(a: torch.Tensor, b: torch.Tensor, products: int) -> torch.Tensor:
-    """``a @ b`` on TF32 operands, summed in float64 and rounded once to
-    float32: one product of the rounded operands, or (``products`` = 3)
-    the split hi*hi + hi*lo + lo*hi, hi = tf32(v) and lo = tf32(v - hi),
-    as the kernel takes it."""
-    ah, bh = _tf32(a), _tf32(b)
-    out = torch.matmul(ah.double(), bh.double()).float()
-    if products == 3:
-        al, bl = _tf32(a - ah), _tf32(b - bh)
-        out = (torch.matmul(al.double(), bh.double())
-               + torch.matmul(ah.double(), bl.double())).float() + out
-    return out
 
 
 def ssd_chunk_tf32_products(x: torch.Tensor, dt: torch.Tensor,

@@ -9,8 +9,9 @@ on the host in the same order whatever the device).  The model path's
 float kernels use tests/test_kernels.py's tolerances in float32
 (flash_attention 2e-5, ssd_chunk 1e-4); flash_attention in bfloat16 is
 held to rtol 8e-3 / atol 2e-3 (both sides sum in float32 from the same
-inputs and round once to bfloat16, so they differ by at most one bfloat16
-ulp, 2^-7 of the value, plus float32 reordering), and the reduced
+inputs, the kernel with p kept to 16 bits, and round once to bfloat16,
+so they differ by at most one bfloat16 ulp, 2^-7 of the value, plus
+float32 reordering), and the reduced
 models on the card match the CPU to 1e-4 (float32 sums in another
 order), with TF32 off."""
 import dataclasses
@@ -190,6 +191,30 @@ def test_page_diff_kernels_match_plain_versions(dev):
     assert empty[2].shape == (0,)
 
 
+def test_diff_encode_bounds_match_plain_version(dev):
+    """diff_encode(bounds=True) on the card against its plain version,
+    bit for bit: pages with no changed word, one at word 0 or W - 1,
+    -0.0 against +0.0, NaN payloads, or ~10% changed, n in {1, 7}, and
+    on rows that start off the 16-byte alignment (the scalar path)."""
+    import chip_smoke
+    from repro_torch.kernels import page_diff as pd
+    rng = np.random.default_rng(15)
+    for case in chip_smoke.BOUNDS_CASES:
+        for n in (1, 7):
+            for w in (256, 1001, 4):
+                curr, twin = (torch.as_tensor(a, device=dev) for a in
+                              chip_smoke.page_diff_bounds_inputs(
+                                  np, rng, case, n, w))
+                flat = torch.empty(n * w + 1, device=dev)
+                shifted = flat[1:].view(n, w)
+                shifted.copy_(curr)
+                want = pd._diff_encode_plain(curr, twin, True)
+                for c in (curr, shifted):
+                    got = pd.diff_encode(c, twin, bounds=True)
+                    assert got[2].shape == (3, n)
+                    assert all(_bits_equal(a, b) for a, b in zip(got, want))
+
+
 def test_cuda_reference_matches_cpu(dev):
     """The per-page reference engine with page values on the card against
     the same runs on the CPU: a seeded DRF program (span writes of one
@@ -272,6 +297,35 @@ def test_flash_attention_matches_plain_version(f32_card):
                        for t in (q, k, v)]
             assert torch.equal(fa.flash_attention(*strided),
                                fa.flash_attention(q, k, v))
+
+
+def test_flash_attention_unaligned_operands(f32_card):
+    """Operands whose base is one element off the 16-byte alignment the
+    kernel's cp.async copies need (K and V are then copied element by
+    element, never refused): the same result as aligned copies, within
+    the tolerances of the plain version."""
+    import chip_smoke
+    from repro_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(34)
+    for (B, Hq, Hkv, S, D) in ((2, 4, 2, 40, 16), (1, 16, 8, 333, 128)):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = chip_smoke.flash_inputs(torch, np, rng, B, Hq, Hkv, S,
+                                              D, dtype, f32_card)
+            moved = []
+            for t in (q, k, v):
+                flat = torch.empty(t.numel() + 1, dtype=dtype,
+                                   device=f32_card)
+                moved.append(flat[1:].view(t.shape))
+                moved[-1].copy_(t)
+            rtol, atol = ((8e-3, 2e-3) if dtype == torch.bfloat16
+                          else (2e-5, 2e-5))
+            for kw in ({}, {"window": 16, "softcap": 30.0}):
+                got = fa.flash_attention(*moved, **kw)
+                torch.testing.assert_close(
+                    got.float(), fa.flash_attention_plain(q, k, v,
+                                                          **kw).float(),
+                    rtol=rtol, atol=atol)
+                assert torch.equal(got, fa.flash_attention(q, k, v, **kw))
 
 
 def test_ssd_chunk_matches_plain_version(f32_card):

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from repro.kernels import ref
 from repro.kernels.ops import diff_apply as jax_apply
 from repro.kernels.ops import diff_encode as jax_encode
@@ -127,6 +128,41 @@ def test_shapes_the_pallas_grid_refuses(n, w):
     _assert_encode_equal(got, ref.diff_encode_ref(curr, twin))
     rebuilt = diff_apply(torch.from_numpy(twin), got[0], got[1])
     np.testing.assert_array_equal(_bits(rebuilt.numpy()), _bits(curr))
+
+
+def _numpy_bounds(curr, twin):
+    changed = _bits(curr) != _bits(twin)
+    w = changed.shape[1]
+    anyc = changed.any(1)
+    first = np.where(anyc, changed.argmax(1), w)
+    last = np.where(anyc, w - 1 - changed[:, ::-1].argmax(1), -1)
+    return np.stack([changed.sum(1), first, last]).astype(np.int32)
+
+
+@pytest.mark.parametrize("case", chip_smoke.BOUNDS_CASES)
+@pytest.mark.parametrize("n", [1, 7])
+@pytest.mark.parametrize("w", [256, 1001])
+def test_encode_bounds_match_oracle(case, n, w):
+    """``diff_encode(..., bounds=True)``: mask and vals as without the
+    option, and an int32 (3, n) block of count, first changed word (W
+    where none) and last changed word (-1 where none), bit-equal to a
+    numpy oracle."""
+    curr, twin = chip_smoke.page_diff_bounds_inputs(
+        np, np.random.default_rng(n * 11 + w), case, n, w)
+    ct, tt = torch.from_numpy(curr), torch.from_numpy(twin)
+    mask, vals, stats = diff_encode(ct, tt, bounds=True)
+    plain = diff_encode(ct, tt)
+    assert stats.dtype == torch.int32 and stats.shape == (3, n)
+    np.testing.assert_array_equal(stats.numpy(), _numpy_bounds(curr, twin))
+    np.testing.assert_array_equal(stats[0].numpy(), plain[2].numpy())
+    np.testing.assert_array_equal(mask.numpy(), plain[0].numpy())
+    np.testing.assert_array_equal(_bits(vals.numpy()),
+                                  _bits(plain[1].numpy()))
+    if case == "none":
+        assert stats[1].tolist() == [w] * n and stats[2].tolist() == [-1] * n
+    elif case in ("first", "last"):
+        at = 0 if case == "first" else w - 1
+        assert stats.tolist() == [[1] * n, [at] * n, [at] * n]
 
 
 def test_empty_and_bad_operands():

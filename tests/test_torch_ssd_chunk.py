@@ -21,6 +21,7 @@ import torch  # noqa: E402
 from repro.kernels import ref  # noqa: E402
 from repro.kernels.ops import ssd_chunk as pallas_ssd  # noqa: E402
 from repro_torch.kernels import ssd_chunk as sc  # noqa: E402
+from repro_torch.kernels._tf32 import _tf32  # noqa: E402
 
 
 def _softplus(a):
@@ -117,8 +118,8 @@ def test_tf32_rounding():
     v = torch.tensor([1.0 + 2 ** -12, 1.0 + 2 ** -11, -(1.0 + 3 * 2 ** -11),
                       1.0 + 2 ** -11 - 2 ** -23, 3.0, float("inf"),
                       -float("inf"), 2.0 ** -130])
-    got = sc._tf32(v)
+    got = _tf32(v)
     want = [1.0, 1.0 + 2 ** -10, -(1.0 + 2 ** -9), 1.0, 3.0,
             float("inf"), -float("inf"), 2.0 ** -130]
     assert got.tolist() == want
-    assert torch.isnan(sc._tf32(torch.tensor([float("nan")]))).all()
+    assert torch.isnan(_tf32(torch.tensor([float("nan")]))).all()
