@@ -13,9 +13,13 @@ Phases, in order; any mismatch or exception exits non-zero:
    kernel, its registers, static shared memory, stack and local-memory
    spills (``ptxas -v``);
 3. kernel phase: each kernel against its plain PyTorch version on the
-   card, bit for bit: pack_rows, popcount_rows, coverage_multi and
-   phase_step at the main path's shapes (fig3_weak, W=256) and at edge
-   shapes (ragged columns, W=1, base=-1 rows, INT32_MAX pads); the
+   card, bit for bit: pack_rows (aligned and with rows off 16-byte
+   boundaries), popcount_rows, coverage_multi and phase_step (from the
+   regions' bool planes, read back as the engine reads it) at the main
+   path's shapes (fig3_weak, W=256) and at edge shapes (ragged and
+   unaligned caps that differ between regions, W=1, base=-1 rows,
+   INT32_MAX pads, row mask or none, the width limit, one region more
+   than a launch takes); the
    rank-select kernels take_first_k, kth_set_index and take_and_cut at
    the lru_take shape of fig4_spill (256 runs of 32768 columns), at the
    take_upto_row shape of the spill path (one run of a few words) and at
@@ -32,7 +36,10 @@ Phases, in order; any mismatch or exception exits non-zero:
    rtol 8e-3 / atol 2e-3 in bfloat16) and
    ssd_chunk (at the mamba2-2.7b prefill shape with grouped and per-cell
    B/C rows, in bfloat16, reduced and ragged; 1e-4).  Prints each
-   kernel's median time (CUDA events), the plain version's, the
+   kernel's median time (CUDA events; for the page_diff kernels,
+   phase_step and pack_rows also their C entry's, and for the last two
+   one launch's device time from torch.profiler, and phase_step's flush
+   with its read-back), the plain version's, the
    yardstick (``torch.cumsum`` for coverage_multi, ``torch.where`` for
    the merges, ``scaled_dot_product_attention`` for flash_attention) and
    the bound: the larger of the bytes over the HBM rate and the
@@ -47,7 +54,8 @@ Phases, in order; any mismatch or exception exits non-zero:
    (IB_2013, fetch_batch=16, iters=4).  Every point's traffic must equal
    its ``BENCH_scale.json`` row field for field and its modeled time must
    round to the row's ``t_model_s``; the launch counters must show that
-   each run went through the kernels;
+   each run went through the kernels, and that no 'fused' point launched
+   pack_rows (its flush reads the bool planes itself);
 5. spill phase: the six W=256 batched capacity-pressure points
    (fig4_spill fits and spills, fig4_spill_heavy, fig4_refetch,
    fig5_spill, fig7_md_spill) on 'fused' at the harness's cache settings,
@@ -93,6 +101,7 @@ results also go to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import csv
+import ctypes
 import dataclasses
 import json
 import statistics
@@ -280,34 +289,32 @@ def timed_ms(torch, fn, n: int = 50, rounds: int = 5) -> float:
     return statistics.median(per)
 
 
-def phase_step_inputs(torch, rng, R: int, W_: int, C: int, dev,
-                      dead_rows: bool):
-    """Stacked packed dirty planes plus window geometry: rows with
-    base=-1 (dead) hold no bits, live bounds sorted, INT32_MAX pads."""
-    import numpy as np
-    i32max = np.iinfo(np.int32).max
-    nw = -(-C // 32)
-    planes = np.zeros((R, W_, C), bool)
-    base = np.full((R, W_), -1, np.int32)
-    sbs = np.full((R, W_), i32max, np.int32)
-    ses = np.full((R, W_), i32max, np.int32)
-    for r in range(R):
-        nlive = int(rng.integers(1, W_ + 1)) if dead_rows else W_
-        rows = np.sort(rng.choice(W_, nlive, replace=False))
-        # block windows with a one-page overlap, like a prefetching read
-        b = (r * 10_000_000 + rows * (C - 1)).astype(np.int32)
-        ln = rng.integers(C // 2, C + 1, nlive).astype(np.int32)
-        base[r, rows] = b
-        sbs[r, :nlive] = np.sort(b)
-        ses[r, :nlive] = np.sort(b + ln)
-        for i, w in enumerate(rows):
-            planes[r, w, :ln[i]] = rng.random(int(ln[i])) < 0.5
-    rowmask = rng.random((R, W_)) < 0.9
-    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
-    from repro_torch.kernels.protocol_sweep import _pack_rows_plain
-    bits = torch.stack([_pack_rows_plain(t(planes[r])) for r in range(R)])
-    assert bits.shape == (R, W_, nw)
-    return bits, t(base), t(rowmask), t(sbs), t(ses)
+def profiled_ms(torch, fn, name: str, n: int = 100) -> float:
+    """Median device time of one launch of the kernel whose name holds
+    ``name``, over ``n`` calls of ``fn`` traced by torch.profiler: the
+    kernel alone, without the host's launch cost."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and name in e.name]
+    if not times:
+        raise AssertionError(f"torch.profiler recorded no {name} kernel")
+    return statistics.median(times) * 1e-3
+
+
+def phase_step_read(torch, ps, fn, inp):
+    """``fn`` (the kernel's wrapper or its plain version) on ``inp``, read
+    back as the engine reads it: (counts, keys, words) as tensors, the
+    entries sorted by key."""
+    R, W_ = len(inp[0]), inp[0][0].shape[0]
+    return tuple(torch.from_numpy(a.copy())
+                 for a in ps.read_phase_step(fn(*inp), R, W_))
 
 
 def kernel_phase(torch, np, ps, dev):
@@ -329,10 +336,19 @@ def kernel_phase(torch, np, ps, dev):
         return torch.as_tensor(a, device=dev)
 
     # --- pack_rows: the dirty plane of fig3_weak's A region, W=256 ----
+    # (the fused flush reads the planes itself; eviction and the
+    # 'kernels' tier still pack), aligned and with every row 1 byte off
+    # a 16-byte boundary (a view one byte into a buffer)
     C = 16384
     plane = t(rng.random((W, C)) < 0.5)
+    buf = torch.zeros(W * C + 16, dtype=torch.bool, device=dev)
+    shifted = buf[1:1 + W * C].view(W, C)
+    shifted.copy_(plane)
     err = same("pack_rows", ps.pack_rows(plane), ps._pack_rows_plain(plane))
-    for (w_, c_) in ((1, 1), (3, 31), (37, 1000), (W, 16385)):
+    err = max(err, same("pack_rows", ps.pack_rows(shifted),
+                        ps._pack_rows_plain(shifted)))
+    for (w_, c_) in ((1, 1), (3, 31), (37, 1000), (W, 16385), (5, 16),
+                     (2, 48), (9, 33), (W, 517)):
         p = t(rng.random((w_, c_)) < 0.3)
         err = max(err, same("pack_rows", ps.pack_rows(p),
                             ps._pack_rows_plain(p)))
@@ -343,11 +359,22 @@ def kernel_phase(torch, np, ps, dev):
         err = max(err, same("pack_rows(out)", ps.pack_rows(p, out=wide),
                             ref))
     nw = -(-C // 32)
+    stream = torch.cuda.current_stream().cuda_stream
+    pack_entry = ps._KERNELS.entry("pack_rows")
+
+    def pack_timed(pl, shape):
+        o = ps.pack_rows(pl)
+        args = (pl.data_ptr(), o.data_ptr(), W, C, nw, stream)
+        return dict(shape=shape, ms=timed_ms(torch, lambda: ps.pack_rows(pl)),
+                    c_entry_ms=timed_ms(torch, lambda: pack_entry(*args)),
+                    profiled_ms=profiled_ms(torch, lambda: pack_entry(*args),
+                                            "pack_rows_kernel"),
+                    plain_ms=timed_ms(torch, lambda: ps._pack_rows_plain(pl),
+                                      10),
+                    library_ms=None, bytes=W * C + W * nw * 4)
     results["pack_rows"] = dict(
-        err=err, shape=[W, C],
-        ms=timed_ms(torch, lambda: ps.pack_rows(plane)),
-        plain_ms=timed_ms(torch, lambda: ps._pack_rows_plain(plane), 10),
-        library_ms=None, bytes=W * C + W * nw * 4)
+        err=err, unaligned=pack_timed(shifted, [W, C, "rows 1 B off 16"]),
+        **pack_timed(plane, [W, C]))
 
     # --- popcount_rows ------------------------------------------------
     bits = ps._pack_rows_plain(plane)
@@ -381,22 +408,64 @@ def kernel_phase(torch, np, ps, dev):
         library_ms=timed_ms(torch, lambda: torch.cumsum(delta, 0)),
         bytes=2 * W * 4 + 2 * W)
 
-    # --- phase_step: R=3 regions, W=256, nw=512 (fig3_weak) -----------
+    # --- phase_step: R=3 regions, W=256, caps 16384 (fig3_weak) -------
+    # from the bool planes, no row mask, as the engine calls it; edges:
+    # ragged and unaligned caps that differ between regions, dead rows,
+    # W=1, a sparse mask, the width limit, and one region more than a
+    # launch takes (two launches)
     R = 3
-    main = phase_step_inputs(torch, rng, R, W, C, dev, dead_rows=False)
-    err = same("phase_step", ps.phase_step(*main), ps._phase_step_plain(*main))
-    for (r_, w_, c_, dead) in ((3, 7, 150, True), (1, 1, 40, False),
-                               (2, 64, 1000, True), (3, W, 517, True),
-                               (1, ps.MAX_PHASE_STEP_W, 40, True)):
-        inp = phase_step_inputs(torch, rng, r_, w_, c_, dev, dead)
-        err = max(err, same("phase_step", ps.phase_step(*inp),
-                            ps._phase_step_plain(*inp)))
-    results["phase_step"] = dict(
-        err=err, shape=[R, W, nw],
-        ms=timed_ms(torch, lambda: ps.phase_step(*main)),
-        plain_ms=timed_ms(torch, lambda: ps._phase_step_plain(*main), 3, 3),
-        library_ms=None,
-        bytes=2 * R * W * nw * 4 + R * W * (4 + 1 + 4 + 4 + 8))
+    read = lambda fn, inp: phase_step_read(torch, ps, fn, inp)  # noqa
+    main = ps.phase_step_inputs(rng, R, W, (C,) * R, dev, False, False)
+    err = same("phase_step", read(ps.phase_step, main),
+               read(ps._phase_step_plain, main))
+    n_regions = ps.MAX_PHASE_STEP_REGIONS + 1
+    for (r_, w_, caps, dead, mask, step) in (
+            (3, 7, (150, 161, 99), True, True, None),
+            (1, 1, (40,), False, False, None),
+            (2, 64, (1000, 1003), True, True, 7),
+            (3, W, (517, 16383, 2049), True, False, None),
+            (3, W, (16384, 16385, 4000), False, True, 301),
+            (1, ps.MAX_PHASE_STEP_W, (40,), True, True, None),
+            (n_regions, 16, tuple(rng.integers(1, 700, n_regions)), True,
+             True, 3)):
+        inp = ps.phase_step_inputs(rng, r_, w_, caps, dev, dead, mask, step)
+        err = max(err, same("phase_step", read(ps.phase_step, inp),
+                            read(ps._phase_step_plain, inp)))
+    # timed at the main shape and with windows stacked ~50 deep (every
+    # dirty word a candidate: the most entries, the most bounds walked)
+    stacked = ps.phase_step_inputs(rng, R, W, (C,) * R, dev, False, False,
+                                   301)
+    step_entry = ps._KERNELS.entry("phase_step")
+    timed = {}
+    for key, inp in (("main", main), ("stacked", stacked)):
+        n_cand = read(ps.phase_step, inp)[1].shape[0]
+        out = ps.phase_step(*inp)
+        ws = ps.phase_step_ws(torch.cuda.current_device())
+        desc = (ctypes.c_longlong * (3 * R))(
+            *[x.data_ptr() for x in inp[0]],
+            *[g.data_ptr() for g in inp[1]], *[C] * R)
+        args = (desc, None, out.data_ptr(), ws.data_ptr(), R, W,
+                W * R * nw, stream)
+        timed[key] = dict(
+            shape=[R, W, C] + ([] if key == "main" else ["windows 301 apart"]),
+            candidate_words=n_cand,
+            ms=timed_ms(torch, lambda i=inp: ps.phase_step(*i)),
+            c_entry_ms=timed_ms(torch, lambda a=args: step_entry(*a)),
+            profiled_ms=profiled_ms(torch, lambda a=args: step_entry(*a),
+                                    "phase_step_kernel"),
+            flush_ms=timed_ms(torch, lambda i=inp: ps.read_phase_step(
+                ps.phase_step(*i), R, W), 20),
+            plain_ms=timed_ms(torch, lambda i=inp: ps._phase_step_plain(*i),
+                              3, 3),
+            library_ms=None,
+            # the planes read once, the geometry read, counts, n and the
+            # candidate entries written
+            bytes=R * W * C + R * 3 * W * 4 + R * W * 8 + 8 + 16 * n_cand)
+        print(f"phase_step flush {key} (launch, then counts and {n_cand} "
+              "candidate words read back) "
+              f"{timed[key]['flush_ms'] * 1e3:.2f} us", flush=True)
+    results["phase_step"] = dict(err=err, stacked=timed["stacked"],
+                                 **timed["main"])
     results["coverage_multi"]["library"] = "torch.cumsum"
     results.update(rank_select_phase(torch, np, ps, rng, same, t))
     results.update(page_diff_phase(torch, np, rng, dev))
@@ -404,9 +473,12 @@ def kernel_phase(torch, np, ps, dev):
     for name, r in results.items():
         # a second timed shape: the fig4_spill lru_take shape of the
         # rank-select kernels, a batched page_diff call, flash_attention
-        # in bfloat16, ssd_chunk on the per-cell B/C layout
+        # in bfloat16, ssd_chunk on the per-cell B/C layout, pack_rows on
+        # unaligned rows, phase_step with stacked windows
         for shape in [r] + [r[k] for k in ("lru", "batched", "bf16",
-                                           "per_cell") if k in r]:
+                                           "per_cell", "unaligned",
+                                           "stacked")
+                            if k in r]:
             t_bytes = shape["bytes"] / HBM_BYTES_PER_S * 1e3
             peak = shape.get("flops_per_s", F32_FLOPS_PER_S)
             t_ops = shape.get("flops", 0) / peak * 1e3
@@ -415,8 +487,11 @@ def kernel_phase(torch, np, ps, dev):
             lib = ("" if shape.get("library_ms") is None else
                    f"  {r['library']} {shape['library_ms'] * 1e3:.2f} us")
             err = f"  max_abs_err={r['err']}" if shape is r else ""
-            if "device_ms" in shape:
-                err += f"  C entry alone {shape['device_ms'] * 1e3:.2f} us"
+            if "c_entry_ms" in shape:
+                err += f"  C entry alone {shape['c_entry_ms'] * 1e3:.2f} us"
+            if "profiled_ms" in shape:
+                err += (f"  on the device {shape['profiled_ms'] * 1e3:.2f} us "
+                        "(profiler)")
             print(f"kernel {name:15s} shape={shape['shape']}{err}  kernel "
                   f"{shape['ms'] * 1e3:.2f} us  plain "
                   f"{shape['plain_ms'] * 1e3:.2f} us{lib}  bound "
@@ -596,8 +671,8 @@ def page_diff_phase(torch, np, rng, dev):
                         curr.data_ptr(), n, w, home.shape[0], stream)
                 nbytes = merged + 8 * n
             res[(n, w)] = dict(shape=[n, w], ms=timed_ms(torch, kern),
-                               device_ms=timed_ms(torch, lambda f=fn, a=args:
-                                                  f(*a)),
+                               c_entry_ms=timed_ms(torch, lambda f=fn, a=args:
+                                                   f(*a)),
                                plain_ms=timed_ms(torch, plain, 10),
                                library_ms=lib, bytes=nbytes)
         out[name] = dict(err=errs[name], library=(
@@ -1073,8 +1148,10 @@ def main_path_phase(torch, ps):
                 (ROOT / "BENCH_scale.json").read_text())["rows"]}
     runs = [(p, "fused") for p in main_points()]
     runs += [(p, "kernels") for p in main_points() if p[0] == "fig2_strong"]
-    need = {"fused": ("pack_rows", "phase_step"),
+    # the fused flush reads the bool planes itself: no pack_rows there
+    need = {"fused": ("phase_step",),
             "kernels": ("pack_rows", "popcount_rows", "coverage_multi")}
+    never = {"fused": ("pack_rows",), "kernels": ()}
     out = []
     ps.reset_launches()
     for (sec, tag, series, app, mode, n), backend in runs:
@@ -1095,6 +1172,10 @@ def main_path_phase(torch, ps):
         if idle:
             raise AssertionError(f"{sec} {tag} [{backend}]: kernels {idle} "
                                  "never launched")
+        extra = {k: launched[k] for k in never[backend] if launched[k]}
+        if extra:
+            raise AssertionError(f"{sec} {tag} [{backend}]: launched "
+                                 f"{extra}, which this tier's flush fuses")
         print(f"main {sec:11s} {tag:23s} [{backend:7s}] wall "
               f"{wall:.3f} s  t_model {t_model}  launches {launched}",
               flush=True)

@@ -111,8 +111,9 @@ class RegionDirectory:
         self._sorted_bases: Optional[np.ndarray] = None
         self._sorted_ends: Optional[np.ndarray] = None
         # 'plain' | 'kernels' | 'fused' (see config.BACKENDS): 'plain'
-        # reduces the boolean planes with torch ops; the other two pack
-        # them and run the CUDA kernels.  Integer-exact on every tier.
+        # reduces the boolean planes with torch ops; the other two run the
+        # CUDA kernels, on packed planes except for the fused flush, which
+        # reads the bool planes itself.  Integer-exact on every tier.
         self.backend = backend
         # the runtime's stats dict (fused_dispatches accounting) and the
         # cached int32 window geometry of the fused flush, on the host and

@@ -1044,25 +1044,26 @@ class RegCScaleRuntime:
         sharer, so per-cell work is confined to multiply-covered pages.
 
         On 'fused' one ``phase_step`` launch reduces every dirty region
-        (popcount, coverage stab, candidate mask); the other tiers reduce
-        region by region.  Charging, wprot re-arm and the analytic
+        (popcount, coverage stab, candidate words) from its bool dirty
+        plane, and one copy (two past ``PHASE_STEP_PREFIX`` candidate
+        words) brings counts and candidates to the host; the other tiers
+        reduce region by region.  Charging, wprot re-arm and the analytic
         invalidation stay on the host and are identical on every tier."""
-        counts = shared = None
+        fused = None
         ji = 0
         if self.backend == "fused" and self.protocol != IDEAL_PROTO:
             cand = [d for d in self.dirs if d.maybe_dirty and d.cap > 0]
             if cand:
-                counts, shared = self._jit_flush_chain(cand)
+                fused = self._jit_flush_chain(cand)
         for d in self.dirs:
             if not d.maybe_dirty:
                 continue
-            if counts is not None and d.cap > 0:
-                nD_w = counts[ji]          # fused chain output
-                sub_bits = shared[ji]
+            if fused is not None and d.cap > 0:
+                nD_w, (w_idx, cols) = fused[0][ji], fused[1][ji]
                 ji += 1
             else:
                 nD_w = d.dirty_counts()
-                sub_bits = None
+                w_idx = None
             total = int(nD_w.sum())
             d.maybe_dirty = False
             d.clear_dirty_bounds()
@@ -1081,33 +1082,13 @@ class RegCScaleRuntime:
                                    / self.cost.net_bw_Bps)
             if d.wprot is not None:
                 torch.logical_or(d.wprot, d.dirty, out=d.wprot)  # re-arm
-            if sub_bits is not None:
-                w_idx, cols = self._shared_cells(sub_bits[d.ix(active)])
-                w_idx = active[w_idx]
-            else:
+            if w_idx is None:
                 w_idx, cols = self._shared_dirty_sweep(d, active)
             if w_idx.size:
                 self._invalidate_shared_dirty(d, w_idx, cols)
             d.dirty.zero_()
         for regions in self._dirty_regions:
             regions.clear()
-
-    @staticmethod
-    def _shared_cells(sub_bits: torch.Tensor):
-        """(row, column) host pairs of the set bits of packed candidate
-        masks, row-major and column-ascending — the sequential
-        worker-major flush order.  Only the nonzero words cross to the
-        host."""
-        nz = torch.nonzero(sub_bits)
-        if nz.numel() == 0:
-            z = np.zeros(0, np.int64)
-            return z, z
-        words = sub_bits[nz[:, 0], nz[:, 1]]
-        host = torch.cat([nz, words.to(torch.int64)[:, None]],
-                         dim=1).cpu().numpy()
-        bits = ((host[:, 2:3] & 0xFFFFFFFF) >> np.arange(32)) & 1
-        mi, j = np.nonzero(bits)
-        return host[mi, 0], 32 * host[mi, 1] + j
 
     def _shared_dirty_sweep(self, d: RegionDirectory, active: np.ndarray):
         """Unfused candidates: the dirty cells of the active rows inside
@@ -1138,31 +1119,28 @@ class RegCScaleRuntime:
         return w_idx[hot], cols[hot]
 
     def _jit_flush_chain(self, cand):
-        """Pack every dirty region's plane into one (R, W, nw) stack (R
-        ``pack_rows`` launches) and run the fused flush as ONE
-        ``phase_step`` launch.  Returns host per-region per-row dirty
-        counts and the device packed shared-dirty candidate masks, or
-        (None, None) when page ids could overflow the kernel's int32
-        arithmetic — the caller then takes the kernel tier's
+        """The fused flush as ONE ``phase_step`` launch over the dirty
+        regions' bool planes and cached geometry tensors (no packing, no
+        stacking).  Returns (host (R, W) per-row dirty counts, per region
+        the (row, column) host pairs of its shared-dirty candidates,
+        row-major and column-ascending -- the sequential worker-major
+        flush order), or None when page ids could overflow the kernel's
+        int32 arithmetic -- the caller then takes the kernel tier's
         ``popcount_rows``/``coverage_multi`` path."""
         R, W = len(cand), self.W
         nw_max = max(-(-int(d.cap) // 32) for d in cand)
         # page = base + col with col < nw_max*32 must stay below the
         # INT32_MAX pads
         if max(int(d.page_hi) for d in cand) + nw_max * 32 >= (1 << 31) - 1:
-            return None, None
-        bits = torch.empty((R, W, nw_max), dtype=torch.int32,
-                           device=self.device)
-        for i, d in enumerate(cand):
-            _ps.pack_rows(d.dirty, out=bits[i])
-        # each region's geometry stays on the device until its windows
-        # change; only the stacking across regions runs per flush
-        geom_t = torch.stack([d.jit_geometry_tensor() for d in cand], dim=1)
-        rowmask = torch.ones((R, W), dtype=torch.bool, device=self.device)
-        counts, shared = _ps.phase_step(bits, geom_t[0], rowmask,
-                                        geom_t[1], geom_t[2])
+            return None
+        out = _ps.phase_step([d.dirty for d in cand],
+                             [d.jit_geometry_tensor() for d in cand])
         self.stats["fused_dispatches"] += 1
-        return counts.cpu().numpy(), shared
+        counts, key, word = _ps.read_phase_step(out, R, W)
+        reg, rows, cols = _ps.candidate_cells(key, word, W)
+        cut = np.searchsorted(reg, np.arange(R + 1))
+        return counts, [(rows[a:b], cols[a:b])
+                        for a, b in zip(cut[:-1], cut[1:])]
 
     def _invalidate_shared_dirty(self, d: RegionDirectory,
                                  w_idx: np.ndarray, cols: np.ndarray):

@@ -209,10 +209,11 @@ class Kernels:
                 self._bound[kernel] = f
         return self._bound[name]
 
-    def launch(self, name: str, device, *args):
+    def launch(self, name: str, device, *args, launches: int = 1):
         """Launch ``name`` on the current stream of ``device`` (a CUDA
         ``torch.device`` or its index); raise if the launch was
-        refused."""
+        refused.  ``launches`` is the number of kernel launches the C
+        entry makes for this call."""
         f = self._bound.get(name) or self.entry(name)
         index = device if device.__class__ is int else device.index
         current = torch._C._cuda_getDevice()
@@ -223,4 +224,4 @@ class Kernels:
                 rc = f(*args, torch._C._cuda_getCurrentRawStream(index))
         if rc != 0:
             raise RuntimeError(f"{name}: CUDA launch failed (cudaError {rc})")
-        self.launches[name] += 1
+        self.launches[name] += launches

@@ -63,25 +63,78 @@ __device__ __forceinline__ int upper_bound(const int* a, int n, long long x) {
   return lo;
 }
 
+// Bool planes are read in place: word k of a row of C cells is cells
+// [32k, 32k + 32), bit j = cell 32k + j != 0, cells at or past C read as
+// 0.  One thread forms one word from its 32 bytes.  Where the word's
+// bytes start on a 16-byte boundary that is two 16-byte loads; where
+// they do not (a cap that is not a multiple of 16 shifts every row) it
+// is the three aligned 16-byte chunks around them, cut with one shift,
+// as long as those chunks lie inside the plane; the row's ragged last
+// word, and a word whose chunks would leave the plane, take byte loads.
+// Neighbouring threads read neighbouring 32-byte runs, so a warp's loads
+// cover 1 KiB of the row contiguously.
+
+// The four bytes of x, each 0 or not, as four bits (byte i -> bit i):
+// __vcmpne4 sets a byte to 0xff where it is not 0, the mask keeps one bit
+// a byte, and the multiply gathers them into bits 24..27 without carries.
+__device__ __forceinline__ uint32_t nibble(uint32_t x) {
+  return ((__vcmpne4(x, 0u) & 0x01010101u) * 0x01020408u) >> 24;
+}
+
+__device__ __forceinline__ uint32_t bits16(const uint4* q) {
+  const uint4 v = __ldg(q);
+  return nibble(v.x) | nibble(v.y) << 4 | nibble(v.z) << 8 |
+         nibble(v.w) << 12;
+}
+
+// Word k of ``row`` (C cells); [lo, hi) are the plane's bytes, which no
+// load leaves.
+__device__ __forceinline__ uint32_t load_word(const uint8_t* row,
+                                              long long k, long long C,
+                                              const uint8_t* lo,
+                                              const uint8_t* hi) {
+  const long long c0 = 32 * k;
+  const uint8_t* p = row + c0;
+  if (c0 + 32 <= C) {
+    const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+    const unsigned s = static_cast<unsigned>(a & 15u);
+    const uint4* q = reinterpret_cast<const uint4*>(a - s);
+    if (s == 0) return bits16(q) | bits16(q + 1) << 16;
+    if (reinterpret_cast<const uint8_t*>(q) >= lo &&
+        reinterpret_cast<const uint8_t*>(q + 3) <= hi) {
+      const unsigned long long m =
+          bits16(q) | static_cast<unsigned long long>(bits16(q + 1)) << 16 |
+          static_cast<unsigned long long>(bits16(q + 2)) << 32;
+      return static_cast<uint32_t>(m >> s);
+    }
+  }
+  const int n = static_cast<int>(C - c0 < 32 ? C - c0 : 32);
+  uint32_t word = 0;
+  for (int j = 0; j < n; ++j) word |= static_cast<uint32_t>(p[j] != 0) << j;
+  return word;
+}
+
 // pack_rows: (W, C) bool plane -> (W, nw_out) packed words, zero past C.
 // Replaces the host-side numpy pack_mask_rows
 // (src/repro/kernels/protocol_sweep.py:134) that fed the TPU kernels, so
-// the dirty planes never leave the card.  Bound: W*C bytes read plus
-// W*nw_out*4 bytes written.  One warp per output word: lane j reads cell
-// 32k+j (32 neighbouring bytes, one coalesced transaction per warp) and
-// __ballot_sync assembles the word with lane j as bit j.
+// the planes never leave the card.  Bound: W*C bytes read plus
+// W*nw_out*4 bytes written.  One thread per output word (load_word),
+// neighbouring threads on neighbouring words, so both the reads and the
+// stores are coalesced; a grid of a few blocks per SM strides over the
+// W*nw_out words.
 __global__ void pack_rows_kernel(const uint8_t* __restrict__ plane,
-                                 uint32_t* __restrict__ out, long long C,
-                                 long long nw_out) {
-  const long long k =
-      static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-  if (k >= nw_out) return;  // warp-uniform
-  const int lane = threadIdx.x & 31;
-  const long long w = blockIdx.y;
-  const long long col = 32 * k + lane;
-  const bool bit = col < C && plane[w * C + col] != 0;
-  const unsigned word = __ballot_sync(kFull, bit);
-  if (lane == 0) out[w * nw_out + k] = word;
+                                 uint32_t* __restrict__ out, long long W,
+                                 long long C, long long nw_out) {
+  const long long nw = (C + 31) / 32;
+  const long long total = W * nw_out;
+  const uint8_t* hi = plane + W * C;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < total; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long w = i / nw_out;
+    const long long k = i - w * nw_out;
+    out[i] = k < nw ? load_word(plane + w * C, k, C, plane, hi) : 0u;
+  }
 }
 
 // popcount_rows: (W, nw) words -> (W,) int64 set-bit counts.
@@ -129,69 +182,139 @@ __global__ void coverage_multi_kernel(const int* __restrict__ delta,
   }
 }
 
-// phase_step: the fused barrier-flush chain over R stacked regions.
-// Replaces _phase_step_jit (src/repro/kernels/protocol_sweep.py:426), the
-// TPU tier's one-dispatch flush.  Grid (W, R): one block per (row,
-// region).  Per block:
-//   1. region r's sorted live window bounds (<= 2W int32, INT32_MAX pads)
-//      are staged in shared memory;
-//   2. the row's dirty popcount is reduced into counts[r, w], and the row
-//      is active iff rowmask[r, w] and the count is > 0;
-//   3. each warp takes one word k: lane j forms page = base + 32k + j and
-//      cov = upper_bound(sbases, page) - upper_bound(sends, page), the
-//      number of live windows containing the page; __ballot_sync(cov >= 2)
-//      is the multi-covered mask of the word, and lane 0 stores
-//      word & mask (0 for inactive rows and all-zero words).
-// A pad entry (INT32_MAX) is never <= a probed page, so it stabs nothing;
-// rows with base -1 hold no set bits.  Bound: R*W*nw*4 bytes read plus
-// the same written (the geometry adds R*W*13 bytes); the binary searches
-// are ~2*log2(W) shared-memory reads per lane and are skipped for
-// all-zero words, which dominate sparse dirty planes.
-__global__ void phase_step_kernel(const uint32_t* __restrict__ bits,
-                                  const int* __restrict__ base,
+// Bits [a, b) of a word, 0 <= a < b <= 32.
+__device__ __forceinline__ uint32_t bit_span(long long a, long long b) {
+  return static_cast<uint32_t>(((1ull << b) - 1) & ~((1ull << a) - 1));
+}
+
+// The multi-covered mask of the 32 pages [P, P + 32): bit j is set iff at
+// least two live windows contain page P + j, i.e. cov(p) = #{starts <= p}
+// - #{ends <= p} >= 2 over the sorted bounds sb/se (W each, INT32_MAX
+// pads, which stab nothing).  cov is constant between consecutive bound
+// values, so one stab at P (two upper_bounds) and the least start or end
+// above P decide the word: past P + 31 the mask is all ones or all zeros;
+// otherwise the walk steps over the few bounds inside the word.
+__device__ __forceinline__ uint32_t multi_mask(const int* sb, const int* se,
+                                               int W, long long P) {
+  constexpr long long kNone = 1ll << 62;
+  int i = upper_bound(sb, W, P);
+  int j = upper_bound(se, W, P);
+  long long cur = P;
+  uint32_t mask = 0;
+  for (;;) {
+    const long long s = i < W ? sb[i] : kNone;
+    const long long e = j < W ? se[j] : kNone;
+    const long long next = s < e ? s : e;
+    const long long stop = next < P + 32 ? next : P + 32;
+    if (i - j >= 2) mask |= bit_span(cur - P, stop - P);
+    if (next >= P + 32) return mask;
+    while (i < W && sb[i] == next) ++i;
+    while (j < W && se[j] == next) ++j;
+    cur = next;
+  }
+}
+
+// phase_step: the fused barrier flush over the dirty regions, read from
+// their bool dirty planes as they lie.  Replaces _phase_step_jit
+// (src/repro/kernels/protocol_sweep.py:426), the TPU tier's one-dispatch
+// flush over stacked packed planes.
+//
+// The regions' planes, (3, W) int32 geometries (base, sorted starts,
+// sorted ends with INT32_MAX pads) and caps come by value, up to
+// kMaxRegions a launch (a larger flush takes one launch more for each
+// kMaxRegions, in the same C call).  Grid (W, regions): one block per
+// (row, region).  Each thread forms one 32-page word at a time from the
+// bool row (load_word: nothing is packed beforehand), the next trip's
+// word loading while this one is worked on, and adds its __popc to the
+// row's count, reduced by warp shuffles and a block sum into
+// out[r*W + w].  On an active row (rowmask, where given) the block stages
+// the region's 2W sorted bounds in shared memory, and a nonzero word's
+// multi-covered mask is one stab of its own (multi_mask).  word & mask,
+// where nonzero, is a candidate: a warp reserves slots for its
+// candidates with one atomicAdd on ws[0] and writes each as
+// (key = (r*W + w) << 32 | k, word) into the entries after the counts;
+// a slot at or past ``capacity`` (more entries than the flush has words:
+// counters left stale by a refused launch) is not written, and the host
+// raises on the n it reads.  Entries land in no fixed order; the host
+// sorts them by key, which is the reference's row-major,
+// column-ascending order.  The last block of each launch (ws[1] counts
+// finished blocks) resets the counters, and that of the flush's last
+// launch writes the number of entries to out[R*W] first, so the host
+// reads counts and that number in one copy and the entries in at most
+// one more.  The counters start at zero and are left at zero.
+//
+// Bound: bytes, the planes read once (R*W*cap) plus geometry, counts and
+// the entries written.  The parent design packed the planes first (R
+// pack_rows launches, a stacked copy written and read again), read one
+// word per warp and ran two binary searches per page.
+constexpr int kMaxRegions = 32;
+
+struct PhaseRegions {
+  const uint8_t* plane[kMaxRegions];
+  const int* geom[kMaxRegions];
+  long long cap[kMaxRegions];
+};
+
+__global__ void phase_step_kernel(const PhaseRegions regions, int r0, int W,
                                   const uint8_t* __restrict__ rowmask,
-                                  const int* __restrict__ sbases,
-                                  const int* __restrict__ sends,
-                                  long long* __restrict__ counts,
-                                  uint32_t* __restrict__ shared, int W,
-                                  long long nw) {
+                                  long long* __restrict__ out,
+                                  unsigned* __restrict__ ws, long long n_at,
+                                  long long capacity, bool last_launch) {
   extern __shared__ int bounds[];  // [0, W) starts, [W, 2W) ends
   __shared__ long long partial[kWarps];
-  __shared__ long long row_count;
-  const long long r = blockIdx.y;
-  const long long rw = r * W + blockIdx.x;
-  for (int i = threadIdx.x; i < W; i += blockDim.x) {
-    bounds[i] = sbases[r * W + i];
-    bounds[W + i] = sends[r * W + i];
-  }
-  const uint32_t* row = bits + rw * nw;
-  uint32_t* out = shared + rw * nw;
-  long long c = 0;
-  for (long long k = threadIdx.x; k < nw; k += blockDim.x) c += __popc(row[k]);
-  c = block_sum(c, partial);  // also publishes the staged bounds
-  if (threadIdx.x == 0) {
-    counts[rw] = c;
-    row_count = c;
-  }
-  __syncthreads();
-  const bool active = rowmask[rw] != 0 && row_count > 0;
-  if (!active) {
-    for (long long k = threadIdx.x; k < nw; k += blockDim.x) out[k] = 0;
-    return;
-  }
+  const int rl = blockIdx.y;
+  const int w = blockIdx.x;
+  const long long r = r0 + rl;
+  const int* geom = regions.geom[rl];
+  const uint8_t* plane = regions.plane[rl];
+  const long long C = regions.cap[rl];
+  const uint8_t* row = plane + static_cast<long long>(w) * C;
+  const uint8_t* hi = plane + static_cast<long long>(W) * C;
+  const long long nw = (C + 31) / 32;
+  // the first trip's word, loading while the bounds are staged
+  uint32_t next = threadIdx.x < nw ? load_word(row, threadIdx.x, C, plane, hi)
+                                   : 0u;
+  const bool active = rowmask == nullptr || rowmask[r * W + w] != 0;
+  const long long base = geom[w];
   const int lane = threadIdx.x & 31;
-  const long long b = base[rw];
-  for (long long k = threadIdx.x >> 5; k < nw; k += kWarps) {
-    const uint32_t word = row[k];  // same address for the warp: broadcast
-    if (word == 0) {               // warp-uniform
-      if (lane == 0) out[k] = 0;
-      continue;
+  if (active) {  // block-uniform
+    for (int i = threadIdx.x; i < W; i += blockDim.x) {
+      bounds[i] = geom[W + i];
+      bounds[W + i] = geom[2 * W + i];
     }
-    const long long page = b + 32 * k + lane;
-    const int cov = upper_bound(bounds, W, page) -
-                    upper_bound(bounds + W, W, page);
-    const unsigned multi = __ballot_sync(kFull, cov >= 2);
-    if (lane == 0) out[k] = word & multi;
+    __syncthreads();
+  }
+  long long* entries = out + n_at + 1;
+  long long c = 0;
+  for (long long k0 = 0; k0 < nw; k0 += kThreads) {  // block-uniform trips
+    const long long k = k0 + threadIdx.x;
+    const uint32_t word = next;
+    next = k + kThreads < nw ? load_word(row, k + kThreads, C, plane, hi)
+                             : 0u;
+    c += __popc(word);
+    const uint32_t hit =
+        word != 0 && active
+            ? word & multi_mask(bounds, bounds + W, W, base + 32 * k)
+            : 0u;
+    const unsigned vote = __ballot_sync(kFull, hit != 0);
+    if (vote == 0) continue;  // warp-uniform
+    unsigned slot = 0;
+    if (lane == 0) slot = atomicAdd(&ws[0], static_cast<unsigned>(__popc(vote)));
+    slot = __shfl_sync(kFull, slot, 0) + __popc(vote & ((1u << lane) - 1u));
+    if (hit && slot < capacity) {
+      entries[2 * static_cast<long long>(slot)] = (r * W + w) << 32 | k;
+      entries[2 * static_cast<long long>(slot) + 1] = hit;
+    }
+  }
+  c = block_sum(c, partial);
+  if (threadIdx.x == 0) {
+    out[r * W + w] = c;
+    __threadfence();  // this block's reservations before its ticket
+    const unsigned ticket = atomicAdd(&ws[1], 1u);
+    if (ticket == gridDim.x * gridDim.y - 1) {  // every block has reserved
+      atomicExch(&ws[1], 0u);
+      if (last_launch) out[n_at] = atomicExch(&ws[0], 0u);
+    }
   }
 }
 
@@ -296,11 +419,18 @@ int rt_take_and_cut(const void* bits, const void* k, void* take, void* cut,
 
 int rt_pack_rows(const void* plane, void* out, long long W, long long C,
                  long long nw_out, void* stream) {
-  if (W > 0 && nw_out > 0) {
-    const dim3 grid(static_cast<unsigned>((nw_out + kWarps - 1) / kWarps),
-                    static_cast<unsigned>(W));
-    pack_rows_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(plane), static_cast<uint32_t*>(out), C,
+  const long long total = W * nw_out;
+  if (total > 0) {
+    // a few blocks per SM, striding over the words
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    const long long want = (total + kThreads - 1) / kThreads;
+    const unsigned blocks =
+        static_cast<unsigned>(want < 4ll * sms ? want : 4ll * sms);
+    pack_rows_kernel<<<blocks, kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(plane), static_cast<uint32_t*>(out), W, C,
         nw_out);
   }
   return static_cast<int>(cudaGetLastError());
@@ -327,12 +457,14 @@ int rt_coverage_multi(const void* delta, void* out, long long n,
   return static_cast<int>(cudaGetLastError());
 }
 
-int rt_phase_step(const void* bits, const void* base, const void* rowmask,
-                  const void* sbases, const void* sends, void* counts,
-                  void* shared, long long R, long long W, long long nw,
+// desc: a host array of 3R int64 -- the R plane pointers, the R geometry
+// pointers, the R caps.  out: int64, R*W counts, the number of entries,
+// then room for ``capacity`` entries.  ws: two uint32 counters on the
+// card, zero.
+int rt_phase_step(const long long* desc, const void* rowmask, void* out,
+                  void* ws, long long R, long long W, long long capacity,
                   void* stream) {
   if (R > 0 && W > 0) {
-    const dim3 grid(static_cast<unsigned>(W), static_cast<unsigned>(R));
     const size_t smem = 2 * static_cast<size_t>(W) * sizeof(int);
     if (smem > kDefaultDynamicSmem) {
       // past the default, opt in to Hopper's larger shared memory (up to
@@ -342,13 +474,24 @@ int rt_phase_step(const void* bits, const void* base, const void* rowmask,
           static_cast<int>(smem));
       if (e != cudaSuccess) return static_cast<int>(e);
     }
-    phase_step_kernel<<<grid, kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(bits), static_cast<const int*>(base),
-        static_cast<const uint8_t*>(rowmask),
-        static_cast<const int*>(sbases), static_cast<const int*>(sends),
-        static_cast<long long*>(counts), static_cast<uint32_t*>(shared),
-        static_cast<int>(W), nw);
+    for (long long r0 = 0; r0 < R; r0 += kMaxRegions) {
+      const int n = static_cast<int>(R - r0 < kMaxRegions ? R - r0
+                                                           : kMaxRegions);
+      PhaseRegions regions = {};
+      for (int i = 0; i < n; ++i) {
+        regions.plane[i] = reinterpret_cast<const uint8_t*>(desc[r0 + i]);
+        regions.geom[i] = reinterpret_cast<const int*>(desc[R + r0 + i]);
+        regions.cap[i] = desc[2 * R + r0 + i];
+      }
+      const dim3 grid(static_cast<unsigned>(W), static_cast<unsigned>(n));
+      phase_step_kernel<<<grid, kThreads, smem,
+                          static_cast<cudaStream_t>(stream)>>>(
+          regions, static_cast<int>(r0), static_cast<int>(W),
+          static_cast<const uint8_t*>(rowmask), static_cast<long long*>(out),
+          static_cast<unsigned*>(ws), R * W, capacity, r0 + n == R);
+      const cudaError_t e = cudaGetLastError();
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -14,9 +14,13 @@ Hand-written CUDA kernels (``csrc/protocol_sweep.cu``, ``sm_90a``):
   charge and the eviction engine's dirty-victim counts);
 * ``coverage_multi`` running cover of the sorted +1/-1 window-bound
   deltas, >= 2 (the shared-interval sweep);
-* ``phase_step``     the fused barrier flush over R stacked regions:
-  per-row popcount, coverage stab, and the packed shared-dirty candidate
-  mask (dirty & multi-covered & active row), in one launch;
+* ``phase_step``     the fused barrier flush over R regions, read from
+  their bool dirty planes as they lie: per-row popcount, coverage stab,
+  and the shared-dirty candidate words (dirty & multi-covered & active
+  row), in one launch (one more for each ``MAX_PHASE_STEP_REGIONS``
+  regions past the first); ``read_phase_step`` brings its result to the
+  host in one copy, or two when there are more than
+  ``PHASE_STEP_PREFIX`` candidate words;
 * ``take_first_k``   per-row rank-select: each row's first k[i] set bits
   (the segment-LRU victim mask of batched eviction);
 * ``kth_set_index``  per-row rank query: the column of the k[i]-th set
@@ -35,8 +39,9 @@ mirror the reference's numpy tier bit for bit and are what the tests and
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels._build import Kernels, check, on_card
@@ -45,9 +50,15 @@ _M32 = 0xFFFFFFFF
 _I32_MAX = (1 << 31) - 1
 # phase_step stages 2W int32 bounds in dynamic shared memory and opts in
 # past the 48 KiB default: stay within Hopper's 227 KiB a block, less
-# 1 KiB for its static shared memory (72 bytes) and the dynamic array's
+# 1 KiB for its static shared memory (208 bytes) and the dynamic array's
 # alignment
 MAX_PHASE_STEP_W = (227 * 1024 - 1024) // 8
+# regions one phase_step launch takes (kMaxRegions in the CUDA source);
+# a flush with more takes one launch more for each this many
+MAX_PHASE_STEP_REGIONS = 32
+# candidate entries read back in the first copy with the counts (16 KiB);
+# a flush with more copies the rest in a second
+PHASE_STEP_PREFIX = 1024
 
 _P = ctypes.c_void_p
 _L = ctypes.c_longlong
@@ -55,7 +66,7 @@ _KERNELS = Kernels("protocol_sweep.cu", {
     "pack_rows": (_P, _P, _L, _L, _L),
     "popcount_rows": (_P, _P, _L, _L),
     "coverage_multi": (_P, _P, _L),
-    "phase_step": (_P, _P, _P, _P, _P, _P, _P, _L, _L, _L),
+    "phase_step": (_P, _P, _P, _P, _L, _L, _L),
     "take_first_k": (_P, _P, _P, _L, _L),
     "kth_set_index": (_P, _P, _P, _L, _L),
     "take_and_cut": (_P, _P, _P, _P, _L, _L),
@@ -67,6 +78,21 @@ CALLS = _KERNELS.calls
 reset_launches = _KERNELS.reset
 _launch = _KERNELS.launch
 _called = _KERNELS.called
+# phase_step's two uint32 counters (candidate slots, finished blocks) for
+# each (card, stream), zero between launches: the kernel's last block
+# resets them, and the wrapper zeroes them when a launch is refused.
+# Launches on one stream never overlap, so no two flushes share them.
+_PHASE_WS = {}
+
+
+def phase_step_ws(index: int) -> torch.Tensor:
+    """The counters of the current stream of card ``index``."""
+    key = (index, torch._C._cuda_getCurrentRawStream(index))
+    ws = _PHASE_WS.get(key)
+    if ws is None:
+        ws = _PHASE_WS[key] = torch.zeros(2, dtype=torch.int32,
+                                          device=f"cuda:{index}")
+    return ws
 
 
 # ---------------------------------------------------------------------------
@@ -121,31 +147,55 @@ def _coverage_multi_plain(delta: torch.Tensor) -> torch.Tensor:
     return torch.cumsum(delta.to(torch.int64), dim=0) >= 2
 
 
-def _phase_step_plain(bits, base, rowmask, sbases, sends):
-    """The fused flush chain region by region (the reference's
-    ``_phase_step_np``): counts (R, W) int64, shared (R, W, nw) int32."""
-    R, W, nw = bits.shape
+def _shared_words_plain(bits, base, active, sb, se):
+    """One region's packed candidate words (W, nw) int32: the dirty
+    ``bits`` of ``active`` rows that are covered by >= 2 live windows
+    (page = ``base`` + column, stabbed in the sorted bounds ``sb``/``se``),
+    as the reference's ``_phase_step_np`` computes them."""
+    W, nw = bits.shape
     dev = bits.device
-    counts = _popcount_words_plain(bits).sum(dim=2)
     col = (torch.arange(nw, dtype=torch.int64, device=dev)[:, None] * 32
            + torch.arange(32, dtype=torch.int64, device=dev)[None, :])
     lanes = torch.ones(32, dtype=torch.int64, device=dev) << torch.arange(
         32, dtype=torch.int64, device=dev)
     zero = torch.zeros((), dtype=torch.int64, device=dev)
-    shared = torch.zeros_like(bits)
-    for r in range(R):
-        active = rowmask[r] & (counts[r] > 0)
-        page = base[r].to(torch.int64)[:, None, None] + col[None]
-        flat = page.reshape(-1)
-        cov = (torch.searchsorted(sbases[r].to(torch.int64), flat,
-                                  right=True)
-               - torch.searchsorted(sends[r].to(torch.int64), flat,
-                                    right=True))
-        multi = (cov >= 2).reshape(page.shape)
-        mbits = torch.where(multi, lanes, zero).sum(dim=-1)     # (W, nw)
-        hit = torch.where(active[:, None], _u32(bits[r]) & mbits, zero)
-        shared[r] = _as_i32(hit)
-    return counts, shared
+    page = base.to(torch.int64)[:, None, None] + col[None]
+    flat = page.reshape(-1)
+    cov = (torch.searchsorted(sb.to(torch.int64), flat, right=True)
+           - torch.searchsorted(se.to(torch.int64), flat, right=True))
+    multi = (cov >= 2).reshape(page.shape)
+    mbits = torch.where(multi, lanes, zero).sum(dim=-1)          # (W, nw)
+    return _as_i32(torch.where(active[:, None], _u32(bits) & mbits, zero))
+
+
+def _phase_step_plain(planes, geoms, rowmask=None):
+    """``phase_step``'s result, region by region: the packed dirty plane,
+    its row counts and candidate words as the reference's
+    ``_phase_step_np``, laid out as the kernel's ``out`` with the entries
+    in key order."""
+    R, W = len(planes), planes[0].shape[0]
+    dev = planes[0].device
+    counts, keys, words = [], [], []
+    for r, (plane, geom) in enumerate(zip(planes, geoms)):
+        bits = _pack_rows_plain(plane)
+        c = _popcount_words_plain(bits).sum(dim=1)
+        active = c > 0
+        if rowmask is not None:
+            active = active & rowmask[r]
+        shared = _shared_words_plain(bits, geom[0], active, geom[1], geom[2])
+        row, k = torch.nonzero(shared, as_tuple=True)
+        counts.append(c)
+        keys.append(((r * W + row) << 32) | k)
+        words.append(_u32(shared[row, k]))
+    n = sum(k.shape[0] for k in keys)
+    size = R * W + 1 + 2 * W * sum((p.shape[1] + 31) // 32 for p in planes)
+    out = torch.zeros(size, dtype=torch.int64, device=dev)
+    out[:R * W] = torch.cat(counts)
+    out[R * W] = n
+    if n:
+        out[R * W + 1:R * W + 1 + 2 * n] = torch.stack(
+            [torch.cat(keys), torch.cat(words)], dim=1).reshape(-1)
+    return out
 
 
 def _take_first_k_plain(bits: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -201,25 +251,28 @@ def pack_rows(plane: torch.Tensor,
               out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(W, C) bool -> packed (W, ceil(C/32)) int32 words.  ``out`` may be
     a wider (W, nw_out) int32 buffer; words past ceil(C/32) become 0."""
-    _called("pack_rows")
-    dev = plane.device
-    check(plane, "plane", torch.bool, 2, dev)
+    CALLS["pack_rows"] += 1
+    if not (plane.dtype is torch.bool and plane.dim() == 2
+            and plane.is_contiguous()):
+        check(plane, "plane", torch.bool, 2, plane.device)
     W, C = plane.shape
-    nw = -(-C // 32)
+    nw = (C + 31) >> 5
     if out is None:
-        out = torch.empty((W, nw), dtype=torch.int32, device=dev)
-    check(out, "out", torch.int32, 2, dev)
-    if out.shape[0] != W or out.shape[1] < nw:
+        out = torch.empty((W, nw), dtype=torch.int32, device=plane.device)
+    elif not (out.dtype is torch.int32 and out.dim() == 2
+              and out.is_contiguous() and out.device == plane.device
+              and out.shape[0] == W and out.shape[1] >= nw):
+        check(out, "out", torch.int32, 2, plane.device)
         raise ValueError(f"out shape {tuple(out.shape)} cannot hold "
                          f"({W}, {nw}) packed words")
-    if not on_card(plane):
+    index = plane.get_device()
+    if index < 0:
+        on_card(plane)
         out.zero_()
         out[:, :nw] = _pack_rows_plain(plane)
         return out
-    if W > 65535:
-        raise ValueError(f"pack_rows: W={W} exceeds the grid's 65535 rows")
     if W and out.shape[1]:
-        _launch("pack_rows", dev, plane.data_ptr(), out.data_ptr(), W, C,
+        _launch("pack_rows", index, plane.data_ptr(), out.data_ptr(), W, C,
                 out.shape[1])
     return out
 
@@ -254,40 +307,157 @@ def coverage_multi(delta: torch.Tensor) -> torch.Tensor:
     return out.view(torch.bool)
 
 
-def phase_step(bits: torch.Tensor, base: torch.Tensor,
-               rowmask: torch.Tensor, sbases: torch.Tensor,
-               sends: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The fused barrier-flush chain: R stacked regions' packed dirty
-    planes ``bits`` (R, W, nw) int32, row window offsets ``base`` (R, W)
-    int32 (-1 rows hold no bits), flush mask ``rowmask`` (R, W) bool, and
-    sorted live window bounds ``sbases``/``sends`` (R, W) int32 padded
-    with INT32_MAX.  Returns (counts (R, W) int64, shared (R, W, nw)
-    int32): per-row dirty counts and the packed dirty & >=2-covered &
-    active-row candidate masks."""
-    _called("phase_step")
-    dev = bits.device
-    check(bits, "bits", torch.int32, 3, dev)
-    R, W, nw = bits.shape
-    for name, t, dt in (("base", base, torch.int32),
-                        ("rowmask", rowmask, torch.bool),
-                        ("sbases", sbases, torch.int32),
-                        ("sends", sends, torch.int32)):
-        check(t, name, dt, 2, dev)
-        if tuple(t.shape) != (R, W):
-            raise ValueError(f"{name} shape {tuple(t.shape)} != {(R, W)}")
-    if not on_card(bits):
-        return _phase_step_plain(bits, base, rowmask, sbases, sends)
-    if W > MAX_PHASE_STEP_W or R > 65535:
-        raise ValueError(f"phase_step: (R, W)=({R}, {W}) exceeds the "
-                         f"kernel's limits (R <= 65535, W <= "
-                         f"{MAX_PHASE_STEP_W})")
-    counts = torch.empty((R, W), dtype=torch.int64, device=dev)
-    shared = torch.empty_like(bits)
-    if R and W:
-        _launch("phase_step", dev, bits.data_ptr(), base.data_ptr(),
-                rowmask.data_ptr(), sbases.data_ptr(), sends.data_ptr(),
-                counts.data_ptr(), shared.data_ptr(), R, W, nw)
-    return counts, shared
+def phase_step(planes: Sequence[torch.Tensor],
+               geoms: Sequence[torch.Tensor],
+               rowmask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The fused barrier flush over R regions, from their bool dirty
+    planes as they lie: ``planes[r]`` (W, cap_r) contiguous ``torch.bool``
+    (caps may differ; columns past cap_r count as zero), ``geoms[r]`` the
+    region's (3, W) int32 window geometry (row bases, -1 for rows without
+    a window, then the sorted live window starts and ends padded with
+    INT32_MAX), and an optional (R, W) bool ``rowmask`` (None: every row).
+
+    Returns one int64 tensor ``out``: the (R, W) per-row dirty counts,
+    row-major, then n, then n entries (key, word): a candidate word, the
+    packed dirty & >=2-covered bits of word k of row w of region r on an
+    active row (masked in, count > 0), with key = (r*W + w) << 32 | k.
+    The kernel writes the entries in no fixed order; ``read_phase_step``
+    sorts them.  One launch for up to ``MAX_PHASE_STEP_REGIONS`` regions,
+    one more for each as many again."""
+    CALLS["phase_step"] += 1
+    R = len(planes)
+    if R == 0 or len(geoms) != R:
+        raise ValueError(f"phase_step: {R} planes and {len(geoms)} "
+                         "geometries; at least one region each")
+    p0 = planes[0]
+    index = p0.get_device()
+    W = p0.shape[0] if p0.dim() == 2 else -1
+    words = 0
+    for t in planes:
+        if not (t.dtype is torch.bool and t.dim() == 2 and t.shape[0] == W
+                and t.is_contiguous() and t.get_device() == index):
+            check(t, "plane", torch.bool, 2, p0.device)
+            raise ValueError(f"plane shape {tuple(t.shape)}: every plane "
+                             f"needs the first's {W} rows")
+        words += (t.shape[1] + 31) >> 5
+    for g in geoms:
+        if not (g.dtype is torch.int32 and g.shape == (3, W)
+                and g.is_contiguous() and g.get_device() == index):
+            check(g, "geom", torch.int32, 2, p0.device)
+            raise ValueError(f"geom shape {tuple(g.shape)} != {(3, W)}")
+    if rowmask is not None:
+        check(rowmask, "rowmask", torch.bool, 2, p0.device)
+        if tuple(rowmask.shape) != (R, W):
+            raise ValueError(f"rowmask shape {tuple(rowmask.shape)} != "
+                             f"{(R, W)}")
+    if index < 0:
+        on_card(p0)
+        return _phase_step_plain(planes, geoms, rowmask)
+    if W > MAX_PHASE_STEP_W:
+        raise ValueError(f"phase_step: W={W} exceeds the kernel's limits "
+                         f"(W <= {MAX_PHASE_STEP_W})")
+    # one entry at most for each word of each row
+    capacity = W * words
+    out = torch.empty(R * W + 1 + 2 * capacity, dtype=torch.int64,
+                      device=p0.device)
+    if W == 0:
+        return out.zero_()
+    ws = phase_step_ws(index)
+    desc = (ctypes.c_longlong * (3 * R))(
+        *[t.data_ptr() for t in planes], *[g.data_ptr() for g in geoms],
+        *[t.shape[1] for t in planes])
+    try:
+        _launch("phase_step", index, desc,
+                None if rowmask is None else rowmask.data_ptr(),
+                out.data_ptr(), ws.data_ptr(), R, W, capacity,
+                launches=-(-R // MAX_PHASE_STEP_REGIONS))
+    except RuntimeError:
+        # a launch after the first refused: the slots the first reserved
+        # are never released by a last block
+        ws.zero_()
+        raise
+    return out
+
+
+def read_phase_step(out: torch.Tensor, R: int, W: int):
+    """``phase_step``'s ``out`` on the host: (counts (R, W) int64, key (n,)
+    int64, word (n,) int64), the entries sorted by key (row-major,
+    column-ascending).  The counts, n and the first ``PHASE_STEP_PREFIX``
+    entries come in one copy; the rest, where there is any, in one
+    more."""
+    head = R * W + 1
+    first = out[:min(out.shape[0], head + 2 * PHASE_STEP_PREFIX)]
+    first = first.cpu().numpy()
+    n = int(first[head - 1])
+    if 2 * n > out.shape[0] - head:
+        raise RuntimeError(f"phase_step: {n} candidate entries exceed the "
+                           f"flush's {(out.shape[0] - head) // 2} words "
+                           "(stale counters)")
+    ent = first[head:head + 2 * n]
+    if n > PHASE_STEP_PREFIX:
+        ent = np.concatenate([ent, out[head + 2 * PHASE_STEP_PREFIX:
+                                       head + 2 * n].cpu().numpy()])
+    ent = ent.reshape(n, 2)
+    order = np.argsort(ent[:, 0], kind="stable")
+    return first[:R * W].reshape(R, W), ent[order, 0], ent[order, 1]
+
+
+def candidate_cells(key: np.ndarray, word: np.ndarray, W: int):
+    """The set bits of sorted candidate entries as host (region, row,
+    column) arrays, region-major, then row-major and column-ascending:
+    the reference's sequential worker-major flush order."""
+    bits = ((word[:, None] & _M32) >> np.arange(32)) & 1
+    ei, j = np.nonzero(bits)
+    rw = key[ei] >> 32
+    return rw // W, rw % W, 32 * (key[ei] & _M32) + j
+
+
+def phase_step_dense(planes, geoms, rowmask=None):
+    """``phase_step`` in the reference's layout: (counts (R, W) int64,
+    shared (R, W, nw) int32, nw the widest plane's word count), from the
+    kernel on a card and the plain version on the CPU, as host tensors.
+    The tests hold it against ``_phase_step_np``."""
+    R, W = len(planes), planes[0].shape[0]
+    nw = max((p.shape[1] + 31) // 32 for p in planes)
+    counts, key, word = read_phase_step(phase_step(planes, geoms, rowmask),
+                                        R, W)
+    shared = np.zeros(R * W * nw, np.int64)
+    shared[(key >> 32) * nw + (key & _M32)] = word
+    return (torch.from_numpy(np.ascontiguousarray(counts)),
+            _as_i32(torch.from_numpy(shared)).reshape(R, W, nw))
+
+
+def phase_step_inputs(rng: np.random.Generator, R: int, W: int, caps,
+                      device, dead_rows: bool, mask: bool, step=None):
+    """Flush operands as the engine holds them, for the tests and the
+    smoke's on-card check: each region's bool dirty plane (W, caps[r])
+    and (3, W) int32 geometry (rows with base=-1, dead, hold no bits;
+    live bounds sorted; INT32_MAX pads), and a random (R, W) row mask, or
+    None as the engine passes it.  Live windows start every ``step`` pages
+    (default cap - 1) and half of them span the whole cap, so with the
+    default a window overlaps its neighbour by one page, like a
+    prefetching read, and coverage changes inside words; a small ``step``
+    stacks many windows on each page."""
+    planes, geoms = [], []
+    for r, C in enumerate(caps):
+        plane = np.zeros((W, C), bool)
+        geom = np.full((3, W), _I32_MAX, np.int32)
+        geom[0] = -1
+        nlive = int(rng.integers(1, W + 1)) if dead_rows else W
+        rows = np.sort(rng.choice(W, nlive, replace=False))
+        b = (r * 10_000_000 + rows * (step or C - 1)).astype(np.int32)
+        ln = np.where(rng.random(nlive) < 0.5, C,
+                      rng.integers(max(C // 2, 1), C + 1, nlive))
+        geom[0, rows] = b
+        geom[1, :nlive] = np.sort(b)
+        geom[2, :nlive] = np.sort(b + ln)
+        for i, w in enumerate(rows):
+            plane[w, :ln[i]] = rng.random(int(ln[i])) < 0.5
+        planes.append(torch.as_tensor(plane, device=device))
+        geoms.append(torch.as_tensor(geom, device=device))
+    rowmask = (torch.as_tensor(rng.random((R, W)) < 0.9, device=device)
+               if mask else None)
+    return planes, geoms, rowmask
 
 
 def _rank_operands(bits: torch.Tensor, k: torch.Tensor):

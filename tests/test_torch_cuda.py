@@ -51,18 +51,21 @@ def test_kernels_match_plain_versions(dev):
     i32max = np.iinfo(np.int32).max
     R, W, C = 3, 9, 300
     planes = torch.as_tensor(rng.random((R, W, C)) < 0.5, device=dev)
-    bits = torch.stack([ps._pack_rows_plain(p) for p in planes])
+    planes[:, 7:] = False
     base = np.full((R, W), -1, np.int32)
     base[:, :7] = np.arange(7) * 250
     sbs = np.full((R, W), i32max, np.int32)
     ses = np.full((R, W), i32max, np.int32)
     sbs[:, :7] = base[:, :7]
     ses[:, :7] = base[:, :7] + C
-    bits[:, 7:] = 0
-    args = [bits] + [torch.as_tensor(a, device=dev) for a in (
-        base, rng.random((R, W)) < 0.8, sbs, ses)]
-    got, want = ps.phase_step(*args), ps._phase_step_plain(*args)
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    args = ([p.contiguous() for p in planes],
+            [torch.as_tensor(np.stack([base[r], sbs[r], ses[r]]),
+                             device=dev) for r in range(R)],
+            torch.as_tensor(rng.random((R, W)) < 0.8, device=dev))
+    got = ps.read_phase_step(ps.phase_step(*args), R, W)
+    want = ps.read_phase_step(ps._phase_step_plain(*args), R, W)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_phase_step_at_its_width_limit(dev):
@@ -70,22 +73,93 @@ def test_phase_step_at_its_width_limit(dev):
     48 KiB default shared memory (it opts in to more) and still launch;
     one row more is refused by the wrapper before launch."""
     rng = np.random.default_rng(6)
-    W, nw = ps.MAX_PHASE_STEP_W, 2
+    W, C = ps.MAX_PHASE_STEP_W, 64
     base = np.arange(W, dtype=np.int32) * 40
     bounds = np.sort(base)
-    args = [torch.as_tensor(rng.integers(-2**31, 2**31, (1, W, nw),
-                                         dtype=np.int64).astype(np.int32),
-                            device=dev)]
-    args += [torch.as_tensor(a[None], device=dev) for a in (
-        base, rng.random(W) < 0.8, bounds, bounds + 64)]
-    got, want = ps.phase_step(*args), ps._phase_step_plain(*args)
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    assert int(want[1].ne(0).sum()) > 0
-    wide = [torch.zeros((1, W + 1, nw), dtype=torch.int32, device=dev)]
-    wide += [torch.zeros((1, W + 1), dtype=dt, device=dev)
-             for dt in (torch.int32, torch.bool, torch.int32, torch.int32)]
+    args = ([torch.as_tensor(rng.random((W, C)) < 0.5, device=dev)],
+            [torch.as_tensor(np.stack([base, bounds, bounds + 64]),
+                             device=dev)],
+            torch.as_tensor(rng.random((1, W)) < 0.8, device=dev))
+    got = ps.read_phase_step(ps.phase_step(*args), 1, W)
+    want = ps.read_phase_step(ps._phase_step_plain(*args), 1, W)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    assert want[1].size > 0
+    wide = ([torch.zeros((W + 1, C), dtype=torch.bool, device=dev)],
+            [torch.zeros((3, W + 1), dtype=torch.int32, device=dev)])
     with pytest.raises(ValueError, match="limits"):
         ps.phase_step(*wide)
+
+
+@pytest.mark.parametrize("R,W,caps,dead,mask,step", [
+    (3, 256, (16384,) * 3, False, False, None),     # fig3_weak's flush
+    (3, 7, (150, 161, 99), True, True, None),
+    (1, 1, (40,), False, False, None),
+    (2, 64, (1000, 1003), True, True, 7),
+    (3, 256, (517, 16383, 2049), True, False, None),  # rows off 16 bytes
+    (3, 256, (16384, 16385, 4000), False, True, 301),
+    (ps.MAX_PHASE_STEP_REGIONS + 1, 16, None, True, True, 3),  # 2 launches
+], ids=lambda v: str(v))
+def test_phase_step_matches_plain_version(dev, R, W, caps, dead, mask, step):
+    """The flush kernel from the regions' bool planes against its plain
+    version, read back as the engine reads it (counts, and the candidate
+    entries sorted by key), at the main shape and the edges: ragged and
+    unaligned caps that differ between regions, dead rows, W = 1, a
+    sparse row mask or none, stacked windows that put several coverage
+    breakpoints inside a word, more candidate words than the first copy
+    takes, and one region more than a launch takes."""
+    rng = np.random.default_rng(R * 1000 + W)
+    if caps is None:
+        caps = tuple(int(c) for c in rng.integers(1, 700, R))
+    inp = ps.phase_step_inputs(rng, R, W, caps, dev, dead, mask, step)
+    before = ps.LAUNCHES["phase_step"]
+    got = ps.read_phase_step(ps.phase_step(*inp), R, W)
+    assert ps.LAUNCHES["phase_step"] - before == -(
+        -R // ps.MAX_PHASE_STEP_REGIONS)
+    want = ps.read_phase_step(ps._phase_step_plain(*inp), R, W)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    again = ps.read_phase_step(ps.phase_step(*inp), R, W)
+    for a, b in zip(again, want):   # the counters were left at zero
+        np.testing.assert_array_equal(a, b)
+
+
+def test_phase_step_stale_counters_write_nothing_past_out(dev):
+    """Counters left stale on the card (a refused launch) put every slot
+    past the flush's room: the kernel writes no entry there, the read
+    raises, and the last block's reset leaves the next flush right."""
+    rng = np.random.default_rng(11)
+    inp = ps.phase_step_inputs(rng, 2, 64, (1000, 1003), dev, True, True, 7)
+    want = ps.read_phase_step(ps._phase_step_plain(*inp), 2, 64)
+    assert want[1].size > 0
+    ps.phase_step_ws(torch.cuda.current_device())[0] = 1 << 30
+    out = ps.phase_step(*inp)
+    with pytest.raises(RuntimeError, match="stale"):
+        ps.read_phase_step(out, 2, 64)
+    torch.cuda.synchronize()   # a write 16 GB past out would fault here
+    got = ps.read_phase_step(ps.phase_step(*inp), 2, 64)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("W,C", [(256, 16384), (256, 16385), (5, 16),
+                                 (9, 33), (1, 1), (3, 48)])
+@pytest.mark.parametrize("offset", [0, 1, 4])
+def test_pack_rows_aligned_and_unaligned(dev, W, C, offset):
+    """pack_rows on planes whose rows start on and off 16-byte boundaries
+    (a view ``offset`` bytes into a buffer), against its plain version,
+    and into a wider buffer."""
+    rng = np.random.default_rng(W + C + offset)
+    buf = torch.zeros(W * C + 16, dtype=torch.bool, device=dev)
+    plane = buf[offset:offset + W * C].view(W, C)
+    plane.copy_(torch.as_tensor(rng.random((W, C)) < 0.5, device=dev))
+    want = ps._pack_rows_plain(plane)
+    assert torch.equal(ps.pack_rows(plane), want)
+    wide = torch.full((W, want.shape[1] + 2), -1, dtype=torch.int32,
+                      device=dev)
+    ps.pack_rows(plane, out=wide)
+    assert torch.equal(wide[:, :-2], want)
+    assert not wide[:, -2:].any()
 
 
 @pytest.mark.parametrize("backend", ("kernels", "fused"))
