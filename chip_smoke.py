@@ -19,12 +19,7 @@ Phases, in order; any mismatch or exception exits non-zero:
    path's shapes (fig3_weak, W=256) and at edge shapes (ragged and
    unaligned caps that differ between regions, W=1, base=-1 rows,
    INT32_MAX pads, row mask or none, the width limit, one region more
-   than a launch takes); the
-   rank-select kernels take_first_k, kth_set_index and take_and_cut at
-   the lru_take shape of fig4_spill (256 runs of 32768 columns), at the
-   take_upto_row shape of the spill path (one run of a few words) and at
-   edge cases (k = 0, k < 0, k past the popcount, k = INT32_MAX, empty
-   rows, ragged last words, R = 1, nw = 1); the page_diff kernels
+   than a launch takes); the page_diff kernels
    diff_encode (with and without its change bounds), diff_apply and the
    in-place merges diff_apply_ and diff_apply_rows_ at the reference
    path's shapes (1, 256) and
@@ -35,18 +30,20 @@ Phases, in order; any mismatch or exception exits non-zero:
    window with a softcap, MQA and the reduced shape; 2e-5 in float32,
    rtol 8e-3 / atol 2e-3 in bfloat16) and
    ssd_chunk (at the mamba2-2.7b prefill shape with grouped and per-cell
-   B/C rows, in bfloat16, reduced and ragged; 1e-4).  Prints each
-   kernel's median time (CUDA events; for the page_diff kernels,
-   phase_step and pack_rows also their C entry's, and for the last two
-   one launch's device time from torch.profiler, and phase_step's flush
-   with its read-back), the plain version's, the
+   B/C rows, in bfloat16, reduced and ragged; 1e-4).  Prints, after
+   the rank-select phase (5a), each kernel's median time (CUDA events;
+   for the page_diff kernels, phase_step, pack_rows and the rank-select
+   kernels also their C entry's, and for the last three one launch's
+   device time from torch.profiler, and phase_step's flush with its
+   read-back), the plain version's, the
    yardstick (``torch.cumsum`` for coverage_multi, ``torch.where`` for
    the merges, ``scaled_dot_product_attention`` for flash_attention) and
    the bound: the larger of the bytes over the HBM rate and the
    operations over the peak of the units that run them (bfloat16
    attention on the tensor cores; float32 attention and ssd_chunk as
    three TF32 tensor-core products each, a third of the TF32 peak), and
-   which of the two it is;
+   which of the two it is (for the rank-select kernels also the bound
+   on packed words, the parent design's operands);
 4. main-path phase: the W=256 batched points of fig2_strong, fig3_weak,
    fig5_strong, fig6_weak and fig7_md (samhita and samhita_page, Jacobi
    and MD in lock and reduction modes) on the 'fused' tier, plus the two
@@ -62,7 +59,21 @@ Phases, in order; any mismatch or exception exits non-zero:
    plus fig4_refetch and fig7_md_spill on 'kernels'.  Each must match its
    ``BENCH_scale.json`` row as above and its committed danger counters
    (``artifacts/bench/*.csv``); the launch counters must show take_and_cut
-   launched on 'fused' and take_first_k and kth_set_index on 'kernels';
+   launched on 'fused' and take_first_k and kth_set_index on 'kernels',
+   and no rank-select call (take_upto_row, lru_take) may call pack_rows.
+   Prints the histogram of the victim scans' (run length, k);
+5a. rank-select phase: take_first_k, kth_set_index and take_and_cut on
+   bool run rows read in place, and the one-run take_run (fused and
+   not), against their plain versions bit for bit, at the lru_take shape
+   of fig4_spill (256 runs of 32768 columns), on every victim-scan run
+   of the spill phase, and at edge cases (k = 0, k < 0, k past the
+   count, k = INT32_MAX, ranks by value, empty rows, ragged last words,
+   R = 1, C = 1, rows 1 byte off 16-byte boundaries in a plane that ends
+   mid-word, a column window and every other row of a wider plane);
+   timed (wrapper, C entry, one launch on the device) at the lru_take
+   shape and at the commonest victim scan, whose whole scan (the host
+   mask to the card, one launch, one copy back) is timed and traced on
+   'fused' and 'kernels';
 6. reference phase: the per-page reference engine with page values on
    the card.  The program of ``examples/dsm_jacobi.py`` at n=32, W=4
    (fine/lock for 700 iterations, converging to max error < 0.05;
@@ -76,9 +87,10 @@ Phases, in order; any mismatch or exception exits non-zero:
    launches must equal its CPU twin's wrapper calls, and each of the
    four page_diff kernels must launch; prints walls and peak device
    memory;
-7. profile phase: the device busy share of the two samhita fig6_weak
-   points (lock, reduction) and of fig7_md_spill, each from a separate
-   torch.profiler run;
+7. profile phase: the device busy share and device activities of the
+   two samhita fig6_weak points (lock, reduction), of fig4_refetch and
+   fig7_md_spill and of the reference engine's W=256 Jacobi with
+   values, each from a separate torch.profiler run;
 8. model phase (slice M): internlm2-1.8b and then mamba2-2.7b at full
    width and depth, float32 weights drawn on the card from seed 0, serve
    8 requests (the reference server's, prompts up to 511 tokens, 16 new
@@ -152,10 +164,6 @@ PROTO = {"samhita": "fine", "samhita_page": "page"}
 N_TRIAD = 16 << 20
 N_JACOBI = 4096
 N_PARTICLES = 8192
-# columns of one victim run in the refetch replay's take_upto_row: the
-# spill points' runs are 2 to 9 pages long (one packed word), the widest
-# an 8-page refetch window plus its prefetched page
-RUN_COLS = 9
 
 
 def fail(msg: str) -> int:
@@ -292,20 +300,23 @@ def timed_ms(torch, fn, n: int = 50, rounds: int = 5) -> float:
 def profiled_ms(torch, fn, name: str, n: int = 100) -> float:
     """Median device time of one launch of the kernel whose name holds
     ``name``, over ``n`` calls of ``fn`` traced by torch.profiler: the
-    kernel alone, without the host's launch cost."""
+    kernel alone, without the host's launch cost.  A trace that recorded
+    none of them (seen once on the card) is taken again, up to twice."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    times = [e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA and name in e.name]
-    if not times:
-        raise AssertionError(f"torch.profiler recorded no {name} kernel")
-    return statistics.median(times) * 1e-3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        seen = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        times = [e.time_range.elapsed_us() for e in seen if name in e.name]
+        if times:
+            return statistics.median(times) * 1e-3
+    raise AssertionError(f"torch.profiler recorded no {name} kernel among "
+                         f"{sorted({e.name for e in seen})}")
 
 
 def phase_step_read(torch, ps, fn, inp):
@@ -317,10 +328,10 @@ def phase_step_read(torch, ps, fn, inp):
                  for a in ps.read_phase_step(fn(*inp), R, W_))
 
 
-def kernel_phase(torch, np, ps, dev):
-    rng = np.random.default_rng(2013)
-    results = {}
-
+def make_same(torch):
+    """``same(name, a, b)``: a kernel's result ``a`` (a tensor or a tuple
+    of them) against its plain version's ``b``, bit for bit; raises on a
+    difference, returns the largest absolute difference (0)."""
     def same(name, a, b):
         if isinstance(a, tuple):
             return max(same(name, x, y) for x, y in zip(a, b))
@@ -331,6 +342,13 @@ def kernel_phase(torch, np, ps, dev):
             return 0
         return int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) \
             if a.numel() else 0
+    return same
+
+
+def kernel_phase(torch, np, ps, dev):
+    rng = np.random.default_rng(2013)
+    results = {}
+    same = make_same(torch)
 
     def t(a):
         return torch.as_tensor(a, device=dev)
@@ -467,9 +485,16 @@ def kernel_phase(torch, np, ps, dev):
     results["phase_step"] = dict(err=err, stacked=timed["stacked"],
                                  **timed["main"])
     results["coverage_multi"]["library"] = "torch.cumsum"
-    results.update(rank_select_phase(torch, np, ps, rng, same, t))
     results.update(page_diff_phase(torch, np, rng, dev))
     results.update(model_kernel_phase(torch, np, dev))
+    return results
+
+
+def report_kernels(results):
+    """Each kernel's bound (the larger of its bytes over the HBM rate and
+    its operations over the peak of the units that run them), printed
+    with its timings, at every timed shape; ``packed_bytes`` adds the
+    rank-select kernels' bound on the parent design's packed words."""
     for name, r in results.items():
         # a second timed shape: the fig4_spill lru_take shape of the
         # rank-select kernels, a batched page_diff call, flash_attention
@@ -492,6 +517,11 @@ def kernel_phase(torch, np, ps, dev):
             if "profiled_ms" in shape:
                 err += (f"  on the device {shape['profiled_ms'] * 1e3:.2f} us "
                         "(profiler)")
+            if "packed_bytes" in shape:
+                shape["packed_bound_ms"] = (shape["packed_bytes"]
+                                            / HBM_BYTES_PER_S * 1e3)
+                err += (f"  [bound on packed words "
+                        f"{shape['packed_bound_ms'] * 1e3:.6f} us]")
             print(f"kernel {name:15s} shape={shape['shape']}{err}  kernel "
                   f"{shape['ms'] * 1e3:.2f} us  plain "
                   f"{shape['plain_ms'] * 1e3:.2f} us{lib}  bound "
@@ -681,60 +711,205 @@ def page_diff_phase(torch, np, rng, dev):
     return out
 
 
-def rank_select_phase(torch, np, ps, rng, same, t):
-    """take_first_k, kth_set_index and take_and_cut against their plain
-    versions, bit for bit, over random and edge ranks; timed at the
-    take_upto_row shape the spill path gives them (one run of RUN_COLS
-    columns) and at the lru_take shape of fig4_spill (W=256 runs of
-    32768 columns).  Bytes: words read once, the take mask written once,
-    int32 ranks read, int64 cuts written."""
-    i32max = np.iinfo(np.int32).max
+def rank_entry_calls(torch, ps, live, k):
+    """name -> (wrapper call, C entry call) of the three rank-select
+    entries on bool ``live`` (R, C) with ranks ``k``: an int32 vector on
+    the card, or an int for one row (by value, as the replay passes it).
+    The C entry calls hold the tensors behind their pointers."""
+    stream = torch.cuda.current_stream().cuda_stream
+    R, C = live.shape
+    entry = ps._KERNELS.entry
+    take = torch.empty((R, C), dtype=torch.bool, device=live.device)
+    cut = torch.empty(R, dtype=torch.int64, device=live.device)
+    kp, kv = (None, k) if isinstance(k, int) else (k.data_ptr(), 0)
+    head = (live.data_ptr(), live.stride(0), R, C, kp, kv)
+    tp, cp = take.data_ptr(), cut.data_ptr()
+    keep = (live, k, take, cut)
+    return {
+        "take_first_k": (
+            lambda: ps.take_first_k(live, k),
+            lambda _=keep: entry("take_first_k")(*head, tp, None, stream)),
+        "kth_set_index": (
+            lambda: ps.kth_set_index(live, k),
+            lambda _=keep: entry("kth_set_index")(*head, cp, None, stream)),
+        "take_and_cut": (
+            lambda: ps.take_and_cut(live, k),
+            lambda _=keep: entry("take_and_cut")(*head, tp, cp, None,
+                                                 stream)),
+    }
 
-    def case(R_, C_):
+
+def rank_bytes(name: str, R: int, C: int, vector: bool, packed: bool):
+    """Bytes a rank-select entry must move: its rows read once (bool
+    cells, or the parent design's packed words), the take written once
+    (the same), ranks read (int32 when a vector) and cuts written
+    (int64)."""
+    row = 4 * -(-C // 32) if packed else C
+    take = {"take_first_k": R * row, "kth_set_index": 0,
+            "take_and_cut": R * row}[name]
+    cut = 0 if name == "take_first_k" else 8 * R
+    return R * row + take + cut + (4 * R if vector else 0)
+
+
+def victim_scan(torch, d, live, k: int):
+    """One refetch-replay victim scan as ``_danger_replay`` makes it: the
+    host's live mask copied to the card, ``take_upto_row``, the victim
+    columns and the cut on the host."""
+    return d.take_upto_row(torch.as_tensor(live, device=d.device), k)
+
+
+def device_activities(torch, fn) -> int:
+    """The device activities (kernels, copies, sets) torch.profiler
+    records over one call of ``fn``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.device_type == DeviceType.CUDA for e in prof.events())
+
+
+def rank_select_phase(torch, np, ps, dev, scans, same):
+    """take_first_k, kth_set_index and take_and_cut, and the one-run
+    ``take_run``, against their plain versions on the card, bit for bit,
+    over random and edge ranks (k = 0, k < 0, k equal to and past the
+    row's count, INT32_MAX; int32 vectors, and ranks by value for one
+    row) on bool rows read in place: the lru_take shape of fig4_spill
+    (W=256 runs of 32768 columns, one block a row), the spill phase's
+    victim-scan runs (``scans``: (run length, k) -> [count, an example
+    live mask]), R = 1 / C = 1, ragged last words, rows of one warp and
+    of several scan rounds, rows 1 byte off 16-byte boundaries in a
+    plane that ends mid-word at its allocation's end, a column window of
+    a wider plane and every other row of one.  Timed (wrapper, C entry
+    alone, one launch on the device) at the lru_take shape and at the
+    commonest (run length, k) of the victim scans, whose scan (the host
+    mask to the card, ``take_run``, the one copy back) is also timed
+    (host clock) and traced (device activities) on 'fused' and
+    'kernels'.  Bytes: the bool rows read once, the take written once,
+    ranks read, cuts written; ``packed_bytes`` the same on the parent
+    design's packed words."""
+    from repro_torch.core.directory import RegionDirectory
+    rng = np.random.default_rng(18)
+    i32max = np.iinfo(np.int32).max
+    def both(live, k):
+        return (ps._take_first_k_bool_plain(live, k),
+                ps._kth_set_index_bool_plain(live, k))
+
+    calls = {
+        "take_first_k": (ps.take_first_k, ps._take_first_k_bool_plain),
+        "kth_set_index": (ps.kth_set_index, ps._kth_set_index_bool_plain),
+        "take_and_cut": (ps.take_and_cut, both),
+    }
+    errs = dict.fromkeys(calls, 0)
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+
+    def check(live):
+        plane = live.cpu().numpy()
+        R_, C_ = plane.shape
+        tot = plane.sum(axis=1)
+        for k in (rng.integers(0, C_ + 1, R_), np.zeros(R_), np.full(R_, -5),
+                  tot, tot + 1, np.maximum(tot - 1, 1), np.full(R_, i32max)):
+            k64 = t(np.asarray(k, np.int64))
+            for kk in [k64.to(torch.int32)] + ([int(k[0])] if R_ == 1
+                                               else []):
+                for name, (kern, plain) in calls.items():
+                    errs[name] = max(errs[name], same(
+                        name, kern(live, kk), plain(live.contiguous(), k64)))
+            if R_ == 1:
+                for kk in {int(k[0]), 1, int(tot[0])}:
+                    for fused in (True, False):
+                        got = ps.read_take_run(ps.take_run(live[0], kk,
+                                                           fused))
+                        want = ps.read_take_run(ps._take_run_plain(
+                            live[0].contiguous(), kk))
+                        if got[0] != want[0] or not np.array_equal(got[1],
+                                                                   want[1]):
+                            raise AssertionError(
+                                f"take_run (fused={fused}): kernel "
+                                f"{got} != plain version {want}")
+
+    def rows(R_, C_):
         live = rng.random((R_, C_)) < rng.random((R_, 1))
         live[0] = True
         if R_ > 2:
             live[-1] = False                           # an empty row
-        tot = live.sum(axis=1)
-        ks = [rng.integers(0, C_ + 1, R_), np.zeros(R_), np.full(R_, -5),
-              tot, tot + 1, np.maximum(tot - 1, 1), np.full(R_, i32max)]
-        return (ps.pack_rows(t(live)),
-                [t(np.asarray(k, np.int64).astype(np.int32)) for k in ks])
+        return t(live)
 
-    calls = {
-        "take_first_k": (ps.take_first_k, ps._take_first_k_plain),
-        "kth_set_index": (ps.kth_set_index, ps._kth_set_index_plain),
-        "take_and_cut": (ps.take_and_cut, lambda b, k: (
-            ps._take_first_k_plain(b, k), ps._kth_set_index_plain(b, k))),
-    }
-    errs = dict.fromkeys(calls, 0)
-    shapes = ((W, 32768), (1, RUN_COLS), (1, 1), (1, 32), (3, 31),
-              (5, 1000), (2, 8195))
+    lru = rows(W, 32768)
+    check(lru)
+    for (L, _k), (_n, example) in scans.items():
+        check(t(example)[None])
+    for R_, C_ in ((1, 1), (1, 32), (3, 31), (5, 1000), (4, 1024),
+                   (3, 1025), (2, 256 * 4 * 32 + 8195)):
+        check(rows(R_, C_))
+    # rows 1 byte off 16-byte boundaries, the plane ending mid-word at the
+    # end of its allocation; a column window; every other row
+    for R_, C_ in ((W, 16385), (3, 1001), (1, 9)):
+        buf = torch.zeros(R_ * C_ + 1, dtype=torch.bool, device=dev)
+        shifted = buf[1:].view(R_, C_)
+        shifted.copy_(rows(R_, C_))
+        check(shifted)
+        wide = rows(2 * R_, C_ + 7)
+        check(wide[:R_, 3:3 + C_])
+        check(wide[::2, 5:5 + C_])
+    for w_, a, b in ((0, 3, 10), (1, 17, 1000), (2, 64, 1130)):
+        check(lru[w_, a:b][None])
+
+    # timed: the lru_take shape, and the commonest victim scan
+    (L, k_run), (n_run, example) = max(scans.items(),
+                                       key=lambda kv: kv[1][0])
+    run = t(example)[None]
+    lru_k = t(rng.integers(0, 32768, W).astype(np.int32))
     timed = {}
-    for R_, C_ in shapes:
-        bits_, ks = case(R_, C_)
-        for k in ks:
-            for name, (kern, plain) in calls.items():
-                errs[name] = max(errs[name], same(name, kern(bits_, k),
-                                                  plain(bits_, k)))
-        if (R_, C_) in ((W, 32768), (1, RUN_COLS)):
-            timed[(R_, C_)] = (bits_, ks[0])
-    out = {}
-    for name, (kern, plain) in calls.items():
-        res = {}
-        for (R_, C_), (bits_, k) in timed.items():
-            nw_ = bits_.shape[1]
-            nbytes = {"take_first_k": 2 * R_ * nw_ * 4 + R_ * 4,
-                      "kth_set_index": R_ * nw_ * 4 + R_ * 12,
-                      "take_and_cut": 2 * R_ * nw_ * 4 + R_ * 12}[name]
-            res[(R_, C_)] = dict(
-                shape=[R_, nw_],
-                ms=timed_ms(torch, lambda: kern(bits_, k)),
-                plain_ms=timed_ms(torch, lambda: plain(bits_, k), 10, 3),
-                bytes=nbytes)
-        out[name] = dict(err=errs[name], library_ms=None,
-                         lru=res[(W, 32768)], **res[(1, RUN_COLS)])
-    return out
+    for key, live, k in (("lru", lru, lru_k), ("run", run, k_run)):
+        R_, C_ = live.shape
+        for name, (wrapper, c_entry) in rank_entry_calls(
+                torch, ps, live, k).items():
+            kp = (k.to(torch.int64) if isinstance(k, torch.Tensor)
+                  else t(np.array([k], np.int64)))
+            plain = calls[name][1]
+            timed.setdefault(name, {})[key] = dict(
+                shape=[R_, C_] + ([f"k={k}"] if key == "run" else []),
+                ms=timed_ms(torch, wrapper),
+                c_entry_ms=timed_ms(torch, c_entry),
+                profiled_ms=profiled_ms(torch, c_entry,
+                                        "rank_select_kernel"),
+                plain_ms=timed_ms(torch, lambda: plain(live, kp), 10, 3),
+                bytes=rank_bytes(name, R_, C_, key == "lru", False),
+                packed_bytes=rank_bytes(name, R_, C_, key == "lru", True))
+    nz = np.flatnonzero(example)
+    scan = {"run": [L, k_run], "scans": n_run}
+    for backend in ("fused", "kernels"):
+        d = RegionDirectory(1, 0, 0, 64, backend=backend, device=dev)
+        cols, cut = victim_scan(torch, d, example, k_run)
+        if not np.array_equal(cols, nz[:k_run]) or cut != nz[k_run - 1] + 1:
+            raise AssertionError(f"victim scan [{backend}]: ({cols}, {cut})"
+                                 f" != ({nz[:k_run]}, {nz[k_run - 1] + 1})")
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            for _ in range(200):
+                victim_scan(torch, d, example, k_run)
+            walls.append((time.perf_counter() - t0) / 200 * 1e3)
+        # three traces of 10 scans each: one trace in a run on the card
+        # recorded none of a single scan's activities
+        traced = [device_activities(torch, lambda: [
+            victim_scan(torch, d, example, k_run) for _ in range(10)]) / 10
+            for _ in range(3)]
+        scan[backend] = dict(wall_ms=statistics.median(walls),
+                             device_activities=statistics.median(traced),
+                             traced=traced)
+        print(f"victim scan [{backend:7s}] run of {L} columns, k={k_run} "
+              f"({n_run} of the spill phase's scans): wall "
+              f"{scan[backend]['wall_ms'] * 1e3:.2f} us, "
+              f"{scan[backend]['device_activities']} device activities a "
+              f"scan (three traces of 10 scans: {traced})", flush=True)
+    return {name: dict(err=errs[name], library_ms=None, lru=r["lru"],
+                       victim_scan=scan, **r["run"])
+            for name, r in timed.items()}
 
 
 def flash_inputs(torch, np, rng, B, Hq, Hkv, S, D, dtype, dev):
@@ -1250,10 +1425,32 @@ def run_spill_point(torch, point, backend, device="cuda"):
 def spill_phase(torch, ps, device="cuda"):
     """The six spill rows on 'fused' and the two refetch-replay rows on
     'kernels'; every check of the main-path phase, plus the committed
-    danger counters and the rank-select launches."""
+    danger counters and the rank-select launches.  The rank-select calls
+    (``take_upto_row``, ``lru_take``) are watched: none may call
+    pack_rows (the kernels read the bool runs), and each victim scan's
+    (run length, k) is counted, with the first live mask of each pair.
+    Returns (rows, launches, {(run length, k): [count, live mask]})."""
+    from repro_torch.core.directory import RegionDirectory as RD
     rows = {(r["section"], r["protocol"], r["W"], r.get("driver")): r
             for r in json.loads(
                 (ROOT / "BENCH_scale.json").read_text())["rows"]}
+    scans = {}
+    rank_packs = []
+    plain_rank = {n: getattr(RD, n) for n in ("take_upto_row", "lru_take")}
+
+    def watched(name):
+        def call(self, live, k, *args):
+            if name == "take_upto_row":
+                seen = scans.setdefault((int(live.shape[0]), int(k)),
+                                        [0, None])
+                seen[0] += 1
+                if seen[1] is None:
+                    seen[1] = live.cpu().numpy().copy()
+            packs = ps.CALLS["pack_rows"]
+            out = plain_rank[name](self, live, k, *args)
+            rank_packs.append(ps.CALLS["pack_rows"] - packs)
+            return out
+        return call
     danger = committed_danger()
     runs = [(pt, "fused") for pt in spill_points()]
     runs += [(pt, "kernels") for pt in spill_points()
@@ -1267,7 +1464,13 @@ def spill_phase(torch, ps, device="cuda"):
     for point, backend in runs:
         sec, tag, cache_pages = point[0], point[1], point[5]
         before = dict(ps.LAUNCHES)
-        rt, wall = run_spill_point(torch, point, backend, device)
+        for name in plain_rank:
+            setattr(RD, name, watched(name))
+        try:
+            rt, wall = run_spill_point(torch, point, backend, device)
+        finally:
+            for name, fn in plain_rank.items():
+                setattr(RD, name, fn)
         launched = {k: ps.LAUNCHES[k] - before[k] for k in ps.LAUNCHES}
         for k, v in launched.items():
             per_backend[backend][k] += v
@@ -1300,7 +1503,14 @@ def spill_phase(torch, ps, device="cuda"):
             if idle:
                 raise AssertionError(f"spill phase [{backend}]: kernels "
                                      f"{idle} never launched")
-    return out, dict(ps.LAUNCHES)
+    if any(rank_packs):
+        raise AssertionError(f"spill phase: {sum(rank_packs)} pack_rows "
+                             "calls inside take_upto_row / lru_take")
+    hist = sorted(((n, key) for key, (n, _) in scans.items()), reverse=True)
+    print(f"spill victim scans {sum(n for n, _ in hist)} (count, (run "
+          f"length, k)): {hist}; rank-select calls {len(rank_packs)}, "
+          "none calling pack_rows", flush=True)
+    return out, dict(ps.LAUNCHES), scans
 
 
 # ---------------------------------------------------------------------------
@@ -1442,7 +1652,8 @@ def reference_phase(torch, np, device="cuda", W_=W,
 
 def profile_phase(torch):
     """Device busy share of two fig6_weak points (samhita, lock and
-    reduction mode) and of the fig7_md_spill point, on 'fused', and of the
+    reduction mode) and of the fig4_refetch and fig7_md_spill points (the
+    refetch replay's victim scans), on 'fused', and of the
     reference engine's W=256 Jacobi (lock, page values on the card, iters
     2), each in a separate traced run: the union of the intervals of every
     device activity torch.profiler records (kernels, copies, sets) over
@@ -1458,7 +1669,8 @@ def profile_phase(torch):
             if sec == "fig6_weak" and series == "samhita"]
     runs += [(pt[0], pt[1], lambda pt=pt: run_spill_point(torch, pt,
                                                           "fused"))
-             for pt in spill_points() if pt[0] == "fig7_md_spill"]
+             for pt in spill_points()
+             if pt[0] in ("fig4_refetch", "fig7_md_spill")]
 
     def reference_jacobi():
         t0 = time.perf_counter()
@@ -1567,7 +1779,11 @@ def main() -> int:
     dev = torch.device("cuda")
     kernels = kernel_phase(torch, np, ps, dev)
     points, launches = main_path_phase(torch, ps)
-    spills, spill_launches = spill_phase(torch, ps)
+    spills, spill_launches, scans = spill_phase(torch, ps)
+    # the rank-select kernels, timed at the spill phase's commonest scan
+    kernels.update(rank_select_phase(torch, np, ps, dev, scans,
+                                     make_same(torch)))
+    report_kernels(kernels)
     references, ref_launches = reference_phase(torch, np)
     profiled = profile_phase(torch)
     models, model_launches = model_phase(torch, np)
@@ -1593,6 +1809,7 @@ def main() -> int:
          "kernel_phase": kernels,
          "points": points, "spill_points": spills,
          "reference_points": references, "models": models,
+         "victim_scans": [[L, k, n] for (L, k), (n, _) in scans.items()],
          "launches_main": launches, "launches_spill": spill_launches,
          "launches_reference": ref_launches, "launches_model": model_launches,
          "profile": profiled, **table}, indent=1) + "\n")

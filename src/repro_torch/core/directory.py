@@ -367,8 +367,9 @@ class RegionDirectory:
         """Segment-LRU selection: per row, the first (oldest) k[i] live
         cells of the run, as a device mask.  Fully-live runs (``tot`` ==
         run length) reduce to a columnar cutoff; otherwise the kernel
-        tiers pack the runs and run ``take_first_k``, and 'plain' takes a
-        boolean prefix count.  The mask never leaves the device."""
+        tiers run ``take_first_k`` on the bool runs as they lie, and
+        'plain' takes a boolean prefix count.  The mask never leaves the
+        device."""
         k = np.asarray(k, np.int64)
         L = live.shape[1]
         if tot is not None and bool((tot == L).all()):
@@ -378,37 +379,34 @@ class RegionDirectory:
             # int32 ranks, as the kernel takes them (a rank past the run
             # length keeps the whole run either way)
             k32 = np.clip(k, -_I32_MAX - 1, _I32_MAX).astype(np.int32)
-            bits = _ps.take_first_k(_ps.pack_rows(live.contiguous()),
-                                    torch.tensor(k32, device=self.device))
+            take = _ps.take_first_k(live, torch.from_numpy(k32).to(
+                self.device))
             self._note_fused()
-            return _ps.unpack_rows(bits, L)
+            return take
         return live & (torch.cumsum(live, dim=1) <= self.ix(k)[:, None])
 
     def take_upto_row(self, live: torch.Tensor,
-                      k: int) -> Tuple[torch.Tensor, int]:
+                      k: int) -> Tuple[np.ndarray, int]:
         """Rank-select over ONE run's device live mask (the refetch replay's
-        victim scan): the mask of the first k live cells and the scan cut,
-        the index just past the k-th live cell.  The caller guarantees the
-        run holds more than k live cells.  'fused' computes both in one
-        ``take_and_cut`` launch; 'kernels' runs ``take_first_k`` for the
-        mask and the ``kth_set_index`` rank query for the cut (the
-        reference's pallas tier reads the cut off the mask on the host
-        instead; with more than k live cells the two agree); 'plain' takes
-        a prefix count."""
-        n = live.shape[0]
-        kt = torch.tensor([k], dtype=torch.int32, device=self.device)
+        victim scan): the host columns of the first k live cells and the
+        scan cut, the index just past the k-th live cell.  The caller
+        guarantees the run holds more than k live cells.  The kernel tiers
+        read the bool run as it lies, with the rank by value, and bring
+        back [cut, count, columns] in one copy (``take_run``): 'fused'
+        computes both in one ``take_and_cut`` launch; 'kernels' runs
+        ``take_first_k`` for the columns and the ``kth_set_index`` rank
+        query for the cut (the reference's pallas tier reads the cut off
+        the mask on the host instead; with more than k live cells the two
+        agree); 'plain' takes a prefix count."""
         if self.backend == "plain":
             cs = torch.cumsum(live, dim=0)
             cut = int(torch.argmax((cs >= k).to(torch.int8)))
-            return live & (cs <= k), cut + 1
-        bits = _ps.pack_rows(live.contiguous()[None])
-        if self.backend == "fused":
-            take, cut = _ps.take_and_cut(bits, kt)
+            return host(torch.nonzero(live & (cs <= k)).flatten()), cut + 1
+        fused = self.backend == "fused"
+        cut, cols = _ps.read_take_run(_ps.take_run(live, k, fused))
+        if fused:
             self._note_fused()
-        else:
-            take = _ps.take_first_k(bits, kt)
-            cut = _ps.kth_set_index(bits, kt)
-        return _ps.unpack_rows(take, n)[0], int(cut[0]) + 1
+        return cols, cut + 1
 
     def evict_rows(self, rows: np.ndarray, start: int, length: int,
                    take: Optional[torch.Tensor], *,

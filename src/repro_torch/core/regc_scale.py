@@ -20,12 +20,13 @@ Under ``cache_pages`` each worker holds at most that many pages
 (watermark eviction, exact LRU through a tick-ordered queue of touch
 runs, as in the reference).  ``phase_all`` stays batched under spill: a
 window-disjointness analysis proves which workers' evictions cannot
-interact, those evict with segment-LRU plane ops (``pack_rows`` ->
-``take_first_k`` masks, ``popcount_rows`` dirty-victim counts), and the
-rest replay per worker in tick order.  Ops that can evict a page of their
-own range before touching it resolve through the analytic
-evict-then-refetch schedule (``_danger_replay``), whose victim scan runs
-the rank-select kernels; ``danger_mode="scalar"`` forces the per-page walk
+interact, those evict with segment-LRU plane ops (``take_first_k``
+masks from the bool runs, ``pack_rows`` -> ``popcount_rows`` dirty-victim
+counts), and the rest replay per worker in tick order.  Ops that can
+evict a page of their own range before touching it resolve through the
+analytic evict-then-refetch schedule (``_danger_replay``), whose victim
+scan is one rank-select launch read back in one copy (``take_run``);
+``danger_mode="scalar"`` forces the per-page walk
 the reference uses as its oracle.  The LRU queues, the resident counts and
 the ticks are host state, like the window geometry; the touch/incache
 planes live on the device.
@@ -380,7 +381,7 @@ class RegCScaleRuntime:
         segment none of whose cells was evicted goes stale at no cost; one
         whose prefix was evicted evicts-then-refetches whole.  Victims are
         consumed run by run; a run that outlives the demand goes through
-        ``take_upto_row``'s rank-select kernels on the device.  Once the
+        ``take_upto_row``'s rank-select kernel on the device.  Once the
         pre-op stream is dry the op consumes its own oldest columns (a
         prefix).  ``fetch_flag`` marks the pages that charge a fetch when
         invalid at touch time (None = all).  Returns the fetch-miss count;
@@ -461,9 +462,9 @@ class RegCScaleRuntime:
                     k -= tot
                     roff = nr
                     continue
-                take_mask, cut = dr.take_upto_row(
+                cols, cut = dr.take_upto_row(
                     torch.as_tensor(live, device=dr.device), k)
-                vc = torch.nonzero(take_mask).flatten().cpu().numpy() + a
+                vc = cols + a
                 if rec is not None:
                     rec["events"].append((qi, vc - cc0))
                 self._evict_now(w, dr, vc)

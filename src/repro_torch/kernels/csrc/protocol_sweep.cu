@@ -318,81 +318,238 @@ __global__ void phase_step_kernel(const PhaseRegions regions, int r0, int W,
   }
 }
 
-// rank_select: the eviction engine's per-row rank-select over packed
-// run-liveness masks, one template for three entries, replacing these
-// TPU kernels of src/repro/kernels/protocol_sweep.py:
+// rank_select: the eviction engine's per-row rank-select, read from the
+// bool run planes as they lie; one template for three entries, replacing
+// these TPU kernels of src/repro/kernels/protocol_sweep.py, each composed
+// with the host's pack_mask_rows (:134) before it and unpack_mask_rows
+// (:150) after it:
 //   take_first_k  <- _take_first_k_pallas   (:266)
 //   kth_set_index <- _kth_set_index_pallas  (:310)
 //   take_and_cut  <- _take_and_cut_jit      (:415)
-// The TPU kernels padded rows to 8-row blocks of 128 lanes and ran 32
-// static shift steps per word.  Here one block takes one row: threads
-// read consecutive words (coalesced), each word's __popc feeds a
-// block-wide exclusive scan (cub::BlockScan) chunk by chunk with a running
-// carry, so every thread knows excl = the set bits before its word.
-//   take: need = clamp(k - excl, 0, 32); the word stays whole when
-//         need >= popc, becomes 0 when need == 0, and otherwise keeps the
-//         bits below its (need+1)-th set bit (__fns);
-//   cut:  the one thread whose word holds the k-th set bit
-//         (excl < k <= excl + popc) writes 32*wi + __fns(word, 0, k - excl)
-//         to shared memory; the row's cut stays -1 when k <= 0 or the row
-//         has fewer than k set bits.
-// Bound: bytes, 2*R*nw*4 + R*12 for take_and_cut (words read once, take
-// written once, k read, cut written); a handful of integer operations per
-// word.  At the path's shapes (R = 1 row of a few words in the refetch
-// replay; R <= 256 rows of <= 1024 words in lru_take) the launch dominates.
-template <bool kTake, bool kCut>
-__global__ void rank_select_kernel(const uint32_t* __restrict__ bits,
-                                   const int* __restrict__ k,
-                                   uint32_t* __restrict__ take,
-                                   long long* __restrict__ cut,
-                                   long long nw) {
-  using Scan = cub::BlockScan<int, kThreads>;
-  __shared__ typename Scan::TempStorage tmp;
-  __shared__ int chunk_total;
-  __shared__ long long found;
-  const long long r = blockIdx.x;
-  const uint32_t* row = bits + r * nw;
-  const long long kk = k[r];
-  if (kCut && threadIdx.x == 0) found = -1;
-  __syncthreads();
-  long long carry = 0;
-  for (long long start = 0; start < nw; start += kThreads) {
-    const long long wi = start + threadIdx.x;
-    const uint32_t word = wi < nw ? row[wi] : 0u;
-    const int pc = __popc(word);
-    int excl_in;
-    Scan(tmp).ExclusiveSum(pc, excl_in);
-    const long long excl = carry + excl_in;
-    if (kTake && wi < nw) {
-      const long long need = kk - excl;
-      uint32_t out = 0u;
-      if (need >= pc) {
-        out = word;
-      } else if (need > 0) {
-        out = word & ((1u << __fns(word, 0, static_cast<int>(need) + 1)) - 1u);
-      }
-      take[r * nw + wi] = out;
-    }
-    if (kCut && excl < kk && kk <= excl + pc) {
-      found = 32 * wi + __fns(word, 0, static_cast<int>(kk - excl));
-    }
-    if (threadIdx.x == kThreads - 1) chunk_total = excl_in + pc;
-    __syncthreads();
-    carry += chunk_total;
-    __syncthreads();  // chunk_total and tmp are reused by the next chunk
+// The TPU kernels took packed words (8-row blocks of 128 lanes, 32 static
+// shift steps per word), so the parent design packed every run first
+// (pack_rows), scanned one word a thread in chunks of 256 with two
+// __syncthreads a chunk, and the caller unpacked the packed take (about
+// six elementwise kernels) and read the cut and the take's columns back
+// in two more syncs.  Here the kernel forms each row's 32-cell words
+// itself (load_word: nothing is packed beforehand), from rows given by a
+// pointer and a row stride (a view such as plane[w, a:b] needs no copy),
+// and writes what the caller reads:
+//   take: the bool (R, C) mask of each row's first k set cells, 32 cells
+//         a word, with two 16-byte stores where the word's cells are
+//         16-byte aligned;
+//   cut:  the column of the k-th set cell, -1 when k <= 0 or the row has
+//         fewer than k set cells;
+//   list: for one run, [cut, count, col_0 .. col_{count-1}] of the taken
+//         cells (count = clamp(k, 0, set cells)) in one int64 buffer, so
+//         the host reads the victim scan back in one copy; the 'kernels'
+//         tier's take_first_k and kth_set_index fill the two parts of one
+//         buffer.
+// Ranks come as an int32 vector of R, or one rank by value (R == 1), so
+// the one-run form copies nothing to the card.  A row of at most 32 words
+// (1024 cells, the refetch replay's runs) is one warp: a word a lane and a
+// shuffle scan, no shared memory and no __syncthreads.  A longer row is
+// one block that takes kRankWords * kThreads words a round, kRankWords
+// words a thread held in registers: word j*kThreads + t of the round is
+// thread t's j-th, so a warp's loads and stores of each j cover 32
+// neighbouring words (1 KiB of cells) and coalesce.  The round's prefix
+// counts are one scan: each warp scans its lanes' counts for each j by
+// shuffles, and one warp scans the 32 warp sums (round-major, which is
+// word order), so a row of 1024 words (the lru_take shape) takes one
+// round with two __syncthreads.  Every word's excl (set cells before it)
+// then gives its take (__fns picks the cut-off bit), its columns' slots
+// in the list, and whether it holds the k-th cell.
+// Bound: bytes, the bool rows read once, the bool take (R*C) and the cut
+// or the list written, the ranks read; a few integer operations a word.
+constexpr int kRankWords = 4;
+// one warp scans the round's warp sums
+static_assert(kRankWords * kWarps == 32, "kRankWords * kWarps != 32");
+
+struct RankIn {
+  const uint8_t* plane;  // row r at plane + r * stride, C cells
+  const uint8_t* hi;     // one past the view's last byte
+  long long stride, R, C;
+  const int* k;          // R ranks, or null: k_val for the one row
+  long long k_val;
+};
+
+struct RankOut {
+  uint8_t* take;    // (R, C) contiguous, or null
+  long long* cut;   // (R,), or null
+  long long* list;  // one run: [cut, count, columns...], or null
+};
+
+// A cell a byte: the four bits of ``nib`` as bytes of 0 or 1 (the
+// multiply spreads bit i to bit 8i, with no carries).
+__device__ __forceinline__ uint32_t cells4(uint32_t nib) {
+  return (nib * 0x00204081u) & 0x01010101u;
+}
+
+// Word wi of a take row (C cells): 32 cells as bytes.
+__device__ __forceinline__ void store_cells(uint8_t* row, long long wi,
+                                            long long C, uint32_t t) {
+  uint8_t* p = row + 32 * wi;
+  if (32 * wi + 32 <= C && (reinterpret_cast<uintptr_t>(p) & 15u) == 0) {
+    uint4* q = reinterpret_cast<uint4*>(p);
+    q[0] = make_uint4(cells4(t & 15u), cells4(t >> 4 & 15u),
+                      cells4(t >> 8 & 15u), cells4(t >> 12 & 15u));
+    q[1] = make_uint4(cells4(t >> 16 & 15u), cells4(t >> 20 & 15u),
+                      cells4(t >> 24 & 15u), cells4(t >> 28));
+    return;
   }
-  if (kCut && threadIdx.x == 0) cut[r] = found;
+  const int n = static_cast<int>(C - 32 * wi < 32 ? C - 32 * wi : 32);
+  for (int j = 0; j < n; ++j) p[j] = static_cast<uint8_t>(t >> j & 1u);
+}
+
+// Word wi of row r holds ``pc`` set cells with ``excl`` before it.
+template <bool kTake, bool kCut>
+__device__ __forceinline__ void select_word(const RankOut& out, long long r,
+                                            long long C, long long wi,
+                                            uint32_t word, int pc,
+                                            long long excl, long long kk) {
+  if (kTake) {
+    const long long need = kk - excl;
+    uint32_t t = 0u;
+    if (need >= pc) {
+      t = word;
+    } else if (need > 0) {
+      t = word & ((1u << __fns(word, 0, static_cast<int>(need) + 1)) - 1u);
+    }
+    if (out.take != nullptr) store_cells(out.take + r * C, wi, C, t);
+    if (out.list != nullptr) {
+      for (long long i = 2 + excl; t != 0u; t &= t - 1u, ++i) {
+        out.list[i] = 32 * wi + __ffs(t) - 1;
+      }
+    }
+  }
+  if (kCut && excl < kk && kk <= excl + pc) {
+    const long long col =
+        32 * wi + __fns(word, 0, static_cast<int>(kk - excl));
+    if (out.list != nullptr) {
+      out.list[0] = col;
+    } else {
+      out.cut[r] = col;
+    }
+  }
+}
+
+// Row r's ``total`` set cells are known: the cut where no word held the
+// k-th cell, and the list's count.
+template <bool kTake, bool kCut>
+__device__ __forceinline__ void finish_row(const RankOut& out, long long r,
+                                           long long total, long long kk) {
+  if (kCut && (kk <= 0 || total < kk)) {
+    if (out.list != nullptr) {
+      out.list[0] = -1;
+    } else {
+      out.cut[r] = -1;
+    }
+  }
+  if (kTake && out.list != nullptr) {
+    out.list[1] = kk <= 0 ? 0 : (kk < total ? kk : total);
+  }
+}
+
+template <bool kTake, bool kCut, bool kWarpRow>
+__global__ void __launch_bounds__(kThreads)
+    rank_select_kernel(const RankIn in, const RankOut out) {
+  const long long C = in.C;
+  const long long nw = (C + 31) / 32;
+  if constexpr (kWarpRow) {  // a row a warp, nw <= 32
+    const long long r =
+        static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) +
+        (threadIdx.x >> 5);
+    if (r >= in.R) return;  // warp-uniform
+    const int lane = threadIdx.x & 31;
+    const uint8_t* row = in.plane + r * in.stride;
+    const long long kk = in.k != nullptr ? in.k[r] : in.k_val;
+    const uint32_t word =
+        lane < nw ? load_word(row, lane, C, in.plane, in.hi) : 0u;
+    const int pc = __popc(word);
+    int incl = pc;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += v;
+    }
+    const int total = __shfl_sync(kFull, incl, 31);
+    if (lane < nw) {
+      select_word<kTake, kCut>(out, r, C, lane, word, pc, incl - pc, kk);
+    }
+    if (lane == 0) finish_row<kTake, kCut>(out, r, total, kk);
+  } else {  // a row a block, in chunks of kThreads * kRankWords words
+    __shared__ int part[kRankWords * kWarps];  // round-major warp sums
+    __shared__ int chunk;
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const long long r = blockIdx.x;
+    const uint8_t* row = in.plane + r * in.stride;
+    const long long kk = in.k != nullptr ? in.k[r] : in.k_val;
+    long long carry = 0;
+    for (long long w0 = 0; w0 < nw; w0 += kThreads * kRankWords) {
+      uint32_t word[kRankWords];
+      int pc[kRankWords], incl[kRankWords];
+#pragma unroll
+      for (int j = 0; j < kRankWords; ++j) {
+        const long long wi = w0 + j * kThreads + threadIdx.x;
+        word[j] = wi < nw ? load_word(row, wi, C, in.plane, in.hi) : 0u;
+      }
+#pragma unroll
+      for (int j = 0; j < kRankWords; ++j) {
+        pc[j] = __popc(word[j]);
+        incl[j] = pc[j];
+        for (int o = 1; o < 32; o <<= 1) {
+          const int v = __shfl_up_sync(kFull, incl[j], o);
+          if (lane >= o) incl[j] += v;
+        }
+        if (lane == 31) part[j * kWarps + warp] = incl[j];
+      }
+      __syncthreads();
+      if (warp == 0) {  // the 32 warp sums, in word order, by one warp
+        const int v = part[lane];
+        int x = v;
+        for (int o = 1; o < 32; o <<= 1) {
+          const int u = __shfl_up_sync(kFull, x, o);
+          if (lane >= o) x += u;
+        }
+        part[lane] = x - v;
+        if (lane == 31) chunk = x;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < kRankWords; ++j) {
+        const long long wi = w0 + j * kThreads + threadIdx.x;
+        if (wi < nw) {
+          select_word<kTake, kCut>(out, r, C, wi, word[j], pc[j],
+                                   carry + part[j * kWarps + warp] +
+                                       incl[j] - pc[j],
+                                   kk);
+        }
+      }
+      carry += chunk;
+      __syncthreads();  // part and chunk are reused by the next chunk
+    }
+    if (threadIdx.x == 0) finish_row<kTake, kCut>(out, r, carry, kk);
+  }
 }
 
 template <bool kTake, bool kCut>
-int launch_rank_select(const void* bits, const void* k, void* take, void* cut,
-                       long long R, long long nw, void* stream) {
-  if (R > 0 && nw > 0) {
-    rank_select_kernel<kTake, kCut>
-        <<<static_cast<unsigned>(R), kThreads, 0,
-           static_cast<cudaStream_t>(stream)>>>(
-            static_cast<const uint32_t*>(bits), static_cast<const int*>(k),
-            static_cast<uint32_t*>(take), static_cast<long long*>(cut), nw);
+int launch_rank_select(const void* plane, long long stride, long long R,
+                       long long C, const void* k, long long k_val,
+                       const RankOut& out, void* stream) {
+  if (R > 0) {
+    const auto* p = static_cast<const uint8_t*>(plane);
+    const RankIn in = {p, p + (R - 1) * stride + C, stride, R, C,
+                       static_cast<const int*>(k), k_val};
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (C <= 32 * 32) {
+      const long long per = R < kWarps ? R : kWarps;  // rows a block
+      rank_select_kernel<kTake, kCut, true>
+          <<<static_cast<unsigned>((R + per - 1) / per),
+             static_cast<unsigned>(32 * per), 0, s>>>(in, out);
+    } else {
+      rank_select_kernel<kTake, kCut, false>
+          <<<static_cast<unsigned>(R), kThreads, 0, s>>>(in, out);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -401,20 +558,35 @@ int launch_rank_select(const void* bits, const void* k, void* take, void* cut,
 
 extern "C" {
 
-int rt_take_first_k(const void* bits, const void* k, void* take, long long R,
-                    long long nw, void* stream) {
-  return launch_rank_select<true, false>(bits, k, take, nullptr, R, nw,
+// The rank-select entries: ``plane`` (R, C) bool rows ``stride`` bytes
+// apart; ranks ``k`` (R int32 on the card) or, where k is null, ``k_val``
+// for the one row; outputs as in RankOut, each may be null.
+int rt_take_first_k(const void* plane, long long stride, long long R,
+                    long long C, const void* k, long long k_val, void* take,
+                    void* list, void* stream) {
+  const RankOut out = {static_cast<uint8_t*>(take), nullptr,
+                       static_cast<long long*>(list)};
+  return launch_rank_select<true, false>(plane, stride, R, C, k, k_val, out,
                                          stream);
 }
 
-int rt_kth_set_index(const void* bits, const void* k, void* cut, long long R,
-                     long long nw, void* stream) {
-  return launch_rank_select<false, true>(bits, k, nullptr, cut, R, nw, stream);
+int rt_kth_set_index(const void* plane, long long stride, long long R,
+                     long long C, const void* k, long long k_val, void* cut,
+                     void* list, void* stream) {
+  const RankOut out = {nullptr, static_cast<long long*>(cut),
+                       static_cast<long long*>(list)};
+  return launch_rank_select<false, true>(plane, stride, R, C, k, k_val, out,
+                                         stream);
 }
 
-int rt_take_and_cut(const void* bits, const void* k, void* take, void* cut,
-                    long long R, long long nw, void* stream) {
-  return launch_rank_select<true, true>(bits, k, take, cut, R, nw, stream);
+int rt_take_and_cut(const void* plane, long long stride, long long R,
+                    long long C, const void* k, long long k_val, void* take,
+                    void* cut, void* list, void* stream) {
+  const RankOut out = {static_cast<uint8_t*>(take),
+                       static_cast<long long*>(cut),
+                       static_cast<long long*>(list)};
+  return launch_rank_select<true, true>(plane, stride, R, C, k, k_val, out,
+                                        stream);
 }
 
 int rt_pack_rows(const void* plane, void* out, long long W, long long C,

@@ -21,11 +21,16 @@ Hand-written CUDA kernels (``csrc/protocol_sweep.cu``, ``sm_90a``):
   regions past the first); ``read_phase_step`` brings its result to the
   host in one copy, or two when there are more than
   ``PHASE_STEP_PREFIX`` candidate words;
-* ``take_first_k``   per-row rank-select: each row's first k[i] set bits
-  (the segment-LRU victim mask of batched eviction);
+* ``take_first_k``   per-row rank-select over bool run planes read in
+  place (any row stride): each row's first k[i] set cells as a bool
+  mask (the segment-LRU victim mask of batched eviction);
 * ``kth_set_index``  per-row rank query: the column of the k[i]-th set
-  bit, -1 out of range (the refetch replay's victim-scan cut);
-* ``take_and_cut``   both of the last two in one launch.
+  cell, -1 out of range (the refetch replay's victim-scan cut);
+* ``take_and_cut``   both of the last two in one launch;
+* ``take_run``       one run's victim scan in the form the host reads in
+  one copy (``read_take_run``): [cut, count, columns of the taken
+  cells], the rank by value; one ``take_and_cut`` launch, or
+  ``take_first_k`` and ``kth_set_index`` into the same buffer.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty`` and launches on the current stream, adding
@@ -67,9 +72,9 @@ _KERNELS = Kernels("protocol_sweep.cu", {
     "popcount_rows": (_P, _P, _L, _L),
     "coverage_multi": (_P, _P, _L),
     "phase_step": (_P, _P, _P, _P, _L, _L, _L),
-    "take_first_k": (_P, _P, _P, _L, _L),
-    "kth_set_index": (_P, _P, _P, _L, _L),
-    "take_and_cut": (_P, _P, _P, _P, _L, _L),
+    "take_first_k": (_P, _L, _L, _L, _P, _L, _P, _P),
+    "kth_set_index": (_P, _L, _L, _L, _P, _L, _P, _P),
+    "take_and_cut": (_P, _L, _L, _L, _P, _L, _P, _P, _P),
 })
 # launch counters: one per kernel, bumped only where a kernel launches;
 # CALLS counts each wrapper's calls on any device
@@ -240,6 +245,37 @@ def _kth_set_index_plain(bits: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
         idx = torch.where(hit, 32 * wi + j, idx)
     return torch.where((kk >= 1) & (total >= kk), idx,
                        torch.full_like(idx, -1))
+
+
+def _take_first_k_bool_plain(live: torch.Tensor,
+                             k: torch.Tensor) -> torch.Tensor:
+    """``take_first_k`` on bool rows: each row's first k[i] set cells."""
+    return live & (torch.cumsum(live, dim=1) <= k.to(torch.int64)[:, None])
+
+
+def _kth_set_index_bool_plain(live: torch.Tensor,
+                              k: torch.Tensor) -> torch.Tensor:
+    """``kth_set_index`` on bool rows: the column of the first prefix
+    count that reaches k[i], -1 when k[i] <= 0 or the row has fewer set
+    cells."""
+    R, C = live.shape
+    kk = k.to(torch.int64)
+    if C == 0:
+        return torch.full((R,), -1, dtype=torch.int64, device=live.device)
+    cs = torch.cumsum(live, dim=1)
+    col = torch.argmax((cs >= kk[:, None]).to(torch.int8), dim=1)
+    return torch.where((kk >= 1) & (cs[:, -1] >= kk), col,
+                       torch.full_like(col, -1))
+
+
+def _take_run_plain(live: torch.Tensor, k: int) -> torch.Tensor:
+    """``take_run``: [cut, count, columns of the first k set cells]."""
+    kt = torch.tensor([k], dtype=torch.int64, device=live.device)
+    cut = _kth_set_index_bool_plain(live[None], kt)
+    cols = torch.nonzero(_take_first_k_bool_plain(live[None], kt)[0])
+    count = torch.tensor([cols.shape[0]], dtype=torch.int64,
+                         device=live.device)
+    return torch.cat([cut, count, cols.flatten()])
 
 
 # ---------------------------------------------------------------------------
@@ -460,71 +496,124 @@ def phase_step_inputs(rng: np.random.Generator, R: int, W: int, caps,
     return planes, geoms, rowmask
 
 
-def _rank_operands(bits: torch.Tensor, k: torch.Tensor):
-    """Check a rank-select call's operands: (R, nw) int32 words and (R,)
-    int32 or int64 ranks on the same device.  Returns the ranks as int32
-    for the kernel, clipped to the int32 range (the rank of any real row
-    is far below it, so clipping changes no result)."""
-    dev = bits.device
-    check(bits, "bits", torch.int32, 2, dev)
+def _rank_operands(live: torch.Tensor, k):
+    """Check a rank-select call's operands: ``live`` (R, C) bool rows,
+    each row's cells contiguous (any row stride), and the ranks ``k``:
+    (R,) int32 or int64 on the same device, or an int when R == 1.
+    Returns (the ranks as int32 for the kernel, or None; the rank by
+    value): int64 ranks are clipped to the int32 range (the rank of any
+    real row is far below it, so clipping changes no result)."""
+    if not (live.dtype is torch.bool and live.dim() == 2
+            and (live.shape[1] < 2 or live.stride(1) == 1)):
+        check(live, "live", torch.bool, 2, live.device)
+    R = live.shape[0]
+    if not isinstance(k, torch.Tensor):
+        if R != 1:
+            raise ValueError(f"a rank by value takes one row, not {R}")
+        return None, int(k)
     if k.dtype not in (torch.int32, torch.int64):
         raise TypeError(f"k must be int32 or int64, got {k.dtype}")
-    check(k, "k", k.dtype, 1, dev)
-    if k.shape[0] != bits.shape[0]:
-        raise ValueError(f"k has {k.shape[0]} ranks for {bits.shape[0]} rows")
+    check(k, "k", k.dtype, 1, live.device)
+    if k.shape[0] != R:
+        raise ValueError(f"k has {k.shape[0]} ranks for {R} rows")
     if k.dtype == torch.int64:
         k = torch.clamp(k, -_I32_MAX - 1, _I32_MAX).to(torch.int32)
-    return dev, k
+    return k, 0
 
 
-def take_first_k(bits: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """(R, nw) int32 packed rows + (R,) ranks -> (R, nw) int32: each row's
-    first k[i] set bits in little-endian column order."""
+def _plain_ranks(k, dev) -> torch.Tensor:
+    if isinstance(k, torch.Tensor):
+        return k
+    return torch.tensor([int(k)], dtype=torch.int64, device=dev)
+
+
+def _rank_launch(name: str, live: torch.Tensor, k32, kv, *outs):
+    if live.shape[0]:
+        _launch(name, live.device, live.data_ptr(), live.stride(0),
+                live.shape[0], live.shape[1],
+                None if k32 is None else k32.data_ptr(), kv,
+                *[o.data_ptr() for o in outs], None)
+
+
+def take_first_k(live: torch.Tensor, k) -> torch.Tensor:
+    """(R, C) bool run rows + ranks -> (R, C) bool: each row's first k[i]
+    set cells.  ``live`` may be a view with any row stride (the kernel
+    reads it in place); ``k`` is (R,) int32 or int64 on its device, or an
+    int when R == 1."""
     _called("take_first_k")
-    dev, k32 = _rank_operands(bits, k)
-    R, nw = bits.shape
-    if not on_card(bits):
-        return _take_first_k_plain(bits, k)
-    take = torch.empty_like(bits)
-    if R and nw:
-        _launch("take_first_k", dev, bits.data_ptr(), k32.data_ptr(),
-                take.data_ptr(), R, nw)
+    k32, kv = _rank_operands(live, k)
+    if not on_card(live):
+        return _take_first_k_bool_plain(live, _plain_ranks(k, live.device))
+    take = live.new_empty(live.shape)
+    _rank_launch("take_first_k", live, k32, kv, take)
     return take
 
 
-def kth_set_index(bits: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """(R, nw) int32 packed rows + (R,) 1-based ranks -> (R,) int64 column
-    of each row's k[i]-th set bit, -1 when k[i] <= 0 or the row has fewer
-    set bits."""
+def kth_set_index(live: torch.Tensor, k) -> torch.Tensor:
+    """(R, C) bool run rows + 1-based ranks -> (R,) int64 column of each
+    row's k[i]-th set cell, -1 when k[i] <= 0 or the row has fewer set
+    cells.  Operands as for ``take_first_k``."""
     _called("kth_set_index")
-    dev, k32 = _rank_operands(bits, k)
-    R, nw = bits.shape
-    if nw == 0:
-        return torch.full((R,), -1, dtype=torch.int64, device=dev)
-    if not on_card(bits):
-        return _kth_set_index_plain(bits, k)
-    cut = torch.empty(R, dtype=torch.int64, device=dev)
-    if R:
-        _launch("kth_set_index", dev, bits.data_ptr(), k32.data_ptr(),
-                cut.data_ptr(), R, nw)
+    k32, kv = _rank_operands(live, k)
+    if not on_card(live):
+        return _kth_set_index_bool_plain(live, _plain_ranks(k, live.device))
+    cut = torch.empty(live.shape[0], dtype=torch.int64, device=live.device)
+    _rank_launch("kth_set_index", live, k32, kv, cut)
     return cut
 
 
-def take_and_cut(bits: torch.Tensor,
-                 k: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def take_and_cut(live: torch.Tensor,
+                 k) -> Tuple[torch.Tensor, torch.Tensor]:
     """``take_first_k`` and ``kth_set_index`` of the same operands in one
-    launch: (take (R, nw) int32, cut (R,) int64)."""
+    launch: (take (R, C) bool, cut (R,) int64)."""
     _called("take_and_cut")
-    dev, k32 = _rank_operands(bits, k)
-    R, nw = bits.shape
-    if nw == 0:
-        return (torch.empty_like(bits),
-                torch.full((R,), -1, dtype=torch.int64, device=dev))
-    if not on_card(bits):
-        return _take_first_k_plain(bits, k), _kth_set_index_plain(bits, k)
-    take = torch.empty_like(bits)
-    cut = torch.empty(R, dtype=torch.int64, device=dev)
-    if R:
-        _launch("take_and_cut", dev, bits.data_ptr(), k32.data_ptr(),
-                take.data_ptr(), cut.data_ptr(), R, nw)
+    k32, kv = _rank_operands(live, k)
+    if not on_card(live):
+        kp = _plain_ranks(k, live.device)
+        return (_take_first_k_bool_plain(live, kp),
+                _kth_set_index_bool_plain(live, kp))
+    take = live.new_empty(live.shape)
+    cut = torch.empty(live.shape[0], dtype=torch.int64, device=live.device)
+    _rank_launch("take_and_cut", live, k32, kv, take, cut)
     return take, cut
+
+
+def take_run(live: torch.Tensor, k: int, fused: bool = True) -> torch.Tensor:
+    """One run's victim scan in the form the host reads in one copy
+    (``read_take_run``): ``live`` a (C,) bool run, its cells contiguous
+    (a view of a plane row as it lies), and the rank ``k`` by value ->
+    int64 [cut, count, col_0 .. col_{count-1}]: the columns of the first
+    k set cells (count = clamp(k, 0, set cells)) and the column of the
+    k-th, -1 when there is none.  ``fused``: one ``take_and_cut`` launch;
+    otherwise ``take_first_k`` and ``kth_set_index``, each filling its
+    part of the one buffer.  The buffer has room for clamp(k, 0, C)
+    columns, of which ``count`` are written."""
+    if fused:
+        _called("take_and_cut")
+    else:
+        _called("take_first_k")
+        _called("kth_set_index")
+    if not (live.dtype is torch.bool and live.dim() == 1
+            and (live.shape[0] < 2 or live.stride(0) == 1)):
+        check(live, "live", torch.bool, 1, live.device)
+    k = int(k)
+    if not live.is_cuda:
+        on_card(live)
+        return _take_run_plain(live, k)
+    C = live.shape[0]
+    buf = torch.empty(2 + min(max(k, 0), C), dtype=torch.int64,
+                      device=live.device)
+    index, p, b = live.get_device(), live.data_ptr(), buf.data_ptr()
+    if fused:
+        _launch("take_and_cut", index, p, C, 1, C, None, k, None, None, b)
+    else:
+        _launch("take_first_k", index, p, C, 1, C, None, k, None, b)
+        _launch("kth_set_index", index, p, C, 1, C, None, k, None, b)
+    return buf
+
+
+def read_take_run(buf: torch.Tensor) -> Tuple[int, np.ndarray]:
+    """``take_run``'s buffer on the host, in one copy: (cut, the taken
+    cells' columns, int64)."""
+    a = buf.cpu().numpy()
+    return int(a[0]), a[2:2 + int(a[1])]

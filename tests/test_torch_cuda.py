@@ -21,6 +21,7 @@ import pytest
 import torch
 
 import trace_fuzz
+from repro_torch.core import directory as pt_dir
 from repro_torch.core import make_runtime
 from repro_torch.dsm import apps
 from repro_torch.kernels import protocol_sweep as ps
@@ -175,39 +176,112 @@ def test_cuda_runtime_matches_cpu(dev, backend):
     np.testing.assert_array_equal(runs["cpu"].clock, runs["cuda"].clock)
 
 
+def _rank_cases(rng, plane):
+    """Random and edge ranks of bool rows ``plane`` (host): 0, negative,
+    each row's count and one past it, INT32_MAX."""
+    R, C = plane.shape
+    tot = plane.sum(axis=1)
+    return [rng.integers(-3, C + 5, R), np.zeros(R), np.full(R, -4), tot,
+            tot + 1, np.maximum(tot - 1, 1),
+            np.full(R, np.iinfo(np.int32).max)]
+
+
+def _rank_select_equal(live, k):
+    """The three entries on ``live`` (a card tensor, maybe a view) with
+    ranks ``k`` (a card tensor or an int) against their plain versions
+    on a contiguous copy."""
+    kp = k if isinstance(k, torch.Tensor) else torch.tensor(
+        [k], dtype=torch.int64, device=live.device)
+    want_t = ps._take_first_k_bool_plain(live.contiguous(), kp)
+    want_c = ps._kth_set_index_bool_plain(live.contiguous(), kp)
+    assert torch.equal(ps.take_first_k(live, k), want_t)
+    assert torch.equal(ps.kth_set_index(live, k), want_c)
+    got_t, got_c = ps.take_and_cut(live, k)
+    assert torch.equal(got_t, want_t)
+    assert torch.equal(got_c, want_c)
+
+
 def test_rank_select_kernels_match_plain_versions(dev):
-    """take_first_k, kth_set_index and take_and_cut against their plain
-    versions on the card: random and edge ranks (0, negative, the row's
-    popcount and one past it, INT32_MAX), ragged last words, an empty
-    row, all-ones rows, and R=1 / nw=1; int32 and int64 ranks."""
+    """take_first_k, kth_set_index and take_and_cut on bool rows against
+    their plain versions on the card: random and edge ranks (0, negative,
+    the row's count and one past it, INT32_MAX), ragged last words, an
+    empty row, all-set rows, R=1 / C=1, rows of one warp (C <= 1024) and
+    of one block (the lru_take shape, and a row of several scan rounds);
+    int32 and int64 ranks, and ranks by value for one row."""
     rng = np.random.default_rng(12)
-    i32max = np.iinfo(np.int32).max
-    for R, C in ((1, 1), (1, 32), (3, 31), (5, 300), (256, 32768),
-                 (2, 256 * 32 * 3 + 7)):
+    for R, C in ((1, 1), (1, 7), (1, 32), (3, 31), (5, 300), (4, 1024),
+                 (3, 1025), (256, 32768), (2, 256 * 4 * 32 * 3 + 7)):
         plane = rng.random((R, C)) < rng.random((R, 1))
         plane[0] = True
         if R > 2:
             plane[-1] = False
-        bits = ps.pack_rows(torch.as_tensor(plane, device=dev))
-        tot = plane.sum(axis=1)
-        for k in (rng.integers(-3, C + 5, R), np.zeros(R), np.full(R, -4),
-                  tot, tot + 1, np.maximum(tot - 1, 1), np.full(R, i32max)):
+        live = torch.as_tensor(plane, device=dev)
+        for k in _rank_cases(rng, plane):
             kt = torch.as_tensor(np.asarray(k, np.int64), device=dev)
             for kk in (kt, kt.to(torch.int32)):
-                want_t = ps._take_first_k_plain(bits, kk)
-                want_c = ps._kth_set_index_plain(bits, kk)
-                assert torch.equal(ps.take_first_k(bits, kk), want_t)
-                assert torch.equal(ps.kth_set_index(bits, kk), want_c)
-                got_t, got_c = ps.take_and_cut(bits, kk)
-                assert torch.equal(got_t, want_t)
-                assert torch.equal(got_c, want_c)
+                _rank_select_equal(live, kk)
+            if R == 1:
+                _rank_select_equal(live, int(k[0]))
+
+
+@pytest.mark.parametrize("R,C", [(256, 16384), (3, 16385), (5, 16),
+                                 (9, 33), (1, 9), (2, 1000), (4, 1031)])
+@pytest.mark.parametrize("offset", [0, 1, 4])
+def test_rank_select_unaligned_and_strided_rows(dev, R, C, offset):
+    """Rows that start on and off 16-byte boundaries (a view ``offset``
+    bytes into a buffer that the plane ends, so a ragged last word ends
+    at the allocation's end), a column window of a wider plane, and every
+    other row of one: read in place, against the plain versions on
+    contiguous copies."""
+    rng = np.random.default_rng(R + C + offset)
+    buf = torch.zeros(R * C + offset, dtype=torch.bool, device=dev)
+    plane = buf[offset:].view(R, C)
+    plane.copy_(torch.as_tensor(rng.random((R, C)) < 0.5, device=dev))
+    wide = torch.as_tensor(rng.random((2 * R, C + 2 * offset + 3)) < 0.5,
+                           device=dev)
+    for live in (plane, wide[:R, offset:offset + C],
+                 wide[::2, offset + 3:offset + 3 + C]):
+        for k in _rank_cases(rng, live.cpu().numpy()):
+            _rank_select_equal(live, torch.as_tensor(
+                np.asarray(k, np.int64), device=dev))
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_take_run_matches_plain_version(dev, fused):
+    """The one-run form on runs as the replay hands them (a column window
+    of one plane row, at several byte offsets, up to two warps' words):
+    [cut, count, columns] read back in one copy, against the plain
+    version."""
+    rng = np.random.default_rng(7 + fused)
+    plane = torch.as_tensor(rng.random((3, 2200)) < 0.6, device=dev)
+    for w, a, b in ((0, 0, 7), (1, 1, 10), (2, 17, 26), (0, 3, 2200),
+                    (1, 100, 1124), (2, 5, 6), (0, 64, 1089)):
+        run = plane[w, a:b]
+        nz = int(run.sum())
+        for k in (1, 2, nz - 1, nz, nz + 1, 0, -1):
+            got = ps.read_take_run(ps.take_run(run, k, fused))
+            want = ps.read_take_run(ps._take_run_plain(run, k))
+            assert got[0] == want[0]
+            np.testing.assert_array_equal(got[1], want[1])
 
 
 @pytest.mark.parametrize("backend", ("kernels", "fused"))
-def test_cuda_spill_runtime_matches_cpu(dev, backend):
+def test_cuda_spill_runtime_matches_cpu(dev, backend, monkeypatch):
     """One gen_danger_program trace (mid-op refetch under a small cache)
     on the card and on the CPU: equal traffic and stats, bit-equal clocks
-    after every event, and the rank-select kernels launched."""
+    after every event, the rank-select kernels launched, and no pack_rows
+    launch from the rank-select calls (take_upto_row, lru_take)."""
+    rank_packs = []
+    for name in ("take_upto_row", "lru_take"):
+        orig = getattr(pt_dir.RegionDirectory, name)
+
+        def counted(self, *a, _orig=orig, **kw):
+            n = ps.LAUNCHES["pack_rows"]
+            out = _orig(self, *a, **kw)
+            if self.device.type == "cuda":
+                rank_packs.append(ps.LAUNCHES["pack_rows"] - n)
+            return out
+        monkeypatch.setattr(pt_dir.RegionDirectory, name, counted)
     p = trace_fuzz.danger_trace_params(5)
     prog = trace_fuzz.gen_danger_program(p["rng"], p["W"], p["n_words"],
                                          p["page_words"], p["cache_pages"])
@@ -230,6 +304,8 @@ def test_cuda_spill_runtime_matches_cpu(dev, backend):
     rank = ("take_and_cut",) if backend == "fused" else ("take_first_k",
                                                           "kth_set_index")
     assert all(launched[k] > 0 for k in rank), launched
+    # the rank-select path reads the bool runs itself: no pack_rows
+    assert rank_packs and not any(rank_packs), rank_packs
 
 
 def _bits_equal(a, b):

@@ -146,8 +146,9 @@ def test_take_upto_row_matches(tier):
             continue
         k = int(rng.integers(1, tot))          # the caller's k < live cells
         take_r, cut_r = ref.take_upto_row(live, k)
-        take_p, cut_p = pt.take_upto_row(torch.from_numpy(live), k)
-        np.testing.assert_array_equal(take_p.numpy(), take_r)
+        # the port hands back the victim columns (host) with the cut
+        cols_p, cut_p = pt.take_upto_row(torch.from_numpy(live), k)
+        np.testing.assert_array_equal(cols_p, np.flatnonzero(take_r))
         assert cut_p == cut_r
         assert cut_p == int(np.flatnonzero(take_r)[-1]) + 1
 

@@ -1,7 +1,8 @@
 """Isolation and entry-point rules of the port:
 
-* no file under ``src/repro_torch/`` and not ``chip_smoke.py`` imports
-  ``jax`` or anything of ``repro`` (AST scan);
+* no file under ``src/repro_torch/``, nor ``chip_smoke.py`` or
+  ``rank_select_probe.py``, imports ``jax`` or anything of ``repro``
+  (AST scan);
 * ``repro_torch`` imports and runs a small CPU trace in a process where
   ``import jax`` fails;
 * entry points run on the card by default and raise without one;
@@ -24,7 +25,7 @@ from repro_torch.core import RegionDirectory, RuntimeConfig, make_runtime
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "rank_select_probe.py"]
 
 
 def _imported_modules(path: Path):
