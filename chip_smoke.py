@@ -14,12 +14,22 @@ Phases, in order; any mismatch or exception exits non-zero:
    spills (``ptxas -v``);
 3. kernel phase: each kernel against its plain PyTorch version on the
    card, bit for bit: pack_rows (aligned and with rows off 16-byte
-   boundaries), popcount_rows, coverage_multi and phase_step (from the
-   regions' bool planes, read back as the engine reads it) at the main
-   path's shapes (fig3_weak, W=256) and at edge shapes (ragged and
+   boundaries; no path calls it), popcount_rows (bool rows read in
+   place), coverage_multi (from the sorted int64 window bounds) and
+   phase_step (from the regions' bool planes, read back as the engine
+   reads it) at the main path's shapes (fig3_weak, W=256: a 256 x 16384
+   plane, 2W = 512 bounds) and at edge shapes (for phase_step ragged and
    unaligned caps that differ between regions, W=1, base=-1 rows,
    INT32_MAX pads, row mask or none, the width limit, one region more
-   than a launch takes); the page_diff kernels
+   than a launch takes; for popcount_rows R = 1, C = 0 and C = 1, ragged
+   tails, rows 1-15 bytes off 16-byte boundaries, a column window and
+   every other row of a wider plane, mask bytes of 2 and 0xff; for
+   coverage_multi n < 2, all-equal bounds, a start equal to an end,
+   duplicate starts and ends, bounds past INT32_MAX, n = 5000); and
+   ``RegionDirectory.dirty_counts`` and ``shared_intervals`` of one
+   'kernels'-tier region at fig3_weak's shape, timed (host clock, each
+   call ending on the host's read) and traced (device activities a
+   call); the page_diff kernels
    diff_encode (with and without its change bounds), diff_apply and the
    in-place merges diff_apply_ and diff_apply_rows_ at the reference
    path's shapes (1, 256) and
@@ -32,12 +42,13 @@ Phases, in order; any mismatch or exception exits non-zero:
    ssd_chunk (at the mamba2-2.7b prefill shape with grouped and per-cell
    B/C rows, in bfloat16, reduced and ragged; 1e-4).  Prints, after
    the rank-select phase (5a), each kernel's median time (CUDA events;
-   for the page_diff kernels, phase_step, pack_rows and the rank-select
-   kernels also their C entry's, and for the last three one launch's
-   device time from torch.profiler, and phase_step's flush with its
-   read-back), the plain version's, the
-   yardstick (``torch.cumsum`` for coverage_multi, ``torch.where`` for
-   the merges, ``scaled_dot_product_attention`` for flash_attention) and
+   for the page_diff kernels and the protocol-sweep kernels also their C
+   entry's, and for the protocol-sweep kernels one launch's device time
+   from torch.profiler, and phase_step's flush with its read-back), the
+   plain version's, the yardstick (``torch.count_nonzero`` for
+   popcount_rows, ``torch.cumsum`` of the sorted deltas, the scan that
+   the kernel replaces, for coverage_multi, ``torch.where`` for the
+   merges, ``scaled_dot_product_attention`` for flash_attention) and
    the bound: the larger of the bytes over the HBM rate and the
    operations over the peak of the units that run them (bfloat16
    attention on the tensor cores; float32 attention and ssd_chunk as
@@ -51,16 +62,19 @@ Phases, in order; any mismatch or exception exits non-zero:
    (IB_2013, fetch_batch=16, iters=4).  Every point's traffic must equal
    its ``BENCH_scale.json`` row field for field and its modeled time must
    round to the row's ``t_model_s``; the launch counters must show that
-   each run went through the kernels, and that no 'fused' point launched
-   pack_rows (its flush reads the bool planes itself);
+   each run went through the kernels (phase_step on 'fused',
+   popcount_rows and coverage_multi on 'kernels'), and that no point
+   launched pack_rows (every kernel reads the bool planes itself);
 5. spill phase: the six W=256 batched capacity-pressure points
    (fig4_spill fits and spills, fig4_spill_heavy, fig4_refetch,
    fig5_spill, fig7_md_spill) on 'fused' at the harness's cache settings,
    plus fig4_refetch and fig7_md_spill on 'kernels'.  Each must match its
    ``BENCH_scale.json`` row as above and its committed danger counters
-   (``artifacts/bench/*.csv``); the launch counters must show take_and_cut
-   launched on 'fused' and take_first_k and kth_set_index on 'kernels',
-   and no rank-select call (take_upto_row, lru_take) may call pack_rows.
+   (``artifacts/bench/*.csv``); the launch counters must show
+   popcount_rows, phase_step and take_and_cut launched on 'fused' and
+   take_first_k and kth_set_index on 'kernels', and pack_rows launched
+   on neither; no rank-select call (take_upto_row, lru_take) may call
+   pack_rows.
    Prints the histogram of the victim scans' (run length, k);
 5a. rank-select phase: take_first_k, kth_set_index and take_and_cut on
    bool run rows read in place, and the one-run take_run (fused and
@@ -354,9 +368,9 @@ def kernel_phase(torch, np, ps, dev):
         return torch.as_tensor(a, device=dev)
 
     # --- pack_rows: the dirty plane of fig3_weak's A region, W=256 ----
-    # (the fused flush reads the planes itself; eviction and the
-    # 'kernels' tier still pack), aligned and with every row 1 byte off
-    # a 16-byte boundary (a view one byte into a buffer)
+    # (no path calls it: every kernel reads the bool planes itself),
+    # aligned and with every row 1 byte off a 16-byte boundary (a view
+    # one byte into a buffer)
     C = 16384
     plane = t(rng.random((W, C)) < 0.5)
     buf = torch.zeros(W * C + 16, dtype=torch.bool, device=dev)
@@ -394,37 +408,8 @@ def kernel_phase(torch, np, ps, dev):
         err=err, unaligned=pack_timed(shifted, [W, C, "rows 1 B off 16"]),
         **pack_timed(plane, [W, C]))
 
-    # --- popcount_rows ------------------------------------------------
-    bits = ps._pack_rows_plain(plane)
-    err = same("popcount_rows", ps.popcount_rows(bits),
-               ps._popcount_rows_plain(bits))
-    for (w_, c_) in ((1, 1), (37, 1024), (W, 64 * 32 + 5)):
-        b = ps._pack_rows_plain(t(rng.random((w_, c_)) < 0.4))
-        err = max(err, same("popcount_rows", ps.popcount_rows(b),
-                            ps._popcount_rows_plain(b)))
-    results["popcount_rows"] = dict(
-        err=err, shape=[W, nw],
-        ms=timed_ms(torch, lambda: ps.popcount_rows(bits)),
-        plain_ms=timed_ms(torch, lambda: ps._popcount_rows_plain(bits), 10),
-        library_ms=None, bytes=W * nw * 4 + W * 8)
-
-    # --- coverage_multi: 2W sorted window bounds ----------------------
-    def deltas(n):
-        return t(rng.choice(np.array([1, -1], np.int32), n))
-
-    delta = deltas(2 * W)
-    err = same("coverage_multi", ps.coverage_multi(delta),
-               ps._coverage_multi_plain(delta))
-    for n in (1, 2, 9, 255, 256, 257, 515, 5000):
-        dd = deltas(n)
-        err = max(err, same("coverage_multi", ps.coverage_multi(dd),
-                            ps._coverage_multi_plain(dd)))
-    results["coverage_multi"] = dict(
-        err=err, shape=[2 * W],
-        ms=timed_ms(torch, lambda: ps.coverage_multi(delta)),
-        plain_ms=timed_ms(torch, lambda: ps._coverage_multi_plain(delta)),
-        library_ms=timed_ms(torch, lambda: torch.cumsum(delta, 0)),
-        bytes=2 * W * 4 + 2 * W)
+    results.update(count_and_cover(torch, np, ps, dev, rng, same, plane,
+                                   shifted))
 
     # --- phase_step: R=3 regions, W=256, caps 16384 (fig3_weak) -------
     # from the bool planes, no row mask, as the engine calls it; edges:
@@ -484,9 +469,170 @@ def kernel_phase(torch, np, ps, dev):
               f"{timed[key]['flush_ms'] * 1e3:.2f} us", flush=True)
     results["phase_step"] = dict(err=err, stacked=timed["stacked"],
                                  **timed["main"])
-    results["coverage_multi"]["library"] = "torch.cumsum"
     results.update(page_diff_phase(torch, np, rng, dev))
     results.update(model_kernel_phase(torch, np, dev))
+    return results
+
+
+def flush_windows(np, rng, C: int):
+    """fig3_weak's window layout for one region of W rows: row w's
+    window starts at w * (C - 1) pages and is C pages long (it shares
+    its last page with the next row's window) or, for about half the
+    rows, between C/2 and C pages.
+    Returns host int64 (starts, ends) in row order."""
+    starts = np.arange(W, dtype=np.int64) * (C - 1)
+    length = np.where(rng.random(W) < 0.5, C,
+                      rng.integers(C // 2, C + 1, W))
+    return starts, starts + length
+
+
+def directory_calls(torch, np, dev, C: int = 16384):
+    """``RegionDirectory.dirty_counts`` and ``shared_intervals`` of one
+    'kernels'-tier region at fig3_weak's flush shape (W = 256 rows of
+    ``C`` pages, ``flush_windows``, half the cells of each window
+    dirty), checked against numpy, then timed: the wall of one call
+    (host clock over 200 back-to-back calls, each ending on the host's
+    read, median of 5) and the device activities of one call (three
+    traces of 10 calls each).  Uses only the directory's interface, so
+    it times any tree's port (``sweep_probe.py``)."""
+    from repro_torch.core.directory import RegionDirectory
+    rng = np.random.default_rng(3)
+    starts, ends = flush_windows(np, rng, C)
+    d = RegionDirectory(W, 0, 0, int(ends.max()), backend="kernels",
+                        device=dev)
+    for w in range(W):
+        d.ensure(w, int(starts[w]), int(ends[w]))
+    cells = ((rng.random((W, C)) < 0.5)
+             & (np.arange(C)[None, :] < (ends - starts)[:, None]))
+    d.dirty.copy_(torch.as_tensor(cells, device=dev))
+    if not np.array_equal(d.dirty_counts(), cells.sum(axis=1)):
+        raise AssertionError("dirty_counts != numpy row sums")
+    # the pages covered twice, page by page: a C-page window shares its
+    # last page with the next row's
+    cover = np.zeros(int(ends.max()) + 1, np.int64)
+    np.add.at(cover, starts, 1)
+    np.add.at(cover, ends, -1)
+    edge = np.diff(np.concatenate([[0], np.cumsum(cover) >= 2, [0]]))
+    want = np.flatnonzero(edge == 1), np.flatnonzero(edge == -1)
+    got = d.shared_intervals()
+    if not (want[0].size and all(map(np.array_equal, got, want))):
+        raise AssertionError(f"shared_intervals: {got[0].size} intervals, "
+                             f"{want[0].size} expected")
+    out = {}
+    for name, fn in (("dirty_counts", d.dirty_counts),
+                     ("shared_intervals", d.shared_intervals)):
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            for _ in range(200):
+                fn()
+            walls.append((time.perf_counter() - t0) / 200 * 1e3)
+        traced = [device_activities(torch, lambda f=fn: [
+            f() for _ in range(10)]) / 10 for _ in range(3)]
+        out[name] = dict(shape=[W, C], wall_ms=statistics.median(walls),
+                         device_activities=statistics.median(traced),
+                         traced=traced)
+        print(f"directory {name} ['kernels', W={W}, cap {C}]: wall "
+              f"{out[name]['wall_ms'] * 1e3:.2f} us, "
+              f"{out[name]['device_activities']} device activities a call "
+              f"(three traces of 10 calls: {traced})", flush=True)
+    return out
+
+
+def count_and_cover(torch, np, ps, dev, rng, same, plane, shifted):
+    """popcount_rows and coverage_multi against their plain versions on
+    the card, bit for bit, at fig3_weak's shapes (``plane``: its W x
+    16384 dirty plane, and ``shifted``, the same rows 1 byte off 16-byte
+    boundaries; 2W = 512 sorted bounds) and the edges listed below;
+    timed (wrapper, C entry alone, one launch on the device, the plain
+    version, the library yardstick), with the directory calls that run
+    them (``directory_calls``)."""
+    results = {}
+    C = plane.shape[1]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+
+    # --- popcount_rows: fig3_weak's dirty plane, read in place --------
+    # (dirty_counts; evict_rows reads column windows of the plane);
+    # edges: R = 1, C = 0 and C = 1, ragged tails, rows 1-15 bytes off
+    # 16-byte boundaries (a view into a buffer that the plane ends), a
+    # column window and every other row of a wider plane, mask bytes of
+    # 2 and 0xff
+    def popcount_same(p):
+        return same("popcount_rows", ps.popcount_rows(p),
+                    ps._popcount_rows_bool_plain(p.contiguous()))
+
+    err = popcount_same(plane)
+    err = max(err, popcount_same(shifted))
+    mask_bytes = np.array([0, 1, 2, 255], np.uint8)
+    for (r_, c_) in ((1, 0), (1, 1), (3, 0), (4, 1), (1, 1024), (7, 1025),
+                     (37, 31), (5, 17), (W, 1000), (W, 16385)):
+        for off in (0, 1, 5, 8, 15):
+            raw = torch.zeros(r_ * c_ + off, dtype=torch.uint8, device=dev)
+            p = raw[off:].view(r_, c_)
+            p.copy_(t(rng.choice(mask_bytes, (r_, c_))))
+            err = max(err, popcount_same(p.view(torch.bool)))
+        wide = t(rng.random((2 * r_, c_ + 9)) < 0.5)
+        err = max(err, popcount_same(wide[:r_, 3:3 + c_]))
+        err = max(err, popcount_same(wide[::2, 7:7 + c_]))
+    pop_entry = ps._KERNELS.entry("popcount_rows")
+    counts = torch.empty(W, dtype=torch.int64, device=dev)
+    pop_args = (plane.data_ptr(), C, W, C, counts.data_ptr(), stream)
+    results["popcount_rows"] = dict(
+        err=err, shape=[W, C],
+        ms=timed_ms(torch, lambda: ps.popcount_rows(plane)),
+        c_entry_ms=timed_ms(torch, lambda: pop_entry(*pop_args)),
+        profiled_ms=profiled_ms(torch, lambda: pop_entry(*pop_args),
+                                "popcount_rows_kernel"),
+        plain_ms=timed_ms(torch, lambda: ps._popcount_rows_bool_plain(plane),
+                          10),
+        library_ms=timed_ms(torch, lambda: torch.count_nonzero(plane, 1)),
+        library="torch.count_nonzero", bytes=W * C + W * 8)
+
+    # --- coverage_multi: fig3_weak's 2W = 512 sorted bounds -----------
+    # (int64, as the directory caches them on the card: windows every
+    # C - 1 pages, so neighbours share a page); edges: n < 2, all-equal
+    # bounds, a start equal to an end, duplicate starts and ends, bounds
+    # past INT32_MAX, n = 5000
+    def cover_same(b):
+        b = t(np.asarray(b, np.int64))
+        return same("coverage_multi", ps.coverage_multi(b),
+                    ps._coverage_multi_plain(b))
+
+    starts, ends = flush_windows(np, np.random.default_rng(3), C)
+    cover_main = t(np.stack([np.sort(starts), np.sort(ends)]))
+    err = cover_same(cover_main.cpu().numpy())
+    for n, span, length, base in ((0, 1, 1, 0), (1, 1, 9, 0), (2, 1, 1, 0),
+                                  (7, 1, 1, 40), (64, 6, 3, 0),
+                                  (255, 0, 40, 0), (257, 0, 40, 0),
+                                  (40, 0, 50, (1 << 33) + 17),
+                                  (5000, 20000, 300, 0)):
+        st = base + rng.integers(0, span or 4 * n, n)
+        en = st + rng.integers(0, length, n)
+        err = max(err, cover_same(np.stack([np.sort(st), np.sort(en)])))
+    err = max(err, cover_same([[0, 10, 10, 20, 30], [10, 10, 20, 30, 30]]))
+    n_cov = cover_main.shape[1]
+    cover_entry = ps._KERNELS.entry("coverage_multi")
+    cover_out = torch.empty(4 * n_cov, dtype=torch.int64, device=dev)
+    cover_args = (cover_main.data_ptr(), n_cov, cover_out.data_ptr(), stream)
+    order = torch.sort(cover_main.reshape(-1), stable=True).indices
+    delta = torch.where(order < n_cov, 1, -1).to(torch.int32)
+    results["coverage_multi"] = dict(
+        err=err, shape=[2, n_cov],
+        ms=timed_ms(torch, lambda: ps.coverage_multi(cover_main)),
+        c_entry_ms=timed_ms(torch, lambda: cover_entry(*cover_args)),
+        profiled_ms=profiled_ms(torch, lambda: cover_entry(*cover_args),
+                                "coverage_multi_kernel"),
+        plain_ms=timed_ms(torch,
+                          lambda: ps._coverage_multi_plain(cover_main)),
+        library_ms=timed_ms(torch, lambda: torch.cumsum(delta, 0)),
+        library="torch.cumsum of the sorted deltas (the scan replaced)",
+        bytes=2 * n_cov * 8 + 4 * n_cov * 8)
+    calls = directory_calls(torch, np, dev)
+    results["popcount_rows"]["dirty_counts"] = calls["dirty_counts"]
+    results["coverage_multi"]["shared_intervals"] = calls["shared_intervals"]
     return results
 
 
@@ -1323,10 +1469,9 @@ def main_path_phase(torch, ps):
                 (ROOT / "BENCH_scale.json").read_text())["rows"]}
     runs = [(p, "fused") for p in main_points()]
     runs += [(p, "kernels") for p in main_points() if p[0] == "fig2_strong"]
-    # the fused flush reads the bool planes itself: no pack_rows there
+    # every kernel reads the bool planes itself: no pack_rows anywhere
     need = {"fused": ("phase_step",),
-            "kernels": ("pack_rows", "popcount_rows", "coverage_multi")}
-    never = {"fused": ("pack_rows",), "kernels": ()}
+            "kernels": ("popcount_rows", "coverage_multi")}
     out = []
     ps.reset_launches()
     for (sec, tag, series, app, mode, n), backend in runs:
@@ -1347,10 +1492,10 @@ def main_path_phase(torch, ps):
         if idle:
             raise AssertionError(f"{sec} {tag} [{backend}]: kernels {idle} "
                                  "never launched")
-        extra = {k: launched[k] for k in never[backend] if launched[k]}
-        if extra:
+        if launched["pack_rows"]:
             raise AssertionError(f"{sec} {tag} [{backend}]: launched "
-                                 f"{extra}, which this tier's flush fuses")
+                                 f"pack_rows {launched['pack_rows']} "
+                                 "times, which no path needs")
         print(f"main {sec:11s} {tag:23s} [{backend:7s}] wall "
               f"{wall:.3f} s  t_model {t_model}  launches {launched}",
               flush=True)
@@ -1455,8 +1600,7 @@ def spill_phase(torch, ps, device="cuda"):
     runs = [(pt, "fused") for pt in spill_points()]
     runs += [(pt, "kernels") for pt in spill_points()
              if pt[0] in ("fig4_refetch", "fig7_md_spill")]
-    need = {"fused": ("pack_rows", "popcount_rows", "phase_step",
-                      "take_and_cut"),
+    need = {"fused": ("popcount_rows", "phase_step", "take_and_cut"),
             "kernels": ("take_first_k", "kth_set_index")}
     per_backend = {b: dict.fromkeys(ps.LAUNCHES, 0) for b in need}
     out = []
@@ -1503,6 +1647,11 @@ def spill_phase(torch, ps, device="cuda"):
             if idle:
                 raise AssertionError(f"spill phase [{backend}]: kernels "
                                      f"{idle} never launched")
+            if per_backend[backend]["pack_rows"]:
+                raise AssertionError(
+                    f"spill phase [{backend}]: launched pack_rows "
+                    f"{per_backend[backend]['pack_rows']} times, which no "
+                    "path needs")
     if any(rank_packs):
         raise AssertionError(f"spill phase: {sum(rank_packs)} pack_rows "
                              "calls inside take_upto_row / lru_take")

@@ -70,7 +70,8 @@ class RegionDirectory:
                  "incache", "shift",
                  "maybe_dirty", "_cov_stale", "_sorted_bases",
                  "_sorted_ends", "backend", "dirty_lo", "dirty_hi",
-                 "span_lo", "span_hi", "stats", "_jit_geom", "_jit_geom_t")
+                 "span_lo", "span_hi", "stats", "_jit_geom", "_jit_geom_t",
+                 "_cov_bounds_t")
 
     def __init__(self, n_workers: int, region: int, page_lo: int,
                  page_hi: int, *, track_wprot: bool = False,
@@ -112,15 +113,17 @@ class RegionDirectory:
         self._sorted_ends: Optional[np.ndarray] = None
         # 'plain' | 'kernels' | 'fused' (see config.BACKENDS): 'plain'
         # reduces the boolean planes with torch ops; the other two run the
-        # CUDA kernels, on packed planes except for the fused flush, which
-        # reads the bool planes itself.  Integer-exact on every tier.
+        # CUDA kernels, which read the bool planes as they lie.
+        # Integer-exact on every tier.
         self.backend = backend
-        # the runtime's stats dict (fused_dispatches accounting) and the
+        # the runtime's stats dict (fused_dispatches accounting), the
         # cached int32 window geometry of the fused flush, on the host and
-        # as a padded device tensor
+        # as a padded device tensor, and the sorted bounds of the
+        # shared-interval sweep as a (2, n) int64 device tensor
         self.stats: Optional[dict] = None
         self._jit_geom = None
         self._jit_geom_t: Optional[torch.Tensor] = None
+        self._cov_bounds_t: Optional[torch.Tensor] = None
 
     def _plane(self, cols: int, fill, dtype=torch.bool) -> torch.Tensor:
         return torch.full((self.W, cols), fill, dtype=dtype,
@@ -416,7 +419,8 @@ class RegionDirectory:
         the whole span): dirty victims clear and re-arm write protection
         (when ``set_wprot``), then valid and the cache slot drop.  Returns
         host per-row dirty-victim counts (the runtime's writeback charge):
-        ``pack_rows`` + ``popcount_rows`` on the kernel tiers, a row sum on
+        ``popcount_rows`` on the kernel tiers, which reads the victims in
+        place (without a take, a view of the dirty plane), a row sum on
         'plain'.  Plane updates only; charging stays in the runtime."""
         s = slice(start, start + length)
         rb = self.row_block(rows)
@@ -424,7 +428,7 @@ class RegionDirectory:
         if take is not None:
             dm = dm & take
         if self.backend != "plain":
-            db = _ps.popcount_rows(_ps.pack_rows(dm.contiguous()))
+            db = _ps.popcount_rows(dm)
             self._note_fused()
         else:
             db = dm.sum(dim=1)
@@ -482,6 +486,7 @@ class RegionDirectory:
             self._sorted_ends = np.sort((self.base + self.length)[live])
             self._jit_geom = None          # window geometry changed
             self._jit_geom_t = None
+            self._cov_bounds_t = None
             self._cov_stale = False
 
     def jit_geometry(self):
@@ -511,28 +516,37 @@ class RegionDirectory:
         if self.backend == "fused" and self.stats is not None:
             self.stats["fused_dispatches"] += 1
 
+    def coverage_bounds(self) -> torch.Tensor:
+        """The sorted live window starts and ends as one (2, n) int64
+        tensor on the plane device, the shared-interval sweep's operand
+        (int64 keeps page ids past INT32_MAX exact), copied to the device
+        once per window change rather than once per flush."""
+        self._refresh_bounds()
+        if self._cov_bounds_t is None:
+            self._cov_bounds_t = torch.as_tensor(
+                np.stack([self._sorted_bases, self._sorted_ends]),
+                device=self.device)
+        return self._cov_bounds_t
+
     def shared_intervals(self) -> Tuple[np.ndarray, np.ndarray]:
         """Absolute page intervals covered by >= 2 worker windows, as host
-        (starts, ends) — a sweep over the 2W sorted window bounds.  The
-        coverage prefix sum runs as ``coverage_multi`` on the kernel
-        tiers and as a torch cumsum on 'plain'."""
+        (starts, ends) — a sweep over the 2W sorted window bounds, from
+        their cached device tensor: ``coverage_multi`` merges them and
+        flags the multiply-covered points on the kernel tiers, its plain
+        version (a stable sort and a cumsum) on 'plain'; the host reads
+        both back in one copy and finds the interval edges."""
         self._refresh_bounds()
-        b, e = self._sorted_bases, self._sorted_ends
-        if b.size < 2:
+        n = self._sorted_bases.size
+        if n < 2:
             z = np.zeros(0, np.int64)
             return z, z
-        pts = np.concatenate([b, e])
-        delta = np.concatenate([np.ones(b.size, np.int32),
-                                np.full(e.size, -1, np.int32)])
-        order = np.argsort(pts, kind="stable")
-        pts = pts[order]
-        delta_t = torch.as_tensor(delta[order], device=self.device)
         if self.backend == "plain":
-            multi = torch.cumsum(delta_t, dim=0) >= 2
+            buf = _ps._coverage_multi_plain(self.coverage_bounds())
         else:
-            multi = _ps.coverage_multi(delta_t)
+            buf = _ps.coverage_multi(self.coverage_bounds())
             self._note_fused()
-        multi = multi.cpu().numpy()
+        buf = buf.cpu().numpy()
+        pts, multi = buf[:2 * n], buf[2 * n:] != 0
         edge = np.diff(np.concatenate([[False], multi]).astype(np.int8))
         starts = pts[np.nonzero(edge == 1)[0]]
         ends = pts[np.nonzero(edge == -1)[0]]
@@ -543,14 +557,14 @@ class RegionDirectory:
 
     def dirty_counts(self) -> np.ndarray:
         """Host (W,) per-row dirty-page counts — the barrier-flush
-        popcount: a packed ``popcount_rows`` on the kernel tiers, a bool
-        row sum on 'plain'.  Cells outside a row's window are always
-        False, so the whole-plane reduction is exact."""
+        popcount: ``popcount_rows`` over the bool dirty plane on the kernel
+        tiers, a bool row sum on 'plain'.  Cells outside a row's window
+        are always False, so the whole-plane reduction is exact."""
         if self.cap == 0:
             return np.zeros(self.W, np.int64)
         if self.backend == "plain":
             return self.dirty.sum(dim=1).cpu().numpy()
-        counts = _ps.popcount_rows(_ps.pack_rows(self.dirty))
+        counts = _ps.popcount_rows(self.dirty)
         self._note_fused()
         return counts.cpu().numpy()
 

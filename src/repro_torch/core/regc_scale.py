@@ -21,8 +21,8 @@ Under ``cache_pages`` each worker holds at most that many pages
 runs, as in the reference).  ``phase_all`` stays batched under spill: a
 window-disjointness analysis proves which workers' evictions cannot
 interact, those evict with segment-LRU plane ops (``take_first_k``
-masks from the bool runs, ``pack_rows`` -> ``popcount_rows`` dirty-victim
-counts), and the rest replay per worker in tick order.  Ops that can
+masks from the bool runs, ``popcount_rows`` dirty-victim counts from
+the bool planes), and the rest replay per worker in tick order.  Ops that can
 evict a page of their own range before touching it resolve through the
 analytic evict-then-refetch schedule (``_danger_replay``), whose victim
 scan is one rank-select launch read back in one copy (``take_run``);

@@ -19,7 +19,6 @@
 
 #include <cstdint>
 
-#include <cub/block/block_scan.cuh>
 #include <cuda_runtime.h>
 
 namespace {
@@ -137,49 +136,144 @@ __global__ void pack_rows_kernel(const uint8_t* __restrict__ plane,
   }
 }
 
-// popcount_rows: (W, nw) words -> (W,) int64 set-bit counts.
-// Replaces _popcount_kernel / _popcount_rows_pallas
-// (src/repro/kernels/protocol_sweep.py:223, :232).  Bound: W*nw*4 bytes
-// read.  One block per row; threads stride over the row's words so
-// neighbouring threads read neighbouring words, __popc does the SWAR work
-// of the TPU kernel in one instruction, and a warp-shuffle reduction
-// sums the row.
-__global__ void popcount_rows_kernel(const uint32_t* __restrict__ bits,
-                                     long long* __restrict__ counts,
-                                     long long nw) {
-  __shared__ long long partial[kWarps];
-  const uint32_t* row = bits + static_cast<long long>(blockIdx.x) * nw;
-  long long c = 0;
-  for (long long k = threadIdx.x; k < nw; k += blockDim.x) c += __popc(row[k]);
-  c = block_sum(c, partial);
-  if (threadIdx.x == 0) counts[blockIdx.x] = c;
+// popcount_rows: (R, C) bool rows -> (R,) int64 counts of nonzero
+// cells.  Replaces _popcount_kernel / _popcount_rows_pallas
+// (src/repro/kernels/protocol_sweep.py:223, :232), which counted the
+// words of rows packed beforehand (the host's pack_mask_rows, :134).
+// Packing first would cost a second launch (and a copy for a column
+// window), so the rows are read in place, from a pointer and a row
+// stride, and no word is formed: each 16-byte load's nonzero bytes are
+// counted four at a time (nonzero4, the nonzero test of load_word, so
+// mask bytes of 2 or 0xff count as one).  A row's bytes before its
+// first 16-byte boundary and after its last take one byte load a
+// thread; the aligned chunks between are striped over the row's threads
+// (chunk t, t + n, ...), four loads in flight a thread, so a warp's
+// loads cover 512 contiguous bytes a step.  A row of at most 1024 cells
+// (the refetch replay's runs) is one warp, reduced by shuffles; a
+// longer one is one block, whose warps' sums meet in one shared word
+// each (block_sum).  One launch covers every row.
+// Bound: bytes, R*C read once and R*8 written; at the barrier flush's
+// 256 x 16384 plane that is 4 MiB, 1.25 us at 3.35 TB/s.
+
+// The nonzero bytes of x: __vcmpne4 sets a byte to 0xff where it is not
+// 0, and the mask keeps one bit a byte.
+__device__ __forceinline__ int nonzero4(uint32_t x) {
+  return __popc(__vcmpne4(x, 0u) & 0x01010101u);
 }
 
-// coverage_multi: n sorted-bound deltas (+1 window start, -1 window end)
-// -> uint8 (running cover >= 2).  Replaces _coverage_kernel /
-// _coverage_multi_pallas (src/repro/kernels/protocol_sweep.py:329, :333).
-// Bound: n*4 bytes read plus n bytes written; n = 2 * live windows <= 2W.
-// One block walks the input in chunks of kThreads: cub::BlockScan gives
-// the inclusive sum inside a chunk and a running carry joins the chunks,
-// so any n works without a second launch.
-__global__ void coverage_multi_kernel(const int* __restrict__ delta,
-                                      uint8_t* __restrict__ out,
-                                      long long n) {
-  using Scan = cub::BlockScan<int, kThreads>;
-  __shared__ typename Scan::TempStorage tmp;
-  __shared__ int chunk_total;
-  int running = 0;
-  for (long long start = 0; start < n; start += kThreads) {
-    const long long i = start + threadIdx.x;
-    const int x = i < n ? delta[i] : 0;
-    int incl;
-    Scan(tmp).InclusiveSum(x, incl);
-    if (i < n) out[i] = (running + incl) >= 2;
-    if (threadIdx.x == kThreads - 1) chunk_total = incl;
-    __syncthreads();
-    running += chunk_total;
-    __syncthreads();  // chunk_total and tmp are reused by the next chunk
+__device__ __forceinline__ int nonzero16(const uint4 v) {
+  return nonzero4(v.x) + nonzero4(v.y) + nonzero4(v.z) + nonzero4(v.w);
+}
+
+// Thread t's share of the nonzero cells of row [p, p + C), counted by n
+// threads (n >= 16).
+__device__ __forceinline__ long long count_row(const uint8_t* p, long long C,
+                                               int t, int n) {
+  const long long skew =
+      static_cast<long long>(reinterpret_cast<uintptr_t>(p) & 15u);
+  const long long head = skew == 0 ? 0 : (16 - skew < C ? 16 - skew : C);
+  const long long chunks = (C - head) >> 4;
+  const long long tail = head + 16 * chunks;  // the ragged tail's first cell
+  const uint4* q = reinterpret_cast<const uint4*>(p + head);
+  long long c = 0;
+  if (t < head) c += __ldg(p + t) != 0;
+  if (t < C - tail) c += __ldg(p + tail + t) != 0;
+  long long i = t;
+  for (; i + 3ll * n < chunks; i += 4ll * n) {
+    const uint4 v0 = __ldg(q + i);
+    const uint4 v1 = __ldg(q + i + n);
+    const uint4 v2 = __ldg(q + i + 2ll * n);
+    const uint4 v3 = __ldg(q + i + 3ll * n);
+    c += nonzero16(v0) + nonzero16(v1) + nonzero16(v2) + nonzero16(v3);
   }
+  for (; i < chunks; i += n) c += nonzero16(__ldg(q + i));
+  return c;
+}
+
+template <bool kWarpRow>
+__global__ void __launch_bounds__(kThreads)
+    popcount_rows_kernel(const uint8_t* __restrict__ plane, long long stride,
+                         long long R, long long C,
+                         long long* __restrict__ counts) {
+  if constexpr (kWarpRow) {  // a row a warp, C <= 1024
+    const long long r =
+        static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) +
+        (threadIdx.x >> 5);
+    if (r >= R) return;  // warp-uniform
+    long long c = count_row(plane + r * stride, C, threadIdx.x & 31, 32);
+    for (int o = 16; o > 0; o >>= 1) c += __shfl_down_sync(kFull, c, o);
+    if ((threadIdx.x & 31) == 0) counts[r] = c;
+  } else {  // a row a block
+    __shared__ long long partial[kWarps];
+    const long long r = blockIdx.x;
+    long long c = count_row(plane + r * stride, C, threadIdx.x, kThreads);
+    c = block_sum(c, partial);
+    if (threadIdx.x == 0) counts[r] = c;
+  }
+}
+
+// coverage_multi: a region's sorted live window starts and ends (n each,
+// int64, ascending) -> the 2n merged sweep points, then their 2n flags
+// (1 where the running cover after the point is >= 2), in one int64
+// buffer that the host reads back in one copy.  Replaces _coverage_kernel
+// / _coverage_multi_pallas (src/repro/kernels/protocol_sweep.py:329,
+// :333), a running sum over the +1/-1 deltas that the host sorted (a
+// stable argsort of the concatenated bounds) and uploaded on every
+// flush.  Here the bounds stay on the card between window changes
+// (the directory caches them) and the merge is the kernel's: one
+// thread a bound places it and its cover with one binary search in the
+// other array, in the reference's stable order (at equal values every
+// start before every end):
+//   start i of value v: with e = #(ends < v), position i + e and
+//                       cover (i + 1) - e;
+//   end j of value u:   with s = #(starts <= u), position j + s and
+//                       cover s - (j + 1).
+// No scan, no barrier, no shared memory and no limit from one block; on
+// sorted bounds each position is written by one thread, and any input
+// keeps the writes inside [0, 2n).  int64 keeps page ids past INT32_MAX
+// exact.
+// Bound: bytes, 2n*8 read and 4n*8 written (12 KiB at 2W = 512 bounds,
+// 0.0037 us); a launch costs more than that whatever the design, so the
+// gain is on the path: no host sort and no upload a flush.
+// The number of entries of the sorted a[0, n) that are < x, or <= x
+// when kUpper (numpy's searchsorted, side "left" or "right").
+template <bool kUpper>
+__device__ __forceinline__ long long search(const long long* a, long long n,
+                                            long long x) {
+  long long lo = 0, hi = n;
+  while (lo < hi) {
+    const long long mid = (lo + hi) >> 1;
+    const long long v = __ldg(a + mid);
+    if (kUpper ? v <= x : v < x) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    coverage_multi_kernel(const long long* __restrict__ bounds, long long n,
+                          long long* __restrict__ out) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= 2 * n) return;
+  long long value, pos, cover;
+  if (i < n) {  // start i
+    value = __ldg(bounds + i);
+    const long long before = search<false>(bounds + n, n, value);
+    pos = i + before;
+    cover = i + 1 - before;
+  } else {  // end j
+    const long long j = i - n;
+    value = __ldg(bounds + i);
+    const long long opened = search<true>(bounds, n, value);
+    pos = j + opened;
+    cover = opened - (j + 1);
+  }
+  out[pos] = value;
+  out[2 * n + pos] = cover >= 2;
 }
 
 // Bits [a, b) of a word, 0 <= a < b <= 32.
@@ -608,23 +702,38 @@ int rt_pack_rows(const void* plane, void* out, long long W, long long C,
   return static_cast<int>(cudaGetLastError());
 }
 
-int rt_popcount_rows(const void* bits, void* counts, long long W,
-                     long long nw, void* stream) {
-  if (W > 0) {
-    popcount_rows_kernel<<<static_cast<unsigned>(W), kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(bits), static_cast<long long*>(counts),
-        nw);
+// plane: (R, C) bool rows ``stride`` bytes apart, each row's cells
+// contiguous; counts: R int64.
+int rt_popcount_rows(const void* plane, long long stride, long long R,
+                     long long C, void* counts, void* stream) {
+  if (R > 0 && C > 0) {
+    const auto* p = static_cast<const uint8_t*>(plane);
+    auto* out = static_cast<long long*>(counts);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (C <= 32 * 32) {
+      const long long per = R < kWarps ? R : kWarps;  // rows a block
+      popcount_rows_kernel<true>
+          <<<static_cast<unsigned>((R + per - 1) / per),
+             static_cast<unsigned>(32 * per), 0, s>>>(p, stride, R, C, out);
+    } else {
+      popcount_rows_kernel<false>
+          <<<static_cast<unsigned>(R), kThreads, 0, s>>>(p, stride, R, C,
+                                                        out);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-int rt_coverage_multi(const void* delta, void* out, long long n,
+// bounds: (2, n) int64, the sorted starts then the sorted ends; out: 4n
+// int64.
+int rt_coverage_multi(const void* bounds, long long n, void* out,
                       void* stream) {
   if (n > 0) {
-    coverage_multi_kernel<<<1, kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(delta), static_cast<uint8_t*>(out), n);
+    coverage_multi_kernel<<<static_cast<unsigned>((2 * n + kThreads - 1) /
+                                                  kThreads),
+                            kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const long long*>(bounds), n,
+        static_cast<long long*>(out));
   }
   return static_cast<int>(cudaGetLastError());
 }

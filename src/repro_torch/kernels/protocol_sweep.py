@@ -9,11 +9,16 @@ int64 (torch's CPU build lacks shifts on uint32).
 
 Hand-written CUDA kernels (``csrc/protocol_sweep.cu``, ``sm_90a``):
 
-* ``pack_rows``      (W, C) bool plane -> (W, ceil(C/32)) packed words;
-* ``popcount_rows``  per-row set-bit counts (the barrier-flush writeback
-  charge and the eviction engine's dirty-victim counts);
-* ``coverage_multi`` running cover of the sorted +1/-1 window-bound
-  deltas, >= 2 (the shared-interval sweep);
+* ``pack_rows``      (W, C) bool plane -> (W, ceil(C/32)) packed words
+  (the counterpart of the reference's host helper ``pack_mask_rows``;
+  no path of the engine calls it, since every kernel below reads the
+  bool planes itself);
+* ``popcount_rows``  per-row counts of the nonzero cells of bool rows
+  read in place (any row stride): the unfused barrier flush's writeback
+  charge and the eviction engine's dirty-victim counts;
+* ``coverage_multi`` the shared-interval sweep from a region's sorted
+  window starts and ends (int64, cached on the card): the merged sweep
+  points and where the running cover is >= 2, in one buffer;
 * ``phase_step``     the fused barrier flush over R regions, read from
   their bool dirty planes as they lie: per-row popcount, coverage stab,
   and the shared-dirty candidate words (dirty & multi-covered & active
@@ -69,8 +74,8 @@ _P = ctypes.c_void_p
 _L = ctypes.c_longlong
 _KERNELS = Kernels("protocol_sweep.cu", {
     "pack_rows": (_P, _P, _L, _L, _L),
-    "popcount_rows": (_P, _P, _L, _L),
-    "coverage_multi": (_P, _P, _L),
+    "popcount_rows": (_P, _L, _L, _L, _P),
+    "coverage_multi": (_P, _L, _P),
     "phase_step": (_P, _P, _P, _P, _L, _L, _L),
     "take_first_k": (_P, _L, _L, _L, _P, _L, _P, _P),
     "kth_set_index": (_P, _L, _L, _L, _P, _L, _P, _P),
@@ -145,11 +150,33 @@ def unpack_rows(bits: torch.Tensor, n_cols: int) -> torch.Tensor:
 
 
 def _popcount_rows_plain(bits: torch.Tensor) -> torch.Tensor:
+    """Per-row set-bit counts of packed (W, nw) words: the chain to the
+    reference's ``_popcount_rows_np``."""
     return _popcount_words_plain(bits).sum(dim=1)
 
 
-def _coverage_multi_plain(delta: torch.Tensor) -> torch.Tensor:
+def _popcount_rows_bool_plain(plane: torch.Tensor) -> torch.Tensor:
+    """``popcount_rows``: per-row counts of the nonzero cells of bool
+    rows (a byte of 2 or 0xff counts as one, as in the kernel)."""
+    return (plane.view(torch.uint8) != 0).sum(dim=1)
+
+
+def _coverage_multi_delta_plain(delta: torch.Tensor) -> torch.Tensor:
+    """Running cover >= 2 over sorted +1/-1 bound deltas: the chain to
+    the reference's ``coverage_multi(delta)``."""
     return torch.cumsum(delta.to(torch.int64), dim=0) >= 2
+
+
+def _coverage_multi_plain(bounds: torch.Tensor) -> torch.Tensor:
+    """``coverage_multi``: the bounds merged by a stable sort (starts
+    first at equal values, the reference's ``np.argsort(kind="stable")``
+    of the concatenated bounds), then the running cover of their deltas
+    >= 2, as one int64 buffer [points, flags]."""
+    n = bounds.shape[1]
+    points, order = torch.sort(bounds.reshape(-1), stable=True)
+    delta = torch.where(order < n, 1, -1)
+    multi = _coverage_multi_delta_plain(delta)
+    return torch.cat([points, multi.to(torch.int64)])
 
 
 def _shared_words_plain(bits, base, active, sb, se):
@@ -313,34 +340,45 @@ def pack_rows(plane: torch.Tensor,
     return out
 
 
-def popcount_rows(bits: torch.Tensor) -> torch.Tensor:
-    """(W, nw) int32 packed words -> (W,) int64 per-row set-bit counts."""
+def popcount_rows(plane: torch.Tensor) -> torch.Tensor:
+    """(R, C) bool rows -> (R,) int64 counts of their nonzero cells.
+    ``plane`` may be a view with any row stride, each row's cells
+    contiguous (a column window of a plane, every other row of one): the
+    kernel reads it in place."""
     _called("popcount_rows")
-    dev = bits.device
-    check(bits, "bits", torch.int32, 2, dev)
-    W, nw = bits.shape
-    if not on_card(bits):
-        return _popcount_rows_plain(bits)
-    if W == 0 or nw == 0:
-        return torch.zeros(W, dtype=torch.int64, device=dev)
-    counts = torch.empty(W, dtype=torch.int64, device=dev)
-    _launch("popcount_rows", dev, bits.data_ptr(), counts.data_ptr(), W, nw)
+    _check_rows(plane, "plane")
+    dev = plane.device
+    if not on_card(plane):
+        return _popcount_rows_bool_plain(plane)
+    R, C = plane.shape
+    if R == 0 or C == 0:
+        return torch.zeros(R, dtype=torch.int64, device=dev)
+    counts = torch.empty(R, dtype=torch.int64, device=dev)
+    _launch("popcount_rows", dev, plane.data_ptr(), plane.stride(0), R, C,
+            counts.data_ptr())
     return counts
 
 
-def coverage_multi(delta: torch.Tensor) -> torch.Tensor:
-    """Sorted-bound deltas (+1 window start / -1 window end), int32 ->
-    bool mask of sweep points whose running cover count is >= 2."""
+def coverage_multi(bounds: torch.Tensor) -> torch.Tensor:
+    """A region's sorted live window bounds, a (2, n) int64 tensor (the
+    starts, then the ends, each ascending) -> one int64 buffer of 4n: the
+    2n bounds merged in the reference's stable order (at equal values
+    every start before every end), then each merged point's flag, 1 where
+    the running cover after it (starts minus ends so far) is >= 2.  The
+    host reads both halves back in one copy."""
     _called("coverage_multi")
-    dev = delta.device
-    check(delta, "delta", torch.int32, 1, dev)
-    if not on_card(delta):
-        return _coverage_multi_plain(delta)
-    out = torch.empty(delta.shape[0], dtype=torch.uint8, device=dev)
-    if delta.shape[0]:
-        _launch("coverage_multi", dev, delta.data_ptr(), out.data_ptr(),
-                delta.shape[0])
-    return out.view(torch.bool)
+    dev = bounds.device
+    check(bounds, "bounds", torch.int64, 2, dev)
+    if bounds.shape[0] != 2:
+        raise ValueError(f"bounds shape {tuple(bounds.shape)}: two rows "
+                         "(starts, ends) expected")
+    if not on_card(bounds):
+        return _coverage_multi_plain(bounds)
+    n = bounds.shape[1]
+    out = torch.empty(4 * n, dtype=torch.int64, device=dev)
+    if n:
+        _launch("coverage_multi", dev, bounds.data_ptr(), n, out.data_ptr())
+    return out
 
 
 def phase_step(planes: Sequence[torch.Tensor],
@@ -496,6 +534,14 @@ def phase_step_inputs(rng: np.random.Generator, R: int, W: int, caps,
     return planes, geoms, rowmask
 
 
+def _check_rows(plane: torch.Tensor, name: str):
+    """Raise unless ``plane`` is (R, C) bool rows whose cells are
+    contiguous (any row stride), as the row kernels read them."""
+    if not (plane.dtype is torch.bool and plane.dim() == 2
+            and (plane.shape[1] < 2 or plane.stride(1) == 1)):
+        check(plane, name, torch.bool, 2, plane.device)
+
+
 def _rank_operands(live: torch.Tensor, k):
     """Check a rank-select call's operands: ``live`` (R, C) bool rows,
     each row's cells contiguous (any row stride), and the ranks ``k``:
@@ -503,9 +549,7 @@ def _rank_operands(live: torch.Tensor, k):
     Returns (the ranks as int32 for the kernel, or None; the rank by
     value): int64 ranks are clipped to the int32 range (the rank of any
     real row is far below it, so clipping changes no result)."""
-    if not (live.dtype is torch.bool and live.dim() == 2
-            and (live.shape[1] < 2 or live.stride(1) == 1)):
-        check(live, "live", torch.bool, 2, live.device)
+    _check_rows(live, "live")
     R = live.shape[0]
     if not isinstance(k, torch.Tensor):
         if R != 1:

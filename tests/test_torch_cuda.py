@@ -36,19 +36,28 @@ def dev():
     return torch.device("cuda")
 
 
+def sorted_bounds(rng, n, span=0, length=20, base=0):
+    """n windows' sorted starts and sorted ends, int64, as a (2, n)
+    array: starts from ``span`` values (4n when 0: ties), lengths from
+    [0, ``length``) (empty windows), offset by ``base``."""
+    starts = base + rng.integers(0, span or max(4 * n, 1), n)
+    ends = starts + rng.integers(0, length, n)
+    return np.stack([np.sort(starts), np.sort(ends)]).astype(np.int64)
+
+
 def test_kernels_match_plain_versions(dev):
     rng = np.random.default_rng(5)
-    for W, C in ((1, 1), (3, 31), (37, 1000), (256, 16385)):
+    for W, C in ((1, 1), (3, 31), (37, 1000), (256, 16384), (256, 16385)):
         plane = torch.as_tensor(rng.random((W, C)) < 0.4, device=dev)
         bits = ps.pack_rows(plane)
         assert torch.equal(bits, ps._pack_rows_plain(plane))
-        assert torch.equal(ps.popcount_rows(bits),
-                           ps._popcount_rows_plain(bits))
-    for n in (1, 9, 256, 257, 5000):
-        delta = torch.as_tensor(
-            rng.choice(np.array([1, -1], np.int32), n), device=dev)
-        assert torch.equal(ps.coverage_multi(delta),
-                           ps._coverage_multi_plain(delta))
+        counts = ps.popcount_rows(plane)
+        assert torch.equal(counts, ps._popcount_rows_bool_plain(plane))
+        assert torch.equal(counts, ps._popcount_rows_plain(bits))
+    for n in (0, 1, 9, 256, 257, 5000):
+        bounds = torch.as_tensor(sorted_bounds(rng, n), device=dev)
+        assert torch.equal(ps.coverage_multi(bounds),
+                           ps._coverage_multi_plain(bounds))
     i32max = np.iinfo(np.int32).max
     R, W, C = 3, 9, 300
     planes = torch.as_tensor(rng.random((R, W, C)) < 0.5, device=dev)
@@ -161,6 +170,89 @@ def test_pack_rows_aligned_and_unaligned(dev, W, C, offset):
     ps.pack_rows(plane, out=wide)
     assert torch.equal(wide[:, :-2], want)
     assert not wide[:, -2:].any()
+
+
+@pytest.mark.parametrize("R,C", [(256, 16384), (3, 16385), (5, 16),
+                                 (9, 33), (1, 1), (2, 1000), (4, 1031),
+                                 (1, 0)])
+@pytest.mark.parametrize("offset", [0, 1, 4, 15])
+def test_popcount_rows_unaligned_and_strided_rows(dev, R, C, offset):
+    """popcount_rows on rows that start on and off 16-byte boundaries (a
+    view ``offset`` bytes into a buffer that the plane ends, so a ragged
+    tail ends at the allocation's end), a column window of a wider plane,
+    every other row of one, and mask bytes of 2 and 0xff: read in place,
+    against the plain version on contiguous copies."""
+    rng = np.random.default_rng(R + C + offset)
+    buf = torch.zeros(R * C + offset, dtype=torch.uint8, device=dev)
+    plane = buf[offset:].view(R, C)
+    plane.copy_(torch.as_tensor(
+        rng.choice(np.array([0, 1, 2, 255], np.uint8), (R, C)), device=dev))
+    wide = torch.as_tensor(rng.random((2 * R, C + 2 * offset + 3)) < 0.5,
+                           device=dev)
+    for rows in (plane.view(torch.bool), wide[:R, offset:offset + C],
+                 wide[::2, offset + 3:offset + 3 + C]):
+        want = ps._popcount_rows_bool_plain(rows.contiguous())
+        assert torch.equal(ps.popcount_rows(rows), want)
+        assert torch.equal(want.cpu(), ps._popcount_rows_bool_plain(
+            rows.cpu()))
+
+
+@pytest.mark.parametrize("case", ["one", "all_equal", "start_equals_end",
+                                  "duplicates", "past_int32_max", "many"])
+def test_coverage_multi_edges(dev, case):
+    """coverage_multi on the edges of the sweep: n = 1, every bound the
+    same page, windows ending where others start and empty windows,
+    duplicate starts and ends, page ids past INT32_MAX and n = 5000,
+    against the plain version (a stable sort and a cumsum)."""
+    rng = np.random.default_rng(len(case))
+    bounds = {
+        "one": lambda: np.array([[5], [9]], np.int64),
+        "all_equal": lambda: np.full((2, 7), 40, np.int64),
+        "start_equals_end": lambda: np.array([[0, 10, 10, 20, 30],
+                                              [10, 10, 20, 30, 30]],
+                                             np.int64),
+        "duplicates": lambda: sorted_bounds(rng, 64, span=6, length=3),
+        "past_int32_max": lambda: sorted_bounds(rng, 40, length=50,
+                                                base=(1 << 33) + 17),
+        "many": lambda: sorted_bounds(rng, 5000, span=20000, length=300),
+    }[case]()
+    t = torch.as_tensor(bounds, device=dev)
+    want = ps._coverage_multi_plain(t)
+    assert torch.equal(ps.coverage_multi(t), want)
+    assert torch.equal(want.cpu(), ps._coverage_multi_plain(t.cpu()))
+
+
+def test_kernels_tier_flush_and_eviction_launch_no_pack_rows(dev,
+                                                             monkeypatch):
+    """On 'kernels' the unfused barrier flush (dirty_counts,
+    shared_intervals) and batched eviction (evict_rows) launch
+    popcount_rows and coverage_multi and no pack_rows, with traffic and
+    clocks equal to the same runs on the CPU."""
+    evicts = []
+    orig = pt_dir.RegionDirectory.evict_rows
+
+    def counted(self, *a, **kw):
+        evicts.append(self.device.type)
+        return orig(self, *a, **kw)
+    monkeypatch.setattr(pt_dir.RegionDirectory, "evict_rows", counted)
+    before = dict(ps.LAUNCHES)
+    runs = {}
+    for device in ("cpu", "cuda"):
+        flush = make_runtime(16, protocol="page", fetch_batch=16,
+                             backend="kernels", device=device)
+        apps.jacobi(flush, 128, 3, mode="lock")
+        spill = make_runtime(16, protocol="fine", fetch_batch=16,
+                             cache_pages=40, backend="kernels",
+                             device=device)
+        apps.stream_triad(spill, 16 * 1024 * 64, 2, driver="batched")
+        runs[device] = (flush, spill)
+    for a, b in zip(runs["cpu"], runs["cuda"]):
+        assert dataclasses.asdict(a.traffic) == dataclasses.asdict(b.traffic)
+        np.testing.assert_array_equal(a.clock, b.clock)
+    launched = {k: ps.LAUNCHES[k] - before[k] for k in ps.LAUNCHES}
+    assert "cuda" in evicts
+    assert launched["pack_rows"] == 0, launched
+    assert launched["popcount_rows"] > 0 and launched["coverage_multi"] > 0
 
 
 @pytest.mark.parametrize("backend", ("kernels", "fused"))

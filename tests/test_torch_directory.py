@@ -1,8 +1,10 @@
 """Directory-level parity of ``repro_torch.core.directory`` against the
 reference ``repro.core.directory`` on the same seeded inputs: window grow
 and shift, ``overlap_rows``/``gather_valid``/``clear_valid_cells``,
-``count_range``, ``shared_intervals`` and ``dirty_counts`` on every tier,
-the span planes, ``IntervalLog.pending`` and the state round trip.
+``count_range``, ``shared_intervals`` and ``dirty_counts`` on every tier
+(page ids past INT32_MAX too, the bounds cache, no packing on the kernel
+tiers), ``evict_rows``' dirty-victim counts, the span planes,
+``IntervalLog.pending`` and the state round trip.
 Tolerance: exact (every result is integer or boolean)."""
 import numpy as np
 import pytest
@@ -10,26 +12,30 @@ import torch
 
 from repro.core import directory as ref_dir
 from repro_torch.core import directory as pt_dir
+from repro_torch.kernels import protocol_sweep as ps
 
 # the port's tier and the reference tier it twins
 TIERS = (("plain", "numpy"), ("kernels", "pallas"), ("fused", "pallas-jit"))
 
 
 def _pair(W, page_hi, seed, *, wprot=False, tier=("plain", "numpy"),
-          n_ops=12):
+          n_ops=12, touch=False, offset=0):
     """A reference and a port directory driven through the same seeded
     window growth (left and right extensions, fresh rows) and the same
-    valid/dirty/wprot cell writes."""
+    valid/dirty/wprot cell writes, over pages [offset, offset +
+    page_hi)."""
     rng = np.random.default_rng(seed)
-    ref = ref_dir.RegionDirectory(W, 0, 0, page_hi, track_wprot=wprot,
+    ref = ref_dir.RegionDirectory(W, 0, offset, offset + page_hi,
+                                  track_wprot=wprot, track_touch=touch,
                                   backend=tier[1])
-    pt = pt_dir.RegionDirectory(W, 0, 0, page_hi, track_wprot=wprot,
+    pt = pt_dir.RegionDirectory(W, 0, offset, offset + page_hi,
+                                track_wprot=wprot, track_touch=touch,
                                 backend=tier[0], device="cpu")
     pt.stats = {"fused_dispatches": 0}
     for _ in range(n_ops):
         w = int(rng.integers(0, W))
-        lo = int(rng.integers(0, page_hi - 1))
-        hi = int(rng.integers(lo + 1, min(lo + 40, page_hi) + 1))
+        lo = offset + int(rng.integers(0, page_hi - 1))
+        hi = int(rng.integers(lo + 1, min(lo + 40, offset + page_hi) + 1))
         ref.ensure(w, lo, hi)
         pt.ensure(w, lo, hi)
         s = ref.sl(w, lo, hi)
@@ -127,6 +133,92 @@ def test_shared_intervals_and_dirty_counts_per_tier(tier):
             np.testing.assert_array_equal(a, b)
     # the fused tier notes its kernel calls as fused dispatches
     assert (pt.stats["fused_dispatches"] > 0) == (tier[0] == "fused")
+
+
+@pytest.mark.parametrize("tier", TIERS, ids=[t[0] for t in TIERS])
+def test_shared_intervals_past_int32_max_per_tier(tier):
+    """Windows of pages past INT32_MAX: the sweep's int64 bounds keep
+    them exact on every tier, as the reference's int64 sweep does."""
+    for seed in range(2):
+        ref, pt = _pair(8, 500, 150 + seed, tier=tier, n_ops=16,
+                        offset=(1 << 33) + 11)
+        s_r, e_r = ref.shared_intervals()
+        s_p, e_p = pt.shared_intervals()
+        assert s_r.size and s_r.min() > np.iinfo(np.int32).max
+        np.testing.assert_array_equal(s_p, s_r)
+        np.testing.assert_array_equal(e_p, e_r)
+        np.testing.assert_array_equal(pt.dirty_counts(), ref.dirty_counts())
+
+
+def test_coverage_bounds_cached_until_window_change():
+    """The sweep's (2, n) int64 bounds tensor is built once and reused by
+    every flush until a window changes: a call inside the windows keeps
+    it, a growth drops it and the next sweep uploads the new bounds."""
+    ref, pt = _pair(6, 300, 97, tier=("kernels", "pallas"), n_ops=14)
+    ref.shared_intervals()
+    t = pt.coverage_bounds()
+    assert t.dtype == torch.int64 and tuple(t.shape) == (
+        2, int((pt.base >= 0).sum()))
+    np.testing.assert_array_equal(t.numpy(), np.stack(
+        [ref._sorted_bases, ref._sorted_ends]))
+    for _ in range(2):
+        pt.shared_intervals()
+        pt.dirty_counts()
+        pt.jit_geometry_tensor()
+    assert pt.coverage_bounds() is t
+    w = int(np.nonzero(pt.base >= 0)[0][0])
+    b, n = int(pt.base[w]), int(pt.length[w])
+    pt.ensure(w, b, b + n)
+    assert pt.coverage_bounds() is t
+    for d in (ref, pt):
+        d.ensure(w, b + n, b + n + 25)
+    t2 = pt.coverage_bounds()
+    assert t2 is not t
+    for got, want in zip(pt.shared_intervals(), ref.shared_intervals()):
+        np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(t2.numpy(), np.stack(
+        [ref._sorted_bases, ref._sorted_ends]))
+
+
+@pytest.mark.parametrize("tier", TIERS[1:], ids=[t[0] for t in TIERS[1:]])
+def test_kernel_tiers_pack_nothing(tier):
+    """``dirty_counts``, ``shared_intervals`` and ``evict_rows`` on the
+    kernel tiers call no ``pack_rows``: the kernels read the bool planes
+    and the cached bounds themselves."""
+    ref, pt = _pair(8, 600, 99, tier=tier, n_ops=16, touch=True)
+    calls = dict(ps.CALLS)
+    np.testing.assert_array_equal(pt.dirty_counts(), ref.dirty_counts())
+    for got, want in zip(pt.shared_intervals(), ref.shared_intervals()):
+        np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        pt.evict_rows(np.arange(8), 0, pt.cap, None, set_wprot=False),
+        ref.evict_rows(np.arange(8), 0, ref.cap, None, set_wprot=False))
+    assert ps.CALLS["pack_rows"] == calls["pack_rows"]
+    assert ps.CALLS["popcount_rows"] == calls["popcount_rows"] + 2
+    assert ps.CALLS["coverage_multi"] == calls["coverage_multi"] + 1
+
+
+@pytest.mark.parametrize("tier", TIERS, ids=[t[0] for t in TIERS])
+@pytest.mark.parametrize("rows", [(2, 3, 4, 5), (0, 3, 7), (6,)],
+                         ids=["run", "scattered", "one"])
+def test_evict_rows_counts_match(tier, rows):
+    """``evict_rows``' dirty-victim counts and plane updates against the
+    reference's: a run of rows (the kernel reads a column window of the
+    dirty plane in place), scattered rows (a gathered copy) and one row;
+    the whole span, then a take mask over another span."""
+    ref, pt = _pair(8, 600, 98, wprot=True, tier=tier, n_ops=24,
+                    touch=True)
+    rows = np.asarray(rows)
+    rng = np.random.default_rng(len(rows))
+    for start, length, masked in ((3, 29, False), (17, 41, True)):
+        length = min(length, ref.cap - start)
+        take = rng.random((rows.size, length)) < 0.5 if masked else None
+        got = pt.evict_rows(rows, start, length,
+                            None if take is None else torch.from_numpy(take),
+                            set_wprot=True)
+        want = ref.evict_rows(rows, start, length, take, set_wprot=True)
+        np.testing.assert_array_equal(got, want)
+        _assert_same(ref, pt)
 
 
 def test_dirty_bounds_match():

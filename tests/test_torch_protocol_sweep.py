@@ -6,7 +6,9 @@ On the CPU every wrapper runs its plain PyTorch version; these tests hold
 those versions bit for bit against the reference's numpy tier, its Pallas
 tier (interpret mode off-TPU) and its jitted fused chain, on seeded
 inputs with ragged column counts, inactive rows (base = -1), masked rows
-and INT32_MAX geometry padding.  Tolerance: exact everywhere (integer
+and INT32_MAX geometry padding; ``popcount_rows`` on bool rows read in
+place and ``coverage_multi`` on the sorted int64 bounds against the
+reference's packed and delta operands.  Tolerance: exact everywhere (integer
 results; packed words compared as uint32 bit patterns).  The CUDA kernels
 themselves are held against these plain versions on the card by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
@@ -54,37 +56,227 @@ def test_pack_into_wider_buffer_zero_pads():
     np.testing.assert_array_equal(u32(out), want)
 
 
+def popcount_want(plane: np.ndarray) -> np.ndarray:
+    """The reference's numpy tier on host bool rows: packed with
+    ``pack_mask_rows``, then ``_popcount_rows_np``."""
+    return ref_ps._popcount_rows_np(ref_ps.pack_mask_rows(plane != 0))
+
+
 @pytest.mark.parametrize("W,C", SHAPES)
 def test_popcount_matches_numpy_tier(W, C):
+    """``popcount_rows`` on seeded bool planes against the reference's
+    ``_popcount_rows_np(pack_mask_rows(plane))``; the packed plain
+    version, the chain to that numpy tier, against it too."""
     rng = np.random.default_rng(7 + W + C)
-    bits = ref_ps.pack_mask_rows(rng.random((W, C)) < 0.45)
-    got = ps.popcount_rows(as_words(bits))
-    assert got.dtype == torch.int64
-    np.testing.assert_array_equal(got.numpy(), ref_ps._popcount_rows_np(bits))
+    plane = rng.random((W, C)) < 0.45
+    got = ps.popcount_rows(torch.from_numpy(plane))
+    assert got.dtype == torch.int64 and tuple(got.shape) == (W,)
+    want = popcount_want(plane)
+    np.testing.assert_array_equal(got.numpy(), want)
+    bits = ref_ps.pack_mask_rows(plane)
+    np.testing.assert_array_equal(
+        ps._popcount_rows_plain(as_words(bits)).numpy(), want)
 
 
 def test_popcount_matches_pallas_and_jit_tiers():
+    """Bool rows through the port against the packed rows through the
+    reference's Pallas kernel (interpret mode) and its jitted tier; an
+    all-set row fills every word (negative int32 patterns)."""
     rng = np.random.default_rng(11)
-    # all-ones words exercise the top bit (negative int32 patterns)
     plane = rng.random((41, 700)) < 0.5
     plane[3] = True
     bits = ref_ps.pack_mask_rows(plane)
-    got = ps.popcount_rows(as_words(bits)).numpy()
+    got = ps.popcount_rows(torch.from_numpy(plane)).numpy()
     np.testing.assert_array_equal(
         got, ref_ps.popcount_rows(bits, backend="pallas"))
     np.testing.assert_array_equal(
         got, ref_ps.popcount_rows(bits, backend="pallas-jit"))
 
 
+def _view_case(rng, case):
+    """(port operand, host bool rows it holds) for ``popcount_rows``: a
+    column window of a wider plane, every other row of one, mask bytes of
+    2 and 0xff, no rows, no columns."""
+    wide = rng.random((30, 1100)) < 0.5
+    if case == "window":
+        return torch.from_numpy(wide)[:, 7:7 + 1041], wide[:, 7:7 + 1041]
+    if case == "every_other_row":
+        return torch.from_numpy(wide)[::2, 3:700], wide[::2, 3:700]
+    if case == "bytes_2_and_ff":
+        u8 = rng.choice(np.array([0, 1, 2, 255], np.uint8), (9, 77))
+        return torch.from_numpy(u8).view(torch.bool), u8 != 0
+    if case == "no_rows":
+        return torch.zeros((0, 40), dtype=torch.bool), np.zeros((0, 40), bool)
+    assert case == "no_columns"
+    return torch.zeros((4, 0), dtype=torch.bool), np.zeros((4, 0), bool)
+
+
+@pytest.mark.parametrize("case", ["window", "every_other_row",
+                                  "bytes_2_and_ff", "no_rows", "no_columns"])
+def test_popcount_on_views_and_mask_bytes(case):
+    """Rows read as they lie (a column window, every other row: any row
+    stride, cells contiguous) and mask bytes other than 1, which count as
+    one set cell, against the reference on the same cells."""
+    rng = np.random.default_rng(len(case))
+    view, plane = _view_case(rng, case)
+    got = ps.popcount_rows(view)
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), popcount_want(plane))
+
+
+def _row_split(skew: int, C: int):
+    """The cells of a row ``skew`` bytes past a 16-byte boundary as the
+    kernel's ``count_row`` splits them: the head up to the boundary, the
+    aligned 16-byte chunks, the ragged tail."""
+    head = 0 if skew == 0 else min(16 - skew, C)
+    chunks = (C - head) >> 4
+    tail = head + 16 * chunks
+    return range(head), [range(head + 16 * i, head + 16 * i + 16)
+                         for i in range(chunks)], range(tail, C)
+
+
+def test_popcount_row_split_model():
+    """``count_row``'s split, modelled in Python: at every misalignment
+    and ragged length every cell is counted once, each chunk starts on a
+    16-byte boundary, and head and tail have fewer than 16 cells (one a
+    thread of a warp); its per-lane nonzero test (``nonzero4``) counts
+    bytes of 2 and 0xff as one."""
+    for skew in range(16):
+        for C in list(range(0, 70)) + [1024, 1041, 16384, 16385]:
+            head, chunks, tail = _row_split(skew, C)
+            cells = list(head) + [c for ch in chunks for c in ch] + list(tail)
+            assert cells == list(range(C)), (skew, C)
+            assert all((skew + ch.start) % 16 == 0 for ch in chunks)
+            assert len(head) < 16 and len(tail) < 16
+    rng = np.random.default_rng(2)
+    words = rng.choice(np.array([0, 1, 2, 255], np.uint8), (500, 4))
+    lanes = words.copy().view(np.uint32).reshape(-1)
+    for w, x in zip(words, lanes):
+        vcmpne = sum(1 << (8 * i) for i in range(4)
+                     if (int(x) >> (8 * i)) & 0xFF)
+        assert bin(vcmpne & 0x01010101).count("1") == int((w != 0).sum())
+
+
+def coverage_bounds(rng, n: int, span: int = 0, length: int = 20,
+                    base: int = 0):
+    """n seeded windows as the directory holds them: sorted starts and
+    sorted ends, int64; starts drawn from ``span`` values (4n when 0), so
+    ties are common, and lengths from [0, ``length``), so some windows
+    are empty (a start equal to an end), offset by ``base``."""
+    starts = base + rng.integers(0, span or max(4 * n, 1), n)
+    ends = starts + rng.integers(0, length, n)
+    return np.sort(starts).astype(np.int64), np.sort(ends).astype(np.int64)
+
+
+def coverage_want(starts, ends, backend="numpy"):
+    """The reference's sweep: the concatenated bounds' stable argsort,
+    the points in that order and the reference's ``coverage_multi`` of
+    the ordered deltas (``backend`` its tier)."""
+    pts = np.concatenate([starts, ends])
+    delta = np.concatenate([np.ones(starts.size, np.int64),
+                            np.full(ends.size, -1, np.int64)])
+    order = np.argsort(pts, kind="stable")
+    return pts[order], ref_ps.coverage_multi(delta[order], backend=backend)
+
+
+def check_coverage(starts, ends, backends=("numpy",)):
+    n = starts.size
+    buf = ps.coverage_multi(torch.from_numpy(np.stack([starts, ends])))
+    assert buf.dtype == torch.int64 and tuple(buf.shape) == (4 * n,)
+    buf = buf.numpy()
+    assert set(np.unique(buf[2 * n:])) <= {0, 1}
+    for backend in backends:
+        pts, multi = coverage_want(starts, ends, backend)
+        np.testing.assert_array_equal(buf[:2 * n], pts)
+        np.testing.assert_array_equal(buf[2 * n:] != 0, multi)
+
+
 @pytest.mark.parametrize("n", (1, 2, 9, 128, 515))
 def test_coverage_matches_numpy_and_pallas(n):
+    """Seeded sorted bounds of n windows (ties, empty windows) through
+    the port's one-buffer sweep, against the reference's stable argsort
+    and its ``coverage_multi`` on the numpy and Pallas tiers."""
+    rng = np.random.default_rng(13 + n)
+    check_coverage(*coverage_bounds(rng, n), ("numpy", "pallas"))
+
+
+@pytest.mark.parametrize("n", (1, 2, 9, 128, 515))
+def test_coverage_delta_chain_matches_numpy_and_pallas(n):
+    """The delta form's plain version (the chain to the reference's
+    ``coverage_multi(delta)``) on random +1/-1 deltas."""
     rng = np.random.default_rng(13 + n)
     delta = rng.choice(np.array([1, -1], np.int64), n)
-    got = ps.coverage_multi(torch.from_numpy(delta.astype(np.int32)))
+    got = ps._coverage_multi_delta_plain(torch.from_numpy(
+        delta.astype(np.int32)))
     assert got.dtype == torch.bool
     np.testing.assert_array_equal(got.numpy(), np.cumsum(delta) >= 2)
     np.testing.assert_array_equal(
         got.numpy(), ref_ps.coverage_multi(delta, backend="pallas"))
+
+
+@pytest.mark.parametrize("case", ["no_windows", "one_window", "all_equal",
+                                  "start_equals_end", "duplicates",
+                                  "past_int32_max", "many"])
+def test_coverage_edges_match_reference(case):
+    """n < 2; every bound the same page; windows whose start is another
+    window's end and empty windows; duplicate starts and ends; page ids
+    past INT32_MAX (int64 end to end); n = 5000."""
+    rng = np.random.default_rng(len(case))
+    if case == "no_windows":
+        starts = ends = np.zeros(0, np.int64)
+    elif case == "one_window":
+        starts, ends = np.array([5], np.int64), np.array([9], np.int64)
+    elif case == "all_equal":
+        starts = ends = np.full(7, 40, np.int64)
+    elif case == "start_equals_end":
+        starts = np.array([0, 10, 10, 20, 30], np.int64)
+        ends = np.array([10, 10, 20, 30, 30], np.int64)
+    elif case == "duplicates":
+        starts, ends = coverage_bounds(rng, 64, span=6, length=3)
+    elif case == "past_int32_max":
+        starts, ends = coverage_bounds(rng, 40, length=50,
+                                       base=(1 << 33) + 17)
+    else:
+        starts, ends = coverage_bounds(rng, 5000, span=20000, length=300)
+    backends = ("numpy",) + (("pallas",) if starts.size >= 2 else ())
+    check_coverage(starts, ends, backends)
+
+
+def _placement_model(starts, ends):
+    """The kernel's placement in Python: start i at i + #(ends < v) with
+    cover (i + 1) - #(ends < v); end j at j + #(starts <= u) with cover
+    #(starts <= u) - (j + 1); each bound by itself, no scan."""
+    n = starts.size
+    pts = np.zeros(2 * n, np.int64)
+    multi = np.zeros(2 * n, bool)
+    for i, v in enumerate(starts):
+        e = int(np.searchsorted(ends, v, "left"))
+        pts[i + e], multi[i + e] = v, i + 1 - e >= 2
+    for j, u in enumerate(ends):
+        s = int(np.searchsorted(starts, u, "right"))
+        pts[j + s], multi[j + s] = u, s - (j + 1) >= 2
+    return pts, multi
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_coverage_placement_model_matches_stable_argsort(seed):
+    """The kernel's placement (one binary search a bound) equals the
+    stable argsort of the concatenated bounds and the running cover, and
+    fills every position once, on random bounds tied within and across
+    starts and ends."""
+    rng = np.random.default_rng(seed)
+    for n in (1, 2, 3, 17, 200):
+        starts, ends = coverage_bounds(rng, n, span=max(n // 2, 1),
+                                       length=4)
+        pts, multi = _placement_model(starts, ends)
+        want_pts, want_multi = coverage_want(starts, ends)
+        np.testing.assert_array_equal(pts, want_pts)
+        np.testing.assert_array_equal(multi, want_multi)
+        slots = [i + int(np.searchsorted(ends, v, "left"))
+                 for i, v in enumerate(starts)]
+        slots += [j + int(np.searchsorted(starts, u, "right"))
+                  for j, u in enumerate(ends)]
+        assert sorted(slots) == list(range(2 * n))
 
 
 def _phase_step_case(rng, R, W, caps, mask="sparse", dead=True):
@@ -301,9 +493,9 @@ def test_cpu_wrappers_launch_nothing():
     counters (which count kernel launches only) stay put."""
     before = dict(ps.LAUNCHES)
     plane = torch.ones((4, 40), dtype=torch.bool)
-    bits = ps.pack_rows(plane)
-    ps.popcount_rows(bits)
-    ps.coverage_multi(torch.tensor([1, 1, -1, -1], dtype=torch.int32))
+    ps.pack_rows(plane)
+    ps.popcount_rows(plane)
+    ps.coverage_multi(torch.tensor([[1, 2], [3, 4]], dtype=torch.int64))
     ps.phase_step([plane], [torch.zeros((3, 4), dtype=torch.int32)])
     assert ps.LAUNCHES == before
 
@@ -311,7 +503,12 @@ def test_cpu_wrappers_launch_nothing():
 @pytest.mark.parametrize("call", [
     lambda: ps.pack_rows(torch.ones((2, 3), dtype=torch.int32)),
     lambda: ps.popcount_rows(torch.ones(3, dtype=torch.int32)),
+    lambda: ps.popcount_rows(torch.ones((2, 3), dtype=torch.int32)),
+    lambda: ps.popcount_rows(torch.ones((2, 6), dtype=torch.bool)[:, ::2]),
     lambda: ps.coverage_multi(torch.ones(3, dtype=torch.int64)),
+    lambda: ps.coverage_multi(torch.ones((2, 3), dtype=torch.int32)),
+    lambda: ps.coverage_multi(torch.ones((3, 3), dtype=torch.int64)),
+    lambda: ps.coverage_multi(torch.ones((2, 6), dtype=torch.int64)[:, ::2]),
     lambda: ps.pack_rows(torch.ones((2, 40), dtype=torch.bool),
                          out=torch.zeros((2, 1), dtype=torch.int32)),
     lambda: ps.phase_step([torch.zeros((2, 40), dtype=torch.bool)],
