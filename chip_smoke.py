@@ -64,7 +64,22 @@ Phases, in order; any mismatch or exception exits non-zero:
    round to the row's ``t_model_s``; the launch counters must show that
    each run went through the kernels (phase_step on 'fused',
    popcount_rows and coverage_multi on 'kernels'), and that no point
-   launched pack_rows (every kernel reads the bool planes itself);
+   launched pack_rows (every kernel reads the bool planes itself); the
+   lock points' spans must run through ``span_all``'s grant groups
+   (``span_workers_vec`` > 0, ``span_serial_workers`` 0), and on 'fused'
+   their hoisted flush must launch phase_step with its row mask;
+4a. span phase (slice D): the two W=256 batched fig6_lock_contention
+   rows (samhita and samhita_page) on 'fused' and samhita on 'kernels',
+   at benchmarks/lock_contention.py's settings and the meta's
+   iterations, each equal to its ``BENCH_scale.json`` row (traffic
+   field for field, ``t_model_s``, ``span_vec``, ``span_serial``), with
+   phase_step launched with its row mask on 'fused' and popcount_rows
+   and coverage_multi on 'kernels'; then lock_contention at W=256 under
+   a roomy cache (grant groups) and a tight one (every span pass
+   serializes), on the card and on the CPU under both drivers: traffic
+   and clocks bit-equal across the four runs, stats equal between card
+   and CPU.  Prints walls and peak device memory beside the card's
+   ``nvidia-smi`` line;
 5. spill phase: the six W=256 batched capacity-pressure points
    (fig4_spill fits and spills, fig4_spill_heavy, fig4_refetch,
    fig5_spill, fig7_md_spill) on 'fused' at the harness's cache settings,
@@ -104,7 +119,8 @@ Phases, in order; any mismatch or exception exits non-zero:
 7. profile phase: the device busy share and device activities of the
    two samhita fig6_weak points (lock, reduction), of fig4_refetch and
    fig7_md_spill and of the reference engine's W=256 Jacobi with
-   values, each from a separate torch.profiler run;
+   values, each from a separate torch.profiler run; the lock point may
+   issue at most twice the reduction point's device activities;
 8. model phase (slice M): internlm2-1.8b and then mamba2-2.7b at full
    width and depth, float32 weights drawn on the card from seed 0, serve
    8 requests (the reference server's, prompts up to 511 tokens, 16 new
@@ -178,6 +194,13 @@ PROTO = {"samhita": "fine", "samhita_page": "page"}
 N_TRIAD = 16 << 20
 N_JACOBI = 4096
 N_PARTICLES = 8192
+# benchmarks/lock_contention.py: N_BASE, n_locks, sweeps
+LOCK_N = 1 << 20
+LOCK_LOCKS = 8
+LOCK_SWEEPS = 2
+# the span phase's cache settings: room for every page a worker touches
+# (4 of its block, 1 striped, 1 hot), and fewer than its block's pages
+LOCK_CACHES = (("roomy", 64), ("tight", 3))
 
 
 def fail(msg: str) -> int:
@@ -1476,9 +1499,19 @@ def main_path_phase(torch, ps):
     ps.reset_launches()
     for (sec, tag, series, app, mode, n), backend in runs:
         before = dict(ps.LAUNCHES)
+        masked = ps.ROWMASK_LAUNCHES["phase_step"]
         rt, wall = run_point(torch, make_runtime, apps, IB_2013, app,
                              series, mode, n, backend)
         launched = {k: ps.LAUNCHES[k] - before[k] for k in ps.LAUNCHES}
+        masked = ps.ROWMASK_LAUNCHES["phase_step"] - masked
+        span = {k: rt.stats[k] for k in ("span_workers_vec",
+                                         "span_serial_workers")}
+        if mode == "lock" and (not span["span_workers_vec"]
+                               or span["span_serial_workers"]
+                               or (backend == "fused" and not masked)):
+            raise AssertionError(f"{sec} {tag} [{backend}]: spans did not "
+                                 f"run as grant groups ({span}, phase_step "
+                                 f"{masked} times with a row mask)")
         row = rows[(sec, tag, W, "batched")]
         traffic = {f"tr_{f.name}": getattr(rt.traffic, f.name)
                    for f in dataclasses.fields(rt.traffic)}
@@ -1497,11 +1530,146 @@ def main_path_phase(torch, ps):
                                  f"pack_rows {launched['pack_rows']} "
                                  "times, which no path needs")
         print(f"main {sec:11s} {tag:23s} [{backend:7s}] wall "
-              f"{wall:.3f} s  t_model {t_model}  launches {launched}",
-              flush=True)
+              f"{wall:.3f} s  t_model {t_model}  launches {launched}  "
+              f"phase_step with a row mask {masked}  {span}", flush=True)
         out.append({"section": sec, "series": tag, "W": W,
                     "backend": backend, "wall_s": wall, "t_model_s": t_model,
-                    "launches": launched, **traffic})
+                    "launches": launched, "rowmask_phase_step": masked,
+                    **span, **traffic})
+    return out, dict(ps.LAUNCHES)
+
+
+# ---------------------------------------------------------------------------
+# span phase
+# ---------------------------------------------------------------------------
+
+
+def span_rows():
+    """(section, protocol, W, driver) -> the committed fig6_lock_contention
+    rows, and the iteration count ``BENCH_scale.json``'s meta names."""
+    bench = json.loads((ROOT / "BENCH_scale.json").read_text())
+    return ({(r["section"], r["protocol"], r["W"], r.get("driver")): r
+             for r in bench["rows"]
+             if r["section"] == "fig6_lock_contention"},
+            int(bench["meta"]["iters"]))
+
+
+def run_lock_point(torch, series, backend, device, iters, driver="batched",
+                   cache_pages=None):
+    """One lock_contention point at the harness's settings
+    (benchmarks/lock_contention.py): (runtime, wall seconds, peak device
+    memory or None on the CPU)."""
+    from repro_torch.core import make_runtime
+    from repro_torch.dsm import apps
+    from repro_torch.dsm.costmodel import IB_2013
+    on_card = device != "cpu"
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rt = make_runtime(W, protocol=PROTO[series], cost=IB_2013,
+                      fetch_batch=16, cache_pages=cache_pages,
+                      backend=backend, device=device)
+    apps.lock_contention(rt, LOCK_N, iters, n_locks=LOCK_LOCKS,
+                         sweeps=LOCK_SWEEPS, driver=driver)
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return rt, wall, torch.cuda.max_memory_allocated() if on_card else None
+
+
+def span_phase(torch, ps, card, device="cuda"):
+    """Slice D, consistency-region spans through ``span_all``.  (a) The
+    two W=256 batched fig6_lock_contention rows (samhita, samhita_page)
+    on 'fused' and samhita on 'kernels', at the harness's settings: each
+    run's traffic equal to its ``BENCH_scale.json`` row field for field,
+    its modeled time rounding to the row's ``t_model_s``, its span path
+    counters equal to the row's ``span_vec``/``span_serial``; on the card
+    the hoisted masked flush must have launched phase_step with its row
+    mask on 'fused', popcount_rows and coverage_multi on 'kernels'.
+    (b) lock_contention at W=256 under a roomy cache (nothing evicts: the
+    grant groups with their touch bookkeeping) and a tight one (every
+    span pass serializes), samhita on 'fused', 2 iterations, under the
+    batched and the loop driver on ``device`` and on the CPU: traffic
+    and clocks bit-equal across all four runs, stats equal between the
+    device and the CPU for each driver.  Prints walls and peak device
+    memory beside ``card``.  Returns (rows, launches of the phase)."""
+    on_card = device != "cpu"
+    committed, iters = span_rows()
+    need = {"fused": ("phase_step",),
+            "kernels": ("popcount_rows", "coverage_multi")}
+    out = []
+    ps.reset_launches()
+    for series, backend in (("samhita", "fused"), ("samhita_page", "fused"),
+                            ("samhita", "kernels")):
+        before = dict(ps.LAUNCHES)
+        masked = ps.ROWMASK_LAUNCHES["phase_step"]
+        rt, wall, mem = run_lock_point(torch, series, backend, device, iters)
+        launched = {k: ps.LAUNCHES[k] - before[k] for k in ps.LAUNCHES}
+        masked = ps.ROWMASK_LAUNCHES["phase_step"] - masked
+        row = committed[("fig6_lock_contention", series, W, "batched")]
+        traffic = {f"tr_{f.name}": getattr(rt.traffic, f.name)
+                   for f in dataclasses.fields(rt.traffic)}
+        span = {"span_vec": rt.stats["span_workers_vec"],
+                "span_serial": rt.stats["span_serial_workers"]}
+        bad = {k: (v, row[k]) for k, v in {**traffic, **span}.items()
+               if v != row[k]}
+        t_model = round(rt.time, 6)
+        if bad or t_model != row["t_model_s"]:
+            raise AssertionError(
+                f"fig6_lock_contention {series} [{backend}]: drift {bad}, "
+                f"t_model {t_model} vs committed {row['t_model_s']}")
+        if on_card:
+            idle = [k for k in need[backend] if launched[k] == 0]
+            if idle or (backend == "fused" and masked == 0):
+                raise AssertionError(
+                    f"fig6_lock_contention {series} [{backend}]: kernels "
+                    f"{idle} never launched, phase_step {masked} times "
+                    "with a row mask")
+        print(f"span fig6_lock_contention {series:12s} [{backend:7s}] wall "
+              f"{wall:.3f} s  peak {mem} B  t_model {t_model}  {span}  "
+              f"phase_step with a row mask {masked}  launches {launched}  "
+              f"({card})", flush=True)
+        out.append({"section": "fig6_lock_contention", "series": series,
+                    "W": W, "backend": backend, "wall_s": wall,
+                    "max_memory_allocated": mem, "t_model_s": t_model,
+                    "rowmask_phase_step": masked, "launches": launched,
+                    **span, **traffic})
+    for label, cache_pages in LOCK_CACHES:
+        runs = {}
+        for dev in dict.fromkeys((device, "cpu")):
+            for driver in ("batched", "loop"):
+                runs[dev, driver] = run_lock_point(
+                    torch, "samhita", "fused", dev, 2, driver, cache_pages)
+        ref = runs[device, "batched"][0]
+        for (dev, driver), (rt, wall, mem) in runs.items():
+            ctx = f"lock_contention cache {label} ({cache_pages}) {dev} " \
+                  f"{driver}"
+            if (dataclasses.asdict(rt.traffic)
+                    != dataclasses.asdict(ref.traffic)
+                    or rt.clock.tobytes() != ref.clock.tobytes()):
+                raise AssertionError(f"{ctx}: traffic or clocks differ from "
+                                     f"{device} batched")
+            if rt.stats != runs[device, driver][0].stats:
+                raise AssertionError(f"{ctx}: stats differ from {device}")
+            print(f"span {ctx:42s} wall {wall:.3f} s  peak {mem} B  "
+                  f"t_model {rt.time:.6f}  span_vec "
+                  f"{rt.stats['span_workers_vec']}  span_serial "
+                  f"{rt.stats['span_serial_workers']}  ({card})",
+                  flush=True)
+            out.append({"section": "lock_contention_cache", "cache": label,
+                        "cache_pages": cache_pages, "device": dev,
+                        "driver": driver, "wall_s": wall,
+                        "max_memory_allocated": mem,
+                        "t_model_s": rt.time,
+                        "stats": dict(rt.stats),
+                        "traffic": dataclasses.asdict(rt.traffic)})
+        st = ref.stats
+        grouped = st["span_workers_vec"] > 0 and not st["span_serial_workers"]
+        if grouped != (label == "roomy") or (
+                label == "tight" and not st["span_serial_calls"]):
+            raise AssertionError(f"lock_contention cache {label}: span path "
+                                 f"counters {st}")
     return out, dict(ps.LAUNCHES)
 
 
@@ -1806,7 +1974,9 @@ def profile_phase(torch):
     reference engine's W=256 Jacobi (lock, page values on the card, iters
     2), each in a separate traced run: the union of the intervals of every
     device activity torch.profiler records (kernels, copies, sets) over
-    the run's wall.  The walls of the path phases above are untraced."""
+    the run's wall.  The lock point (its spans through ``span_all``) may
+    issue at most twice the reduction point's device activities.  The
+    walls of the path phases above are untraced."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import make_runtime
@@ -1854,6 +2024,20 @@ def profile_phase(torch):
               f"device busy {busy * 1e3:.3f} ms ({len(spans)} device "
               f"activities)  idle share {1 - busy / wall:.4f}", flush=True)
         out.append(row)
+    # lock mode's spans run as grant groups around one hoisted flush: the
+    # lock point issues at most twice the reduction point's activities
+    weak = {r["series"]: r for r in out if r["section"] == "fig6_weak"}
+    lock, red = weak["samhita_lock"], weak["samhita_reduction"]
+    print(f"profile fig6_weak samhita: lock {lock['device_activities']} "
+          f"device activities, idle share {lock['idle_share']}; reduction "
+          f"{red['device_activities']}, idle share {red['idle_share']}",
+          flush=True)
+    if (not red["device_activities"]
+            or lock["device_activities"] > 2 * red["device_activities"]):
+        raise AssertionError(
+            f"fig6_weak samhita lock: {lock['device_activities']} device "
+            f"activities against the reduction point's "
+            f"{red['device_activities']} (at most twice as many expected)")
     return out
 
 
@@ -1928,6 +2112,7 @@ def main() -> int:
     dev = torch.device("cuda")
     kernels = kernel_phase(torch, np, ps, dev)
     points, launches = main_path_phase(torch, ps)
+    spans, span_launches = span_phase(torch, ps, card)
     spills, spill_launches, scans = spill_phase(torch, ps)
     # the rank-select kernels, timed at the spill phase's commonest scan
     kernels.update(rank_select_phase(torch, np, ps, dev, scans,
@@ -1937,7 +2122,8 @@ def main() -> int:
     profiled = profile_phase(torch)
     models, model_launches = model_phase(torch, np)
 
-    total = {k: launches[k] + spill_launches[k] for k in ps.LAUNCHES}
+    total = {k: launches[k] + spill_launches[k] + span_launches[k]
+             for k in ps.LAUNCHES}
     total.update(ref_launches)
     total.update(model_launches)
     table = {"kernels": [
@@ -1951,15 +2137,17 @@ def main() -> int:
     print(f"launches on the spill path: {spill_launches}", flush=True)
     print(f"launches on the reference path: {ref_launches}", flush=True)
     print(f"launches on the model path: {model_launches}", flush=True)
+    print(f"launches on the span path: {span_launches}", flush=True)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_s, "resources": resources,
          "kernel_phase": kernels,
-         "points": points, "spill_points": spills,
+         "points": points, "span_points": spans, "spill_points": spills,
          "reference_points": references, "models": models,
          "victim_scans": [[L, k, n] for (L, k), (n, _) in scans.items()],
-         "launches_main": launches, "launches_spill": spill_launches,
+         "launches_main": launches, "launches_span": span_launches,
+         "launches_spill": spill_launches,
          "launches_reference": ref_launches, "launches_model": model_launches,
          "profile": profiled, **table}, indent=1) + "\n")
     print(json.dumps(table), flush=True)

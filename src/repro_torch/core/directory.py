@@ -640,7 +640,8 @@ class RegionDirectory:
 class IntervalLog:
     """Flat, version-segmented (page, lo, hi) notice log for one lock.
 
-    ``append_version`` records one release's notices; ``pending`` returns
+    ``append_version`` records one release's notices (``append_versions``
+    several at once); ``pending`` returns
     the per-page coalesced (min lo, max hi) intervals of every version in
     ``[v_from, v_to)``, pages ascending (the replay order).  Notices are
     host metadata read only by host-side charging, so the log is numpy.
@@ -674,6 +675,46 @@ class IntervalLog:
         self._hi[n:n + k] = his
         self._n = n + k
         self.voff.append(self._n)
+
+    def append_versions(self, pages, los, his, counts):
+        """Append several versions in one copy: version i owns the next
+        ``counts[i]`` entries of the flat (pages, los, his) arrays
+        (``span_all``'s grant group, whose members all publish the same
+        payload, tiled by the caller)."""
+        k = len(pages)
+        assert int(np.sum(counts)) == k, (counts, k)
+        self._reserve(k)
+        n = self._n
+        self._p[n:n + k] = pages
+        self._lo[n:n + k] = los
+        self._hi[n:n + k] = his
+        self._n = n + k
+        self.voff.extend((n + np.cumsum(counts, dtype=np.int64)).tolist())
+
+    def payload_matches(self, v_from: int, v_to: int, pages, los,
+                        his) -> bool:
+        """True iff every version in [v_from, v_to) carries exactly this
+        payload (the same pages, los and his, in order): the grant
+        group's backlog check.  The caller already knows that each
+        version holds ``len(pages)`` entries."""
+        a, b = self.voff[v_from], self.voff[v_to]
+        k = v_to - v_from
+        n = len(pages)
+        if b - a != k * n:
+            return False
+        return (bool((self._p[a:b].reshape(k, n) == pages).all())
+                and bool((self._lo[a:b].reshape(k, n) == los).all())
+                and bool((self._hi[a:b].reshape(k, n) == his).all()))
+
+    def page_bounds(self, v_from: int, v_to: int):
+        """Bounding (lo, hi) page interval of every notice in versions
+        [v_from, v_to), or None for an empty slice: the footprint the
+        flush-hoist screen of ``span_all`` tests."""
+        a, b = self.voff[v_from], self.voff[v_to]
+        if a == b:
+            return None
+        seg = self._p[a:b]
+        return int(seg.min()), int(seg.max()) + 1
 
     def state_arrays(self) -> dict:
         """Live log contents plus the version offsets (the reference's

@@ -31,9 +31,15 @@ the reference uses as its oracle.  The LRU queues, the resident counts and
 the ticks are host state, like the window geometry; the touch/incache
 planes live on the device.
 
-This engine covers slices A (the main path) and B (eviction) of the port;
-slice C is the per-page reference engine (``core/regc.py``).  The batched
-``span_all`` driver (slice D), race detection (slice E) and the
+Consistency regions run batched through ``span_all``: the masked
+workers' acquire-time flushes hoist into one masked barrier-style flush
+(``phase_step`` with its row mask on 'fused'), and each uniform grant
+group resolves as (G, P) plane ops on the device around a host clock
+chain that repeats the per-worker charges term for term.
+
+This engine covers slices A (the main path), B (eviction) and D
+(consistency-region spans) of the port; slice C is the per-page reference
+engine (``core/regc.py``).  Race detection (slice E) and the
 fault-injection hooks are not here yet; ``config.make_runtime`` refuses
 the knobs that would reach them.
 
@@ -64,8 +70,8 @@ from repro_torch.dsm.costmodel import IB_2013, CostModel
 from repro_torch.kernels import protocol_sweep as _ps
 
 # the reference's stats keys (its jit_* accounting aside), so stats of the
-# two engines compare key for key; the keys of paths that belong to later
-# slices (span_*, race_*) stay 0 here
+# two engines compare key for key; the keys of race detection (race_*, a
+# later slice) stay 0 here
 _STATS_KEYS = ("batched_phases", "evict_batch_rounds", "danger_ops",
                "residual_replays", "danger_vec_ops", "danger_scalar_ops",
                "danger_shared_ops", "danger_subgroup_ops", "span_all_calls",
@@ -1034,28 +1040,38 @@ class RegCScaleRuntime:
             self._invalidate_sharers(w, region, d.base[w] + cols)
         regions.clear()
 
-    def _flush_all_workers(self):
-        """Batched flush of every worker's ordinary-dirty pages (the
-        barrier), one pass per region that reproduces the sequential
-        worker-order flush semantics analytically: for a page with
-        dirty-worker set D (flushed in worker order) and initial valid
-        set V, the sequential flushes produce ``|V \\ {d0}| +
-        [|D|>1]*[d0 in V]`` invalidations and leave the page valid only at
-        d0 when ``|D|==1``.  Pages under a single worker window have no
-        sharer, so per-cell work is confined to multiply-covered pages.
+    def _flush_all_workers(self, mask: Optional[np.ndarray] = None):
+        """Batched flush of every (masked) worker's ordinary-dirty pages,
+        one pass per region that reproduces the sequential worker-order
+        flush semantics analytically: for a page with dirty-worker set D
+        (flushed in worker order) and initial valid set V, the sequential
+        flushes produce ``|V \\ {d0}| + [|D|>1]*[d0 in V]`` invalidations
+        and leave the page valid only at d0 when ``|D|==1``.  Pages under
+        a single worker window have no sharer, so per-cell work is
+        confined to multiply-covered pages.
+
+        ``mask`` restricts the flush to a (W,) bool subset of workers
+        (``span_all``'s hoisted flush): the unmasked rows' dirty cells and
+        bounds stay as they are.  ``None`` flushes everyone (the barrier).
+        The charges are the per-worker ``_flush_worker``'s term for term,
+        so hoisting a worker's flush out of its acquire keeps clocks
+        bit-equal.
 
         On 'fused' one ``phase_step`` launch reduces every dirty region
-        (popcount, coverage stab, candidate words) from its bool dirty
-        plane, and one copy (two past ``PHASE_STEP_PREFIX`` candidate
-        words) brings counts and candidates to the host; the other tiers
-        reduce region by region.  Charging, wprot re-arm and the analytic
-        invalidation stay on the host and are identical on every tier."""
+        (popcount, coverage stab, candidate words of the masked rows) from
+        its bool dirty plane, and one copy (two past ``PHASE_STEP_PREFIX``
+        candidate words) brings counts and candidates to the host; the
+        other tiers reduce region by region (``popcount_rows``, then
+        ``coverage_multi`` for the active rows' candidates).  Charging,
+        wprot re-arm and the analytic invalidation stay on the host and
+        are identical on every tier."""
+        mrows = None if mask is None else np.nonzero(mask)[0]
         fused = None
         ji = 0
         if self.backend == "fused" and self.protocol != IDEAL_PROTO:
             cand = [d for d in self.dirs if d.maybe_dirty and d.cap > 0]
             if cand:
-                fused = self._jit_flush_chain(cand)
+                fused = self._jit_flush_chain(cand, mask)
         for d in self.dirs:
             if not d.maybe_dirty:
                 continue
@@ -1065,13 +1081,19 @@ class RegCScaleRuntime:
             else:
                 nD_w = d.dirty_counts()
                 w_idx = None
+            if mask is not None:
+                rest = int(nD_w[~mask].sum())
+                nD_w = np.where(mask, nD_w, 0)
             total = int(nD_w.sum())
-            d.maybe_dirty = False
-            d.clear_dirty_bounds()
+            d.maybe_dirty = False if mask is None else rest > 0
+            d.clear_dirty_bounds(mrows)
             if total == 0:
                 continue
             if self.protocol == IDEAL_PROTO:
-                d.dirty.zero_()
+                if mask is None:
+                    d.dirty.zero_()
+                else:
+                    d.dirty[d.row_block(mrows)] = False
                 continue
             active = np.nonzero(nD_w)[0]
             # per-(worker, region) writeback charge, as in the sequential
@@ -1081,14 +1103,24 @@ class RegCScaleRuntime:
             self.clock[active] += (self.cost.net_latency_s * msgs
                                    + (nD_w[active] * self.page_bytes)
                                    / self.cost.net_bw_Bps)
+            # the active rows only under a mask: one row gather and one
+            # scatter a plane
+            rb = None if mask is None else d.row_block(active)
             if d.wprot is not None:
-                torch.logical_or(d.wprot, d.dirty, out=d.wprot)  # re-arm
+                if rb is None:
+                    torch.logical_or(d.wprot, d.dirty, out=d.wprot)  # re-arm
+                else:
+                    d.wprot[rb] = d.wprot[rb] | d.dirty[rb]
             if w_idx is None:
                 w_idx, cols = self._shared_dirty_sweep(d, active)
             if w_idx.size:
                 self._invalidate_shared_dirty(d, w_idx, cols)
-            d.dirty.zero_()
-        for regions in self._dirty_regions:
+            if rb is None:
+                d.dirty.zero_()
+            else:
+                d.dirty[rb] = False
+        for regions in (self._dirty_regions if mask is None
+                        else (self._dirty_regions[w] for w in mrows)):
             regions.clear()
 
     def _shared_dirty_sweep(self, d: RegionDirectory, active: np.ndarray):
@@ -1119,14 +1151,16 @@ class RegCScaleRuntime:
         hot = d.dirty[d.ix(w_idx), d.ix(cols)].cpu().numpy()
         return w_idx[hot], cols[hot]
 
-    def _jit_flush_chain(self, cand):
+    def _jit_flush_chain(self, cand, mask: Optional[np.ndarray] = None):
         """The fused flush as ONE ``phase_step`` launch over the dirty
         regions' bool planes and cached geometry tensors (no packing, no
-        stacking).  Returns (host (R, W) per-row dirty counts, per region
-        the (row, column) host pairs of its shared-dirty candidates,
-        row-major and column-ascending -- the sequential worker-major
-        flush order), or None when page ids could overflow the kernel's
-        int32 arithmetic -- the caller then takes the kernel tier's
+        stacking), with the flush's (W,) worker ``mask`` as the kernel's
+        (R, W) row mask, uploaded once.  Returns (host (R, W) per-row
+        dirty counts, unmasked; per region the (row, column) host pairs
+        of its shared-dirty candidates on the masked rows, row-major and
+        column-ascending -- the sequential worker-major flush order), or
+        None when page ids could overflow the kernel's int32 arithmetic --
+        the caller then takes the kernel tier's
         ``popcount_rows``/``coverage_multi`` path."""
         R, W = len(cand), self.W
         nw_max = max(-(-int(d.cap) // 32) for d in cand)
@@ -1134,8 +1168,11 @@ class RegCScaleRuntime:
         # INT32_MAX pads
         if max(int(d.page_hi) for d in cand) + nw_max * 32 >= (1 << 31) - 1:
             return None
+        rowmask = (None if mask is None else torch.as_tensor(
+            np.broadcast_to(mask, (R, W)).copy(), device=cand[0].device))
         out = _ps.phase_step([d.dirty for d in cand],
-                             [d.jit_geometry_tensor() for d in cand])
+                             [d.jit_geometry_tensor() for d in cand],
+                             rowmask)
         self.stats["fused_dispatches"] += 1
         counts, key, word = _ps.read_phase_step(out, R, W)
         reg, rows, cols = _ps.candidate_cells(key, word, W)
@@ -1862,6 +1899,483 @@ class RegCScaleRuntime:
                     seconds=float(secb[w]), instr_words=float(iwb[w]))
 
     # ------------------------------------------------------------------
+    # worker-axis batched span driver (span_all)
+    # ------------------------------------------------------------------
+
+    def _span_one(self, w: int, lock_id: int, reads, writes):
+        """One worker's whole consistency region through the per-worker
+        path: the serial body every batched ``span_all`` path is held
+        bit-equal against, and what runs where batching is not exact."""
+        self.acquire(w, lock_id)
+        for ga, lo, hi in reads:
+            self.read(w, ga, int(lo[w]), int(hi[w]))
+        for ga, lo, hi in writes:
+            self.write(w, ga, int(lo[w]), int(hi[w]))
+        self.release(w, lock_id)
+
+    def _span_flush_safe(self, rows: np.ndarray, locks: np.ndarray,
+                         ranges) -> bool:
+        """May every masked worker's acquire-time ordinary flush hoist to
+        one batched pass before any span body runs?  Exact iff no flushed
+        dirty page (or its sharer invalidation) can be observed by a span
+        body or a notice replay of this pass: the masked workers' dirty
+        bounds must miss every declared (prefetch-extended) read/write
+        page range and the pending-notice page bounds of every lock
+        involved.  All intervals are absolute pages (host state only)."""
+        spans_iv = []
+        for region, p_lo, p_hi in ranges:
+            spans_iv.append((int(p_lo[rows].min()), int(p_hi[rows].max())))
+        for lk_id in np.unique(locks[rows]):
+            lk = self.locks.get(int(lk_id))
+            if lk is None:
+                continue
+            grp = rows[locks[rows] == lk_id]
+            v_min = int(lk.seen[grp].min())
+            if v_min >= lk.version:
+                continue
+            pb_iv = lk.log.page_bounds(v_min, lk.version)
+            if pb_iv is not None:
+                spans_iv.append(pb_iv)
+        if not spans_iv:
+            return True
+        for d in self.dirs:
+            dlo, dhi = d.dirty_lo[rows], d.dirty_hi[rows]
+            m = dlo < dhi
+            if not m.any():
+                continue
+            lo, hi = int(dlo[m].min()), int(dhi[m].max())
+            for rlo, rhi in spans_iv:
+                if rlo < hi and rhi > lo:
+                    return False
+        return True
+
+    def _span_group_vec(self, grp: np.ndarray, lock_id: int, reads, writes,
+                        rranges, wranges) -> bool:
+        """Analytic batched pass of one uniform same-lock span group, the
+        fast path of ``span_all``, as the reference computes it.
+
+        Grants stay serialized (the host's release-time chain below), but
+        the work around them runs across the group as (G, P) plane ops on
+        the device: the i-th holder's pending notices are exactly the
+        earlier holders' releases of this pass (every member has replayed
+        the lock's log, or its backlog repeats this pass's payload), and
+        every member publishes the same declared write intervals, so
+        replay invalidations, fetch misses, write faults and the release
+        payload resolve as matrix ops, one batched log append and a
+        G-step clock chain that repeats the per-worker charges term for
+        term (bit-equal clocks).  Regions resolve one by one (a page lies
+        in one region; the payload concatenates in region order, which is
+        page order).
+
+        On the device: per region one upload of the (G, P) flat cell
+        index, one gather a plane (``valid``, and ``incache`` and
+        ``wprot`` where tracked) and one scatter back; the op effects in
+        between.  The host reads back, in one int64 copy, each read op's
+        miss counts, each write op's fault counts and edge misses, the
+        replay hits and the cache entries.
+
+        Returns False (the caller runs the serial body) for a non-uniform
+        group, an empty interval or a backlog that is not this payload
+        (``span_backlog_serial`` counts the latter).  In-span eviction
+        never reaches here: ``span_all`` serializes it."""
+        lk = self.locks.setdefault(lock_id, _Lock(self.W))
+        w0 = int(grp[0])
+        ops = []      # (ga, lo, hi, p_lo, p_hi, is_write, region), uniform
+        regions = []
+        for (ga, lo, hi), (region, p_lo, p_hi), is_w in (
+                [(o, r, False) for o, r in zip(reads, rranges)]
+                + [(o, r, True) for o, r in zip(writes, wranges)]):
+            if (not (lo[grp] == lo[w0]).all()
+                    or not (hi[grp] == hi[w0]).all()):
+                return False
+            if int(hi[w0]) <= int(lo[w0]):
+                return False
+            if region not in regions:
+                regions.append(region)
+            ops.append((ga, int(lo[w0]), int(hi[w0]),
+                        int(p_lo[w0]), int(p_hi[w0]), is_w, region))
+        regions.sort()
+
+        G = int(grp.size)
+        IDEAL = self.protocol == IDEAL_PROTO
+        FINE = self.protocol == FINE_PROTO
+        pw = self.page_words
+        pb = self.page_bytes
+        track = self.cache_pages is not None
+        imax = np.iinfo(np.int64).max
+        imin = np.iinfo(np.int64).min
+
+        # per region: the union window [u_lo, u_lo + P) of the group's ops,
+        # its rows' flat cell indices, and the payload accumulator (per
+        # declared-write page, the coalesced word interval every member
+        # publishes and every later holder replays)
+        ctx = {}
+        for r in regions:
+            d = self.dirs[r]
+            u_lo = min(op[3] for op in ops if op[6] == r)
+            u_hi = max(op[4] for op in ops if op[6] == r)
+            P = u_hi - u_lo
+            d.ensure_rows(np.full(G, u_lo, np.int64),
+                          np.full(G, u_hi, np.int64), grp)
+            ctx[r] = {"d": d, "u_lo": u_lo, "P": P,
+                      "lin": ((grp * d.cap + u_lo - d.base[grp])[:, None]
+                              + np.arange(P)[None, :]),
+                      "pend": np.zeros(P, bool),
+                      "wlo": np.full(P, imax, np.int64),
+                      "whi": np.full(P, imin, np.int64),
+                      "ticks": [], "last": np.full(P, -1, np.int64),
+                      "enters": None}
+        for ga, lo, hi, p_lo, p_hi, is_w, r in ops:
+            if not is_w:
+                continue
+            c = ctx[r]
+            sl = slice(p_lo - c["u_lo"], p_hi - c["u_lo"])
+            bw_ = (np.arange(p_lo, p_hi) - ga.page_lo) * pw
+            c["pend"][sl] = True
+            np.minimum(c["wlo"][sl], np.maximum(lo - bw_, 0),
+                       out=c["wlo"][sl])
+            np.maximum(c["whi"][sl], np.minimum(hi - bw_, pw),
+                       out=c["whi"][sl])
+        if regions:
+            parts = []
+            for r in regions:
+                c = ctx[r]
+                rel_idx = np.nonzero(c["pend"])[0]
+                parts.append((rel_idx + c["u_lo"], c["wlo"][rel_idx],
+                              c["whi"][rel_idx]))
+            rel_pages = np.concatenate([p[0] for p in parts])
+            rel_los = np.concatenate([p[1] for p in parts])
+            rel_his = np.concatenate([p[2] for p in parts])
+        else:
+            rel_pages = rel_los = rel_his = np.zeros(0, np.int64)
+        npend = int(rel_pages.size)
+        pub_bytes = 0
+        if npend:
+            if FINE:
+                pub_bytes = (int((rel_his - rel_los).sum()) * _WORD
+                             + npend * (pw // 8))
+            else:
+                pub_bytes = npend * pb
+
+        # pending sets: member i replays the earlier i releases of THIS
+        # pass, plus a backlog only where the backlog repeats this payload
+        v0 = lk.version
+        seen = lk.seen[grp]
+        has_pend = np.ones(G, bool)
+        has_pend[0] = int(seen[0]) < v0
+        v_min = int(seen.min())
+        if v_min < v0:
+            sizes = np.diff(np.asarray(lk.log.voff[v_min:v0 + 1], np.int64))
+            if npend == 0 or not (sizes == npend).all():
+                # a backlog of another shape: pending sets diverge
+                self.stats["span_backlog_serial"] += 1
+                return False
+            if not lk.log.payload_matches(v_min, v0, rel_pages, rel_los,
+                                          rel_his):
+                # the right shape but other pages
+                self.stats["span_backlog_serial"] += 1
+                return False
+
+        # the group's (G, P) plane matrices, gathered after every window
+        # grew (growth reallocates the planes)
+        for r in regions:
+            c = ctx[r]
+            d = c["d"]
+            lin = c["lin_t"] = d.ix(c["lin"])
+            c["V"] = d.valid.view(-1)[lin]
+            c["IC"] = d.incache.view(-1)[lin] if track else None
+            c["WP"] = (d.wprot.view(-1)[lin] if self._track_wprot
+                       else None)
+        # the device counts the host reads back, as int64 pieces of one
+        # flat copy: each piece's offset is kept on the host
+        back = []
+        size = [0]
+
+        def put(t, k=G):
+            back.append(t)
+            size[0] += k
+            return size[0] - k
+
+        # replay effects (page protocol): the holders with a pending set
+        # lose their valid copies of the payload's pages
+        h0 = 0 if has_pend[0] else 1
+        replay = npend and not IDEAL and not FINE
+        hit_at = []
+        if replay:
+            for r in regions:
+                c = ctx[r]
+                if not c["pend"].any():
+                    continue
+                V = c["V"][h0:]
+                pend = torch.as_tensor(c["pend"], device=c["d"].device)
+                hits = V & pend
+                hit_at.append(put(hits.sum().reshape(1), 1))
+                if c["WP"] is not None and self.model_mechanism:
+                    c["WP"][h0:] |= hits
+                V &= ~pend
+
+        # op effects, op-major (the rows are mutually independent)
+        layout = []        # per op: offsets of (misses | faults, first, last)
+        for ga, lo, hi, p_lo, p_hi, is_w, r in ops:
+            cx = ctx[r]
+            V, WP = cx["V"], cx["WP"]
+            sl = slice(p_lo - cx["u_lo"], p_hi - cx["u_lo"])
+            n = p_hi - p_lo
+            if not is_w:
+                layout.append((None if IDEAL else
+                               put((~V[:, sl]).sum(dim=1)), None, None))
+                V[:, sl] = True
+                if track:
+                    self._span_track_touch(cx, grp, r, p_lo, n, sl)
+                continue
+            faults = None
+            if WP is not None:
+                faults = put(WP[:, sl].sum(dim=1))
+                WP[:, sl] = False
+            edges = [None, None]
+            if not IDEAL:
+                if n == 1:
+                    parts = (hi - lo < pw, False)
+                else:
+                    parts = (lo % pw != 0, hi % pw != 0)
+                for e, (part, p) in enumerate(zip(parts, (p_lo, p_hi - 1))):
+                    if not part:
+                        continue
+                    c0 = p - cx["u_lo"]
+                    edges[e] = put((~V[:, c0]).to(torch.int64))
+                    V[:, c0] = True
+                    if track:
+                        self._span_track_touch(cx, grp, r, p, 1,
+                                               slice(c0, c0 + 1))
+            layout.append((faults, *edges))
+            if track:
+                self._span_track_touch(cx, grp, r, p_lo, n, sl)
+            V[:, sl] = True
+
+        # commit the planes; under a cache each touched cell takes the
+        # tick of the last touch run that covered it (one upload, one
+        # scatter), and the cells that entered the cache join the copy
+        enters = []
+        for r in regions:
+            cx = ctx[r]
+            d, lin = cx["d"], cx["lin_t"]
+            d.valid.view(-1)[lin] = cx["V"]
+            if track:
+                d.incache.view(-1)[lin] = cx["IC"]
+                cols = np.nonzero(cx["last"] >= 0)[0]
+                tk = np.stack(cx["ticks"], axis=1)[:, cx["last"][cols]]
+                it = torch.as_tensor(np.stack([cx["lin"][:, cols], tk]),
+                                     device=d.device)
+                d.touch.view(-1)[it[0]] = it[1]
+                enters.append(cx["enters"])
+            if cx["WP"] is not None:
+                d.wprot.view(-1)[lin] = cx["WP"]
+        enter_at = put(torch.stack(enters).sum(dim=0)) if enters else None
+        got = (torch.cat([t.reshape(-1) for t in back]).cpu().numpy()
+               if back else None)
+
+        def at(o):
+            return None if o is None else got[o:o + G]
+
+        # host bookkeeping of what came back, in integer arithmetic
+        if replay:
+            self.traffic.invalidations += int(sum(got[o] for o in hit_at))
+            self.traffic.control_msgs += npend * int(has_pend.sum())
+        zeros = np.zeros(G, np.int64)
+        op_miss, op_faults, op_edges = [], [], []
+        for op, (a, f, l) in zip(ops, layout):
+            if not op[5]:
+                op_miss.append(zeros if a is None else at(a))
+                fetched = [at(a)]
+            else:
+                op_faults.append(at(a))
+                op_edges.append((at(f), at(l)))
+                fetched = [at(f), at(l)]
+            for t in fetched:
+                tot = 0 if t is None else int(t.sum())
+                if tot:
+                    self.traffic.page_fetches += tot
+                    self.traffic.fetch_bytes += tot * pb
+        if enter_at is not None:
+            self.resident[grp] += at(enter_at)
+
+        # publish: one batched log append, G versions
+        if not IDEAL:
+            if FINE and npend:
+                self.traffic.diff_bytes += (pub_bytes            # replays
+                                            * int(has_pend.sum()))
+            if npend:
+                if FINE:
+                    self.traffic.diff_bytes += pub_bytes * G    # releases
+                else:
+                    self.traffic.writeback_bytes += pub_bytes * G
+            lk.log.append_versions(
+                np.tile(rel_pages, G), np.tile(rel_los, G),
+                np.tile(rel_his, G), np.full(G, npend, np.int64))
+            lk.version = v0 + G
+            lk.seen[grp] = v0 + np.arange(1, G + 1)
+        self.traffic.control_msgs += 3 * G          # acquire 2 + release 1
+
+        # the grant chain, the only serialized part: each member's charges
+        # are the per-worker path's, the same scalar expressions in the
+        # same order, so clocks stay bit-equal to the span loop
+        xfer = self.cost.xfer_s
+        lat = self.cost.net_latency_s
+        bw = self.cost.net_bw_Bps
+        fb = self.fetch_batch
+        ctrl2 = xfer(64, 2)
+        ctrl1 = xfer(64, 1)
+        t_rel = lk.last_release_time
+        for i in range(G):
+            w = int(grp[i])
+            c = float(self.clock[w])
+            if not IDEAL:
+                c += ctrl2
+            c = max(c, t_rel)
+            if has_pend[i] and npend and not IDEAL and FINE:
+                c += lat * npend + pub_bytes / bw
+            ri = wi = 0
+            for ga, lo, hi, p_lo, p_hi, is_w, _r in ops:
+                if not is_w:
+                    m = int(op_miss[ri][i])
+                    ri += 1
+                    if m and not IDEAL:
+                        c += xfer(m * pb, 2 * -(-m // fb))
+                    continue
+                if self.model_mechanism and FINE:
+                    c += (hi - lo) * self.instr_s_per_word
+                if op_faults[wi] is not None:
+                    c += int(op_faults[wi][i]) * self.fault_s
+                first, last = op_edges[wi]
+                wi += 1
+                if first is not None and first[i]:
+                    c += xfer(pb, 2)
+                if last is not None and last[i]:
+                    c += xfer(pb, 2)
+            if not IDEAL and npend:
+                c += lat * npend + pub_bytes / bw
+            if not IDEAL:
+                c += ctrl1
+            self.clock[w] = c
+            t_rel = c
+        lk.last_release_time = t_rel
+        self.stats["span_groups_vec"] += 1
+        self.stats["span_workers_vec"] += G
+        if len(regions) > 1:
+            self.stats["span_multi_region_groups"] += 1
+        return True
+
+    def _span_track_touch(self, cx: dict, grp: np.ndarray, region: int,
+                          p_lo: int, n: int, sl: slice):
+        """LRU bookkeeping of one group op's touch run (cache runs only):
+        one run a member on the host queues, in the per-worker path's
+        order, its ticks kept for the commit's one touch scatter; the
+        cells entering the cache are counted off the group's occupancy
+        matrix on the device.  ``sl`` addresses [p_lo, p_lo + n) in the
+        region's union-window columns.  Nothing evicts here (``span_all``
+        serializes any pass that could), so the watermark never trips."""
+        d = cx["d"]
+        ticks = np.empty(grp.size, np.int64)
+        for i, w in enumerate(grp):
+            ticks[i] = self._q_append(int(w), region,
+                                      int(p_lo - d.base[w]), n,
+                                      int(d.shift[w]))
+        cx["last"][sl] = len(cx["ticks"])
+        cx["ticks"].append(ticks)
+        IC = cx["IC"]
+        enters = (~IC[:, sl]).sum(dim=1)
+        cx["enters"] = enters if cx["enters"] is None else (cx["enters"]
+                                                            + enters)
+        IC[:, sl] = True
+
+    def span_all(self, w_mask=None, lock_ids=0, reads=(), writes=()):
+        """One consistency-region pass for many workers in one call.
+
+        Equivalent (traffic field for field, clocks bit-equal, stats
+        equal) to the per-worker span loop::
+
+            for w in <masked workers, ascending>:
+                with rt.span(w, lock_ids[w]):
+                    for ga, lo, hi in reads:  rt.read(w, ga, lo[w], hi[w])
+                    for ga, lo, hi in writes: rt.write(w, ga, lo[w], hi[w])
+
+        ``w_mask`` is a (W,) bool mask or an array of worker indices
+        (None: every worker); ``lock_ids`` a scalar or (W,);
+        ``reads``/``writes`` as in ``phase_all``.
+
+        Lock grants are the only true serialization point and stay
+        serialized (the release-time chain); the work around them runs
+        batched:
+
+        * every masked worker's acquire-time ordinary flush hoists into
+          one masked barrier-style flush (``_flush_all_workers(mask)``:
+          one ``phase_step`` launch with its row mask on 'fused') when
+          the flushed pages cannot meet any span page or pending notice
+          (``_span_flush_safe``);
+        * workers sharing a lock form a grant group; a uniform group
+          resolves analytically as plane ops (``_span_group_vec``);
+        * distinct locks' groups are independent (a span body touches
+          only its own rows once eviction is excluded), so they run one
+          after another.
+
+        The reference's exactness screens decide what runs serially, and
+        ``stats`` counts each: a non-uniform group runs the per-worker
+        body (``span_serial_workers``); a pass that could evict inside a
+        span under ``cache_pages``, or whose flush cannot hoist, runs the
+        whole worker-order loop (``span_serial_calls``).  The reference's
+        fault-injection (``chaos``) terms come back with the recovery
+        slice, its race hooks with the race-detection slice."""
+        if any(self.spans):
+            raise RuntimeError("span_all must run outside spans")
+        W = self.W
+        if w_mask is None:
+            rows = self._rows_all
+        else:
+            w_mask = np.asarray(w_mask)
+            rows = (np.nonzero(w_mask)[0] if w_mask.dtype == bool
+                    else np.unique(np.asarray(w_mask, np.int64)))
+        locks = self._w_arr(lock_ids)
+        reads = [(ga, self._w_arr(lo), self._w_arr(hi))
+                 for ga, lo, hi in reads]
+        writes = [(ga, self._w_arr(lo), self._w_arr(hi))
+                  for ga, lo, hi in writes]
+        self.stats["span_all_calls"] += 1
+        if rows.size == 0:
+            return
+        rranges = [self._page_range_all(ga, lo, hi, prefetch=True)
+                   for ga, lo, hi in reads]
+        wranges = [self._page_range_all(ga, lo, hi, prefetch=False)
+                   for ga, lo, hi in writes]
+        serial = False
+        if self.cache_pages is not None:
+            # any possible in-span eviction serializes the whole pass: an
+            # eviction can write back into another worker's reach, and
+            # the LRU queue walk is tick-ordered
+            ub = self.resident.copy()
+            for region, p_lo, p_hi in rranges + wranges:
+                ub += p_hi - p_lo
+            serial = bool((ub[rows] > self.cache_pages).any())
+        if not serial and self.protocol != IDEAL_PROTO:
+            serial = not self._span_flush_safe(rows, locks,
+                                               rranges + wranges)
+        if serial:
+            self.stats["span_serial_calls"] += 1
+            self.stats["span_serial_workers"] += int(rows.size)
+            for w in rows:
+                self._span_one(int(w), int(locks[w]), reads, writes)
+            return
+        mask = np.zeros(W, bool)
+        mask[rows] = True
+        self._flush_all_workers(mask)
+        for lk_id in np.unique(locks[rows]):
+            grp = rows[locks[rows] == int(lk_id)]
+            if not self._span_group_vec(grp, int(lk_id), reads, writes,
+                                        rranges, wranges):
+                self.stats["span_serial_workers"] += int(grp.size)
+                for w in grp:
+                    self._span_one(int(w), int(lk_id), reads, writes)
+
+    # ------------------------------------------------------------------
     def reduce(self, w: int, name: str, value: float, op: str = "sum"):
         self._reductions.setdefault(name, []).append((float(value), op))
 
@@ -1881,21 +2395,8 @@ class RegCScaleRuntime:
         if self.protocol != IDEAL_PROTO:
             for lk in self.locks.values():
                 if (lk.seen == lk.version).all():
-                    continue       # everyone current (usual post-span state)
-                for w in range(self.W):
-                    if lk.seen[w] == lk.version:
-                        continue
-                    u, lo_u, hi_u = lk.log.pending(int(lk.seen[w]),
-                                                   lk.version)
-                    lk.seen[w] = lk.version
-                    if not u.size:
-                        continue
-                    if self.protocol == FINE_PROTO:
-                        self.traffic.diff_bytes += self._stale_diff_bytes(
-                            w, u, lo_u, hi_u)
-                    else:
-                        self.traffic.invalidations += self._replay_invalidate(
-                            w, u, rearm=False)
+                    continue       # everyone current
+                self._replay_stale(lk)
         log_w = max(1, int(np.ceil(np.log2(max(self.W, 2)))))
         for name, contribs in self._reductions.items():
             vals = [v for v, _ in contribs]
@@ -1909,23 +2410,42 @@ class RegCScaleRuntime:
         self.clock[:] = t
         self._bar_clock0 = self.clock.copy()
 
-    def _stale_diff_bytes(self, w: int, u: np.ndarray, lo_u: np.ndarray,
-                          hi_u: np.ndarray) -> int:
-        """Fine-grain barrier update: diff bytes for w's valid stale
-        copies of the noticed pages ``u`` only."""
-        total = 0
-        regions = np.searchsorted(self._region_starts_np, u, "right") - 1
+    def _replay_stale(self, lk: _Lock):
+        """Barrier-time notice replay of every worker behind ``lk``'s log
+        (after a grant group, all its members but the last): each worker's
+        coalesced pending pages, then per region one gather of the
+        pending cells of every such worker's row.  'fine' charges the
+        diff bytes of the stale copies still valid; 'page' invalidates
+        them (no wprot re-arm), one scatter.  A worker's replay touches
+        only its own row, so the per-worker loop's traffic and planes
+        come out of one batch."""
+        rows = np.nonzero(lk.seen != lk.version)[0]
+        parts = [(w, *lk.log.pending(int(lk.seen[w]), lk.version))
+                 for w in rows.tolist()]
+        lk.seen[rows] = lk.version
+        parts = [p for p in parts if p[1].size]
+        if not parts:
+            return
+        prow = np.concatenate([np.full(u.size, w, np.int64)
+                               for w, u, _, _ in parts])
+        pages = np.concatenate([u for _, u, _, _ in parts])
+        nbytes = np.concatenate([(hi - lo) * _WORD for _, _, lo, hi in parts])
+        regions = np.searchsorted(self._region_starts_np, pages, "right") - 1
         for r in np.unique(regions):
             d = self.dirs[int(r)]
-            if d.base[w] < 0:
-                continue
             m = regions == r
-            cols = u[m] - d.base[w]
-            inr = (cols >= 0) & (cols < d.length[w])
-            vcells = (d.valid[w, d.ix(np.where(inr, cols, 0))].cpu().numpy()
-                      & inr)
-            total += int(((hi_u[m] - lo_u[m]) * _WORD)[vcells].sum())
-        return total
+            w_ = prow[m]
+            cols = pages[m] - d.base[w_]
+            inr = (d.base[w_] >= 0) & (cols >= 0) & (cols < d.length[w_])
+            if not inr.any():
+                continue
+            cells = d.ix(np.stack([w_[inr], cols[inr]]))
+            hit = d.valid[cells[0], cells[1]]
+            if self.protocol == FINE_PROTO:
+                self.traffic.diff_bytes += int(nbytes[m][inr][host(hit)].sum())
+            else:
+                self.traffic.invalidations += int(hit.sum())
+                d.valid[cells[0], cells[1]] = False
 
     @property
     def time(self) -> float:

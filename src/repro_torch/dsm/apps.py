@@ -1,14 +1,15 @@
 """The paper's applications on the RegC runtime API: STREAM TRIAD, Jacobi
 (OmpSCR) and molecular dynamics (OmpSCR), as in the reference package,
 plus the two capacity-pressure STREAM variants of Fig. 4
-(``stream_spill``, ``stream_refetch``) that run under ``cache_pages``.
+(``stream_spill``, ``stream_refetch``) that run under ``cache_pages``,
+and the span-engine adversary ``lock_contention``.
 
 Each bulk phase is described once as (W,) interval arrays — the workers'
 read/write sets declared up front — and handed to a ``dsm.session``
-driver (``batched`` = the engine's ``phase_all``; ``loop`` = per-worker
-phases in worker order).  Consistency-region spans (lock mode) run in a
-per-worker pass AFTER the bulk phase, so the op order is identical
-whichever driver executes the bulk part.
+driver (``batched`` = the engine's ``phase_all``/``span_all``; ``loop`` =
+per-worker phases and spans in worker order).  Consistency-region spans
+(lock mode) run as one pass AFTER the bulk phase, so the op order is
+identical whichever driver executes the bulk part.
 
 Jacobi and MD take ``mode``:
 * ``lock``       — global accumulators protected by a mutex (consistency
@@ -247,3 +248,59 @@ def molecular_dynamics(rt, n_particles: int, iters: int, *,
 
 def md_flops_per_iter(n_particles: int) -> float:
     return 60.0 * n_particles * n_particles
+
+
+# ---------------------------------------------------------------------------
+# Lock contention (span-engine adversary: hot lock + disjoint lock striping)
+# ---------------------------------------------------------------------------
+
+
+def lock_contention(rt, n: int, iters: int, *, n_locks: int = 8,
+                    sweeps: int = 1, driver: str = "auto",
+                    on_iter: Optional[Callable] = None):
+    """Adversarial consistency-region workload for the span engine.
+
+    Each iteration runs one bulk ordinary phase (read+write of the
+    worker's own block, so every span pass starts with real flush work
+    to hoist), then ``sweeps`` x two span passes:
+
+    * **striped**: worker w serializes on lock ``w % n_locks``,
+      accumulating into that lock's private page: ``n_locks``
+      independent grant chains of W/n_locks holders each;
+    * **hot**: every worker serializes through ONE global lock updating
+      one shared accumulator pair: the longest grant chain, where only
+      the per-holder work around the grant can batch.
+
+    Both passes are uniform per lock group, so the batched driver's
+    analytic group path (``span_all``) absorbs them entirely
+    (``stats['span_groups_vec']`` counts it).  Bit-exact across
+    drivers."""
+    if n_locks < 1:
+        raise ValueError(f"lock_contention: n_locks={n_locks} < 1")
+    W = rt.W
+    pw = rt.page_words
+    A = rt.alloc(n)
+    acc = rt.alloc(n_locks * pw)       # one private page per striped lock
+    hot = rt.alloc(2)                  # the global accumulator pair
+    ids = np.arange(W, dtype=np.int64)
+    lo, hi = _blocks(n, W)
+    stripe = (ids % n_locks).astype(np.int64)
+    s_lo = stripe * pw
+    s_hi = s_lo + 2
+    zero = np.zeros(W, np.int64)
+    two = np.full(W, 2, np.int64)
+    hot_lock = n_locks                 # distinct from every striped lock
+    s = session(rt, driver)
+    phase, span_phase = s.phase, s.span
+    for it in range(iters):
+        phase(reads=((A, lo, hi),), writes=((A, lo, hi),),
+              flops=4.0 * (hi - lo), mem_bytes=2.0 * 4 * (hi - lo))
+        for _ in range(sweeps):
+            span_phase(stripe, reads=((acc, s_lo, s_hi),),
+                       writes=((acc, s_lo, s_hi),))
+            span_phase(hot_lock, reads=((hot, zero, two),),
+                       writes=((hot, zero, two),))
+        rt.barrier()
+        if on_iter is not None:
+            on_iter(it, rt)
+    return rt

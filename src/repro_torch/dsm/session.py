@@ -14,14 +14,16 @@ the apps use:
   (the paper's §V-B extension).
 * ``s.barrier()`` — delegate to ``rt.barrier()``.
 
-Drivers: ``batched`` routes phases through the engine's worker-axis
-``phase_all``; ``loop`` issues per-worker phases in worker order, as
-``rt.phase`` where the runtime has one and as per-op ``read``/``write``/
-``compute``/``instr_stores`` otherwise (the per-page reference engine,
-for which ``auto`` picks ``loop``).  The two are bit-exact against each
-other.  Spans run the per-worker body on both drivers: the batched
-``span_all`` arrives with slice D of the port, and the reference proves
-it bit-equal to this body.
+Drivers: ``batched`` routes phases and spans through the scale engine's
+worker-axis ``phase_all`` and ``span_all``; ``loop`` issues per-worker
+phases in worker order, as ``rt.phase`` where the runtime has one and as
+per-op ``read``/``write``/``compute``/``instr_stores`` otherwise, and
+per-worker spans (acquire, the declared ops, release) in worker order.
+``auto`` picks ``batched`` where the runtime has the batched entry point
+and ``loop`` otherwise (the per-page reference engine).  The two drivers
+are bit-exact against each other: spans serialize through their grant
+chain either way, so the op order is the same whichever driver runs the
+bulk part.
 """
 from __future__ import annotations
 
@@ -66,7 +68,17 @@ def _phase_callable(rt, driver: str):
     return loop
 
 
-def _span_callable(rt):
+def _span_callable(rt, driver: str):
+    if driver == "batched":
+        batched = getattr(rt, "span_all", None)
+        if batched is None:
+            raise ValueError(
+                "session(driver='batched'): runtime has no span_all "
+                "(use driver='loop' for the reference engine)")
+
+        def span_batched(lock_ids, reads=(), writes=(), w_mask=None):
+            batched(w_mask, lock_ids, reads=reads, writes=writes)
+        return span_batched
     W = rt.W
 
     def span_loop(lock_ids, reads=(), writes=(), w_mask=None):
@@ -98,7 +110,7 @@ class Session:
                       else "loop")
         self.driver = driver
         self.phase = _phase_callable(rt, driver)
-        self.span = _span_callable(rt)
+        self.span = _span_callable(rt, driver)
 
     def reduce(self, name: str, value: float = 1.0):
         """Per-worker reduction contribution: one ``reduce_all`` call where

@@ -85,9 +85,18 @@ _KERNELS = Kernels("protocol_sweep.cu", {
 # CALLS counts each wrapper's calls on any device
 LAUNCHES = _KERNELS.launches
 CALLS = _KERNELS.calls
-reset_launches = _KERNELS.reset
 _launch = _KERNELS.launch
 _called = _KERNELS.called
+# the phase_step launches given a row mask (span_all's hoisted flush),
+# also counted in LAUNCHES
+ROWMASK_LAUNCHES = {"phase_step": 0}
+
+
+def reset_launches():
+    _KERNELS.reset()
+    ROWMASK_LAUNCHES["phase_step"] = 0
+
+
 # phase_step's two uint32 counters (candidate slots, finished blocks) for
 # each (card, stream), zero between launches: the kernel's last block
 # resets them, and the wrapper zeroes them when a launch is refused.
@@ -440,16 +449,19 @@ def phase_step(planes: Sequence[torch.Tensor],
     desc = (ctypes.c_longlong * (3 * R))(
         *[t.data_ptr() for t in planes], *[g.data_ptr() for g in geoms],
         *[t.shape[1] for t in planes])
+    launches = -(-R // MAX_PHASE_STEP_REGIONS)
     try:
         _launch("phase_step", index, desc,
                 None if rowmask is None else rowmask.data_ptr(),
                 out.data_ptr(), ws.data_ptr(), R, W, capacity,
-                launches=-(-R // MAX_PHASE_STEP_REGIONS))
+                launches=launches)
     except RuntimeError:
         # a launch after the first refused: the slots the first reserved
         # are never released by a last block
         ws.zero_()
         raise
+    if rowmask is not None:
+        ROWMASK_LAUNCHES["phase_step"] += launches
     return out
 
 

@@ -4,10 +4,10 @@ modes, at W in {4, 16} and small sizes, with the benchmark harness's
 settings (IB_2013, fetch_batch=16).
 
 Each point runs on the reference (numpy tier) and on every port tier
-(``device="cpu"``) under the same driver.  In lock mode the reference's
-batched driver runs its spans through ``span_all`` while the port runs
-the per-worker span body (``span_all`` is slice D); the reference holds
-the two bit-equal, so traffic and clocks must still match exactly.
+(``device="cpu"``) under the same driver.  In lock mode both batched
+drivers run their spans through ``span_all`` (the loop drivers through
+the per-worker span body), so the span engine's path counters
+(``span_*`` in ``stats``) must match as well as traffic and clocks.
 The capacity-pressure points (``stream_spill``, ``stream_refetch`` and
 the spill settings of Jacobi and MD) run the same way under the
 harness's cache rules, with 64-word pages so that small problems keep the
@@ -65,6 +65,13 @@ def test_app_matches_reference(app, mode, n, pw, W):
                 for name in ref._reduction_results:
                     assert (pt.reduction_result(name)
                             == ref.reduction_result(name)), ctx
+                if mode == "lock":
+                    assert ({k: v for k, v in pt.stats.items()
+                             if k.startswith("span_")}
+                            == {k: v for k, v in ref.stats.items()
+                                if k.startswith("span_")}), ctx
+                    assert (pt.stats["span_workers_vec"] > 0) == (
+                        driver == "batched"), ctx
 
 
 def _spill_case(app, W):

@@ -268,6 +268,37 @@ def test_cuda_runtime_matches_cpu(dev, backend):
     np.testing.assert_array_equal(runs["cpu"].clock, runs["cuda"].clock)
 
 
+@pytest.mark.parametrize("cache_pages", (None, 64, 3))
+@pytest.mark.parametrize("backend", ("kernels", "fused"))
+def test_cuda_lock_contention_matches_cpu(dev, backend, cache_pages):
+    """A small lock_contention point (W=16, span_all's grant groups; a
+    roomy cache adds the touch bookkeeping, a tight one serializes the
+    spans) on the card against the CPU, bit-equal; the hoisted flush
+    launches phase_step with its row mask on 'fused', popcount_rows and
+    coverage_multi on 'kernels'."""
+    runs = {}
+    for device in ("cpu", "cuda"):
+        rt = make_runtime(16, protocol="page", fetch_batch=16,
+                          page_words=64, cache_pages=cache_pages,
+                          backend=backend, device=device)
+        ps.reset_launches()
+        apps.lock_contention(rt, 1 << 12, 2, sweeps=2)
+        runs[device] = rt
+    cpu, card = runs["cpu"], runs["cuda"]
+    assert dataclasses.asdict(cpu.traffic) == dataclasses.asdict(
+        card.traffic)
+    np.testing.assert_array_equal(cpu.clock, card.clock)
+    assert cpu.stats == card.stats
+    if card.stats["span_serial_calls"]:
+        return
+    assert card.stats["span_workers_vec"] == 2 * 2 * 2 * 16
+    if backend == "fused":
+        assert ps.ROWMASK_LAUNCHES["phase_step"] > 0
+    else:
+        assert ps.LAUNCHES["popcount_rows"] > 0
+        assert ps.LAUNCHES["coverage_multi"] > 0
+
+
 def _rank_cases(rng, plane):
     """Random and edge ranks of bool rows ``plane`` (host): 0, negative,
     each row's count and one past it, INT32_MAX."""
