@@ -80,6 +80,24 @@ Phases, in order; any mismatch or exception exits non-zero:
    and clocks bit-equal across the four runs, stats equal between card
    and CPU.  Prints walls and peak device memory beside the card's
    ``nvidia-smi`` line;
+4b. race phase (slice E): the 12 committed fig11_races rows (W = 16, 64,
+   256 x samhita, samhita_page x loop, batched) at benchmarks/races.py's
+   settings on 'fused', each with detection off and then on: the two
+   runs' traffic equal and clocks bit-equal, the on run equal to its
+   ``BENCH_scale.json`` row (traffic field for field, ``t_model_s``,
+   ``race_ww``, ``race_rw``, ``span_vec``, ``span_serial``), and the
+   W=256 batched samhita row once more on 'kernels'; the W=256 batched
+   fig6_weak and fig7_md lock points (samhita) with detection on, their
+   committed rows unchanged, Jacobi flagging nothing and MD exactly the
+   page-level false sharing of its blocks (``md_false_sharing``; the
+   reference flags the same set); four race-family traces
+   (``race_program``, cache_pages None, 3, 6, 9) on 'fused' and
+   'kernels' under both drivers, equal to the same runs on the CPU (race
+   sets, stats, traffic, clocks), the cached ones launching the
+   rank-select kernels; then the W=256 batched samhita fig11 point
+   traced with detection off and on (detection on at most twice the
+   device activities of off; both counts, idle shares and walls
+   printed);
 5. spill phase: the six W=256 batched capacity-pressure points
    (fig4_spill fits and spills, fig4_spill_heavy, fig4_refetch,
    fig5_spill, fig7_md_spill) on 'fused' at the harness's cache settings,
@@ -135,7 +153,8 @@ Phases, in order; any mismatch or exception exits non-zero:
 
 TF32 is off for every float comparison (printed at the start).  The
 launch counters are set to 0 just before each of the path phases (the
-model phase: before each serve run) and read just after; a kernel's
+race phase's traced runs come after its reading; the model phase:
+before each serve run) and read just after; a kernel's
 ``launches`` in the table is the sum of the readings.  The line before the last is the kernel table as one
 JSON object; the last line is ``{"ok": true, "device": {...}}``.  Full
 results also go to ``chiprun_out/chip_smoke.json``.
@@ -201,6 +220,12 @@ LOCK_SWEEPS = 2
 # the span phase's cache settings: room for every page a worker touches
 # (4 of its block, 1 striped, 1 hot), and fewer than its block's pages
 LOCK_CACHES = (("roomy", 64), ("tight", 3))
+# race phase (benchmarks/races.py's N_BASE, N_LOCKS and W sweep), and
+# the seeds of the four race_program traces with cache_pages None, 3, 6, 9
+RACE_N = 1 << 20
+RACE_LOCKS = 4
+RACE_CORES = (16, 64, 256)
+RACE_SEEDS = (24, 13, 6, 39)
 
 
 def fail(msg: str) -> int:
@@ -1674,6 +1699,352 @@ def span_phase(torch, ps, card, device="cuda"):
 
 
 # ---------------------------------------------------------------------------
+# race phase
+# ---------------------------------------------------------------------------
+
+
+def race_rows():
+    """(protocol, W, driver) -> the committed fig11_races rows, and the
+    iteration count ``BENCH_scale.json``'s meta names."""
+    bench = json.loads((ROOT / "BENCH_scale.json").read_text())
+    return ({(r["protocol"], r["W"], r["driver"]): r
+             for r in bench["rows"] if r["section"] == "fig11_races"},
+            int(bench["meta"]["iters"]))
+
+
+def run_race_point(torch, series, W_, driver, backend, device, iters,
+                   detect):
+    """One race_audit point at benchmarks/races.py's settings:
+    (runtime, wall seconds ending in a synchronise on the card)."""
+    from repro_torch.core import make_runtime
+    from repro_torch.dsm import apps
+    from repro_torch.dsm.costmodel import IB_2013
+    t0 = time.perf_counter()
+    rt = make_runtime(W_, protocol=PROTO[series], cost=IB_2013,
+                      fetch_batch=16, backend=backend, device=device,
+                      detect_races=detect)
+    apps.race_audit(rt, RACE_N, iters, n_locks=RACE_LOCKS, driver=driver)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return rt, time.perf_counter() - t0
+
+
+def race_program(seed: int):
+    """The race-family trace of ``seed``: a copy of the test suite's
+    ``trace_fuzz.race_trace_params`` and ``gen_race_program`` (the tests
+    hold the two equal), as (params, events).  Clean traces are race-free
+    by construction; racy ones splice in same-phase W/W writes, a
+    write-to-read handoff without its barrier, and one shared range
+    under different locks."""
+    import numpy as np
+    rng = np.random.default_rng(50_000 + seed)
+    W_ = int(rng.integers(2, 5))
+    pw = int(rng.choice([8, 16, 32]))
+    n_words = pw * int(rng.integers(12, 32))
+    p = dict(W=W_, page_words=pw, n_words=n_words,
+             cache_pages=[None, 3, 6, 9][seed % 4],
+             proto=("fine", "page", "ideal")[seed % 3], racy=bool(seed % 2))
+    ids = np.arange(W_, dtype=np.int64)
+    chunk = max(n_words // (W_ * pw), 1) * pw
+    own_lo = ids * chunk
+    own_hi = np.minimum(own_lo + chunk, n_words)
+    shared_hi = min(n_words, max(2 * pw, chunk))
+    prog = []
+    for k in range(6):
+        pick = int(rng.integers(0, 4))
+        if pick == 0:
+            prog.append(("phase", [(0, own_lo, own_hi)],
+                         [(0, own_lo, own_hi)]))
+        elif pick == 1:
+            hi = np.full(W_, int(rng.integers(2, n_words + 1)), np.int64)
+            prog.append(("phase", [(0, np.zeros(W_, np.int64), hi)], []))
+        elif pick == 2:
+            lo, hi = np.zeros(W_, np.int64), np.full(W_, shared_hi)
+            prog.append(("span_phase", np.zeros(W_, np.int64),
+                         [(1, lo, hi)], [(1, lo, hi)]))
+        else:
+            lo = (ids + k) % W_ * chunk
+            hi = np.minimum(lo + chunk, n_words)
+            prog.append(("phase", [(0, lo, hi)], [(0, lo, hi)]))
+        prog.append(("barrier",))
+    if not p["racy"]:
+        return p, prog
+
+    def pick_range():
+        a, b = (int(x) for x in rng.choice(W_, 2, replace=False))
+        x = int(rng.integers(0, max(n_words - 2 * pw, 1)))
+        return a, b, x
+
+    def gadget_ww():
+        a, b, x = pick_range()
+        lo, hi = own_lo.copy(), own_hi.copy()
+        lo[a] = lo[b] = x
+        hi[a] = hi[b] = min(x + int(rng.integers(1, 2 * pw)), n_words)
+        return [("phase", [], [(0, lo, hi)])]
+
+    def gadget_rw():
+        a, b, x = pick_range()
+        x_hi = min(x + int(rng.integers(1, 2 * pw)), n_words)
+        lo_w, hi_w = own_lo.copy(), own_hi.copy()
+        lo_w[a], hi_w[a] = x, x_hi
+        lo_r, hi_r = own_lo.copy(), own_hi.copy()
+        lo_r[b], hi_r[b] = x, x_hi
+        return [("phase", [], [(0, lo_w, hi_w)]),
+                ("phase", [(0, lo_r, hi_r)], [])]
+
+    def gadget_span_race():
+        lo, hi = np.zeros(W_, np.int64), np.full(W_, shared_hi)
+        return [("span_phase", ids % 2, [(1, lo, hi)], [(1, lo, hi)])]
+
+    gadgets = (gadget_ww, gadget_rw, gadget_span_race)
+    for _ in range(int(rng.integers(1, 4))):
+        gev = gadgets[int(rng.integers(0, 3))]()
+        pos = int(rng.integers(0, len(prog) + 1))
+        prog[pos:pos] = gev
+    return p, prog
+
+
+def run_race_program(torch, seed, backend, device, driver):
+    """``race_program(seed)`` with detection on, through ``session``:
+    (runtime, wall seconds)."""
+    from repro_torch.core import make_runtime
+    from repro_torch.dsm.session import session
+    p, prog = race_program(seed)
+    t0 = time.perf_counter()
+    rt = make_runtime(p["W"], page_words=p["page_words"],
+                      protocol=p["proto"], prefetch=1,
+                      model_mechanism=False, cache_pages=p["cache_pages"],
+                      backend=backend, device=device, detect_races=True)
+    gas = [rt.alloc(p["n_words"]) for _ in range(2)]
+    s = session(rt, driver)
+    for ev in prog:
+        if ev[0] == "phase":
+            s.phase(reads=[(gas[g], lo, hi) for g, lo, hi in ev[1]],
+                    writes=[(gas[g], lo, hi) for g, lo, hi in ev[2]])
+        elif ev[0] == "span_phase":
+            s.span(ev[1], reads=[(gas[g], lo, hi) for g, lo, hi in ev[2]],
+                   writes=[(gas[g], lo, hi) for g, lo, hi in ev[3]])
+        else:
+            rt.barrier()
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return rt, time.perf_counter() - t0
+
+
+def md_false_sharing(rt, n_particles: int, ndim: int = 3) -> set:
+    """The races that page-granular detection must flag in
+    ``apps.molecular_dynamics``, computed from its declared blocks alone:
+    its regions are pos, vel, acc and force (allocated in that order),
+    each worker writes its own particles' words, and blocks that do not
+    end on a page boundary share pages with a neighbour's.  Force is
+    written in the force phase (a 'ww' per shared page and pair of
+    workers); pos, vel and acc are read and written in the update phase
+    (a 'ww' and an 'rw' per shared page and pair).  Barriers order
+    everything else, and the energy spans share one lock."""
+    import numpy as np
+    W_, pw = rt.W, rt.page_words
+    chunk = n_particles // W_
+    p0 = np.arange(W_, dtype=np.int64) * chunk
+    p1 = p0 + chunk
+    p1[-1] = n_particles
+    lo, hi = p0 * ndim, p1 * ndim
+    out = set()
+    for region, kinds in ((0, ("ww", "rw")), (1, ("ww", "rw")),
+                          (2, ("ww", "rw")), (3, ("ww",))):
+        base = rt.dirs[region].page_lo
+        first = base + lo // pw
+        last = base + (np.maximum(hi - 1, lo)) // pw
+        for a in range(W_):
+            for b in range(a + 1, W_):
+                for page in range(max(first[a], first[b]),
+                                  min(last[a], last[b]) + 1):
+                    out.update((int(page), a, b, k) for k in kinds)
+    return out
+
+
+def race_phase(torch, ps, card, device="cuda", cores=RACE_CORES):
+    """Slice E, race detection on the scale engine.  (a) The committed
+    fig11_races rows (``cores`` x samhita, samhita_page x loop, batched)
+    at benchmarks/races.py's settings on 'fused', each run with detection
+    off and then on: the two runs' traffic equal and their modeled times
+    bit-equal, and the on run equal to its ``BENCH_scale.json`` row
+    (traffic field for field, ``t_model_s``, ``race_ww``, ``race_rw``,
+    ``span_vec``, ``span_serial``); the largest batched samhita row once
+    more on 'kernels'.  (b) The main path's W=256 batched fig6_weak and
+    fig7_md lock points (samhita) with detection on: their committed
+    rows unchanged, nothing flagged in Jacobi, and in MD exactly the
+    page-level false sharing of its blocks (``md_false_sharing``).  (c) The four ``race_program``
+    traces of ``RACE_SEEDS`` (cache_pages None, 3, 6, 9) on 'fused' and
+    'kernels' under both drivers on ``device`` and on the CPU: race sets,
+    stats, traffic and clocks equal.  On the card the launch counters
+    must show phase_step on 'fused' and popcount_rows and coverage_multi
+    on 'kernels' in (a), and the rank-select kernels in the cached
+    traces of (c).  Returns (rows, launches of the phase)."""
+    from repro_torch.core import make_runtime
+    from repro_torch.dsm import apps
+    from repro_torch.dsm.costmodel import IB_2013
+    on_card = device != "cpu"
+    committed, iters = race_rows()
+    bench = {(r["section"], r["protocol"], r["W"], r.get("driver")): r
+             for r in json.loads(
+                 (ROOT / "BENCH_scale.json").read_text())["rows"]}
+    out = []
+    ps.reset_launches()
+
+    def checked(name, rt, row, want_races=True):
+        traffic = {f"tr_{f.name}": getattr(rt.traffic, f.name)
+                   for f in dataclasses.fields(rt.traffic)}
+        got = dict(traffic)
+        if want_races:
+            got.update(race_ww=rt.stats["race_ww"],
+                       race_rw=rt.stats["race_rw"],
+                       span_vec=rt.stats["span_workers_vec"],
+                       span_serial=rt.stats["span_serial_workers"])
+        bad = {k: (v, row[k]) for k, v in got.items() if v != row[k]}
+        t_model = round(rt.time, 6)
+        if bad or t_model != row["t_model_s"]:
+            raise AssertionError(f"{name}: drift {bad}, t_model {t_model} "
+                                 f"vs committed {row['t_model_s']}")
+        return traffic, t_model
+
+    runs = [(series, W_, driver, "fused") for W_ in cores
+            for driver in ("loop", "batched")
+            for series in ("samhita", "samhita_page")]
+    runs.append(("samhita", cores[-1], "batched", "kernels"))
+    need = {"fused": ("phase_step",),
+            "kernels": ("popcount_rows", "coverage_multi")}
+    for series, W_, driver, backend in runs:
+        before = dict(ps.LAUNCHES)
+        off, wall_off = run_race_point(torch, series, W_, driver, backend,
+                                       device, iters, False)
+        on, wall_on = run_race_point(torch, series, W_, driver, backend,
+                                     device, iters, True)
+        launched = {k: ps.LAUNCHES[k] - before[k] for k in ps.LAUNCHES}
+        name = f"fig11_races {series} W={W_} {driver} [{backend}]"
+        if (dataclasses.asdict(on.traffic) != dataclasses.asdict(off.traffic)
+                or on.clock.tobytes() != off.clock.tobytes()):
+            raise AssertionError(f"{name}: detection changed traffic or "
+                                 "clocks")
+        traffic, t_model = checked(name, on, committed[series, W_, driver])
+        if on_card:
+            idle = [k for k in need[backend] if launched[k] == 0]
+            if idle:
+                raise AssertionError(f"{name}: kernels {idle} never "
+                                     "launched")
+        overhead = (wall_on - wall_off) / wall_off
+        print(f"race {name:44s} wall on {wall_on:.3f} s off "
+              f"{wall_off:.3f} s (detect_overhead {overhead:.3f})  "
+              f"t_model {t_model}  race_ww {on.stats['race_ww']} race_rw "
+              f"{on.stats['race_rw']}  launches {launched}  ({card})",
+              flush=True)
+        out.append({"section": "fig11_races", "series": series, "W": W_,
+                    "driver": driver, "backend": backend,
+                    "wall_on_s": wall_on, "wall_off_s": wall_off,
+                    "detect_overhead": overhead, "t_model_s": t_model,
+                    "race_ww": on.stats["race_ww"],
+                    "race_rw": on.stats["race_rw"], "launches": launched,
+                    **traffic})
+    for sec, tag, series, app, mode, n in main_points():
+        if sec not in ("fig6_weak", "fig7_md") or tag != "samhita_lock":
+            continue
+        t0 = time.perf_counter()
+        rt = make_runtime(W, protocol=PROTO[series], cost=IB_2013,
+                          fetch_batch=16, backend="fused", device=device,
+                          detect_races=True)
+        run = apps.jacobi if app == "jacobi" else apps.molecular_dynamics
+        run(rt, n, ITERS, mode=mode, driver="batched")
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        name = f"{sec} {tag} detecting"
+        want = md_false_sharing(rt, n) if app == "md" else set()
+        counts = {k: sum(r[3] == k for r in want) for k in ("ww", "rw")}
+        if rt.races != want or counts != {"ww": rt.stats["race_ww"],
+                                          "rw": rt.stats["race_rw"]}:
+            raise AssertionError(
+                f"{name}: flagged {len(rt.races)} races, {len(want)} "
+                f"expected ({len(rt.races ^ want)} differ)")
+        traffic, t_model = checked(name, rt, bench[sec, tag, W, "batched"],
+                                   want_races=False)
+        print(f"race {name:44s} wall {wall:.3f} s  t_model {t_model}  "
+              f"races {counts} (as expected)  ({card})", flush=True)
+        out.append({"section": sec, "series": tag, "W": W,
+                    "detect_races": True, "wall_s": wall,
+                    "t_model_s": t_model, "race_ww": counts["ww"],
+                    "race_rw": counts["rw"], **traffic})
+    ranked = {"fused": ("take_and_cut",),
+              "kernels": ("take_first_k", "kth_set_index")}
+    for seed in RACE_SEEDS:
+        p, _ = race_program(seed)
+        for backend in ("fused", "kernels"):
+            for driver in ("batched", "loop"):
+                before = dict(ps.LAUNCHES)
+                rt, wall = run_race_program(torch, seed, backend, device,
+                                            driver)
+                launched = {k: ps.LAUNCHES[k] - before[k]
+                            for k in ps.LAUNCHES}
+                cpu, _ = run_race_program(torch, seed, backend, "cpu",
+                                          driver)
+                name = (f"race trace {seed} (W={p['W']}, {p['proto']}, "
+                        f"cache {p['cache_pages']}) {driver} [{backend}]")
+                if (rt.races != cpu.races or rt.stats != cpu.stats
+                        or dataclasses.asdict(rt.traffic)
+                        != dataclasses.asdict(cpu.traffic)
+                        or rt.clock.tobytes() != cpu.clock.tobytes()):
+                    raise AssertionError(f"{name}: {device} and the CPU "
+                                         "differ")
+                if bool(rt.races) != p["racy"]:
+                    raise AssertionError(f"{name}: {len(rt.races)} races "
+                                         f"flagged, racy={p['racy']}")
+                if on_card and p["cache_pages"] is not None and (
+                        driver == "batched"):
+                    idle = [k for k in ranked[backend] if launched[k] == 0]
+                    if idle:
+                        raise AssertionError(f"{name}: rank-select kernels "
+                                             f"{idle} never launched")
+                print(f"race {name:56s} wall {wall:.3f} s  "
+                      f"{len(rt.races)} races  launches {launched}",
+                      flush=True)
+                out.append({"section": "race_trace", "seed": seed, **p,
+                            "driver": driver, "backend": backend,
+                            "wall_s": wall, "races": len(rt.races),
+                            "launches": launched})
+    return out, dict(ps.LAUNCHES)
+
+
+def race_profile(torch, card, cores=RACE_CORES):
+    """The largest batched samhita fig11 point on 'fused', traced with
+    detection off and on (``traced``): detection on may issue at most
+    twice the device activities of detection off.  Prints both counts,
+    both idle shares and both walls (``detect_overhead``)."""
+    _, iters = race_rows()
+    res = {}
+    for detect in (False, True):
+        res[detect] = traced(torch, lambda d=detect: run_race_point(
+            torch, "samhita", cores[-1], "batched", "fused", "cuda", iters,
+            d))
+    off, on = res[False], res[True]
+    overhead = (on["traced_wall_s"] - off["traced_wall_s"]) / off[
+        "traced_wall_s"]
+    print(f"profile fig11_races samhita W={cores[-1]} batched: detection "
+          f"on {on['device_activities']} device activities, idle share "
+          f"{on['idle_share']}, wall {on['traced_wall_s']:.3f} s; off "
+          f"{off['device_activities']}, idle share {off['idle_share']}, "
+          f"wall {off['traced_wall_s']:.3f} s (detect_overhead "
+          f"{overhead:.3f})  ({card})", flush=True)
+    if (not off["device_activities"]
+            or on["device_activities"] > 2 * off["device_activities"]):
+        raise AssertionError(
+            f"fig11_races: detection on issued {on['device_activities']} "
+            f"device activities against {off['device_activities']} off "
+            "(at most twice as many expected)")
+    return [dict(on, section="fig11_races", series="samhita",
+                 detect_races=True),
+            dict(off, section="fig11_races", series="samhita",
+                 detect_races=False, detect_overhead=overhead)]
+
+
+# ---------------------------------------------------------------------------
 # spill phase
 # ---------------------------------------------------------------------------
 
@@ -1967,6 +2338,32 @@ def reference_phase(torch, np, device="cuda", W_=W,
     return rows, dict(pd.LAUNCHES)
 
 
+def traced(torch, run):
+    """Run ``run`` (which returns (anything, wall seconds)) under
+    torch.profiler: its wall, the number of device activities recorded
+    (kernels, copies, sets), the union of their intervals (device busy
+    seconds) and the idle share of the wall; busy and idle are None when
+    the trace holds no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall = run()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    row = {"traced_wall_s": wall, "device_activities": len(spans),
+           "device_busy_s": None, "idle_share": None}
+    if spans:
+        busy_us, end = 0.0, float("-inf")
+        for a, b in spans:
+            busy_us += max(0.0, b - max(a, end))
+            end = max(end, b)
+        busy = busy_us * 1e-6
+        row.update(device_busy_s=busy, idle_share=1 - busy / wall)
+    return row
+
+
 def profile_phase(torch):
     """Device busy share of two fig6_weak points (samhita, lock and
     reduction mode) and of the fig4_refetch and fig7_md_spill points (the
@@ -1977,8 +2374,6 @@ def profile_phase(torch):
     the run's wall.  The lock point (its spans through ``span_all``) may
     issue at most twice the reduction point's device activities.  The
     walls of the path phases above are untraced."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import make_runtime
     from repro_torch.dsm import apps
     from repro_torch.dsm.costmodel import IB_2013
@@ -2000,29 +2395,16 @@ def profile_phase(torch):
     runs.append(("reference", "jacobi_lock_values", reference_jacobi))
     out = []
     for sec, tag, run in runs:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            _, wall = run()
-        spans = sorted((e.time_range.start, e.time_range.end)
-                       for e in prof.events()
-                       if e.device_type == DeviceType.CUDA)
-        row = {"section": sec, "series": tag, "traced_wall_s": wall,
-               "device_activities": len(spans), "device_busy_s": None,
-               "idle_share": None}
-        if not spans:   # the path launches kernels, so the trace failed
+        row = {"section": sec, "series": tag, **traced(torch, run)}
+        if row["device_busy_s"] is None:
             print(f"profile {sec} {tag}: torch.profiler recorded no device "
                   "activity; device busy share not measured", flush=True)
-            out.append(row)
-            continue
-        busy_us, end = 0.0, float("-inf")
-        for a, b in spans:
-            busy_us += max(0.0, b - max(a, end))
-            end = max(end, b)
-        busy = busy_us * 1e-6
-        row.update(device_busy_s=busy, idle_share=1 - busy / wall)
-        print(f"profile {sec} {tag} traced wall {wall:.3f} s  "
-              f"device busy {busy * 1e3:.3f} ms ({len(spans)} device "
-              f"activities)  idle share {1 - busy / wall:.4f}", flush=True)
+        else:
+            print(f"profile {sec} {tag} traced wall "
+                  f"{row['traced_wall_s']:.3f} s  device busy "
+                  f"{row['device_busy_s'] * 1e3:.3f} ms "
+                  f"({row['device_activities']} device activities)  idle "
+                  f"share {row['idle_share']:.4f}", flush=True)
         out.append(row)
     # lock mode's spans run as grant groups around one hoisted flush: the
     # lock point issues at most twice the reduction point's activities
@@ -2113,6 +2495,8 @@ def main() -> int:
     kernels = kernel_phase(torch, np, ps, dev)
     points, launches = main_path_phase(torch, ps)
     spans, span_launches = span_phase(torch, ps, card)
+    races, race_launches = race_phase(torch, ps, card)
+    races += race_profile(torch, card)
     spills, spill_launches, scans = spill_phase(torch, ps)
     # the rank-select kernels, timed at the spill phase's commonest scan
     kernels.update(rank_select_phase(torch, np, ps, dev, scans,
@@ -2123,7 +2507,7 @@ def main() -> int:
     models, model_launches = model_phase(torch, np)
 
     total = {k: launches[k] + spill_launches[k] + span_launches[k]
-             for k in ps.LAUNCHES}
+             + race_launches[k] for k in ps.LAUNCHES}
     total.update(ref_launches)
     total.update(model_launches)
     table = {"kernels": [
@@ -2138,15 +2522,18 @@ def main() -> int:
     print(f"launches on the reference path: {ref_launches}", flush=True)
     print(f"launches on the model path: {model_launches}", flush=True)
     print(f"launches on the span path: {span_launches}", flush=True)
+    print(f"launches on the race path: {race_launches}", flush=True)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_s, "resources": resources,
          "kernel_phase": kernels,
-         "points": points, "span_points": spans, "spill_points": spills,
+         "points": points, "span_points": spans, "race_points": races,
+         "spill_points": spills,
          "reference_points": references, "models": models,
          "victim_scans": [[L, k, n] for (L, k), (n, _) in scans.items()],
          "launches_main": launches, "launches_span": span_launches,
+         "launches_race": race_launches,
          "launches_spill": spill_launches,
          "launches_reference": ref_launches, "launches_model": model_launches,
          "profile": profiled, **table}, indent=1) + "\n")

@@ -12,10 +12,12 @@ Two carriers, one per engine:
   state at a barrier cut as plain numpy arrays plus JSON-serializable
   meta (its directory planes in ``RegionDirectory.state_arrays`` format,
   its lock logs in ``IntervalLog.state_arrays`` format).  Only state the
-  scale port can run so far is accepted: chaos and straggler hooks,
-  race-detection state and shard slices raise a ``ValueError``.
-  Eviction state (``cache_pages``, the resident counts, the LRU run
-  queues and the directories' touch/incache planes) carries over.
+  scale port can run so far is accepted: chaos and straggler hooks and
+  shard slices raise a ``ValueError``.  Eviction state (``cache_pages``,
+  the resident counts, the LRU run queues and the directories'
+  touch/incache planes) and race-detection state (the vector clocks of
+  the workers and the locks, the flagged set and the directories' race
+  planes) carry over.
 
 Either way a trace can start on the reference and finish here with the
 same traffic and bit-equal clocks: the system's counterpart of carrying
@@ -124,8 +126,6 @@ def runtime_from_snapshot(arrays: dict, meta: dict, *, device=None,
         _refuse("a shard-slice snapshot (compose the slices first;"
                 " the cluster slice)")
     cfg = meta["config"]
-    if cfg.get("detect_races") or "race_vc" in arrays:
-        _refuse("race-detection state (slice E)")
     if meta.get("chaos") is not None or meta.get("straggler") is not None:
         _refuse("chaos/straggler state (the recovery slice)")
     cache_pages = cfg.get("cache_pages")
@@ -138,7 +138,8 @@ def runtime_from_snapshot(arrays: dict, meta: dict, *, device=None,
         fault_s=float(cfg["fault_s"]),
         fetch_batch=int(cfg["fetch_batch"]), backend=backend,
         cache_pages=None if cache_pages is None else int(cache_pages),
-        danger_mode=cfg.get("danger_mode", "vec"), device=device)
+        danger_mode=cfg.get("danger_mode", "vec"),
+        detect_races=bool(cfg.get("detect_races", False)), device=device)
     rt.n_pages = int(meta["n_pages"])
     rt._region_starts = [int(x) for x in meta["region_starts"]]
     rt._region_ends = [int(x) for x in meta["region_ends"]]
@@ -161,7 +162,15 @@ def runtime_from_snapshot(arrays: dict, meta: dict, *, device=None,
         lk.last_release_time = float(np.asarray(arrays[pre + "lrt"])[0])
         lk.log = IntervalLog.from_state(
             {k: arrays[pre + k] for k in ("p", "lo", "hi", "voff")})
+        if pre + "vc" in arrays:
+            lk.race_vc = np.asarray(arrays[pre + "vc"], np.int64).copy()
         rt.locks[int(lm["id"])] = lk
+    if rt.detect_races:
+        rt.race_vc = np.asarray(arrays["race_vc"], np.int64).copy()
+        # race_set rows are (page, a, b, kind) with kind 0 for 'ww'
+        rs = np.asarray(arrays["race_set"], np.int64).reshape(-1, 4)
+        rt.races = {(int(p), int(a), int(b), "ww" if k == 0 else "rw")
+                    for p, a, b, k in rs}
     rt.clock = np.asarray(arrays["clock"], np.float64).copy()
     rt._bar_clock0 = np.asarray(arrays["bar_clock0"], np.float64).copy()
     rt.resident = np.asarray(arrays["resident"], np.int64).copy()

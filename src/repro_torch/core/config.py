@@ -50,7 +50,6 @@ FAULT_S = 4.0e-6
 # and the slice of the port that brings them; any other value raises
 # instead of running
 _LATER = {
-    "detect_races": (False, "slice E (race detection)"),
     "chaos": (None, "the recovery slice"),
     "injector": (None, "the recovery slice"),
     "straggler": (None, "the recovery slice"),
@@ -98,8 +97,8 @@ class RuntimeConfig:
     neither engine reads).  The reference engine ignores
     the scale engine's performance and mechanism knobs and refuses the
     fault-injection hooks.  On the scale engine, knobs whose paths belong
-    to later slices of the port (``detect_races``, ``chaos``,
-    ``injector``, ``straggler``) raise a ``ValueError`` naming that slice
+    to later slices of the port (``chaos``, ``injector``, ``straggler``)
+    raise a ``ValueError`` naming that slice
     when set to other than their default."""
 
     page_words: int = 1024
@@ -171,4 +170,4 @@ def make_runtime(n_workers: int, config: Optional[RuntimeConfig] = None,
         instr_s_per_word=cfg.instr_s_per_word, fault_s=cfg.fault_s,
         fetch_batch=cfg.fetch_batch, backend=cfg.backend,
         cache_pages=cfg.cache_pages, danger_mode=cfg.danger_mode,
-        device=cfg.device)
+        detect_races=cfg.detect_races, device=cfg.device)

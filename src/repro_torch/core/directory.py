@@ -18,6 +18,11 @@ turn each read into a synchronisation.  Methods take and return host
 numpy index arrays and counts; they move index tensors to the device
 only to gather or scatter plane cells.
 
+Under ``detect_races`` two int64 vector-clock planes join them
+(``race_w``/``race_r``, the write and read halves of one (2, W, cap)
+tensor) with their per-row running maxima on the host, the screens that
+keep the card out of a check that cannot fire.
+
 ``IntervalLog`` is the per-lock notice log: a flat, version-segmented
 ``(page, lo, hi)`` host array with a per-page segment min/max coalesce.
 
@@ -71,7 +76,11 @@ class RegionDirectory:
                  "maybe_dirty", "_cov_stale", "_sorted_bases",
                  "_sorted_ends", "backend", "dirty_lo", "dirty_hi",
                  "span_lo", "span_hi", "stats", "_jit_geom", "_jit_geom_t",
-                 "_cov_bounds_t")
+                 "_cov_bounds_t", "_race", "race_maxw", "race_maxr")
+
+    # cells a batched race check gathers per round trip (bounds the host
+    # index arrays and the device gather of a wide check)
+    RACE_CELLS = 1 << 22
 
     def __init__(self, n_workers: int, region: int, page_lo: int,
                  page_hi: int, *, track_wprot: bool = False,
@@ -103,6 +112,18 @@ class RegionDirectory:
         # (I64_MAX, I64_MIN).  Allocated on the first span write.
         self.span_lo: Optional[torch.Tensor] = None
         self.span_hi: Optional[torch.Tensor] = None
+        # race-detection vector-clock planes (detect_races runs only): cell
+        # (u, p) of ``race_w`` is worker u's epoch at its last recorded
+        # write of page p, ``race_r`` the read twin; 0 means never (epochs
+        # start at 1).  Both live in one (2, W, cap) int64 tensor, so a
+        # check of both is one gather.  Allocated on first use
+        # (``ensure_race``); windows only grow and eviction leaves the
+        # planes alone, so a recorded access is never dropped.
+        self._race: Optional[torch.Tensor] = None
+        # host per-row running max of every epoch recorded in each plane
+        # (cells only grow, so it is the plane's row max): the screens
+        self.race_maxw: Optional[np.ndarray] = None
+        self.race_maxr: Optional[np.ndarray] = None
         # conservative per-row bounding interval of possibly-dirty pages
         # (absolute pages; empty when lo >= hi), reset on flush
         self.dirty_lo = np.full(n_workers, _I64_MAX, np.int64)
@@ -154,6 +175,11 @@ class RegionDirectory:
         if self.span_lo is not None:
             self.span_lo = self._grown(self.span_lo, new_cap, _I64_MAX)
             self.span_hi = self._grown(self.span_hi, new_cap, _I64_MIN)
+        if self._race is not None:
+            race = torch.zeros((2, self.W, new_cap), dtype=torch.int64,
+                               device=self.device)
+            race[:, :, :self.cap] = self._race
+            self._race = race
         self.cap = new_cap
 
     def ensure_span(self):
@@ -161,6 +187,22 @@ class RegionDirectory:
         if self.span_lo is None:
             self.span_lo = self._plane(self.cap, _I64_MAX, torch.int64)
             self.span_hi = self._plane(self.cap, _I64_MIN, torch.int64)
+
+    @property
+    def race_w(self) -> Optional[torch.Tensor]:
+        return None if self._race is None else self._race[0]
+
+    @property
+    def race_r(self) -> Optional[torch.Tensor]:
+        return None if self._race is None else self._race[1]
+
+    def ensure_race(self):
+        """Allocate the race vector-clock planes on first use."""
+        if self._race is None:
+            self._race = torch.zeros((2, self.W, self.cap),
+                                     dtype=torch.int64, device=self.device)
+            self.race_maxw = np.zeros(self.W, np.int64)
+            self.race_maxr = np.zeros(self.W, np.int64)
 
     def ensure(self, w: int, lo: int, hi: int):
         """Grow row w's window to cover absolute pages [lo, hi)."""
@@ -188,6 +230,10 @@ class RegionDirectory:
                 row = plane[w]
                 row[pad:pad + n] = row[:n].clone()
                 row[:pad] = init
+            if self._race is not None:
+                rows = self._race[:, w]
+                rows[:, pad:pad + n] = rows[:, :n].clone()
+                rows[:, :pad] = 0
             self.base[w] = lo
             self.length[w] = n + pad
             self.shift[w] += pad
@@ -326,6 +372,140 @@ class RegionDirectory:
         self.span_lo[w, cols] = _I64_MAX
         self.span_hi[w, cols] = _I64_MIN
         return vals[0] + b, vals[1].copy(), vals[2].copy()
+
+    # ------------------------------------------------------------------
+    # race vector-clock planes (detect_races mode)
+    # ------------------------------------------------------------------
+
+    def _race_max(self, is_write: bool) -> np.ndarray:
+        return self.race_maxw if is_write else self.race_maxr
+
+    def race_note(self, w: int, p_lo: int, p_hi: int, epoch: int,
+                  is_write: bool):
+        """Record worker w's access to absolute pages [p_lo, p_hi) at its
+        current ``epoch`` (epochs are monotone per worker, so the store
+        is a max).  The window must cover the range."""
+        self.ensure_race()
+        self._race[0 if is_write else 1, w, self.sl(w, p_lo, p_hi)] = epoch
+        mx = self._race_max(is_write)
+        mx[w] = max(int(mx[w]), int(epoch))
+
+    def race_note_rows(self, rows: np.ndarray, p_lo: np.ndarray,
+                       p_hi: np.ndarray, epochs: np.ndarray,
+                       is_write: bool):
+        """``race_note`` over ``rows``: row rows[i]'s access to absolute
+        pages [p_lo[i], p_hi[i]) at epochs[rows[i]] (``race_note_cells``
+        stores them)."""
+        rows = np.asarray(rows, np.int64)
+        self.race_note_cells(np.full(rows.size, 0 if is_write else 1),
+                             rows, p_lo, p_hi, np.asarray(epochs)[rows])
+
+    def race_note_cells(self, planes: np.ndarray, rows: np.ndarray,
+                        p_lo: np.ndarray, p_hi: np.ndarray,
+                        vals: np.ndarray):
+        """Record n accesses: access i stores vals[i] over absolute pages
+        [p_lo[i], p_hi[i]) of row rows[i] of plane planes[i] (0 the write
+        plane, 1 the read plane).  Narrow ranges go as one upload of
+        their flat cell index and one scatter; wide ones (``use_dense``
+        false) as one slice store per (plane, column span) shared by
+        their rows, with no per-cell index.  Windows must cover the
+        ranges; accesses that store one cell store the same value (one
+        worker's epoch)."""
+        self.ensure_race()
+        planes, rows = np.asarray(planes, np.int64), np.asarray(rows,
+                                                               np.int64)
+        if rows.size == 0:
+            return
+        vals = np.asarray(vals, np.int64)
+        L = np.asarray(p_hi, np.int64) - p_lo
+        c0 = np.asarray(p_lo, np.int64) - self.base[rows]
+        if use_dense(rows.size, int(L.max())):
+            ix = np.repeat(np.arange(rows.size), L)
+            cols = c0[ix] + (np.arange(ix.size)
+                             - np.repeat(np.cumsum(L) - L, L))
+            cells = self.ix(np.stack([planes[ix], rows[ix], cols,
+                                      vals[ix]]))
+            self._race[cells[0], cells[1], cells[2]] = cells[3]
+        else:
+            uk, inv = np.unique(np.stack([planes, c0, c0 + L], axis=1),
+                                axis=0, return_inverse=True)
+            inv = inv.reshape(-1)
+            for g in range(uk.shape[0]):
+                sel = np.nonzero(inv == g)[0]
+                k, a, b = (int(x) for x in uk[g])
+                self._race[k][self.row_block(rows[sel]), a:b] = self.ix(
+                    vals[sel])[:, None]
+        for k, mx in ((0, self.race_maxw), (1, self.race_maxr)):
+            m = planes == k
+            np.maximum.at(mx, rows[m], vals[m])
+
+    def race_hits(self, p_lo: int, p_hi: int, vcw: np.ndarray,
+                  is_write: bool) -> Tuple[np.ndarray, np.ndarray]:
+        """(rows, pages) of write (or read) epochs recorded over absolute
+        pages [p_lo, p_hi) that are NOT ordered under the view ``vcw``,
+        row-major: the scalar check, ``race_hits_many`` with one check."""
+        (_, u, p), = self.race_hits_many(
+            np.array([p_lo], np.int64), np.array([p_hi], np.int64),
+            np.asarray(vcw, np.int64)[None, :], (is_write,))
+        return u, p
+
+    def race_hits_many(self, p_lo: np.ndarray, p_hi: np.ndarray,
+                       views: np.ndarray, planes=(True,)):
+        """Batched race check: check i is absolute pages [p_lo[i],
+        p_hi[i]) under the vector-clock view views[i] (an (n, W) host
+        array), against the write plane (True in ``planes``) and/or the
+        read plane (False).  Returns, per entry of ``planes``, host
+        (check, row, page) of every recorded epoch that the view does not
+        order, ordered by check, row, page.
+
+        The screen runs on the host: a row whose window misses the range
+        (out-of-window cells read 0, never) or whose recorded maximum the
+        view already covers holds no firing cell, and only the cells of
+        the remaining (check, row) pairs go to the card: one upload of
+        their (plane, row, column, view) index, one gather of both
+        planes, one copy back of the hits (a check wider than
+        ``RACE_CELLS`` cells takes one such round trip per chunk)."""
+        z = np.zeros(0, np.int64)
+        out = [(z, z, z) for _ in planes]
+        if self._race is None or len(p_lo) == 0:
+            return out
+        p_lo = np.asarray(p_lo, np.int64)
+        p_hi = np.asarray(p_hi, np.int64)
+        live = self.base >= 0
+        ov_lo = np.maximum(p_lo[:, None], self.base[None, :])
+        ov_hi = np.minimum(p_hi[:, None], (self.base + self.length)[None, :])
+        parts = []
+        for k, is_write in enumerate(planes):
+            cand = ((self._race_max(is_write)[None, :] > views)
+                    & (ov_hi > ov_lo) & live[None, :])
+            ci, cu = np.nonzero(cand)
+            parts.append((k, ci, cu, ov_lo[ci, cu], ov_hi[ci, cu],
+                          views[ci, cu]))
+        n_cells = sum(int((hi - lo).sum()) for _, _, _, lo, hi, _ in parts)
+        if n_cells == 0:
+            return out
+        # (entry, check, row, page, view) of every candidate cell
+        cells = []
+        for k, ci, cu, lo, hi, thr in parts:
+            L = hi - lo
+            ix = np.repeat(np.arange(ci.size), L)
+            pages = lo[ix] + (np.arange(ix.size)
+                              - np.repeat(np.cumsum(L) - L, L))
+            cells.append(np.stack([np.full(ix.size, k), ci[ix], cu[ix],
+                                   pages, thr[ix]]))
+        cells = np.concatenate(cells, axis=1)
+        pid = np.asarray([0 if w else 1 for w in planes], np.int64)[cells[0]]
+        cols = cells[3] - self.base[cells[2]]
+        hit = np.zeros(cells.shape[1], bool)
+        for a in range(0, cells.shape[1], self.RACE_CELLS):
+            b = a + self.RACE_CELLS
+            t = self.ix(np.stack([pid[a:b], cells[2, a:b], cols[a:b],
+                                  cells[4, a:b]]))
+            hit[a:b] = (self._race[t[0], t[1], t[2]] > t[3]).cpu().numpy()
+        for k in range(len(planes)):
+            m = hit & (cells[0] == k)
+            out[k] = (cells[1, m], cells[2, m], cells[3, m])
+        return out
 
     # ------------------------------------------------------------------
     # row access
@@ -585,28 +765,29 @@ class RegionDirectory:
                   "dirty": self.dirty.cpu().numpy().copy(),
                   "dirty_lo": self.dirty_lo.copy(),
                   "dirty_hi": self.dirty_hi.copy()}
-        for name in ("wprot", "touch", "incache", "span_lo", "span_hi"):
+        for name in ("wprot", "touch", "incache", "span_lo", "span_hi",
+                     "race_w", "race_r"):
             plane = getattr(self, name)
             if plane is not None:
                 arrays[name] = plane.cpu().numpy().copy()
+        if self._race is not None:
+            arrays["race_maxw"] = self.race_maxw.copy()
+            arrays["race_maxr"] = self.race_maxr.copy()
         meta = {"W": self.W, "region": self.region,
                 "page_lo": self.page_lo, "page_hi": self.page_hi,
                 "cap": self.cap, "maybe_dirty": bool(self.maybe_dirty),
                 "track_wprot": self.wprot is not None,
                 "track_touch": self.touch is not None,
                 "has_span": self.span_lo is not None,
-                "has_race": False, "backend": self.backend}
+                "has_race": self._race is not None,
+                "backend": self.backend}
         return arrays, meta
 
     @classmethod
     def from_state(cls, arrays: dict, meta: dict, *, backend: str,
                    device) -> "RegionDirectory":
         """Rebuild a directory from ``state_arrays`` output (this
-        package's or the reference's).  Race planes belong to slice E and
-        are refused."""
-        if meta.get("has_race"):
-            raise ValueError("RegionDirectory.from_state: race planes are "
-                             "not ported yet (slice E)")
+        package's or the reference's)."""
         d = cls(meta["W"], meta["region"], meta["page_lo"],
                 meta["page_hi"], track_wprot=meta["track_wprot"],
                 track_touch=meta["track_touch"], backend=backend,
@@ -632,6 +813,11 @@ class RegionDirectory:
         if meta["has_span"]:
             d.span_lo = plane("span_lo", torch.int64)
             d.span_hi = plane("span_hi", torch.int64)
+        if meta.get("has_race"):
+            d._race = torch.stack([plane("race_w", torch.int64),
+                                   plane("race_r", torch.int64)])
+            d.race_maxw = np.asarray(arrays["race_maxw"], np.int64).copy()
+            d.race_maxr = np.asarray(arrays["race_maxr"], np.int64).copy()
         d.maybe_dirty = bool(meta["maybe_dirty"])
         d._cov_stale = True
         return d

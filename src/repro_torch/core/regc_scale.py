@@ -37,9 +37,15 @@ workers' acquire-time flushes hoist into one masked barrier-style flush
 group resolves as (G, P) plane ops on the device around a host clock
 chain that repeats the per-worker charges term for term.
 
-This engine covers slices A (the main path), B (eviction) and D
-(consistency-region spans) of the port; slice C is the per-page reference
-engine (``core/regc.py``).  Race detection (slice E) and the
+Race detection (``detect_races=True``) is a pure observer, as in the
+reference: per-worker vector clocks on the host, the directories' race
+planes on the device, and one end-of-call pass over the declared ranges
+of each ``phase_all``/``span_all`` call (the scalar hooks are suspended
+inside them), which checks every worker of an op in one batched gather.
+
+This engine covers slices A (the main path), B (eviction), D
+(consistency-region spans) and E (race detection) of the port; slice C
+is the per-page reference engine (``core/regc.py``).  The
 fault-injection hooks are not here yet; ``config.make_runtime`` refuses
 the knobs that would reach them.
 
@@ -70,8 +76,8 @@ from repro_torch.dsm.costmodel import IB_2013, CostModel
 from repro_torch.kernels import protocol_sweep as _ps
 
 # the reference's stats keys (its jit_* accounting aside), so stats of the
-# two engines compare key for key; the keys of race detection (race_*, a
-# later slice) stay 0 here
+# two engines compare key for key; race_ww / race_rw count each new
+# flagged race once
 _STATS_KEYS = ("batched_phases", "evict_batch_rounds", "danger_ops",
                "residual_replays", "danger_vec_ops", "danger_scalar_ops",
                "danger_shared_ops", "danger_subgroup_ops", "span_all_calls",
@@ -108,13 +114,15 @@ class _Span:
 
 
 class _Lock:
-    __slots__ = ("version", "log", "last_release_time", "seen")
+    __slots__ = ("version", "log", "last_release_time", "seen", "race_vc")
 
     def __init__(self, n_workers):
         self.version = 0
         self.log = IntervalLog()
         self.last_release_time = 0.0
         self.seen = np.zeros(n_workers, np.int64)
+        # detect_races only: the join of every releaser's vector clock
+        self.race_vc = np.zeros(n_workers, np.int64)
 
 
 class RegCScaleRuntime:
@@ -127,7 +135,8 @@ class RegCScaleRuntime:
                  instr_s_per_word: float = INSTR_S_PER_WORD,
                  fault_s: float = FAULT_S, fetch_batch: int = 1,
                  backend: str = "fused", cache_pages: Optional[int] = None,
-                 danger_mode: str = "vec", device=None):
+                 danger_mode: str = "vec", detect_races: bool = False,
+                 device=None):
         check_choice("protocol", protocol, PROTOCOLS)
         check_choice("backend", backend, BACKENDS)
         # 'vec' resolves danger-flagged ops through the analytic refetch
@@ -187,6 +196,16 @@ class RegCScaleRuntime:
         self.stats["fused_dispatches"] = 0
         self._phase_idx = 0
         self._bar_clock0 = np.zeros(n_workers)
+        # race detection (a pure observer): per-worker vector clocks
+        # (epochs start at 1), the canonical flagged set of
+        # (page, a, b, kind) with a < b, and the flag that suspends the
+        # scalar hooks inside phase_all / span_all, whose end-of-call pass
+        # covers every path of the call once
+        self.detect_races = detect_races
+        self.race_vc = (np.eye(n_workers, dtype=np.int64)
+                        if detect_races else None)
+        self.races: set = set()
+        self._race_suspend = False
 
     # ------------------------------------------------------------------
     def alloc(self, n_elems: int) -> GasArray:
@@ -841,6 +860,9 @@ class RegCScaleRuntime:
         region = self._region_of(ga.page_lo)
         p_lo = ga.page_lo + lo // self.page_words
         p_hi = ga.page_lo + (max(hi - 1, lo)) // self.page_words + 1
+        if self.detect_races and not self._race_suspend:
+            # the declared range: prefetch is not an access
+            self._race_access(w, region, p_lo, p_hi, False)
         arr_end = ga.page_lo + -(-ga.n_elems // self.page_words)
         p_hi = max(min(p_hi + self.prefetch, arr_end), p_hi)  # prefetch
         if self.cache_pages is not None:
@@ -870,6 +892,8 @@ class RegCScaleRuntime:
         region = self._region_of(ga.page_lo)
         p_lo = ga.page_lo + lo // self.page_words
         p_hi = ga.page_lo + (max(hi - 1, lo)) // self.page_words + 1
+        if self.detect_races and not self._race_suspend:
+            self._race_access(w, region, p_lo, p_hi, True)
         d = self.dirs[region]
         d.ensure(w, p_lo, p_hi)
         in_span = bool(self.spans[w])
@@ -1272,6 +1296,9 @@ class RegCScaleRuntime:
                 self.traffic.invalidations += n_inv
                 self.traffic.control_msgs += int(u.size)
         lk.seen[w] = lk.version
+        if self.detect_races and not self._race_suspend:
+            # acquire happens after every release of the lock
+            np.maximum(self.race_vc[w], lk.race_vc, out=self.race_vc[w])
         self.spans[w].append(_Span(lock_id, plane=not self.spans[w]))
 
     def _span_harvest(self, w: int, span: _Span):
@@ -1329,6 +1356,10 @@ class RegCScaleRuntime:
         self._net(w, 64, 1)
         self.traffic.control_msgs += 1
         lk.last_release_time = self.clock[w]
+        if self.detect_races and not self._race_suspend:
+            # publish the releaser's view, then open a new epoch
+            np.maximum(lk.race_vc, self.race_vc[w], out=lk.race_vc)
+            self.race_vc[w, w] += 1
 
     class _SpanCtx:
         def __init__(self, rt, w, lock_id):
@@ -1343,6 +1374,179 @@ class RegCScaleRuntime:
 
     def span(self, w: int, lock_id: int):
         return self._SpanCtx(self, w, lock_id)
+
+    # ------------------------------------------------------------------
+    # race detection (detect_races mode; a pure observer: it touches only
+    # the vector clocks, the lock clocks, the race planes and the flagged
+    # set, never traffic, clocks, windows beyond what the op itself
+    # ensures, or a protocol plane)
+    # ------------------------------------------------------------------
+
+    def _race_record(self, pages, a, b, kind: str):
+        """Add the races (pages[i], a[i], b[i], kind), canonical a < b,
+        counting each new one once in ``stats['race_' + kind]``."""
+        lo, hi = np.minimum(a, b), np.maximum(a, b)
+        for t in zip(np.asarray(pages).tolist(), lo.tolist(), hi.tolist()):
+            t = (*t, kind)
+            if t not in self.races:
+                self.races.add(t)
+                self.stats["race_" + kind] += 1
+
+    def _race_check(self, d: RegionDirectory, ws: np.ndarray,
+                    p_lo: np.ndarray, p_hi: np.ndarray, views: np.ndarray,
+                    is_write: bool):
+        """Flag every recorded epoch over worker ws[i]'s declared pages
+        [p_lo[i], p_hi[i]) that its view views[i] does not order: the
+        write plane (kind 'ww' for a write, 'rw' for a read), and for a
+        write the read plane too ('rw').  One batched gather for all."""
+        planes = (True, False) if is_write else (True,)
+        hits = d.race_hits_many(p_lo, p_hi, views, planes)
+        for plane, (i, u, pages) in zip(planes, hits):
+            if pages.size:
+                self._race_record(pages, ws[i], u,
+                                  "ww" if plane and is_write else "rw")
+
+    def _race_access(self, w: int, region: int, p_lo: int, p_hi: int,
+                     is_write: bool):
+        """Check-then-record one worker's declared page range: the scalar
+        hook of ``read``/``write`` outside the batched calls."""
+        d = self.dirs[region]
+        d.ensure_race()
+        d.ensure(w, p_lo, p_hi)
+        self._race_check(d, np.array([w]), np.array([p_lo]),
+                         np.array([p_hi]), self.race_vc[[w]], is_write)
+        d.race_note(w, p_lo, p_hi, int(self.race_vc[w, w]), is_write)
+
+    def _race_pairs(self, lo_a, hi_a, lo_b, hi_b, keep: np.ndarray):
+        """(pages, i, k) of every page in both [lo_a[i], hi_a[i]) and
+        [lo_b[k], hi_b[k]) over the (i, k) pairs that ``keep`` (an (n, n)
+        host mask) admits."""
+        ov_lo = np.maximum(lo_a[:, None], lo_b[None, :])
+        ov_hi = np.minimum(hi_a[:, None], hi_b[None, :])
+        i, k = np.nonzero((ov_hi > ov_lo) & keep)
+        L = ov_hi[i, k] - ov_lo[i, k]
+        ix = np.repeat(np.arange(i.size), L)
+        pages = ov_lo[i, k][ix] + (np.arange(ix.size)
+                                   - np.repeat(np.cumsum(L) - L, L))
+        return pages, i[ix], k[ix]
+
+    def _race_pages(self, ga, lo: np.ndarray, hi: np.ndarray):
+        pw = self.page_words
+        return (ga.page_lo + lo // pw,
+                ga.page_lo + np.maximum(hi - 1, lo) // pw + 1)
+
+    def _race_op_all(self, ga, lo: np.ndarray, hi: np.ndarray,
+                     is_write: bool):
+        """Batched detection of one phase op across all workers, with the
+        result of the reference's per-worker check-then-record walk.
+
+        Inside one op no clock moves, and every other worker's view of w
+        lies below w's own epoch (``race_vc[u][w] < race_vc[w][w]``, kept
+        by release and barrier), so a note made in the op fires for every
+        later worker that overlaps it.  The walk's result is therefore
+        each worker's hits against the planes as they stood before the op,
+        under its own view, plus, in a write op, every pair of distinct
+        workers whose write ranges overlap, as 'ww' (a read op never
+        changes the write plane, a write op never the read plane).  The
+        first part runs only when the host screen (recorded maxima against
+        the smallest view) says a cell could fire: one batched gather.
+        The phase's ops have ensured every declared range."""
+        region = self._region_of(ga.page_lo)
+        d = self.dirs[region]
+        p_lo, p_hi = self._race_pages(ga, lo, hi)
+        vc = self.race_vc
+        cross = False
+        if d.race_maxw is not None:
+            vcmin = vc.min(axis=0)
+            cross = bool((d.race_maxw > vcmin).any())
+            if is_write and not cross:
+                cross = bool((d.race_maxr > vcmin).any())
+        d.ensure_race()
+        if cross:
+            self._race_check(d, self._rows_all, p_lo, p_hi, vc, is_write)
+        if is_write:
+            ids = self._rows_all
+            pages, i, k = self._race_pairs(p_lo, p_hi, p_lo, p_hi,
+                                           ids[:, None] < ids[None, :])
+            if pages.size:
+                self._race_record(pages, i, k, "ww")
+        d.race_note_rows(self._rows_all, p_lo, p_hi, vc.diagonal(),
+                         is_write)
+
+    def _race_phase_all(self, reads, writes):
+        """End-of-phase detection over the declared op ranges, op by op:
+        clocks are static inside a phase and the page-granular race set
+        does not depend on the order of the walk, so this one pass covers
+        every engine path of the phase (batched rows, danger rows, shared
+        schedules, residual replays) exactly once."""
+        for ga, lo, hi in reads:
+            self._race_op_all(ga, lo, hi, False)
+        for ga, lo, hi in writes:
+            self._race_op_all(ga, lo, hi, True)
+
+    def _race_span_all(self, rows: np.ndarray, locks: np.ndarray,
+                       reads, writes):
+        """End-of-``span_all`` detection, with the result of the
+        reference's walk of each lock group's grant chain (members
+        ascending: join the lock's clock, check-then-record each op,
+        publish, open a new epoch).
+
+        A member's view is a prefix join along its lock's chain (the
+        lock's clock, then the earlier members' clocks), so every note of
+        an earlier member of its group is ordered, and no note of another
+        group in the same call is (groups hold distinct locks and disjoint
+        rows).  The walk's result is each member's hits against the planes
+        as they stood before the call, under its view, plus every
+        overlapping pair of accesses by members of distinct groups that
+        is not read/read: one batched gather per op, host pair sweeps,
+        one scatter per region for the notes.  The call's own ops have
+        ensured every declared range (reads the prefetch-extended one),
+        so no window grows here, unlike the scalar hook, which runs
+        before its op."""
+        vc = self.race_vc
+        for lk_id in np.unique(locks[rows]):
+            lk = self.locks[int(lk_id)]
+            grp = rows[locks[rows] == lk_id]
+            chain = np.maximum.accumulate(
+                np.concatenate([lk.race_vc[None, :], vc[grp]]), axis=0)[1:]
+            vc[grp] = chain
+            lk.race_vc = chain[-1].copy()
+        ops = [(ga, *self._race_pages(ga, lo[rows], hi[rows]), False)
+               for ga, lo, hi in reads]
+        ops += [(ga, *self._race_pages(ga, lo[rows], hi[rows]), True)
+                for ga, lo, hi in writes]
+        views = vc[rows]
+        for ga, p_lo, p_hi, is_write in ops:
+            d = self.dirs[self._region_of(ga.page_lo)]
+            d.ensure_race()
+            self._race_check(d, rows, p_lo, p_hi, views, is_write)
+        grp = locks[rows]
+        other = grp[:, None] != grp[None, :]
+        for a, (_, lo_a, hi_a, wa) in enumerate(ops):
+            for _, lo_b, hi_b, wb in ops[a:]:
+                if not (wa or wb):
+                    continue
+                pages, i, k = self._race_pairs(lo_a, hi_a, lo_b, hi_b,
+                                               other)
+                if pages.size:
+                    self._race_record(pages, rows[i], rows[k],
+                                      "ww" if wa and wb else "rw")
+        epochs = vc[rows, rows]
+        notes: Dict[int, list] = {}
+        for ga, p_lo, p_hi, is_write in ops:
+            notes.setdefault(self._region_of(ga.page_lo), []).append(
+                (np.full(rows.size, 0 if is_write else 1), p_lo, p_hi))
+        for region, parts in notes.items():
+            planes, p_lo, p_hi = (np.concatenate(c) for c in zip(*parts))
+            self.dirs[region].race_note_cells(
+                planes, np.tile(rows, len(parts)), p_lo, p_hi,
+                np.tile(epochs, len(parts)))
+        vc[rows, rows] += 1
+
+    @property
+    def race_counts(self) -> Dict[str, int]:
+        return {"race_ww": self.stats["race_ww"],
+                "race_rw": self.stats["race_rw"]}
 
     # ------------------------------------------------------------------
     # SPMD phases
@@ -1860,6 +2064,7 @@ class RegCScaleRuntime:
                 resid = r
         rows = None if resid is None else np.nonzero(~resid)[0]
         self.stats["batched_phases"] += 1
+        self._race_suspend = True
         if rows is None or rows.size:
             for ga, lo, hi in reads:
                 self._read_all(ga, lo, hi, rows=rows, may=may)
@@ -1897,6 +2102,9 @@ class RegCScaleRuntime:
                             for ga, lo, hi in writes],
                     flops=float(flb[w]), mem_bytes=float(mbb[w]),
                     seconds=float(secb[w]), instr_words=float(iwb[w]))
+        self._race_suspend = False
+        if self.detect_races:
+            self._race_phase_all(reads, writes)
 
     # ------------------------------------------------------------------
     # worker-axis batched span driver (span_all)
@@ -2322,9 +2530,11 @@ class RegCScaleRuntime:
         ``stats`` counts each: a non-uniform group runs the per-worker
         body (``span_serial_workers``); a pass that could evict inside a
         span under ``cache_pages``, or whose flush cannot hoist, runs the
-        whole worker-order loop (``span_serial_calls``).  The reference's
+        whole worker-order loop (``span_serial_calls``).  Under
+        ``detect_races`` one end-of-call pass (``_race_span_all``) checks
+        and records every member's accesses.  The reference's
         fault-injection (``chaos``) terms come back with the recovery
-        slice, its race hooks with the race-detection slice."""
+        slice."""
         if any(self.spans):
             raise RuntimeError("span_all must run outside spans")
         W = self.W
@@ -2358,22 +2568,26 @@ class RegCScaleRuntime:
         if not serial and self.protocol != IDEAL_PROTO:
             serial = not self._span_flush_safe(rows, locks,
                                                rranges + wranges)
+        self._race_suspend = True
         if serial:
             self.stats["span_serial_calls"] += 1
             self.stats["span_serial_workers"] += int(rows.size)
             for w in rows:
                 self._span_one(int(w), int(locks[w]), reads, writes)
-            return
-        mask = np.zeros(W, bool)
-        mask[rows] = True
-        self._flush_all_workers(mask)
-        for lk_id in np.unique(locks[rows]):
-            grp = rows[locks[rows] == int(lk_id)]
-            if not self._span_group_vec(grp, int(lk_id), reads, writes,
-                                        rranges, wranges):
-                self.stats["span_serial_workers"] += int(grp.size)
-                for w in grp:
-                    self._span_one(int(w), int(lk_id), reads, writes)
+        else:
+            mask = np.zeros(W, bool)
+            mask[rows] = True
+            self._flush_all_workers(mask)
+            for lk_id in np.unique(locks[rows]):
+                grp = rows[locks[rows] == int(lk_id)]
+                if not self._span_group_vec(grp, int(lk_id), reads, writes,
+                                            rranges, wranges):
+                    self.stats["span_serial_workers"] += int(grp.size)
+                    for w in grp:
+                        self._span_one(int(w), int(lk_id), reads, writes)
+        self._race_suspend = False
+        if self.detect_races:
+            self._race_span_all(rows, locks, reads, writes)
 
     # ------------------------------------------------------------------
     def reduce(self, w: int, name: str, value: float, op: str = "sum"):
@@ -2405,6 +2619,11 @@ class RegCScaleRuntime:
             self._reduction_results[name] = float(fn(vals))
             self.traffic.reduction_msgs += self.W - 1
         self._reductions.clear()
+        if self.detect_races:
+            # the barrier orders everyone against everyone: join all
+            # views, then every worker opens a new epoch
+            self.race_vc[:] = self.race_vc.max(axis=0)[None, :]
+            self.race_vc[self._rows_all, self._rows_all] += 1
         t = float(self.clock.max()) + self.cost.net_latency_s * log_w * (
             0 if self.protocol == IDEAL_PROTO else 1) + 1e-7 * log_w
         self.clock[:] = t

@@ -2,7 +2,8 @@
 (OmpSCR) and molecular dynamics (OmpSCR), as in the reference package,
 plus the two capacity-pressure STREAM variants of Fig. 4
 (``stream_spill``, ``stream_refetch``) that run under ``cache_pages``,
-and the span-engine adversary ``lock_contention``.
+the span-engine adversary ``lock_contention`` and the race detector's
+workload ``race_audit``.
 
 Each bulk phase is described once as (W,) interval arrays — the workers'
 read/write sets declared up front — and handed to a ``dsm.session``
@@ -300,6 +301,58 @@ def lock_contention(rt, n: int, iters: int, *, n_locks: int = 8,
                        writes=((acc, s_lo, s_hi),))
             span_phase(hot_lock, reads=((hot, zero, two),),
                        writes=((hot, zero, two),))
+        rt.barrier()
+        if on_iter is not None:
+            on_iter(it, rt)
+    return rt
+
+
+def race_audit(rt, n: int, iters: int, *, n_locks: int = 4,
+               driver: str = "auto", on_iter: Optional[Callable] = None):
+    """Mixed clean and racy workload for the race detector (fig11_races):
+    real protocol traffic with a known, deterministic set of data races.
+
+    Each iteration runs
+
+    * a bulk ordinary phase on the worker's own block (clean);
+    * a striped span pass: lock ``w % n_locks`` guards that lock's
+      private accumulator page (clean: same-lock accesses are ordered);
+    * the audit targets: a write of the own block followed, with the
+      barrier deliberately left out, by a read of the NEXT worker's block
+      (an unordered write-to-read handoff: one ``rw`` race per shared
+      page), and pairwise writes to a shared scratch page with no lock at
+      all (one ``ww`` race per worker pair);
+    * a barrier closing the iteration.
+
+    The flagged set saturates after the first iteration (each race counts
+    once), so ``race_ww``/``race_rw`` are deterministic.  With
+    ``detect_races=False`` the program is the detector-off baseline:
+    traffic and clocks bit-equal to the detecting run."""
+    if n_locks < 1:
+        raise ValueError(f"race_audit: n_locks={n_locks} < 1")
+    W = rt.W
+    pw = rt.page_words
+    A = rt.alloc(n)
+    acc = rt.alloc(n_locks * pw)       # one private page per striped lock
+    pairs = rt.alloc(((W + 1) // 2) * pw)  # one shared page per pair
+    ids = np.arange(W, dtype=np.int64)
+    lo, hi = _blocks(n, W)
+    nb_lo, nb_hi = np.roll(lo, -1), np.roll(hi, -1)   # block of (w+1)%W
+    stripe = (ids % n_locks).astype(np.int64)
+    s_lo = stripe * pw
+    s_hi = s_lo + 2
+    pr_lo = (ids // 2) * pw
+    pr_hi = pr_lo + 2
+    s = session(rt, driver)
+    phase, span_phase = s.phase, s.span
+    for it in range(iters):
+        phase(reads=((A, lo, hi),), writes=((A, lo, hi),),
+              flops=2.0 * (hi - lo))
+        span_phase(stripe, reads=((acc, s_lo, s_hi),),
+                   writes=((acc, s_lo, s_hi),))
+        phase(writes=((A, lo, hi),))
+        phase(reads=((A, nb_lo, nb_hi),))   # no barrier: unordered handoff
+        phase(writes=((pairs, pr_lo, pr_hi),))  # no lock: pairwise W/W
         rt.barrier()
         if on_iter is not None:
             on_iter(it, rt)

@@ -299,6 +299,69 @@ def test_cuda_lock_contention_matches_cpu(dev, backend, cache_pages):
         assert ps.LAUNCHES["coverage_multi"] > 0
 
 
+@pytest.mark.parametrize("driver", ("batched", "loop"))
+@pytest.mark.parametrize("backend", ("kernels", "fused"))
+def test_cuda_race_audit_matches_cpu(dev, backend, driver):
+    """race_audit at W=64 with detection on (phase_all's batched checks,
+    the grant-chain pass of span_all) on the card against the CPU: the
+    race set, its counts, stats, traffic and clocks equal; the flush
+    kernels launched on the card."""
+    runs = {}
+    for device in ("cpu", "cuda"):
+        rt = make_runtime(64, protocol="fine", fetch_batch=16,
+                          backend=backend, device=device, detect_races=True)
+        ps.reset_launches()
+        apps.race_audit(rt, 1 << 18, 2, driver=driver)
+        runs[device] = rt
+    cpu, card = runs["cpu"], runs["cuda"]
+    assert card.races == cpu.races and card.races
+    assert card.race_counts == cpu.race_counts
+    assert card.stats == cpu.stats
+    assert dataclasses.asdict(cpu.traffic) == dataclasses.asdict(
+        card.traffic)
+    np.testing.assert_array_equal(cpu.clock, card.clock)
+    if backend == "fused":
+        assert ps.LAUNCHES["phase_step"] > 0
+    else:
+        assert ps.LAUNCHES["popcount_rows"] > 0
+        assert ps.LAUNCHES["coverage_multi"] > 0
+
+
+def test_cuda_race_hits_many_matches_cpu(dev, monkeypatch):
+    """The batched race check on card planes against the same check on
+    CPU planes: seeded windows, notes and views, both planes, with the
+    chunk size cut so that one check takes several round trips."""
+    rng = np.random.default_rng(21)
+    W, P = 24, 300
+    dirs = {d: pt_dir.RegionDirectory(W, 0, 0, P, device=d)
+            for d in ("cpu", "cuda")}
+    for w in range(W):
+        lo = int(rng.integers(0, P - 40))
+        hi = lo + int(rng.integers(1, 40))
+        for d in dirs.values():
+            d.ensure(w, lo, hi)
+    for _ in range(60):
+        w = int(rng.integers(0, W))
+        b = dirs["cpu"]
+        lo = int(b.base[w] + rng.integers(0, b.length[w]))
+        hi = int(rng.integers(lo + 1, b.base[w] + b.length[w] + 1))
+        ep, wr = int(rng.integers(1, 9)), bool(rng.random() < 0.5)
+        for d in dirs.values():
+            d.race_note(w, lo, hi, ep, wr)
+    n = 40
+    p_lo = rng.integers(0, P - 20, n)
+    p_hi = p_lo + rng.integers(1, 20, n)
+    views = rng.integers(0, 8, (n, W))
+    monkeypatch.setattr(pt_dir.RegionDirectory, "RACE_CELLS", 7)
+    got = {}
+    for name, d in dirs.items():
+        got[name] = d.race_hits_many(p_lo, p_hi, views, (True, False))
+    for (a, b) in zip(got["cpu"], got["cuda"]):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    assert sum(a[0].size for a in got["cpu"]) > 0
+
+
 def _rank_cases(rng, plane):
     """Random and edge ranks of bool rows ``plane`` (host): 0, negative,
     each row's count and one past it, INT32_MAX."""

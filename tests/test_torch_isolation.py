@@ -7,7 +7,8 @@
   ``import jax`` fails;
 * entry points run on the card by default and raise without one;
 * knobs of later slices raise a ``ValueError`` naming the slice, and
-  the knobs of ported slices (and the reference engine) build a runtime;
+  the knobs of ported slices (race detection among them, and the
+  reference engine) build a runtime;
   so do model configs that need a later slice (MoE, M-RoPE, embeds);
 * ``chip_smoke.py`` fails, printing no result, without a card and in a
   directory that holds nothing else of the repo."""
@@ -105,8 +106,18 @@ def test_slice_b_knobs_build_a_runtime(knob, value):
         assert (rt.resident <= value).all() and rt.resident.max() == value
 
 
+def test_detect_races_builds_a_detecting_runtime():
+    """Race detection (slice E) is ported: the knob reaches the scale
+    engine, which flags an unordered write/write pair."""
+    rt = make_runtime(4, device="cpu", detect_races=True, page_words=16)
+    assert type(rt).__name__ == "RegCScaleRuntime" and rt.detect_races
+    ga = rt.alloc(64)
+    rt.phase_all(writes=[(ga, 0, 8)])
+    rt.barrier()
+    assert len(rt.races) == 6 and rt.race_counts["race_ww"] == 6
+
+
 @pytest.mark.parametrize("knob,value,slice_name", [
-    ("detect_races", True, "slice E"),
     ("chaos", object(), "recovery"), ("injector", object(), "recovery"),
     ("straggler", object(), "recovery")])
 def test_later_slice_knobs_raise(knob, value, slice_name):

@@ -145,16 +145,22 @@ def test_snapshot_handoff_finishes_bit_equal(seed):
 
 
 def test_snapshot_outside_the_slice_is_refused():
-    """State of paths the port does not run yet is refused by name: race
-    detection (slice E) and a shard slice of a snapshot (the cluster
-    slice).  Eviction state carries over (``test_torch_evict.py``)."""
+    """State of paths the port does not run yet is refused by name: a
+    shard slice of a snapshot (the cluster slice).  Race-detection state
+    carries over (more in ``test_torch_race.py``), as does eviction
+    state (``test_torch_evict.py``)."""
     rt = RefRuntime(3, page_words=16, detect_races=True)
     ga = rt.alloc(200)
     rt.phase_all(reads=[(ga, np.zeros(3, np.int64),
                          np.full(3, 200, np.int64))])
+    rt.phase_all(writes=[(ga, np.zeros(3, np.int64),
+                          np.full(3, 20, np.int64))])
     arrays, meta = rt.snapshot()
-    with pytest.raises(ValueError, match="slice E"):
-        runtime_from_snapshot(arrays, meta, device="cpu")
+    pt = runtime_from_snapshot(arrays, meta, device="cpu")
+    assert pt.detect_races and pt.races == rt.races and rt.races
+    np.testing.assert_array_equal(pt.race_vc, rt.race_vc)
+    np.testing.assert_array_equal(pt.dirs[0].race_w.numpy(),
+                                  rt.dirs[0].race_w)
     rt = RefRuntime(3, page_words=16, cache_pages=4)
     arrays, meta = rt.snapshot(rows=(0, 2))
     with pytest.raises(ValueError, match="shard-slice"):
