@@ -98,6 +98,27 @@ Phases, in order; any mismatch or exception exits non-zero:
    traced with detection off and on (detection on at most twice the
    device activities of off; both counts, idle shares and walls
    printed);
+4c. serving phase (slice F): the 12 committed fig8_kv_serving rows (W =
+   16, 64, 256 x samhita, samhita_page x loop, batched) at
+   benchmarks/kv_serving.py's settings on 'fused', and the W=256 batched
+   samhita row on 'kernels': each equal to its ``BENCH_scale.json`` row
+   (traffic field for field, ``t_model_s``, every ``srv_*`` counter,
+   ``danger_*`` and ``span_*``), with phase_step launched on 'fused'
+   (take_and_cut too in the batched rows), popcount_rows,
+   coverage_multi, take_first_k and kth_set_index on 'kernels', and
+   pack_rows on neither.  Prints the modeled p50/p99 latency, tokens/s,
+   walls and peak device memory;
+4d. recovery phase (slice F): the 12 committed fig9_recovery rows at
+   benchmarks/recovery.py's settings (``ChaosNet`` seed 11, drop rate
+   0.05, a straggler monitor) on 'fused', and the W=256 batched samhita
+   row on 'kernels': the uninjected run equal to its row (traffic,
+   ``t_model_s``, chaos and straggler counters), its checkpoint saved
+   and loaded with equal clocks, a ``ChaosHarness`` run with one crash
+   bit-equal to it and its event counters equal to the committed
+   recovery CSVs'; then a snapshot taken on the card mid-program and
+   restored on the CPU, and one taken on the CPU and restored on the
+   card, all finishing bit-equal.  Prints ``t_ckpt``, ``t_restore``,
+   ``t_recovery``, walls and ``ckpt_bytes``;
 5. spill phase: the six W=256 batched capacity-pressure points
    (fig4_spill fits and spills, fig4_spill_heavy, fig4_refetch,
    fig5_spill, fig7_md_spill) on 'fused' at the harness's cache settings,
@@ -226,6 +247,26 @@ RACE_N = 1 << 20
 RACE_LOCKS = 4
 RACE_CORES = (16, 64, 256)
 RACE_SEEDS = (24, 13, 6, 39)
+# serving phase: benchmarks/kv_serving.py's settings (CORES, REQ_PER_SLOT,
+# TOK_WORDS, MAX_TOKENS, ATTN_WINDOW, CACHE_PAGES, N_TENANTS, SEED; its
+# burst_mean is max(2, W // 8) and gap_max 2)
+SERVE_CORES = (16, 64, 256)
+SERVE_REQ_PER_SLOT = 3
+SERVE_TOK_WORDS = 64
+SERVE_MAX_TOKENS = 96
+SERVE_ATTN_WINDOW = 32
+SERVE_CACHE_PAGES = 4
+SERVE_TENANTS = 16
+SERVE_SEED = 7
+# recovery phase: benchmarks/recovery.py's settings (PAGE_WORDS,
+# PAGES_PER_WORKER, CORES, DROP_RATE, CHAOS_SEED; its straggler window 4
+# and patience 2, and the crash at tick 3 * max(1, iters // 2) on worker
+# W // 2)
+RECOVERY_PAGE_WORDS = 1024
+RECOVERY_PAGES_PER_WORKER = 16
+RECOVERY_CORES = (16, 64, 256)
+RECOVERY_DROP_RATE = 0.05
+RECOVERY_CHAOS_SEED = 11
 
 
 def fail(msg: str) -> int:
@@ -1569,13 +1610,12 @@ def main_path_phase(torch, ps):
 # ---------------------------------------------------------------------------
 
 
-def span_rows():
-    """(section, protocol, W, driver) -> the committed fig6_lock_contention
-    rows, and the iteration count ``BENCH_scale.json``'s meta names."""
+def section_rows(section: str):
+    """(protocol, W, driver) -> the committed rows of ``section``, and the
+    iteration count ``BENCH_scale.json``'s meta names."""
     bench = json.loads((ROOT / "BENCH_scale.json").read_text())
-    return ({(r["section"], r["protocol"], r["W"], r.get("driver")): r
-             for r in bench["rows"]
-             if r["section"] == "fig6_lock_contention"},
+    return ({(r["protocol"], r["W"], r.get("driver")): r
+             for r in bench["rows"] if r["section"] == section},
             int(bench["meta"]["iters"]))
 
 
@@ -1620,7 +1660,7 @@ def span_phase(torch, ps, card, device="cuda"):
     device and the CPU for each driver.  Prints walls and peak device
     memory beside ``card``.  Returns (rows, launches of the phase)."""
     on_card = device != "cpu"
-    committed, iters = span_rows()
+    committed, iters = section_rows("fig6_lock_contention")
     need = {"fused": ("phase_step",),
             "kernels": ("popcount_rows", "coverage_multi")}
     out = []
@@ -1632,7 +1672,7 @@ def span_phase(torch, ps, card, device="cuda"):
         rt, wall, mem = run_lock_point(torch, series, backend, device, iters)
         launched = {k: ps.LAUNCHES[k] - before[k] for k in ps.LAUNCHES}
         masked = ps.ROWMASK_LAUNCHES["phase_step"] - masked
-        row = committed[("fig6_lock_contention", series, W, "batched")]
+        row = committed[series, W, "batched"]
         traffic = {f"tr_{f.name}": getattr(rt.traffic, f.name)
                    for f in dataclasses.fields(rt.traffic)}
         span = {"span_vec": rt.stats["span_workers_vec"],
@@ -1701,15 +1741,6 @@ def span_phase(torch, ps, card, device="cuda"):
 # ---------------------------------------------------------------------------
 # race phase
 # ---------------------------------------------------------------------------
-
-
-def race_rows():
-    """(protocol, W, driver) -> the committed fig11_races rows, and the
-    iteration count ``BENCH_scale.json``'s meta names."""
-    bench = json.loads((ROOT / "BENCH_scale.json").read_text())
-    return ({(r["protocol"], r["W"], r["driver"]): r
-             for r in bench["rows"] if r["section"] == "fig11_races"},
-            int(bench["meta"]["iters"]))
 
 
 def run_race_point(torch, series, W_, driver, backend, device, iters,
@@ -1884,7 +1915,7 @@ def race_phase(torch, ps, card, device="cuda", cores=RACE_CORES):
     from repro_torch.dsm import apps
     from repro_torch.dsm.costmodel import IB_2013
     on_card = device != "cpu"
-    committed, iters = race_rows()
+    committed, iters = section_rows("fig11_races")
     bench = {(r["section"], r["protocol"], r["W"], r.get("driver")): r
              for r in json.loads(
                  (ROOT / "BENCH_scale.json").read_text())["rows"]}
@@ -2017,7 +2048,7 @@ def race_profile(torch, card, cores=RACE_CORES):
     detection off and on (``traced``): detection on may issue at most
     twice the device activities of detection off.  Prints both counts,
     both idle shares and both walls (``detect_overhead``)."""
-    _, iters = race_rows()
+    _, iters = section_rows("fig11_races")
     res = {}
     for detect in (False, True):
         res[detect] = traced(torch, lambda d=detect: run_race_point(
@@ -2042,6 +2073,352 @@ def race_profile(torch, card, cores=RACE_CORES):
                  detect_races=True),
             dict(off, section="fig11_races", series="samhita",
                  detect_races=False, detect_overhead=overhead)]
+
+
+# ---------------------------------------------------------------------------
+# serving and recovery phases
+# ---------------------------------------------------------------------------
+
+
+def run_serve_point(torch, series, W_, driver, backend, device):
+    """One kv_serving point at benchmarks/kv_serving.py's settings:
+    (runtime, report, wall seconds ending in a synchronise on the card,
+    peak device memory or None on the CPU)."""
+    from repro_torch.core import make_runtime
+    from repro_torch.dsm import apps
+    from repro_torch.dsm.costmodel import IB_2013
+    on_card = device != "cpu"
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rt = make_runtime(W_, protocol=PROTO[series], cost=IB_2013,
+                      fetch_batch=16, cache_pages=SERVE_CACHE_PAGES,
+                      backend=backend, device=device)
+    rep = apps.kv_serving(rt, SERVE_REQ_PER_SLOT * W_,
+                          tok_words=SERVE_TOK_WORDS,
+                          max_tokens=SERVE_MAX_TOKENS,
+                          attn_window=SERVE_ATTN_WINDOW,
+                          n_tenants=SERVE_TENANTS,
+                          burst_mean=max(2, W_ // 8), gap_max=2,
+                          seed=SERVE_SEED, driver=driver)
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return rt, rep, wall, torch.cuda.max_memory_allocated() if on_card \
+        else None
+
+
+def serve_fields(rt, rep) -> dict:
+    """A kv_serving run's gated fields, as the bench names them: ``tr_*``,
+    the ``srv_*`` workload counters and the danger and span counters."""
+    st = rt.stats
+    return {**{f"tr_{f.name}": getattr(rt.traffic, f.name)
+               for f in dataclasses.fields(rt.traffic)},
+            "srv_requests": int(rep.latencies().size),
+            "srv_prefill_tok": rep.prefill_tokens,
+            "srv_decode_tok": rep.decode_tokens,
+            "srv_steps": rep.steps, "srv_admit_spans": rep.admit_spans,
+            "srv_admitted": rep.admitted,
+            "srv_idle_slot_steps": rep.idle_slot_steps,
+            "srv_peak_queue": rep.peak_queue,
+            "srv_evict_rounds": st["evict_batch_rounds"],
+            "danger_vec": st["danger_vec_ops"],
+            "danger_scalar": st["danger_scalar_ops"],
+            "danger_shared": st["danger_shared_ops"],
+            "span_vec": st["span_workers_vec"],
+            "span_serial": st["span_serial_workers"]}
+
+
+def serving_phase(torch, ps, card, device="cuda", cores=SERVE_CORES):
+    """Slice F, the serving workload.  The committed fig8_kv_serving rows
+    (``cores`` x samhita, samhita_page x loop, batched) on 'fused', and the
+    largest batched samhita row once more on 'kernels', at
+    benchmarks/kv_serving.py's settings: each run equal to its
+    ``BENCH_scale.json`` row (traffic field for field, ``t_model_s``,
+    the ``srv_*``, ``danger_*`` and ``span_*`` counters).  On the card
+    the launch counters must show phase_step on 'fused' (take_and_cut
+    too in the batched rows, which evict in batched rounds),
+    popcount_rows, coverage_multi, take_first_k and kth_set_index on
+    'kernels', and pack_rows nowhere.  Prints each run's modeled p50 and
+    p99 latency, tokens/s, wall and peak device memory beside ``card``.
+    Returns (rows, launches of the phase)."""
+    import numpy as np
+    on_card = device != "cpu"
+    committed, _ = section_rows("fig8_kv_serving")
+    runs = [(series, W_, driver, "fused") for W_ in cores
+            for driver in ("loop", "batched")
+            for series in ("samhita", "samhita_page")]
+    runs.append(("samhita", cores[-1], "batched", "kernels"))
+    need = {"fused": ("phase_step",),
+            "kernels": ("popcount_rows", "coverage_multi", "take_first_k",
+                        "kth_set_index")}
+    out = []
+    ps.reset_launches()
+    for series, W_, driver, backend in runs:
+        before = dict(ps.LAUNCHES)
+        rt, rep, wall, mem = run_serve_point(torch, series, W_, driver,
+                                             backend, device)
+        launched = {k: ps.LAUNCHES[k] - before[k] for k in ps.LAUNCHES}
+        name = f"fig8_kv_serving {series} W={W_} {driver} [{backend}]"
+        row = committed[series, W_, driver]
+        got = serve_fields(rt, rep)
+        bad = {k: (v, row[k]) for k, v in got.items() if v != row[k]}
+        t_model = round(rt.time, 6)
+        if bad or t_model != row["t_model_s"]:
+            raise AssertionError(f"{name}: drift {bad}, t_model {t_model} "
+                                 f"vs committed {row['t_model_s']}")
+        if on_card:
+            want = list(need[backend])
+            if backend == "fused" and got["srv_evict_rounds"]:
+                want.append("take_and_cut")
+            idle = [k for k in want if launched[k] == 0]
+            if idle or launched["pack_rows"]:
+                raise AssertionError(
+                    f"{name}: kernels {idle} never launched, pack_rows "
+                    f"{launched['pack_rows']} times")
+        lat = rep.latencies()
+        p50, p99 = (float(np.percentile(lat, q)) * 1e3 for q in (50, 99))
+        print(f"serve {name:44s} wall {wall:.3f} s  peak {mem} B  t_model "
+              f"{t_model}  p50 {p50:.6f} ms p99 {p99:.6f} ms (modeled)  "
+              f"{rep.tokens_per_s():.1f} tokens/s  span_vec "
+              f"{got['span_vec']} span_serial {got['span_serial']}  "
+              f"launches {launched}  ({card})", flush=True)
+        out.append({"section": "fig8_kv_serving", "series": series,
+                    "W": W_, "driver": driver, "backend": backend,
+                    "wall_s": wall, "max_memory_allocated": mem,
+                    "t_model_s": t_model, "p50_ms": p50, "p99_ms": p99,
+                    "tokens_per_s": rep.tokens_per_s(),
+                    "launches": launched, **got})
+    return out, dict(ps.LAUNCHES)
+
+
+def recovery_program(W_: int, n_words: int, iters: int):
+    """benchmarks/recovery.py's ``gen_program``: per iteration one bulk
+    phase (block reads, rotating writes, worker 0 dragging a heavy
+    compute tail: the straggler), one span pass on 4 striped locks, and a
+    barrier (the checkpoint cut)."""
+    import numpy as np
+    ids = np.arange(W_, dtype=np.int64)
+    chunk = n_words // W_
+    prog = []
+    for it in range(iters):
+        r = (ids + it) % W_
+        reads = [(0, ids * chunk, np.minimum((ids + 1) * chunk, n_words))]
+        writes = [(0, r * chunk,
+                   np.where(r == W_ - 1, n_words, (r + 1) * chunk))]
+        flops = np.zeros(W_)
+        flops[0] = 5e6
+        prog.append(("phase", reads, writes, flops))
+        lo = np.full(W_, (it * 7) % max(n_words - 8, 1), np.int64)
+        prog.append(("span_phase", ids % 4, [(0, lo, lo + 8)],
+                     [(0, lo.copy(), lo.copy() + 8)]))
+        prog.append(("barrier",))
+    return prog
+
+
+def recovery_event(rt, ev, gas, driver: str):
+    """benchmarks/recovery.py's ``apply_event``: one ``recovery_program``
+    event on either driver (``ft.harness_ticks`` decides who ticks)."""
+    W_ = rt.W
+    if ev[0] == "phase":
+        _, reads, writes, flops = ev
+        r = [(gas[g], lo, hi) for g, lo, hi in reads]
+        wr = [(gas[g], lo, hi) for g, lo, hi in writes]
+        if driver == "batched":
+            rt.phase_all(reads=r, writes=wr, flops=flops)
+            return
+        for w in range(W_):
+            rt.phase(w, reads=[(ga, int(lo[w]), int(hi[w]))
+                               for ga, lo, hi in r],
+                     writes=[(ga, int(lo[w]), int(hi[w]))
+                             for ga, lo, hi in wr],
+                     flops=float(flops[w]))
+    elif ev[0] == "span_phase":
+        _, locks, reads, writes = ev
+        r = [(gas[g], lo, hi) for g, lo, hi in reads]
+        wr = [(gas[g], lo, hi) for g, lo, hi in writes]
+        if driver == "batched":
+            rt.span_all(None, locks, reads=r, writes=wr)
+            return
+        for w in range(W_):
+            with rt.span(w, int(locks[w])):
+                for ga, lo, hi in r:
+                    rt.read(w, ga, int(lo[w]), int(hi[w]))
+                for ga, lo, hi in wr:
+                    rt.write(w, ga, int(lo[w]), int(hi[w]))
+    else:
+        rt.barrier()
+
+
+def recovery_csv():
+    """(series, W, driver) -> the committed recovery CSV rows' event
+    counters (``artifacts/bench/recovery.csv`` and ``recovery_loop.csv``)."""
+    out = {}
+    for name in ("recovery", "recovery_loop"):
+        with open(ROOT / "artifacts" / "bench" / f"{name}.csv") as f:
+            for r in csv.DictReader(f):
+                out[(r["series"], int(r["p"]), r["driver"])] = {
+                    k: int(r[k]) for k in ("n_events", "n_checkpoints",
+                                           "n_crashes", "replayed_events")}
+    return out
+
+
+def recovery_maker(series, W_, backend, device):
+    """benchmarks/recovery.py's runtime factory: the harness's settings with
+    a ``ChaosNet`` and a ``StragglerMonitor`` attached."""
+    from repro_torch.core import make_runtime
+    from repro_torch.dsm.costmodel import IB_2013, ChaosNet
+    from repro_torch.ft import StragglerMonitor
+
+    def make():
+        return make_runtime(
+            W_, protocol=PROTO[series], cost=IB_2013, fetch_batch=16,
+            page_words=RECOVERY_PAGE_WORDS, backend=backend, device=device,
+            chaos=ChaosNet(seed=RECOVERY_CHAOS_SEED,
+                           drop_rate=RECOVERY_DROP_RATE),
+            straggler=StragglerMonitor(W_, window=4, patience=2))
+    return make
+
+
+def chaos_fields(rt) -> dict:
+    return {k: rt.stats[k] for k in ("chaos_msgs", "chaos_drops",
+                                     "chaos_inval_retries",
+                                     "straggler_checks", "straggler_flags")}
+
+
+def recovery_phase(torch, ps, card, device="cuda", cores=RECOVERY_CORES):
+    """Slice F, crash recovery.  (a) The committed fig9_recovery rows
+    (``cores`` x samhita, samhita_page x loop, batched) on 'fused', and the
+    largest batched samhita row once more on 'kernels', at
+    benchmarks/recovery.py's settings (``ChaosNet`` seed 11 at a 5% drop
+    rate, a straggler monitor, max(3, iters // 2) iterations for the
+    meta's iters, as benchmarks/run.py passes them): the uninjected
+    run equal to its ``BENCH_scale.json`` row (traffic field for field,
+    ``t_model_s``, the chaos and straggler counters); its checkpoint
+    saved and loaded back with equal clocks; a ``ChaosHarness`` run with
+    one crash at tick 3 * max(1, iters // 2) on worker W // 2 landing
+    bit-equal to the uninjected run, with the committed recovery CSV's
+    event counters.  On the card the launch counters must show
+    phase_step on 'fused', popcount_rows on 'kernels', and pack_rows
+    nowhere.  (b) The largest batched samhita
+    program snapshotted at its middle barrier on ``device`` and restored
+    on the CPU, and snapshotted on the CPU and restored on ``device``:
+    all four finish bit-equal.  Prints ``t_ckpt``, ``t_restore``,
+    ``t_recovery``, the uninjected wall and ``ckpt_bytes`` beside
+    ``card``.  Returns (rows, launches of the phase)."""
+    import tempfile
+
+    from repro_torch.core import RegCScaleRuntime
+    from repro_torch.ft import (ChaosHarness, FailureInjector,
+                                assert_bit_equal, load_runtime,
+                                run_uninjected, save_runtime)
+    on_card = device != "cpu"
+    committed, meta_iters = section_rows("fig9_recovery")
+    # benchmarks/run.py runs the recovery section at max(3, iters // 2)
+    iters = max(3, meta_iters // 2)
+    counters = recovery_csv()
+    scratch = ROOT / "build"
+    scratch.mkdir(exist_ok=True)
+
+    def synced():
+        if on_card:
+            torch.cuda.synchronize()
+        return time.perf_counter()
+
+    runs = [(series, W_, driver, "fused") for W_ in cores
+            for driver in ("loop", "batched")
+            for series in ("samhita", "samhita_page")]
+    runs.append(("samhita", cores[-1], "batched", "kernels"))
+    # the program's rotating blocks leave no page under two windows dirty,
+    # so the 'kernels' flush needs no coverage sweep
+    need = {"fused": ("phase_step",), "kernels": ("popcount_rows",)}
+    out = []
+    ps.reset_launches()
+    for series, W_, driver, backend in runs:
+        before = dict(ps.LAUNCHES)
+        n_words = RECOVERY_PAGE_WORDS * RECOVERY_PAGES_PER_WORKER * W_
+        prog = recovery_program(W_, n_words, iters)
+        make = recovery_maker(series, W_, backend, device)
+        name = f"fig9_recovery {series} W={W_} {driver} [{backend}]"
+        t0 = synced()
+        base = run_uninjected(make, [n_words], driver, prog, recovery_event)
+        t_wall = synced() - t0
+        row = committed[series, W_, driver]
+        got = {**{f"tr_{f.name}": getattr(base.traffic, f.name)
+                  for f in dataclasses.fields(base.traffic)},
+               **chaos_fields(base)}
+        bad = {k: (v, row[k]) for k, v in got.items() if v != row[k]}
+        t_model = round(base.time, 6)
+        if bad or t_model != row["t_model_s"]:
+            raise AssertionError(f"{name}: drift {bad}, t_model {t_model} "
+                                 f"vs committed {row['t_model_s']}")
+        with tempfile.TemporaryDirectory(dir=scratch) as td:
+            t0 = synced()
+            save_runtime(base, td, 0)
+            t_ckpt = synced() - t0
+            ckpt_bytes = sum(f.stat().st_size for f in
+                             (Path(td) / "step_000000000").iterdir())
+            t0 = synced()
+            restored = load_runtime(td, 0, backend=backend, device=device)
+            t_restore = synced() - t0
+        if restored.clock.tobytes() != base.clock.tobytes():
+            raise AssertionError(f"{name}: restored clocks differ")
+        inj = FailureInjector(at_steps=[(3 * max(1, iters // 2), W_ // 2)])
+        with tempfile.TemporaryDirectory(dir=scratch) as td:
+            t0 = synced()
+            rec, rep = ChaosHarness(make, [n_words], driver, td,
+                                    recovery_event, injector=inj).run(prog)
+            t_recovery = synced() - t0
+        assert_bit_equal(rec, base, name)
+        events = {"n_events": rep.n_events,
+                  "n_checkpoints": rep.n_checkpoints,
+                  "n_crashes": rep.n_crashes,
+                  "replayed_events": rep.n_replayed_events}
+        if events != counters[series, W_, driver]:
+            raise AssertionError(f"{name}: recovery counters {events} vs "
+                                 f"committed {counters[series, W_, driver]}")
+        launched = {k: ps.LAUNCHES[k] - before[k] for k in ps.LAUNCHES}
+        if on_card:
+            idle = [k for k in need[backend] if launched[k] == 0]
+            if idle or launched["pack_rows"]:
+                raise AssertionError(
+                    f"{name}: kernels {idle} never launched, pack_rows "
+                    f"{launched['pack_rows']} times")
+        print(f"recovery {name:42s} wall {t_wall:.3f} s  t_ckpt "
+              f"{t_ckpt:.4f} s  t_restore {t_restore:.4f} s  t_recovery "
+              f"{t_recovery:.3f} s  ckpt_bytes {ckpt_bytes}  t_model "
+              f"{t_model}  {events}  {chaos_fields(base)}  launches "
+              f"{launched}  ({card})", flush=True)
+        out.append({"section": "fig9_recovery", "series": series, "W": W_,
+                    "driver": driver, "backend": backend, "wall_s": t_wall,
+                    "t_ckpt_s": t_ckpt, "t_restore_s": t_restore,
+                    "t_recovery_wall_s": t_recovery,
+                    "ckpt_bytes": ckpt_bytes, "t_model_s": t_model,
+                    "launches": launched, **events, **got})
+    # (b) a snapshot crosses between the card and the CPU both ways
+    W_ = cores[-1]
+    n_words = RECOVERY_PAGE_WORDS * RECOVERY_PAGES_PER_WORKER * W_
+    prog = recovery_program(W_, n_words, iters)
+    cut = 3 * max(1, iters // 2)          # the barrier the crash hits
+    finished = []
+    for here, there in ((device, "cpu"), ("cpu", device)):
+        rt = recovery_maker("samhita", W_, "fused", here)()
+        gas = [rt.alloc(n_words)]
+        for ev in prog[:cut]:
+            recovery_event(rt, ev, gas, "batched")
+        moved = RegCScaleRuntime.from_snapshot(*rt.snapshot(), device=there)
+        for run in (rt, moved):
+            g = [run.gas_for_region(0, n_words)]
+            for ev in prog[cut:]:
+                recovery_event(run, ev, g, "batched")
+            finished.append(run)
+    for run in finished[1:]:
+        assert_bit_equal(run, finished[0], "snapshot across devices")
+    print(f"recovery snapshot at event {cut} of the W={W_} samhita program: "
+          f"{device} -> cpu and cpu -> {device} finish bit-equal "
+          f"(t_model {finished[0].time:.6f})", flush=True)
+    return out, dict(ps.LAUNCHES)
 
 
 # ---------------------------------------------------------------------------
@@ -2497,6 +2874,8 @@ def main() -> int:
     spans, span_launches = span_phase(torch, ps, card)
     races, race_launches = race_phase(torch, ps, card)
     races += race_profile(torch, card)
+    serves, serve_launches = serving_phase(torch, ps, card)
+    recoveries, recovery_launches = recovery_phase(torch, ps, card)
     spills, spill_launches, scans = spill_phase(torch, ps)
     # the rank-select kernels, timed at the spill phase's commonest scan
     kernels.update(rank_select_phase(torch, np, ps, dev, scans,
@@ -2507,7 +2886,8 @@ def main() -> int:
     models, model_launches = model_phase(torch, np)
 
     total = {k: launches[k] + spill_launches[k] + span_launches[k]
-             + race_launches[k] for k in ps.LAUNCHES}
+             + race_launches[k] + serve_launches[k] + recovery_launches[k]
+             for k in ps.LAUNCHES}
     total.update(ref_launches)
     total.update(model_launches)
     table = {"kernels": [
@@ -2523,17 +2903,22 @@ def main() -> int:
     print(f"launches on the model path: {model_launches}", flush=True)
     print(f"launches on the span path: {span_launches}", flush=True)
     print(f"launches on the race path: {race_launches}", flush=True)
+    print(f"launches on the serving path: {serve_launches}", flush=True)
+    print(f"launches on the recovery path: {recovery_launches}", flush=True)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_s, "resources": resources,
          "kernel_phase": kernels,
          "points": points, "span_points": spans, "race_points": races,
+         "serving_points": serves, "recovery_points": recoveries,
          "spill_points": spills,
          "reference_points": references, "models": models,
          "victim_scans": [[L, k, n] for (L, k), (n, _) in scans.items()],
          "launches_main": launches, "launches_span": span_launches,
          "launches_race": race_launches,
+         "launches_serving": serve_launches,
+         "launches_recovery": recovery_launches,
          "launches_spill": spill_launches,
          "launches_reference": ref_launches, "launches_model": model_launches,
          "profile": profiled, **table}, indent=1) + "\n")

@@ -46,16 +46,8 @@ ENGINES = ("scale", "reference")        # make_runtime targets
 INSTR_S_PER_WORD = 1.5e-9
 FAULT_S = 4.0e-6
 
-# knobs whose scale-engine paths are not in this package yet: their default
-# and the slice of the port that brings them; any other value raises
-# instead of running
-_LATER = {
-    "chaos": (None, "the recovery slice"),
-    "injector": (None, "the recovery slice"),
-    "straggler": (None, "the recovery slice"),
-}
-# the reference engine's race oracle is ported; its fault-injection hooks
-# never existed (the reference package refuses them too)
+# the reference engine's fault-injection hooks never existed (the
+# reference package refuses them too)
 _REFERENCE_REFUSES = ("chaos", "injector", "straggler")
 
 
@@ -94,12 +86,10 @@ class RuntimeConfig:
     """Frozen spec for building a RegC runtime (either engine).
 
     The reference's spec plus ``device``, less ``n_mem_servers`` (which
-    neither engine reads).  The reference engine ignores
-    the scale engine's performance and mechanism knobs and refuses the
-    fault-injection hooks.  On the scale engine, knobs whose paths belong
-    to later slices of the port (``chaos``, ``injector``, ``straggler``)
-    raise a ``ValueError`` naming that slice
-    when set to other than their default."""
+    neither engine reads).  The reference engine ignores the scale
+    engine's performance and mechanism knobs and refuses the
+    fault-injection hooks (``chaos``, ``injector``, ``straggler``), which
+    the scale engine takes."""
 
     page_words: int = 1024
     protocol: str = FINE_PROTO
@@ -114,9 +104,9 @@ class RuntimeConfig:
     backend: str = "fused"              # scale only: plane-reduction tier
     danger_mode: str = "vec"            # scale only: mid-op refetch replay
     detect_races: bool = False          # pure-observer race detection
-    chaos: Any = None
-    injector: Any = None
-    straggler: Any = None
+    chaos: Any = None                   # scale only: dsm.costmodel.ChaosNet
+    injector: Any = None                # scale only: ft.FailureInjector
+    straggler: Any = None               # scale only: ft.StragglerMonitor
     device: Any = None                  # None = "cuda"
 
     def __post_init__(self):
@@ -150,18 +140,13 @@ def make_runtime(n_workers: int, config: Optional[RuntimeConfig] = None,
                 raise ValueError(
                     f"make_runtime(engine='reference'): the reference "
                     f"engine does not support the {hook!r} fault-injection "
-                    f"hook (use engine='scale')")
+                    f"hook of the recovery slice (use engine='scale')")
         from repro_torch.core.regc import RegCRuntime
         return RegCRuntime(
             n_workers, page_words=cfg.page_words, protocol=cfg.protocol,
             cost=cfg.cost, track_values=cfg.track_values,
             cache_pages=cfg.cache_pages, prefetch=cfg.prefetch,
             detect_races=cfg.detect_races, device=cfg.device)
-    for name, (default, where) in _LATER.items():
-        if getattr(cfg, name) != default:
-            raise ValueError(
-                f"make_runtime({name}={getattr(cfg, name)!r}) is not ported "
-                f"to the scale engine yet: it arrives with {where}")
     from repro_torch.core.regc_scale import RegCScaleRuntime
     return RegCScaleRuntime(
         n_workers, page_words=cfg.page_words, protocol=cfg.protocol,
@@ -170,4 +155,5 @@ def make_runtime(n_workers: int, config: Optional[RuntimeConfig] = None,
         instr_s_per_word=cfg.instr_s_per_word, fault_s=cfg.fault_s,
         fetch_batch=cfg.fetch_batch, backend=cfg.backend,
         cache_pages=cfg.cache_pages, danger_mode=cfg.danger_mode,
-        detect_races=cfg.detect_races, device=cfg.device)
+        detect_races=cfg.detect_races, chaos=cfg.chaos,
+        injector=cfg.injector, straggler=cfg.straggler, device=cfg.device)

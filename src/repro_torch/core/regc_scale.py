@@ -43,11 +43,20 @@ planes on the device, and one end-of-call pass over the declared ranges
 of each ``phase_all``/``span_all`` call (the scalar hooks are suspended
 inside them), which checks every worker of an op in one batched gather.
 
+Fault tolerance, as in the reference: ``chaos`` (a
+``dsm.costmodel.ChaosNet``) adds a retry charge after every clock-charged
+message group and counts lost invalidations, on the same vectorized paths;
+``chaos_tick`` gives an ``injector`` its shot at the entry of
+``phase_all``, ``span_all`` and ``barrier``; a ``straggler`` monitor
+observes each barrier's per-worker walls; and ``snapshot`` /
+``from_snapshot`` carry the complete state at a barrier cut in the
+reference's format (its array names, dtypes and meta keys), so a run can
+move between the two packages in either direction.
+
 This engine covers slices A (the main path), B (eviction), D
-(consistency-region spans) and E (race detection) of the port; slice C
-is the per-page reference engine (``core/regc.py``).  The
-fault-injection hooks are not here yet; ``config.make_runtime`` refuses
-the knobs that would reach them.
+(consistency-region spans), E (race detection) and F (the serving
+workload and crash recovery) of the port; slice C is the per-page
+reference engine (``core/regc.py``).
 
 Store-tracking mechanisms (paper §IV), modeled as in the reference:
 
@@ -59,6 +68,7 @@ Store-tracking mechanisms (paper §IV), modeled as in the reference:
 from __future__ import annotations
 
 import bisect
+import dataclasses
 from collections import deque
 from typing import Dict, List, Optional, Tuple
 
@@ -74,6 +84,10 @@ from repro_torch.core.directory import (IntervalLog, RegionDirectory, host,
 from repro_torch.core.regc import _WORD, GasArray, Traffic
 from repro_torch.dsm.costmodel import IB_2013, CostModel
 from repro_torch.kernels import protocol_sweep as _ps
+
+# the reference's names of this package's tiers (its snapshot vocabulary)
+_REF_BACKEND = {"plain": "numpy", "kernels": "pallas", "fused": "pallas-jit"}
+_OUR_BACKEND = {v: k for k, v in _REF_BACKEND.items()}
 
 # the reference's stats keys (its jit_* accounting aside), so stats of the
 # two engines compare key for key; race_ww / race_rw count each new
@@ -136,7 +150,7 @@ class RegCScaleRuntime:
                  fault_s: float = FAULT_S, fetch_batch: int = 1,
                  backend: str = "fused", cache_pages: Optional[int] = None,
                  danger_mode: str = "vec", detect_races: bool = False,
-                 device=None):
+                 chaos=None, injector=None, straggler=None, device=None):
         check_choice("protocol", protocol, PROTOCOLS)
         check_choice("backend", backend, BACKENDS)
         # 'vec' resolves danger-flagged ops through the analytic refetch
@@ -194,6 +208,24 @@ class RegCScaleRuntime:
         # the counterpart of the reference's pallas-jit jit_dispatches)
         self.stats = dict.fromkeys(_STATS_KEYS, 0)
         self.stats["fused_dispatches"] = 0
+        # fault tolerance, as in the reference (see ft/coherence.py):
+        # ``chaos`` a dsm.costmodel.ChaosNet (one per-worker tick per
+        # clock-charged message group, its retry charge added as a
+        # separate ``+=`` right after the base charge, so both drivers
+        # and every tier stay bit-equal); ``injector`` a
+        # ft.runtime.FailureInjector fired by ``chaos_tick``; ``straggler``
+        # a ft.runtime.StragglerMonitor observed at every barrier
+        self.chaos = chaos
+        self.injector = injector
+        self.straggler = straggler
+        if chaos is not None:
+            chaos.bind(n_workers, self.stats)
+        if straggler is not None:
+            if straggler.n != n_workers:
+                raise ValueError(f"straggler monitor for {straggler.n} "
+                                 f"workers on a {n_workers}-worker runtime")
+            self.stats.setdefault("straggler_checks", 0)
+            self.stats.setdefault("straggler_flags", 0)
         self._phase_idx = 0
         self._bar_clock0 = np.zeros(n_workers)
         # race detection (a pure observer): per-worker vector clocks
@@ -206,6 +238,16 @@ class RegCScaleRuntime:
                         if detect_races else None)
         self.races: set = set()
         self._race_suspend = False
+
+    def chaos_tick(self):
+        """Advance the phase-program position and give the failure
+        injector its shot.  Called at the entry of ``phase_all``,
+        ``span_all`` and ``barrier``, before any state changes (so a
+        raise leaves the runtime exactly as the previous event left it);
+        loop-driver harnesses call it once per equivalent event."""
+        self._phase_idx += 1
+        if self.injector is not None:
+            self.injector.check(self._phase_idx)
 
     # ------------------------------------------------------------------
     def alloc(self, n_elems: int) -> GasArray:
@@ -233,6 +275,8 @@ class RegCScaleRuntime:
         if self.protocol == IDEAL_PROTO:
             return
         self.clock[w] += self.cost.xfer_s(n_bytes, msgs)
+        if self.chaos is not None:
+            self.clock[w] += self.chaos.retry1(w)
 
     def compute(self, w: int, *, flops: float = 0.0, mem_bytes: float = 0.0,
                 seconds: float = 0.0):
@@ -330,6 +374,8 @@ class RegCScaleRuntime:
                 self.clock[w] += (self.cost.net_latency_s * db.size
                                   + db.size * self.page_bytes
                                   / self.cost.net_bw_Bps)
+                if self.chaos is not None:
+                    self.clock[w] += self.chaos.retry1(w)
                 if d.wprot is not None:
                     d.wprot[w, d.ix(db)] = True
                 self._invalidate_sharers(w, d.region, d.base[w] + db)
@@ -732,6 +778,8 @@ class RegCScaleRuntime:
                 dr.dirty[hot] = False
                 self.traffic.writeback_bytes += db * pb * R
                 self.clock[m] += (lat * db + db * pb / bwd)
+                if self.chaos is not None:
+                    self.clock[m] += self.chaos.retry_rows(m)
                 if dr.wprot is not None:
                     dr.wprot[hot] = True
                 # sharer invalidation is a proven no-op: shared danger
@@ -791,6 +839,8 @@ class RegCScaleRuntime:
         if n_miss:
             self.clock[m] += self.cost.xfer_s(
                 n_miss * pb, 2 * -(-n_miss // self.fetch_batch))
+            if self.chaos is not None:
+                self.clock[m] += self.chaos.retry_rows(m)
 
     def _danger_sig(self, w: int, d: RegionDirectory, lo, hi,
                     p_lo, p_hi, *, is_write: bool) -> tuple:
@@ -1012,6 +1062,14 @@ class RegCScaleRuntime:
         if n_inv:
             self.traffic.invalidations += n_inv
             self.traffic.control_msgs += n_inv
+            self._chaos_invals(n_inv)
+
+    def _chaos_invals(self, n_inv: int):
+        """Invalidation messages charge no clock, so their losses are
+        stats-only retransmissions on the chaos model's global counter:
+        one call with a total equals any split of it."""
+        if self.chaos is not None:
+            self.chaos.inval_msgs(n_inv)
 
     def _invalidate_sharers(self, w: int, region: int, pages: np.ndarray):
         """Invalidate every other worker's valid copy of the sorted host
@@ -1127,6 +1185,8 @@ class RegCScaleRuntime:
             self.clock[active] += (self.cost.net_latency_s * msgs
                                    + (nD_w[active] * self.page_bytes)
                                    / self.cost.net_bw_Bps)
+            if self.chaos is not None:
+                self.clock[active] += self.chaos.retry_rows(active)
             # the active rows only under a mask: one row gather and one
             # scatter a plane
             rb = None if mask is None else d.row_block(active)
@@ -1290,11 +1350,14 @@ class RegCScaleRuntime:
                 self.traffic.diff_bytes += tot
                 self.clock[w] += (self.cost.net_latency_s * u.size
                                   + tot / self.cost.net_bw_Bps)
+                if self.chaos is not None:
+                    self.clock[w] += self.chaos.retry1(w)
             else:
                 n_inv = self._replay_invalidate(
                     w, u, rearm=self.model_mechanism)
                 self.traffic.invalidations += n_inv
                 self.traffic.control_msgs += int(u.size)
+                self._chaos_invals(n_inv)
         lk.seen[w] = lk.version
         if self.detect_races and not self._race_suspend:
             # acquire happens after every release of the lock
@@ -1337,6 +1400,8 @@ class RegCScaleRuntime:
                 self.traffic.writeback_bytes += tot
             self.clock[w] += (self.cost.net_latency_s * n
                               + tot / self.cost.net_bw_Bps)
+            if self.chaos is not None:
+                self.clock[w] += self.chaos.retry1(w)
         lk.log.append_version(pages, los, his)
         lk.version += 1
         lk.seen[w] = lk.version
@@ -1779,6 +1844,9 @@ class RegCScaleRuntime:
                             self.cost.net_latency_s * db[hit]
                             + db[hit] * self.page_bytes
                             / self.cost.net_bw_Bps)
+                        if self.chaos is not None:
+                            self.clock[Rs[hit]] += self.chaos.retry_rows(
+                                Rs[hit])
                     if is_part:
                         # advance each run past its last taken cell
                         self.resident[Rs] -= ks
@@ -1842,6 +1910,8 @@ class RegCScaleRuntime:
                  + (n_miss * self.page_bytes) / self.cost.net_bw_Bps)
             hit = n_miss > 0
             self.clock[rows[hit]] += t[hit]
+            if self.chaos is not None:
+                self.clock[rows[hit]] += self.chaos.retry_rows(rows[hit])
         return tot_miss
 
     def _touch_runs(self, d: RegionDirectory, region: int,
@@ -2046,7 +2116,7 @@ class RegCScaleRuntime:
         Must be called outside spans."""
         if any(self.spans):
             raise RuntimeError("phase_all must run outside spans")
-        self._phase_idx += 1
+        self.chaos_tick()
         W = self.W
         reads = [(ga, self._w_arr(lo), self._w_arr(hi))
                  for ga, lo, hi in reads]
@@ -2387,7 +2457,9 @@ class RegCScaleRuntime:
 
         # host bookkeeping of what came back, in integer arithmetic
         if replay:
-            self.traffic.invalidations += int(sum(got[o] for o in hit_at))
+            n_inv = int(sum(got[o] for o in hit_at))
+            self.traffic.invalidations += n_inv
+            self._chaos_invals(n_inv)
             self.traffic.control_msgs += npend * int(has_pend.sum())
         zeros = np.zeros(G, np.int64)
         op_miss, op_faults, op_edges = [], [], []
@@ -2433,15 +2505,21 @@ class RegCScaleRuntime:
         fb = self.fetch_batch
         ctrl2 = xfer(64, 2)
         ctrl1 = xfer(64, 1)
+        # chaos: each message group's retry charge follows its base charge
+        # as a separate term, in the per-worker path's order
+        retry = (self.chaos.retry1 if self.chaos is not None
+                 else lambda w: 0.0)
         t_rel = lk.last_release_time
         for i in range(G):
             w = int(grp[i])
             c = float(self.clock[w])
             if not IDEAL:
                 c += ctrl2
+                c += retry(w)
             c = max(c, t_rel)
             if has_pend[i] and npend and not IDEAL and FINE:
                 c += lat * npend + pub_bytes / bw
+                c += retry(w)
             ri = wi = 0
             for ga, lo, hi, p_lo, p_hi, is_w, _r in ops:
                 if not is_w:
@@ -2449,6 +2527,7 @@ class RegCScaleRuntime:
                     ri += 1
                     if m and not IDEAL:
                         c += xfer(m * pb, 2 * -(-m // fb))
+                        c += retry(w)
                     continue
                 if self.model_mechanism and FINE:
                     c += (hi - lo) * self.instr_s_per_word
@@ -2458,12 +2537,16 @@ class RegCScaleRuntime:
                 wi += 1
                 if first is not None and first[i]:
                     c += xfer(pb, 2)
+                    c += retry(w)
                 if last is not None and last[i]:
                     c += xfer(pb, 2)
+                    c += retry(w)
             if not IDEAL and npend:
                 c += lat * npend + pub_bytes / bw
+                c += retry(w)
             if not IDEAL:
                 c += ctrl1
+                c += retry(w)
             self.clock[w] = c
             t_rel = c
         lk.last_release_time = t_rel
@@ -2532,11 +2615,12 @@ class RegCScaleRuntime:
         span under ``cache_pages``, or whose flush cannot hoist, runs the
         whole worker-order loop (``span_serial_calls``).  Under
         ``detect_races`` one end-of-call pass (``_race_span_all``) checks
-        and records every member's accesses.  The reference's
-        fault-injection (``chaos``) terms come back with the recovery
-        slice."""
+        and records every member's accesses.  Under ``chaos`` the grant
+        chain carries each member's retry terms in the per-worker path's
+        order, on the same vectorized path."""
         if any(self.spans):
             raise RuntimeError("span_all must run outside spans")
+        self.chaos_tick()
         W = self.W
         if w_mask is None:
             rows = self._rows_all
@@ -2604,13 +2688,17 @@ class RegCScaleRuntime:
         return self._reduction_results[name]
 
     def barrier(self):
-        self._phase_idx += 1
+        self.chaos_tick()
         self._flush_all_workers()
         if self.protocol != IDEAL_PROTO:
             for lk in self.locks.values():
                 if (lk.seen == lk.version).all():
                     continue       # everyone current
                 self._replay_stale(lk)
+        if self.straggler is not None:
+            flagged = self.straggler.observe(self.clock - self._bar_clock0)
+            self.stats["straggler_checks"] += 1
+            self.stats["straggler_flags"] += len(flagged)
         log_w = max(1, int(np.ceil(np.log2(max(self.W, 2)))))
         for name, contribs in self._reductions.items():
             vals = [v for v, _ in contribs]
@@ -2663,9 +2751,233 @@ class RegCScaleRuntime:
             if self.protocol == FINE_PROTO:
                 self.traffic.diff_bytes += int(nbytes[m][inr][host(hit)].sum())
             else:
-                self.traffic.invalidations += int(hit.sum())
+                n_inv = int(hit.sum())
+                self.traffic.invalidations += n_inv
+                self._chaos_invals(n_inv)
                 d.valid[cells[0], cells[1]] = False
 
     @property
     def time(self) -> float:
         return float(self.clock.max())
+
+    # ------------------------------------------------------------------
+    # barrier-consistent checkpoints (ft/coherence.py)
+    # ------------------------------------------------------------------
+
+    def snapshot(self) -> Tuple[dict, dict]:
+        """The complete runtime state as (arrays, meta), in the reference's
+        ``snapshot()`` format: the same array names and dtypes, the same
+        meta keys, the tier named in the reference's vocabulary
+        (``_REF_BACKEND``) and the fused tier's launch count as
+        ``jit_dispatches``, so the reference's ``from_snapshot`` restores
+        it as it stands.
+
+        Only legal at a consistent cut (no open span, no unresolved
+        reduction, no danger recording): right after a ``barrier()`` or
+        before any work.  There the directory planes (brought to the host
+        once), lock logs, LRU queues, clocks, traffic, stats and the
+        chaos/straggler counters are the entire protocol state, and
+        :meth:`from_snapshot` rebuilds a runtime whose every later event
+        is bit-identical to this one's.  ``arrays`` holds numpy arrays
+        only; ``meta`` is JSON-serializable."""
+        if any(self.spans):
+            raise RuntimeError("snapshot inside an open span")
+        if self._reductions:
+            raise RuntimeError("snapshot with unresolved reductions")
+        if self._danger_rec is not None:
+            raise RuntimeError("snapshot during danger recording")
+        arrays: Dict[str, np.ndarray] = {
+            "clock": self.clock.copy(),
+            "bar_clock0": self._bar_clock0.copy(),
+            "resident": self.resident.copy(),
+            "q_degraded": self._q_degraded.copy(),
+        }
+        # LRU touch-run queues: flat (N, 7) entry rows + per-worker counts
+        arrays["lru_counts"] = np.array([len(q) for q in self._lru_q],
+                                        np.int64)
+        arrays["lru_entries"] = (
+            np.array([list(e) for q in self._lru_q for e in q], np.int64)
+            if int(arrays["lru_counts"].sum())
+            else np.zeros((0, 7), np.int64))
+        arrays["dirty_region_counts"] = np.array(
+            [len(r) for r in self._dirty_regions], np.int64)
+        arrays["dirty_region_flat"] = np.array(
+            [x for r in self._dirty_regions for x in sorted(r)], np.int64)
+        red_names = sorted(self._reduction_results)
+        arrays["red_vals"] = np.array(
+            [self._reduction_results[k] for k in red_names], np.float64)
+        dir_metas = []
+        for r, d in enumerate(self.dirs):
+            darr, dmeta = d.state_arrays()
+            for k, v in darr.items():
+                arrays[f"d{r:05d}_{k}"] = v
+            dir_metas.append(dict(dmeta, backend=_REF_BACKEND[d.backend]))
+        lock_metas = []
+        for j, (lid, lk) in enumerate(sorted(self.locks.items())):
+            pre = f"lk{j:05d}_"
+            arrays[pre + "seen"] = lk.seen.copy()
+            arrays[pre + "lrt"] = np.array([lk.last_release_time],
+                                           np.float64)
+            if self.detect_races:
+                arrays[pre + "vc"] = lk.race_vc.copy()
+            for k, v in lk.log.state_arrays().items():
+                arrays[pre + k] = v
+            lock_metas.append({"id": int(lid), "version": int(lk.version)})
+        if self.detect_races:
+            # race_set rows are (page, a, b, kind) with kind 0 for 'ww'
+            arrays["race_vc"] = self.race_vc.copy()
+            arrays["race_set"] = (np.array(
+                sorted((p, a, b, 0 if kind == "ww" else 1)
+                       for p, a, b, kind in self.races), np.int64)
+                if self.races else np.zeros((0, 4), np.int64))
+        if self.chaos is not None:
+            arrays.update(self.chaos.state_arrays())
+        if self.straggler is not None:
+            for k, v in self.straggler.state_arrays().items():
+                arrays["strag_" + k] = v
+        stats = {k: v for k, v in self.stats.items()
+                 if k != "fused_dispatches"}
+        stats["jit_dispatches"] = self.stats["fused_dispatches"]
+        stats["jit_cache_misses"] = 0
+        meta = {
+            "config": {"n_workers": self.W, "page_words": self.page_words,
+                       "protocol": self.protocol,
+                       "cache_pages": self.cache_pages,
+                       "prefetch": self.prefetch,
+                       # the reference's default; neither engine reads it
+                       "n_mem_servers": 1,
+                       "model_mechanism": self.model_mechanism,
+                       "instr_s_per_word": self.instr_s_per_word,
+                       "fault_s": self.fault_s,
+                       "fetch_batch": self.fetch_batch,
+                       "backend": _REF_BACKEND[self.backend],
+                       "danger_mode": self.danger_mode,
+                       "detect_races": self.detect_races},
+            "cost": dataclasses.asdict(self.cost),
+            "traffic": dataclasses.asdict(self.traffic),
+            "stats": stats,
+            "tick": self._tick,
+            "phase_idx": self._phase_idx,
+            "n_pages": self.n_pages,
+            "region_starts": [int(x) for x in self._region_starts],
+            "region_ends": [int(x) for x in self._region_ends],
+            "dirs": dir_metas,
+            "locks": lock_metas,
+            "red_names": red_names,
+            "chaos": None if self.chaos is None else self.chaos.config(),
+            "straggler": (None if self.straggler is None
+                          else self.straggler.config()),
+        }
+        return arrays, meta
+
+    @classmethod
+    def from_snapshot(cls, arrays: dict, meta: dict, *, injector=None,
+                      backend: Optional[str] = None,
+                      device=None) -> "RegCScaleRuntime":
+        """Rebuild a runtime from ``snapshot()`` output of either package:
+        the same clocks, traffic, stats, directory planes (uploaded to
+        ``device``; the cached device tensors derived from them are built
+        anew), lock logs, LRU order and chaos/straggler state, so every
+        later event is bit-identical.  ``backend`` overrides the
+        snapshot's tier (either vocabulary is read); pass a (possibly
+        partly fired) ``injector`` to rearm failure injection on the
+        replayed suffix.  Shard-slice snapshots raise."""
+        from repro_torch.dsm.costmodel import ChaosNet
+        from repro_torch.ft.runtime import StragglerMonitor
+        if meta.get("slice") is not None:
+            raise ValueError("from_snapshot: a shard-slice snapshot must be "
+                             "composed first (not ported yet: the cluster "
+                             "slice)")
+        cfg = meta["config"]
+        if backend is None:
+            backend = _OUR_BACKEND.get(cfg["backend"], cfg["backend"])
+        chaos = (None if meta.get("chaos") is None
+                 else ChaosNet(**meta["chaos"]))
+        straggler = None
+        if meta.get("straggler") is not None:
+            straggler = StragglerMonitor.from_state(
+                {k[len("strag_"):]: v for k, v in arrays.items()
+                 if k.startswith("strag_")}, meta["straggler"])
+        cache_pages = cfg["cache_pages"]
+        rt = cls(int(cfg["n_workers"]), page_words=int(cfg["page_words"]),
+                 protocol=cfg["protocol"], cost=CostModel(**meta["cost"]),
+                 prefetch=int(cfg["prefetch"]),
+                 model_mechanism=bool(cfg["model_mechanism"]),
+                 instr_s_per_word=float(cfg["instr_s_per_word"]),
+                 fault_s=float(cfg["fault_s"]),
+                 fetch_batch=int(cfg["fetch_batch"]), backend=backend,
+                 cache_pages=(None if cache_pages is None
+                              else int(cache_pages)),
+                 danger_mode=cfg.get("danger_mode", "vec"),
+                 detect_races=bool(cfg.get("detect_races", False)),
+                 chaos=chaos, injector=injector, straggler=straggler,
+                 device=device)
+        rt.n_pages = int(meta["n_pages"])
+        rt._region_starts = [int(x) for x in meta["region_starts"]]
+        rt._region_ends = [int(x) for x in meta["region_ends"]]
+        rt._region_starts_np = np.asarray(rt._region_starts, np.int64)
+        rt.dirs = []
+        for r, dmeta in enumerate(meta["dirs"]):
+            pre = f"d{r:05d}_"
+            darr = {k[len(pre):]: v for k, v in arrays.items()
+                    if k.startswith(pre)}
+            d = RegionDirectory.from_state(darr, dmeta, backend=backend,
+                                           device=rt.device)
+            d.stats = rt.stats
+            rt.dirs.append(d)
+        rt.locks = {}
+        for j, lm in enumerate(meta["locks"]):
+            pre = f"lk{j:05d}_"
+            lk = _Lock(rt.W)
+            lk.version = int(lm["version"])
+            lk.seen = np.asarray(arrays[pre + "seen"], np.int64).copy()
+            lk.last_release_time = float(np.asarray(arrays[pre + "lrt"])[0])
+            lk.log = IntervalLog.from_state(
+                {k: arrays[pre + k] for k in ("p", "lo", "hi", "voff")})
+            if pre + "vc" in arrays:
+                lk.race_vc = np.asarray(arrays[pre + "vc"], np.int64).copy()
+            rt.locks[int(lm["id"])] = lk
+        if rt.detect_races:
+            rt.race_vc = np.asarray(arrays["race_vc"], np.int64).copy()
+            rs = np.asarray(arrays["race_set"], np.int64).reshape(-1, 4)
+            rt.races = {(int(p), int(a), int(b), "ww" if k == 0 else "rw")
+                        for p, a, b, k in rs}
+        rt.clock = np.asarray(arrays["clock"], np.float64).copy()
+        rt._bar_clock0 = np.asarray(arrays["bar_clock0"], np.float64).copy()
+        rt.resident = np.asarray(arrays["resident"], np.int64).copy()
+        rt._q_degraded = np.asarray(arrays["q_degraded"], bool).copy()
+        ents = np.asarray(arrays["lru_entries"], np.int64).reshape(-1, 7)
+        offs = np.concatenate([[0], np.cumsum(
+            np.asarray(arrays["lru_counts"], np.int64))])
+        rt._lru_q = [deque([int(x) for x in e]
+                           for e in ents[offs[w]:offs[w + 1]])
+                     for w in range(rt.W)]
+        flat = np.asarray(arrays["dirty_region_flat"], np.int64)
+        offs = np.concatenate([[0], np.cumsum(
+            np.asarray(arrays["dirty_region_counts"], np.int64))])
+        rt._dirty_regions = [set(int(x) for x in flat[offs[w]:offs[w + 1]])
+                             for w in range(rt.W)]
+        rt.traffic = Traffic(**meta["traffic"])
+        # in place: a bound ChaosNet holds a reference to rt.stats; the
+        # reference's jit_dispatches is this package's fused_dispatches
+        stats = dict(meta["stats"])
+        fused = stats.pop("jit_dispatches", 0)
+        stats.pop("jit_cache_misses", None)
+        stats.setdefault("fused_dispatches", fused)
+        rt.stats.clear()
+        rt.stats.update(stats)
+        if chaos is not None:
+            chaos.load_state(arrays)
+        rt._tick = int(meta["tick"])
+        rt._phase_idx = int(meta["phase_idx"])
+        rt._reduction_results = {
+            k: float(v) for k, v in zip(
+                meta["red_names"], np.asarray(arrays["red_vals"], np.float64))}
+        return rt
+
+    def gas_for_region(self, region: int, n_elems: int) -> GasArray:
+        """Handle for an allocation that already exists in the directory
+        (the restore-side replacement for ``alloc``: snapshots persist
+        regions, not the caller's handles)."""
+        return GasArray(self._region_starts[region], n_elems,
+                        self.page_words)

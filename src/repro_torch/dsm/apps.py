@@ -2,8 +2,9 @@
 (OmpSCR) and molecular dynamics (OmpSCR), as in the reference package,
 plus the two capacity-pressure STREAM variants of Fig. 4
 (``stream_spill``, ``stream_refetch``) that run under ``cache_pages``,
-the span-engine adversary ``lock_contention`` and the race detector's
-workload ``race_audit``.
+the span-engine adversary ``lock_contention``, the race detector's
+workload ``race_audit`` and the KV-cache serving workload ``kv_serving``
+(with its request stream ``gen_requests``).
 
 Each bulk phase is described once as (W,) interval arrays — the workers'
 read/write sets declared up front — and handed to a ``dsm.session``
@@ -23,7 +24,8 @@ traffic is exact.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+import dataclasses
+from typing import Callable, List, Optional
 
 import numpy as np
 
@@ -357,3 +359,236 @@ def race_audit(rt, n: int, iters: int, *, n_locks: int = 4,
         if on_iter is not None:
             on_iter(it, rt)
     return rt
+
+
+# ---------------------------------------------------------------------------
+# KV-cache serving (fig8_kv_serving): inference traffic as a DSM workload
+# ---------------------------------------------------------------------------
+
+
+ADMIT_LOCK = 2
+
+
+@dataclasses.dataclass
+class ServeRequest:
+    """One inference request in the synthetic multi-tenant stream."""
+    tenant: int
+    prompt_tokens: int
+    decode_tokens: int
+    arrival_step: int
+    slot: int = -1
+    admit_step: int = -1
+    finish_step: int = -1
+    arrival_time: float = 0.0
+    finish_time: float = 0.0
+
+    @property
+    def latency(self) -> float:
+        return self.finish_time - self.arrival_time
+
+
+@dataclasses.dataclass
+class ServeReport:
+    """Deterministic outcome of one ``kv_serving`` run.
+
+    Everything here is a pure function of the request stream and the
+    runtime's modeled clocks, so the drivers' bit-equal-clock contract
+    makes the whole report — latencies included — bit-equal across
+    ``loop``/``batched`` and both backends."""
+    requests: List[ServeRequest]
+    steps: int = 0
+    prefill_tokens: int = 0
+    decode_tokens: int = 0
+    admit_spans: int = 0
+    admitted: int = 0
+    idle_slot_steps: int = 0
+    peak_queue: int = 0
+
+    def latencies(self) -> np.ndarray:
+        done = [r.latency for r in self.requests if r.finish_step >= 0]
+        return np.asarray(sorted(done), dtype=np.float64)
+
+    def latency_pct(self, q: float) -> float:
+        lat = self.latencies()
+        if not lat.size:
+            raise ValueError("latency_pct(): no completed requests")
+        return float(np.percentile(lat, q))
+
+    @property
+    def span_time(self) -> float:
+        """Modeled makespan: last finish time across completed requests."""
+        return max((r.finish_time for r in self.requests
+                    if r.finish_step >= 0), default=0.0)
+
+    def tokens_per_s(self) -> float:
+        t = self.span_time
+        return (self.prefill_tokens + self.decode_tokens) / t if t else 0.0
+
+
+def gen_requests(n_requests: int, *, n_tenants: int = 8,
+                 zipf_s: float = 1.3, max_tokens: int = 96,
+                 burst_mean: int = 4, gap_max: int = 3,
+                 seed: int = 0) -> List[ServeRequest]:
+    """Synthetic multi-tenant request stream: Zipf-skewed tenant draws
+    (tenant 0 hottest), per-tenant length profiles (hot tenants chatty —
+    short prompts/decodes; cold tenants long-context), and bursty
+    arrivals (geometric burst sizes separated by uniform step gaps,
+    arrival step = decode-step index as the time axis).  Deterministic
+    in ``seed``."""
+    rng = np.random.default_rng(seed)
+    # Zipf over tenant ranks via inverse-CDF on the truncated harmonic
+    ranks = np.arange(1, n_tenants + 1, dtype=np.float64)
+    pmf = ranks ** -zipf_s
+    pmf /= pmf.sum()
+    tenants = rng.choice(n_tenants, size=n_requests, p=pmf)
+    # per-tenant profiles: prompt/decode budgets scale with tenant rank
+    p_base = np.minimum(4 + 6 * np.arange(n_tenants), (3 * max_tokens) // 4)
+    d_base = np.minimum(3 + 2 * np.arange(n_tenants), max_tokens // 4)
+    reqs: List[ServeRequest] = []
+    step = 0
+    emitted = 0
+    while emitted < n_requests:
+        burst = min(int(rng.geometric(1.0 / burst_mean)),
+                    n_requests - emitted)
+        for _ in range(burst):
+            t = int(tenants[emitted])
+            dec = max(1, int(d_base[t]) + int(rng.integers(-2, 3)))
+            pro = max(1, int(p_base[t]) + int(rng.integers(-3, 4)))
+            pro = min(pro, max_tokens - dec)   # fits the slot KV budget
+            reqs.append(ServeRequest(tenant=t, prompt_tokens=pro,
+                                     decode_tokens=dec, arrival_step=step))
+            emitted += 1
+        step += int(rng.integers(1, gap_max + 1))
+    return reqs
+
+
+def kv_serving(rt, n_requests: int, *, tok_words: int = 64,
+               max_tokens: int = 96, attn_window: int = 32,
+               n_tenants: int = 8, zipf_s: float = 1.3,
+               burst_mean: int = 4, gap_max: int = 3, seed: int = 0,
+               driver: str = "auto", max_steps: int = 200_000,
+               on_step: Optional[Callable] = None) -> ServeReport:
+    """Continuous-batching inference fleet as a RegC program.
+
+    Workers are decode slots; the KV cache is one GAS region of W
+    page-aligned slot blocks, each ``max_tokens`` rows of ``tok_words``
+    words (a slot's stacked per-layer K/V rows — the layout of
+    ``serve/decode.py``'s caches, flattened time-major).  Each decode
+    step runs:
+
+    1. **admission** — queued requests claim free slots inside a span on
+       ``ADMIT_LOCK`` (the continuous-batching scheduler's critical
+       section; slot reuse is ordered by the lock's grant chain);
+    2. **prefill** — a bulk write phase: admitting slots write their
+       whole prompt's KV rows at once (idle/running slots touch one word
+       of their own block — every worker participates in the SPMD
+       phase);
+    3. **decode** — active slots read their trailing ``attn_window`` KV
+       rows (paged attention) and append one new row; idle slots touch
+       one word.  One barrier per step (the batch-wide sync point).
+
+    Slot blocks are disjoint and the queue cell is lock-guarded, so the
+    program is data-race-free (``detect_races=True`` flags nothing).
+    Under a ``cache_pages`` budget below a slot's working set, prefill
+    ranges wider than the cache drive the mid-op danger path and the
+    sliding attention window keeps batched eviction live — the
+    paged-attention pressure regime the fig8 bench asserts via
+    ``stats`` counters.  Requests, latencies (modeled arrival→finish
+    time), and every counter are bit-equal across drivers and backends.
+    """
+    W = rt.W
+    pw = rt.page_words
+    if attn_window > max_tokens:
+        raise ValueError(f"attn_window {attn_window} exceeds max_tokens "
+                         f"{max_tokens}")
+    slot_words = max_tokens * tok_words
+    stride = -(-slot_words // pw) * pw       # page-aligned slot pitch
+    kv = rt.alloc(W * stride)
+    q = rt.alloc(2)                          # queue head/tail cell
+    s = session(rt, driver)
+
+    reqs = gen_requests(n_requests, n_tenants=n_tenants, zipf_s=zipf_s,
+                        max_tokens=max_tokens, burst_mean=burst_mean,
+                        gap_max=gap_max, seed=seed)
+    rep = ServeReport(requests=reqs)
+
+    base = np.arange(W, dtype=np.int64) * stride
+    zero = np.zeros(W, np.int64)
+    two = np.full(W, 2, np.int64)
+    active = np.full(W, -1, np.int64)        # request index per slot
+    length = np.zeros(W, np.int64)           # KV rows materialized
+    remaining = np.zeros(W, np.int64)        # decode tokens left
+    queue: List[int] = []
+    next_arrival = 0
+    completed = 0
+    step = 0
+    while completed < n_requests:
+        if step >= max_steps:
+            raise RuntimeError(f"kv_serving: no progress in {max_steps} "
+                               "steps (stream starved?)")
+        t_now = rt.time
+        while (next_arrival < n_requests
+               and reqs[next_arrival].arrival_step <= step):
+            reqs[next_arrival].arrival_time = t_now
+            queue.append(next_arrival)
+            next_arrival += 1
+        rep.peak_queue = max(rep.peak_queue, len(queue))
+
+        # admission: free slots claim queued requests in slot order,
+        # serialized through the admission lock's grant chain
+        admit = np.zeros(W, bool)
+        for w in range(W):
+            if active[w] < 0 and queue:
+                i = queue.pop(0)
+                r = reqs[i]
+                r.slot, r.admit_step = w, step
+                active[w] = i
+                length[w] = 0
+                remaining[w] = r.decode_tokens
+                admit[w] = True
+        if admit.any():
+            s.span(ADMIT_LOCK, reads=((q, zero, two),),
+                   writes=((q, zero, two),), w_mask=admit)
+            rep.admit_spans += 1
+            rep.admitted += int(admit.sum())
+            # prefill: bulk KV write of the whole prompt, one phase
+            plen = np.where(
+                admit,
+                np.array([reqs[i].prompt_tokens if i >= 0 else 0
+                          for i in active], np.int64), 0)
+            w_lo = base
+            w_hi = base + np.where(admit, plen * tok_words, 1)
+            s.phase(writes=((kv, w_lo, w_hi),),
+                    flops=2.0 * plen * tok_words,
+                    mem_bytes=4.0 * plen * tok_words)
+            length[admit] = plen[admit]
+            rep.prefill_tokens += int(plen.sum())
+
+        running = active >= 0
+        if running.any():
+            # decode: windowed attention read + one appended KV row
+            win = np.where(running, np.minimum(length, attn_window), 0)
+            r_lo = base + np.where(running, (length - win) * tok_words, 0)
+            r_hi = r_lo + np.where(running, win * tok_words, 1)
+            w_lo = base + np.where(running, length * tok_words, 0)
+            w_hi = w_lo + np.where(running, tok_words, 1)
+            s.phase(reads=((kv, r_lo, r_hi),), writes=((kv, w_lo, w_hi),),
+                    flops=2.0 * win * tok_words,
+                    mem_bytes=4.0 * (win + 1) * tok_words)
+            length[running] += 1
+            remaining[running] -= 1
+            rep.decode_tokens += int(running.sum())
+            rep.idle_slot_steps += int(W - running.sum())
+        rt.barrier()
+        t_end = rt.time
+        done = running & (remaining == 0)
+        for w in np.flatnonzero(done):
+            r = reqs[int(active[w])]
+            r.finish_step, r.finish_time = step, t_end
+            active[w] = -1
+            completed += 1
+        step += 1
+        rep.steps = step
+        if on_step is not None:
+            on_step(step, rt)
+    return rep

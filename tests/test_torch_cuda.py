@@ -780,3 +780,62 @@ def test_reduced_models_match_cpu(f32_card, arch):
         chip_smoke.step_logits(torch, cfg, card, toks, forced, "cuda"),
         chip_smoke.step_logits(torch, cfg, cpu, toks, forced, "cpu"),
         rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("backend", ("kernels", "fused"))
+def test_cuda_kv_serving_matches_cpu(dev, backend):
+    """The serving workload (slice F) at W=16 under benchmarks/
+    kv_serving.py's settings on the card and on the CPU, both drivers:
+    traffic, clocks, stats and the whole report equal."""
+    kw = dict(tok_words=64, max_tokens=96, attn_window=32, n_tenants=16,
+              burst_mean=2, gap_max=2, seed=7)
+    for driver in ("batched", "loop"):
+        runs = []
+        for device in (dev, "cpu"):
+            rt = make_runtime(16, fetch_batch=16, cache_pages=4,
+                              backend=backend, device=device)
+            runs.append((rt, apps.kv_serving(rt, 48, driver=driver, **kw)))
+        (card, rc), (cpu, rh) = runs
+        assert dataclasses.asdict(card.traffic) == dataclasses.asdict(
+            cpu.traffic)
+        assert card.clock.tobytes() == cpu.clock.tobytes()
+        assert card.stats == cpu.stats
+        assert [dataclasses.astuple(r) for r in rc.requests] == \
+            [dataclasses.astuple(r) for r in rh.requests]
+
+
+@pytest.mark.parametrize("seed", (1, 2))
+def test_cuda_chaos_recovery_matches_cpu(dev, seed, tmp_path):
+    """A chaos trace (slice F) recovered through ``ChaosHarness`` on the
+    card lands bit-equal to the uninjected run on the CPU, both drivers;
+    its checkpoints restore on the card."""
+    from repro_torch.dsm.costmodel import ChaosNet
+    from repro_torch.ft import (ChaosHarness, FailureInjector,
+                                StragglerMonitor, assert_bit_equal,
+                                run_uninjected)
+    p = trace_fuzz.chaos_trace_params(seed)
+    rng = p["rng"]
+    prog = (trace_fuzz.gen_span_program(rng, p["W"], p["n_words"],
+                                        p["page_words"], p["cache_pages"],
+                                        n_phases=5, n_regions=3)
+            if seed % 2 else
+            trace_fuzz.gen_program(rng, p["W"], p["n_words"],
+                                   p["page_words"], n_phases=5))
+    n = p["n_words"]
+
+    def maker(device):
+        return lambda: make_runtime(
+            p["W"], page_words=p["page_words"], protocol=p["proto"],
+            prefetch=1, model_mechanism=False, cache_pages=p["cache_pages"],
+            backend="fused", device=device,
+            chaos=ChaosNet(seed=seed, drop_rate=p["drop"]),
+            straggler=StragglerMonitor(p["W"], window=4, patience=1))
+    for d in ("batched", "loop"):
+        base = run_uninjected(maker("cpu"), [n, n, n], d, prog,
+                              trace_fuzz.apply_event)
+        inj = FailureInjector(at_steps=[2, len(prog) - 1])
+        rt, rep = ChaosHarness(maker(dev), [n, n, n], d, tmp_path / d,
+                               trace_fuzz.apply_event,
+                               injector=inj).run(prog)
+        assert rep.n_crashes == 2 and rt.device.type == "cuda"
+        assert_bit_equal(rt, base, (seed, d))

@@ -6,10 +6,11 @@
 * ``repro_torch`` imports and runs a small CPU trace in a process where
   ``import jax`` fails;
 * entry points run on the card by default and raise without one;
-* knobs of later slices raise a ``ValueError`` naming the slice, and
-  the knobs of ported slices (race detection among them, and the
-  reference engine) build a runtime;
-  so do model configs that need a later slice (MoE, M-RoPE, embeds);
+* the knobs of ported slices (race detection and the recovery hooks
+  among them, and the reference engine) build a runtime, and the
+  reference engine raises on the recovery hooks, naming the slice;
+* model configs that need a later slice (MoE, M-RoPE, embeds) raise a
+  ``ValueError`` naming it;
 * ``chip_smoke.py`` fails, printing no result, without a card and in a
   directory that holds nothing else of the repo."""
 import ast
@@ -23,6 +24,8 @@ import pytest
 import torch
 
 from repro_torch.core import RegionDirectory, RuntimeConfig, make_runtime
+from repro_torch.dsm.costmodel import ChaosNet
+from repro_torch.ft import FailureInjector, StragglerMonitor
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -118,11 +121,19 @@ def test_detect_races_builds_a_detecting_runtime():
 
 
 @pytest.mark.parametrize("knob,value,slice_name", [
-    ("chaos", object(), "recovery"), ("injector", object(), "recovery"),
-    ("straggler", object(), "recovery")])
+    ("chaos", ChaosNet(seed=3), "recovery"),
+    ("injector", FailureInjector(at_steps=[2]), "recovery"),
+    ("straggler", StragglerMonitor(4), "recovery")])
 def test_later_slice_knobs_raise(knob, value, slice_name):
-    with pytest.raises(ValueError, match=slice_name):
-        make_runtime(4, device="cpu", **{knob: value})
+    """The recovery slice's knobs, refused by name until that slice was
+    ported, now build a scale runtime that carries them; the per-page
+    reference engine still raises on them, naming the slice, as the
+    reference package's does."""
+    rt = make_runtime(4, device="cpu", **{knob: value})
+    assert type(rt).__name__ == "RegCScaleRuntime"
+    assert getattr(rt, knob) is value
+    with pytest.raises(ValueError, match=f"{knob}.*{slice_name}"):
+        make_runtime(4, engine="reference", device="cpu", **{knob: value})
 
 
 def test_config_validation():
