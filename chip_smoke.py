@@ -7,7 +7,8 @@ Run from the root of a checkout on a machine with one CUDA card:
 
 Phases, in order; any mismatch or exception exits non-zero:
 
-1. prints the card's name and power limit (``nvidia-smi``);
+1. prints the card's name and power limit and its compute mode
+   (``nvidia-smi``);
 2. builds the four CUDA sources in ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` each, in parallel), prints the build seconds and, for every
    kernel, its registers, static shared memory, stack and local-memory
@@ -119,6 +120,22 @@ Phases, in order; any mismatch or exception exits non-zero:
    restored on the CPU, and one taken on the CPU and restored on the
    card, all finishing bit-equal.  Prints ``t_ckpt``, ``t_restore``,
    ``t_recovery``, walls and ``ckpt_bytes``;
+4e. cluster phase (slice G): the 12 committed fig10_availability rows at
+   W=256 (both drivers), ``samhita_s1``, ``_s2`` and ``_s4``, clean and
+   ``_fault``, at benchmarks/availability.py's settings (8 pages a
+   worker, the recovery program, ``ChaosNet`` and straggler settings, 3
+   RPC attempts; the faulted rows SIGKILL the last rank and partition
+   rank 0's replies, recovered by respawn) but a 1.0 s deadline floor
+   (``CARD_RPC_TIMEOUT_S``) on 'fused': ``ClusterRuntime`` spawns 1, 2
+   or 4 shard processes, each a full replica with its planes on the
+   card.  Each run is bit-equal to a single-process run on the card,
+   its round digests in lockstep with that run's, and equal to its
+   ``BENCH_scale.json`` row (``t_model_s``, ``tr_*``, ``rec_*``, chaos
+   and straggler counters); every shard reports ``cuda``, and the
+   shards' own launch counters (their ``gather`` replies) show
+   phase_step and no pack_rows.
+   Prints each row's wall, events/s, p50/p99 barrier-round latency,
+   largest round latency and RPC retries;
 5. spill phase: the six W=256 batched capacity-pressure points
    (fig4_spill fits and spills, fig4_spill_heavy, fig4_refetch,
    fig5_spill, fig7_md_spill) on 'fused' at the harness's cache settings,
@@ -175,8 +192,11 @@ Phases, in order; any mismatch or exception exits non-zero:
 TF32 is off for every float comparison (printed at the start).  The
 launch counters are set to 0 just before each of the path phases (the
 race phase's traced runs come after its reading; the model phase:
-before each serve run) and read just after; a kernel's
-``launches`` in the table is the sum of the readings.  The line before the last is the kernel table as one
+before each serve run; the cluster phase reads its shard processes'
+counters, which start at 0) and read just after; a kernel's
+``launches`` in the table is the sum of the readings.  Each phase
+prints its wall as it ends (``phase <name>: <s> s``).  The line before
+the last is the kernel table as one
 JSON object; the last line is ``{"ok": true, "device": {...}}``.  Full
 results also go to ``chiprun_out/chip_smoke.json``.
 """
@@ -267,6 +287,20 @@ RECOVERY_PAGES_PER_WORKER = 16
 RECOVERY_CORES = (16, 64, 256)
 RECOVERY_DROP_RATE = 0.05
 RECOVERY_CHAOS_SEED = 11
+# cluster phase: benchmarks/availability.py's settings (PAGES_PER_WORKER,
+# SHARDS, RPC_TIMEOUT_S, RPC_ATTEMPTS; the recovery program and chaos
+# settings above), on the W=256 rows of both drivers (the W=16 rows run
+# on the CPU, in tests/test_torch_cluster.py)
+AVAIL_PAGES_PER_WORKER = 8
+AVAIL_SHARDS = (1, 2, 4)
+AVAIL_GROUPS = ((256, "loop"), (256, "batched"))
+AVAIL_RPC_TIMEOUT_S = 0.25
+AVAIL_RPC_ATTEMPTS = 3
+# the deadline floor on the card: with four shard processes a W=256 span
+# round takes up to 2.6 s there, past the 0.25 s floor's 1.75 s chain (a
+# false detection); 1.0 s gives a 7 s chain.  The rec_* counters do not
+# depend on it (a kill shows as EOF, a partition after every attempt)
+CARD_RPC_TIMEOUT_S = 1.0
 
 
 def fail(msg: str) -> int:
@@ -279,6 +313,13 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def compute_mode() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
 
 
@@ -2422,6 +2463,179 @@ def recovery_phase(torch, ps, card, device="cuda", cores=RECOVERY_CORES):
 
 
 # ---------------------------------------------------------------------------
+# cluster phase
+# ---------------------------------------------------------------------------
+
+
+def avail_cfg(W_: int, backend: str, device) -> dict:
+    """benchmarks/availability.py's shard config: samhita, fetch_batch
+    16, IB_2013, ``ChaosNet`` seed 11 at 5% loss and a straggler monitor
+    (window 4, k 4.0, abs_floor_s 1e-4, patience 2), on ``backend`` and
+    ``device``."""
+    from repro_torch.dsm.costmodel import IB_2013
+    return dict(n_workers=W_, page_words=RECOVERY_PAGE_WORDS,
+                protocol=PROTO["samhita"], cache_pages=None, fetch_batch=16,
+                cost=dataclasses.asdict(IB_2013), detect_races=False,
+                chaos=dict(seed=RECOVERY_CHAOS_SEED,
+                           drop_rate=RECOVERY_DROP_RATE),
+                straggler=dict(n_workers=W_, window=4, k=4.0,
+                               abs_floor_s=1e-4, patience=2),
+                backend=backend, device=str(device))
+
+
+def avail_faults(iters: int, n_shards: int):
+    """benchmarks/availability.py's ``_fault_schedule``: SIGKILL the last
+    rank at the span event of iteration max(1, iters // 2) (mid-
+    iteration, so the replay suffix is not empty), then a reply
+    partition on rank 0 three events later."""
+    kill_step = 3 * max(1, iters // 2) + 2
+    return [("kill", kill_step, n_shards - 1),
+            ("partition_s2c", min(3 * iters, kill_step + 3), 0)]
+
+
+def cluster_phase(torch, ps, card, device="cuda", groups=AVAIL_GROUPS,
+                  shards=AVAIL_SHARDS, rpc_timeout_s=AVAIL_RPC_TIMEOUT_S):
+    """Slice G, the sharded multi-process cluster.  For each (W, driver)
+    of ``groups``, the committed fig10_availability rows of ``shards``
+    (``samhita_s<n>`` clean and ``_fault``) on 'fused', at
+    benchmarks/availability.py's settings and max(3, iters // 2)
+    iterations for the meta's iters: the recovery program with 8 pages a
+    worker run by ``ClusterRuntime`` in n spawned shard processes, each a
+    full replica on ``device``; the faulted rows SIGKILL the last rank
+    and partition rank 0's replies, recovered by respawn.  Every run is
+    bit-equal to a single-process run on ``device`` and its per-round
+    digests are in lockstep with that run's; each row equals its
+    ``BENCH_scale.json`` row in every field but the wall (``t_model_s``,
+    ``tr_*``, ``rec_*``, chaos and straggler counters); every shard
+    reports its runtime on ``device``'s type, and the gathered stats show
+    the fused flush dispatched in the shards.  On the card the shards'
+    own launch counters (their ``gather`` replies) must show phase_step
+    and no pack_rows.  Prints each row's wall, events/s, p50/p99 barrier
+    round latency, largest round latency and RPC retries beside
+    ``card``, and how long the shards took to start (spawn, ``import
+    torch``, first CUDA context, kernel load).  Returns (rows, the
+    shards' launches summed over the rows)."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.cluster import ClusterRuntime, make_runtime, state_digest
+    from repro_torch.ft import FailureInjector, assert_bit_equal
+    from repro_torch.ft.coherence import harness_ticks
+    on_card = device != "cpu"
+    want = torch.device(device).type
+    committed, meta_iters = section_rows("fig10_availability")
+    iters = max(3, meta_iters // 2)
+    scratch = ROOT / "build"
+    scratch.mkdir(exist_ok=True)
+    skip = {"section", "protocol", "W", "driver", "t_wall_s"}
+    launches = dict.fromkeys(ps.LAUNCHES, 0)
+    out = []
+    for W_, driver in groups:
+        n_words = RECOVERY_PAGE_WORDS * AVAIL_PAGES_PER_WORKER * W_
+        cfg = avail_cfg(W_, "fused", device)
+        prog = recovery_program(W_, n_words, iters)
+        # the single-process run with its per-event digests, ticking as
+        # the shards do
+        base = make_runtime(cfg)
+        gas = [base.alloc(n_words)]
+        digests = {}
+        for i, ev in enumerate(prog):
+            if harness_ticks(ev, driver):
+                base.chaos_tick()
+            recovery_event(base, ev, gas, driver)
+            digests[i] = state_digest(base)
+        for n_shards in shards:
+            for fault in (False, True):
+                series = f"samhita_s{n_shards}" + ("_fault" if fault else "")
+                name = f"fig10_availability {series} W={W_} {driver}"
+                inj = (FailureInjector(cluster_at=avail_faults(iters,
+                                                               n_shards))
+                       if fault else None)
+                with tempfile.TemporaryDirectory(dir=scratch) as td:
+                    t0 = time.perf_counter()
+                    with ClusterRuntime(
+                            cfg, [n_words], n_shards=n_shards, driver=driver,
+                            apply_ref=("chip_smoke", "recovery_event"),
+                            root=td, injector=inj,
+                            rpc_timeout_s=rpc_timeout_s,
+                            rpc_attempts=AVAIL_RPC_ATTEMPTS) as cluster:
+                        # the shards' start: spawn, import, first context
+                        t_start = time.perf_counter() - t0
+                        res = cluster.run(prog)
+                        got_digests = dict(cluster.digests)
+                    t_wall = time.perf_counter() - t0
+                rep = res.report
+                assert_bit_equal(res, base, name)
+                if got_digests != digests:
+                    bad = sorted(i for i in digests
+                                 if got_digests.get(i) != digests[i])
+                    raise AssertionError(f"{name}: round digests out of "
+                                         f"lockstep at events {bad}")
+                row = committed[series, W_, driver]
+                got = {"t_model_s": round(res.time, 6),
+                       "total_bytes": res.traffic.total_bytes,
+                       **rep.counters(),
+                       **{f"tr_{f.name}": getattr(res.traffic, f.name)
+                          for f in dataclasses.fields(res.traffic)},
+                       **chaos_fields(res)}
+                if set(got) != set(row) - skip:
+                    raise AssertionError(f"{name}: fields {sorted(got)} vs "
+                                         f"committed {sorted(row)}")
+                bad = {k: (v, row[k]) for k, v in got.items() if v != row[k]}
+                if bad:
+                    raise AssertionError(f"{name}: drift {bad}")
+                off = {r: d for r, d in res.devices.items()
+                       if torch.device(d).type != want}
+                if off or not res.devices:
+                    raise AssertionError(f"{name}: shards on {res.devices}, "
+                                         f"expected {want}")
+                if res.stats["fused_dispatches"] <= 0:
+                    raise AssertionError(f"{name}: no fused flush in the "
+                                         "shards")
+                if on_card and (res.launches["phase_step"] == 0
+                                or res.launches["pack_rows"]):
+                    raise AssertionError(f"{name}: shard launches "
+                                         f"{res.launches}")
+                for k in launches:
+                    launches[k] += res.launches.get(k, 0)
+                bar_ms = np.asarray(rep.bar_wall_s) * 1e3
+                # the largest round of each event kind, the first round
+                # (each process's first calls) apart
+                kinds = {}
+                for i, w in rep.round_wall_s:
+                    kind = "first" if i == 0 else prog[i][0]
+                    kinds[kind] = max(kinds.get(kind, 0.0), w * 1e3)
+                fields = {
+                    "wall_s": t_wall, "start_s": t_start,
+                    "events_per_s": rep.n_events / t_wall,
+                    "bar_p50_ms": float(np.percentile(bar_ms, 50)),
+                    "bar_p99_ms": float(np.percentile(bar_ms, 99)),
+                    "max_round_ms": max(kinds.values()),
+                    "max_round_ms_by_kind": kinds,
+                    "rpc_retries": rep.rpc_retries,
+                    "rpc_retry_model_s": rep.rpc_retry_model_s}
+                print(f"cluster {name:44s} wall {t_wall:.3f} s (start "
+                      f"{t_start:.3f} s)  "
+                      f"{fields['events_per_s']:.2f} events/s  barrier p50 "
+                      f"{fields['bar_p50_ms']:.3f} p99 "
+                      f"{fields['bar_p99_ms']:.3f} ms  largest round "
+                      f"{fields['max_round_ms']:.3f} ms "
+                      + str({k: round(v, 3) for k, v in kinds.items()})
+                      + f"  rpc_retries {rep.rpc_retries}  "
+                      f"{rep.counters()}  shards "
+                      f"{sorted(set(res.devices.values()))}  launches "
+                      f"{res.launches}  ({card})", flush=True)
+                out.append({"section": "fig10_availability",
+                            "series": series, "W": W_, "driver": driver,
+                            "n_shards": n_shards, "backend": "fused",
+                            "rpc_timeout_s": rpc_timeout_s,
+                            "devices": res.devices,
+                            "launches": res.launches, **fields, **got})
+    return out, launches
+
+
+# ---------------------------------------------------------------------------
 # spill phase
 # ---------------------------------------------------------------------------
 
@@ -2726,9 +2940,14 @@ def traced(torch, run):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _, wall = run()
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
+    # the raw trace's device events (in µs), the ones ``prof.events()``
+    # turns into FunctionEvents: reading them here skips building the
+    # event tree of every host op, which takes minutes on the reference
+    # Jacobi's millions of host events
+    spans = sorted((e.start_ns() * 1e-3, e.end_ns() * 1e-3)
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA
+                   and not getattr(e, "is_hidden_event", lambda: False)())
     row = {"traced_wall_s": wall, "device_activities": len(spans),
            "device_busy_s": None, "idle_share": None}
     if spans:
@@ -2856,6 +3075,8 @@ def main() -> int:
 
     card = card_line()
     print(card, flush=True)
+    # the cluster phase's shards open CUDA contexts beside this process's
+    print(f"compute mode: {compute_mode()}", flush=True)
     # float32 products in full float32 (no TF32) for every comparison
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2868,26 +3089,42 @@ def main() -> int:
     print(f"build: {build_s:.1f} s", flush=True)
     resources = kernel_resources(_build)
 
+    phase_s = {"build": build_s}
+
+    def phase(name, fn, *args, **kw):
+        # each phase's wall, printed as it ends: the smoke's time budget
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        phase_s[name] = time.perf_counter() - t
+        print(f"phase {name}: {phase_s[name]:.1f} s", flush=True)
+        return out
+
     dev = torch.device("cuda")
-    kernels = kernel_phase(torch, np, ps, dev)
-    points, launches = main_path_phase(torch, ps)
-    spans, span_launches = span_phase(torch, ps, card)
-    races, race_launches = race_phase(torch, ps, card)
-    races += race_profile(torch, card)
-    serves, serve_launches = serving_phase(torch, ps, card)
-    recoveries, recovery_launches = recovery_phase(torch, ps, card)
-    spills, spill_launches, scans = spill_phase(torch, ps)
+    kernels = phase("kernel", kernel_phase, torch, np, ps, dev)
+    points, launches = phase("main path", main_path_phase, torch, ps)
+    spans, span_launches = phase("span", span_phase, torch, ps, card)
+    races, race_launches = phase("race", race_phase, torch, ps, card)
+    races += phase("race profile", race_profile, torch, card)
+    serves, serve_launches = phase("serving", serving_phase, torch, ps,
+                                   card)
+    recoveries, recovery_launches = phase("recovery", recovery_phase,
+                                          torch, ps, card)
+    clusters, cluster_launches = phase(
+        "cluster", cluster_phase, torch, ps, card,
+        rpc_timeout_s=CARD_RPC_TIMEOUT_S)
+    spills, spill_launches, scans = phase("spill", spill_phase, torch, ps)
     # the rank-select kernels, timed at the spill phase's commonest scan
-    kernels.update(rank_select_phase(torch, np, ps, dev, scans,
-                                     make_same(torch)))
+    kernels.update(phase("rank-select", rank_select_phase, torch, np, ps,
+                         dev, scans, make_same(torch)))
     report_kernels(kernels)
-    references, ref_launches = reference_phase(torch, np)
-    profiled = profile_phase(torch)
-    models, model_launches = model_phase(torch, np)
+    references, ref_launches = phase("reference", reference_phase, torch,
+                                     np)
+    profiled = phase("profile", profile_phase, torch)
+    models, model_launches = phase("model", model_phase, torch, np)
 
     total = {k: launches[k] + spill_launches[k] + span_launches[k]
              + race_launches[k] + serve_launches[k] + recovery_launches[k]
-             for k in ps.LAUNCHES}
+             + cluster_launches[k] for k in ps.LAUNCHES}
     total.update(ref_launches)
     total.update(model_launches)
     table = {"kernels": [
@@ -2905,13 +3142,17 @@ def main() -> int:
     print(f"launches on the race path: {race_launches}", flush=True)
     print(f"launches on the serving path: {serve_launches}", flush=True)
     print(f"launches on the recovery path: {recovery_launches}", flush=True)
+    print(f"launches on the cluster path (in the shards): "
+          f"{cluster_launches}", flush=True)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
-        {"card": card, "build_s": build_s, "resources": resources,
+        {"card": card, "build_s": build_s, "phase_s": phase_s,
+         "resources": resources,
          "kernel_phase": kernels,
          "points": points, "span_points": spans, "race_points": races,
          "serving_points": serves, "recovery_points": recoveries,
+         "cluster_points": clusters,
          "spill_points": spills,
          "reference_points": references, "models": models,
          "victim_scans": [[L, k, n] for (L, k), (n, _) in scans.items()],
@@ -2919,6 +3160,7 @@ def main() -> int:
          "launches_race": race_launches,
          "launches_serving": serve_launches,
          "launches_recovery": recovery_launches,
+         "launches_cluster": cluster_launches,
          "launches_spill": spill_launches,
          "launches_reference": ref_launches, "launches_model": model_launches,
          "profile": profiled, **table}, indent=1) + "\n")

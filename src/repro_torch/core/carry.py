@@ -15,7 +15,9 @@ Two carriers, one per engine:
   logs in ``IntervalLog.state_arrays`` format), and this package's
   ``snapshot()`` writes the same format.  Everything carries over:
   eviction state, race-detection state and the chaos and straggler
-  counters.  Shard slices raise a ``ValueError`` (the cluster slice).
+  counters.  A shard slice (``snapshot(rows=)``) raises a
+  ``ValueError``, as the reference refuses it; the snapshot that
+  ``compose_snapshots`` builds from the slices restores.
 
 Either way a trace can start on the reference and finish here with the
 same traffic and bit-equal clocks: the system's counterpart of carrying

@@ -756,23 +756,33 @@ class RegionDirectory:
     # state carried across from the reference (see core.carry)
     # ------------------------------------------------------------------
 
-    def state_arrays(self) -> Tuple[dict, dict]:
+    def state_arrays(self, rows=None) -> Tuple[dict, dict]:
         """Full plane state as host (arrays, meta), in the reference's
-        ``RegionDirectory.state_arrays`` format."""
-        arrays = {"base": self.base.copy(), "length": self.length.copy(),
-                  "shift": self.shift.copy(),
-                  "valid": self.valid.cpu().numpy().copy(),
-                  "dirty": self.dirty.cpu().numpy().copy(),
-                  "dirty_lo": self.dirty_lo.copy(),
-                  "dirty_hi": self.dirty_hi.copy()}
+        ``RegionDirectory.state_arrays`` format.
+
+        Every array is worker-major (first dim ``W``), so ``rows`` (a
+        slice) restricts the payload to a shard's worker slice: the
+        planes are sliced on their device before the copy to the host,
+        so only those rows come back.  ``meta`` still records the full
+        ``W``."""
+        sl = slice(None) if rows is None else rows
+        arrays = {"base": self.base[sl].copy(),
+                  "length": self.length[sl].copy(),
+                  "shift": self.shift[sl].copy(),
+                  "valid": self.valid[sl].cpu().numpy().copy(),
+                  "dirty": self.dirty[sl].cpu().numpy().copy(),
+                  "dirty_lo": self.dirty_lo[sl].copy(),
+                  "dirty_hi": self.dirty_hi[sl].copy()}
+        # the race planes are the halves of one (2, W, cap) tensor:
+        # race_w and race_r slice dim 1 of it
         for name in ("wprot", "touch", "incache", "span_lo", "span_hi",
                      "race_w", "race_r"):
             plane = getattr(self, name)
             if plane is not None:
-                arrays[name] = plane.cpu().numpy().copy()
+                arrays[name] = plane[sl].cpu().numpy().copy()
         if self._race is not None:
-            arrays["race_maxw"] = self.race_maxw.copy()
-            arrays["race_maxr"] = self.race_maxr.copy()
+            arrays["race_maxw"] = self.race_maxw[sl].copy()
+            arrays["race_maxr"] = self.race_maxr[sl].copy()
         meta = {"W": self.W, "region": self.region,
                 "page_lo": self.page_lo, "page_hi": self.page_hi,
                 "cap": self.cap, "maybe_dirty": bool(self.maybe_dirty),

@@ -69,6 +69,7 @@ from __future__ import annotations
 
 import bisect
 import dataclasses
+import re
 from collections import deque
 from typing import Dict, List, Optional, Tuple
 
@@ -2764,7 +2765,8 @@ class RegCScaleRuntime:
     # barrier-consistent checkpoints (ft/coherence.py)
     # ------------------------------------------------------------------
 
-    def snapshot(self) -> Tuple[dict, dict]:
+    def snapshot(self, rows: Optional[Tuple[int, int]] = None
+                 ) -> Tuple[dict, dict]:
         """The complete runtime state as (arrays, meta), in the reference's
         ``snapshot()`` format: the same array names and dtypes, the same
         meta keys, the tier named in the reference's vocabulary
@@ -2779,7 +2781,17 @@ class RegCScaleRuntime:
         chaos/straggler counters are the entire protocol state, and
         :meth:`from_snapshot` rebuilds a runtime whose every later event
         is bit-identical to this one's.  ``arrays`` holds numpy arrays
-        only; ``meta`` is JSON-serializable."""
+        only; ``meta`` is JSON-serializable.
+
+        ``rows=(w_lo, w_hi)`` restricts the worker-major payload to one
+        shard's contiguous worker slice (directory plane rows, sliced on
+        the device before the copy back, clocks, LRU queues, lock
+        ``seen`` vectors, per-worker chaos/straggler counters); the
+        worker-independent state (lock logs, reduction results, global
+        counters) is carried whole by every slice, and
+        :meth:`compose_snapshots` reassembles the slices, checking that
+        the replicated globals agree bit for bit.  A slice records
+        ``meta["slice"]`` and cannot be restored directly."""
         if any(self.spans):
             raise RuntimeError("snapshot inside an open span")
         if self._reductions:
@@ -2806,11 +2818,17 @@ class RegCScaleRuntime:
         red_names = sorted(self._reduction_results)
         arrays["red_vals"] = np.array(
             [self._reduction_results[k] for k in red_names], np.float64)
+        if rows is not None:
+            w_lo, w_hi = int(rows[0]), int(rows[1])
+            if not 0 <= w_lo < w_hi <= self.W:
+                raise ValueError(f"snapshot rows {rows} outside [0, {self.W})")
+        dir_rows = None if rows is None else slice(w_lo, w_hi)
+        dir_arrays: Dict[str, np.ndarray] = {}
         dir_metas = []
         for r, d in enumerate(self.dirs):
-            darr, dmeta = d.state_arrays()
+            darr, dmeta = d.state_arrays(rows=dir_rows)
             for k, v in darr.items():
-                arrays[f"d{r:05d}_{k}"] = v
+                dir_arrays[f"d{r:05d}_{k}"] = v
             dir_metas.append(dict(dmeta, backend=_REF_BACKEND[d.backend]))
         lock_metas = []
         for j, (lid, lk) in enumerate(sorted(self.locks.items())):
@@ -2868,6 +2886,11 @@ class RegCScaleRuntime:
             "straggler": (None if self.straggler is None
                           else self.straggler.config()),
         }
+        if rows is not None:
+            # the directory planes came back already sliced
+            arrays = _slice_snapshot_arrays(arrays, w_lo, w_hi)
+            meta["slice"] = [w_lo, w_hi]
+        arrays.update(dir_arrays)
         return arrays, meta
 
     @classmethod
@@ -2885,9 +2908,8 @@ class RegCScaleRuntime:
         from repro_torch.dsm.costmodel import ChaosNet
         from repro_torch.ft.runtime import StragglerMonitor
         if meta.get("slice") is not None:
-            raise ValueError("from_snapshot: a shard-slice snapshot must be "
-                             "composed first (not ported yet: the cluster "
-                             "slice)")
+            raise ValueError("from_snapshot: a partial (shard-slice) "
+                             "snapshot; compose_snapshots first")
         cfg = meta["config"]
         if backend is None:
             backend = _OUR_BACKEND.get(cfg["backend"], cfg["backend"])
@@ -2975,9 +2997,103 @@ class RegCScaleRuntime:
                 meta["red_names"], np.asarray(arrays["red_vals"], np.float64))}
         return rt
 
+    @classmethod
+    def compose_snapshots(cls, parts) -> Tuple[dict, dict]:
+        """Reassemble shard-slice snapshots (``snapshot(rows=...)`` output
+        of either package, in any order) into one full (arrays, meta)
+        that :meth:`from_snapshot` restores.
+
+        The slices must tile ``[0, W)`` exactly.  Worker-major arrays are
+        concatenated in slice order; the replicated globals (lock logs,
+        reduction results, global chaos/straggler counters, traffic,
+        stats, configs) must agree bit for bit across every slice: a
+        mismatch means the shard replicas diverged, which the cluster
+        treats as a protocol error, not a fault to recover from.  Slices
+        that do not tile, or that disagree, raise ``ValueError``."""
+        parts = sorted(parts, key=lambda p: p[1]["slice"][0])
+        if not parts:
+            raise ValueError("compose_snapshots of nothing")
+        metas = [m for _a, m in parts]
+        W = int(metas[0]["config"]["n_workers"])
+        want = 0
+        for lo, hi in (tuple(m["slice"]) for m in metas):
+            if lo != want:
+                raise ValueError(f"slices do not tile: gap before {lo}")
+            want = hi
+        if want != W:
+            raise ValueError(f"slices cover [0, {want}) of {W} workers")
+        ref_meta = {k: v for k, v in metas[0].items() if k != "slice"}
+        keys = set(parts[0][0])
+        for a, m in parts[1:]:
+            if {k: v for k, v in m.items() if k != "slice"} != ref_meta:
+                raise ValueError("shard snapshot metas diverged")
+            if set(a) != keys:
+                raise ValueError("shard snapshot keys diverged")
+        out: Dict[str, np.ndarray] = {}
+        for k in keys:
+            vals = [a[k] for a, _m in parts]
+            if _snapshot_key_kind(k) != "global":
+                out[k] = np.concatenate(vals, axis=0)
+                continue
+            for v in vals[1:]:
+                if v.dtype != vals[0].dtype or not np.array_equal(v, vals[0]):
+                    raise ValueError(f"replicated snapshot key {k!r} "
+                                     "diverged across shards")
+            out[k] = vals[0].copy()
+        return out, ref_meta
+
     def gas_for_region(self, region: int, n_elems: int) -> GasArray:
         """Handle for an allocation that already exists in the directory
         (the restore-side replacement for ``alloc``: snapshots persist
         regions, not the caller's handles)."""
         return GasArray(self._region_starts[region], n_elems,
                         self.page_words)
+
+
+# ---------------------------------------------------------------------------
+# shard-slice snapshot plumbing (repro_torch.cluster).  Snapshot keys fall
+# into three kinds:
+#   rows   - worker-major, first dim W: sliced per shard, concatenated
+#            back in slice order by compose_snapshots
+#   flat   - variable-length per-worker payloads stored as (flat, counts)
+#            pairs: sliced by the counts' prefix sums, concatenated back
+#   global - worker-independent replicated state (lock logs, reduction
+#            results, global chaos/straggler totals): carried whole by
+#            every slice, checked bit-equal on compose
+# ---------------------------------------------------------------------------
+
+_SNAP_ROW_KEYS = frozenset({
+    "clock", "bar_clock0", "resident", "q_degraded",
+    "lru_counts", "dirty_region_counts", "race_vc",
+    "chaos_msg_seq", "strag_hist_counts", "strag_streak"})
+_SNAP_FLAT_COUNTS = {"lru_entries": "lru_counts",
+                     "dirty_region_flat": "dirty_region_counts",
+                     "strag_hist": "strag_hist_counts"}
+_SNAP_DIR_RE = re.compile(r"^d\d{5}_")       # directory planes: all (W, ...)
+# per-worker lock state: version seen + (detect_races) lock vector clock
+_SNAP_SEEN_RE = re.compile(r"^lk\d{5}_(seen|vc)$")
+
+
+def _snapshot_key_kind(key: str) -> str:
+    if key in _SNAP_ROW_KEYS or _SNAP_DIR_RE.match(key) \
+            or _SNAP_SEEN_RE.match(key):
+        return "rows"
+    if key in _SNAP_FLAT_COUNTS:
+        return "flat"
+    return "global"
+
+
+def _slice_snapshot_arrays(arrays: Dict[str, np.ndarray], w_lo: int,
+                           w_hi: int) -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    for k, v in arrays.items():
+        kind = _snapshot_key_kind(k)
+        if kind == "rows":
+            out[k] = v[w_lo:w_hi].copy()
+        elif kind == "flat":
+            counts = np.asarray(arrays[_SNAP_FLAT_COUNTS[k]], np.int64)
+            off = np.concatenate([[0], np.cumsum(counts)])
+            out[k] = v[int(off[w_lo]):int(off[w_hi])].copy()
+        else:
+            out[k] = v.copy()
+    return out

@@ -19,6 +19,8 @@ function of each worker's own event counters, which the checkpoint
 holds, so the replayed suffix meets the same drops and retry charges as
 the uninjected run.  Snapshots use the reference package's format, so a
 checkpoint either package wrote restores in the other.
+``ClusterChaosHarness`` holds the sharded multi-process runtime
+(``repro_torch.cluster``) to the same bar under process faults.
 """
 from __future__ import annotations
 
@@ -134,6 +136,48 @@ class ChaosHarness:
                 rep.n_checkpoints += 1
                 last_ckpt = i
         return rt, rep
+
+
+class ClusterChaosHarness:
+    """:class:`ChaosHarness`'s process-level sibling: run a trace program
+    on the sharded multi-process runtime (``repro_torch.cluster``) under
+    *process* faults (SIGKILL and one-directional link partitions from
+    ``FailureInjector.cluster_at``) with the same contract: recover
+    through the last barrier checkpoint and finish traffic field for
+    field and clock bit-equal to the unfailed single-process run.  The
+    control plane performs detection, quarantine and re-sharding itself;
+    this wrapper gives the construct-run-report shape and keeps
+    ``repro_torch.cluster`` a lazy import."""
+
+    def __init__(self, cfg: dict, gas_words: Sequence[int], driver: str,
+                 root, apply_ref: "tuple[str, str]", *, n_shards: int,
+                 injector=None, recovery: str = "respawn",
+                 rpc_timeout_s: float = 0.25, rpc_attempts: int = 4):
+        self.cfg = dict(cfg)
+        self.gas_words = list(gas_words)
+        self.driver = driver
+        self.root = root
+        self.apply_ref = tuple(apply_ref)
+        self.n_shards = int(n_shards)
+        self.injector = injector
+        self.recovery = recovery
+        self.rpc_timeout_s = float(rpc_timeout_s)
+        self.rpc_attempts = int(rpc_attempts)
+
+    def run(self, prog):
+        """Returns ``(ClusterResult, ClusterReport, digests)`` where
+        ``digests`` maps event index -> the digest every shard agreed
+        on (the lockstep trace a single-process run must reproduce)."""
+        from repro_torch.cluster.control import ClusterRuntime
+        with ClusterRuntime(self.cfg, self.gas_words,
+                            n_shards=self.n_shards, driver=self.driver,
+                            apply_ref=self.apply_ref, root=self.root,
+                            recovery=self.recovery,
+                            injector=self.injector,
+                            rpc_timeout_s=self.rpc_timeout_s,
+                            rpc_attempts=self.rpc_attempts) as cluster:
+            result = cluster.run(prog)
+            return result, result.report, dict(cluster.digests)
 
 
 def run_uninjected(make_rt: Callable[[], RegCScaleRuntime],

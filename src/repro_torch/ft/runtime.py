@@ -42,7 +42,7 @@ class FailureInjector:
     exactly once, preserving the pre-targeting behavior.
 
     ``cluster_at`` carries *process-level* faults for the sharded runtime
-    (``repro.cluster``): ``(kind, step, rank)`` entries where kind is
+    (``repro_torch.cluster``): ``(kind, step, rank)`` entries where kind is
     ``"kill"`` (SIGKILL the shard process), ``"partition_c2s"`` (drop the
     control->shard link direction) or ``"partition_s2c"`` (drop the
     shard->control direction).  These do not raise — the control plane

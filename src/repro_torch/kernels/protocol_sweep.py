@@ -97,6 +97,12 @@ def reset_launches():
     ROWMASK_LAUNCHES["phase_step"] = 0
 
 
+def load():
+    """Build the library if need be and bind its entries now, rather than
+    at the first launch (a cluster shard does this at its init)."""
+    _KERNELS.entry("phase_step")
+
+
 # phase_step's two uint32 counters (candidate slots, finished blocks) for
 # each (card, stream), zero between launches: the kernel's last block
 # resets them, and the wrapper zeroes them when a launch is refused.

@@ -839,3 +839,111 @@ def test_cuda_chaos_recovery_matches_cpu(dev, seed, tmp_path):
                                injector=inj).run(prog)
         assert rep.n_crashes == 2 and rt.device.type == "cuda"
         assert_bit_equal(rt, base, (seed, d))
+
+
+def _cluster_program(seed):
+    """A ``cluster_trace_params`` span program with spill (its params and
+    program, as the cluster suites draw them)."""
+    p = trace_fuzz.cluster_trace_params(seed)
+    prog = trace_fuzz.gen_span_program(p["rng"], p["W"], p["n_words"],
+                                       p["page_words"], p["cache_pages"],
+                                       n_phases=4)
+    cfg = dict(n_workers=p["W"], page_words=p["page_words"],
+               protocol=p["proto"], cache_pages=p["cache_pages"],
+               backend="fused", chaos=dict(seed=seed, drop_rate=0.1),
+               straggler=dict(n_workers=p["W"], window=4, k=4.0,
+                              abs_floor_s=1e-4, patience=1))
+    return cfg, prog, p["n_words"]
+
+
+def test_cuda_cluster_matches_single_process(dev, tmp_path):
+    """A 2-shard cluster on the card (slice G), with a SIGKILL and a
+    reply partition recovered by respawn, finishes bit-equal to a
+    single-process run on the card and in lockstep with its digests;
+    every shard runs on the card and launches the fused flush."""
+    from repro_torch.cluster import ClusterRuntime, make_runtime as shard_rt
+    from repro_torch.cluster import state_digest
+    from repro_torch.ft import FailureInjector, assert_bit_equal
+    from repro_torch.ft.coherence import harness_ticks
+    cfg, prog, n = _cluster_program(1)
+    base = shard_rt(cfg)
+    assert base.device.type == "cuda"
+    gas = [base.alloc(n), base.alloc(n)]
+    digests = {}
+    for i, ev in enumerate(prog):
+        if harness_ticks(ev, "batched"):
+            base.chaos_tick()
+        trace_fuzz.apply_event(base, ev, gas, "batched")
+        digests[i] = state_digest(base)
+    inj = FailureInjector(cluster_at=[("kill", 4, 1),
+                                      ("partition_s2c", len(prog) - 2, 0)])
+    with ClusterRuntime(cfg, [n, n], n_shards=2, driver="batched",
+                        apply_ref=("trace_fuzz", "apply_event"),
+                        root=tmp_path, injector=inj, rpc_timeout_s=1.5,
+                        rpc_attempts=3) as cl:
+        res = cl.run(prog)
+        got = dict(cl.digests)
+    assert_bit_equal(res, base, "cluster on the card")
+    assert got == digests
+    c = res.report.counters()
+    assert (c["rec_kills"], c["rec_partitions"], c["rec_detections"],
+            c["rec_respawns"]) == (1, 1, 2, 2), c
+    assert res.devices == {0: "cuda", 1: "cuda"}
+    assert res.stats["fused_dispatches"] == base.stats["fused_dispatches"]
+    assert res.launches["phase_step"] > 0 and not res.launches["pack_rows"]
+
+
+@pytest.mark.parametrize("seed", (0, 1, 4))
+def test_cuda_snapshot_slices_match_cpu(dev, seed):
+    """``snapshot(rows=)`` on the card (planes sliced on the device)
+    equals the CPU's arrays, name, dtype and value."""
+    for detect in (False, True):
+        cfg, prog, n = _cluster_program(seed)
+        cfg["detect_races"] = detect
+        rts = {}
+        for d in ("cpu", "cuda"):
+            rt = make_runtime(cfg["n_workers"], page_words=cfg["page_words"],
+                              protocol=cfg["protocol"],
+                              cache_pages=cfg["cache_pages"],
+                              backend="fused", detect_races=detect, device=d)
+            gas = [rt.alloc(n), rt.alloc(n)]
+            for ev in prog:
+                trace_fuzz.apply_event(rt, ev, gas, "batched")
+            rts[d] = rt
+        W = cfg["n_workers"]
+        for rows in ((0, W // 2), (W // 2, W), (1, W - 1)):
+            a, m = rts["cuda"].snapshot(rows=rows)
+            b, mb = rts["cpu"].snapshot(rows=rows)
+            assert m == mb
+            assert set(a) == set(b)
+            for k in a:
+                assert a[k].dtype == b[k].dtype, k
+                np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+def test_cuda_composed_checkpoint_restores_on_cpu(dev):
+    """Slices taken on the card, composed, restore on the CPU; the
+    restored runtime and the card's own finish the trace bit-equal."""
+    from repro_torch.core import RegCScaleRuntime
+    from repro_torch.ft import assert_bit_equal
+    cfg, prog, n = _cluster_program(4)
+    rt = make_runtime(cfg["n_workers"], page_words=cfg["page_words"],
+                      protocol=cfg["protocol"], cache_pages=cfg["cache_pages"],
+                      backend="fused", device=dev)
+    gas = [rt.alloc(n), rt.alloc(n)]
+    cut = max(i for i, ev in enumerate(prog) if ev[0] == "barrier"
+              and i < len(prog) - 1) + 1
+    for ev in prog[:cut]:
+        trace_fuzz.apply_event(rt, ev, gas, "batched")
+    W = cfg["n_workers"]
+    bounds = np.linspace(0, W, 3).astype(int)
+    arrays, meta = RegCScaleRuntime.compose_snapshots(
+        [rt.snapshot(rows=(int(lo), int(hi)))
+         for lo, hi in zip(bounds[:-1], bounds[1:])])
+    on_cpu = RegCScaleRuntime.from_snapshot(arrays, meta, device="cpu")
+    assert on_cpu.device.type == "cpu" and on_cpu.backend == "fused"
+    for run in (rt, on_cpu):
+        g = [run.gas_for_region(r, n) for r in range(2)]
+        for ev in prog[cut:]:
+            trace_fuzz.apply_event(run, ev, g, "batched")
+    assert_bit_equal(on_cpu, rt, "card slices -> cpu")

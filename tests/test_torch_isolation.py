@@ -4,7 +4,8 @@
   ``rank_select_probe.py``, imports ``jax`` or anything of ``repro``
   (AST scan);
 * ``repro_torch`` imports and runs a small CPU trace in a process where
-  ``import jax`` fails;
+  ``import jax`` fails, and there ``repro_torch.cluster`` imports and
+  composes the trace's two shard slices into a snapshot that restores;
 * entry points run on the card by default and raise without one;
 * the knobs of ported slices (race detection and the recovery hooks
   among them, and the reference engine) build a runtime, and the
@@ -59,6 +60,12 @@ def test_port_runs_without_jax(tmp_path):
         "rt = make_runtime(4, protocol='page', device='cpu')\n"
         "apps.jacobi(rt, 32, 2, mode='lock')\n"
         "assert rt.traffic.page_fetches > 0 and rt.time > 0\n"
+        "from repro_torch.cluster import ClusterRuntime, state_digest\n"
+        "from repro_torch.core import RegCScaleRuntime\n"
+        "full = RegCScaleRuntime.compose_snapshots(\n"
+        "    [rt.snapshot(rows=(0, 1)), rt.snapshot(rows=(1, 4))])\n"
+        "again = RegCScaleRuntime.from_snapshot(*full, device='cpu')\n"
+        "assert state_digest(again) == state_digest(rt)\n"
         "assert 'jax' not in [m for m in sys.modules if sys.modules[m]]\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -145,10 +145,11 @@ def test_snapshot_handoff_finishes_bit_equal(seed):
 
 
 def test_snapshot_outside_the_slice_is_refused():
-    """State of paths the port does not run yet is refused by name: a
-    shard slice of a snapshot (the cluster slice).  Race-detection state
-    carries over (more in ``test_torch_race.py``), as does eviction
-    state (``test_torch_evict.py``)."""
+    """A raw shard slice of a snapshot (``snapshot(rows=)``) is refused,
+    as the reference refuses it; the snapshot ``compose_snapshots``
+    builds from the slices restores (``test_torch_cluster.py``).
+    Race-detection state carries over (more in ``test_torch_race.py``),
+    as does eviction state (``test_torch_evict.py``)."""
     rt = RefRuntime(3, page_words=16, detect_races=True)
     ga = rt.alloc(200)
     rt.phase_all(reads=[(ga, np.zeros(3, np.int64),
