@@ -38,8 +38,9 @@ Phases, in order; any mismatch or exception exits non-zero:
    NaN-payload, equal-NaN and denormal words and mask bytes of -1 and 2
    (compared on their bits); the model kernels flash_attention (at the
    internlm2-1.8b prefill shape in float32 and bfloat16, a ragged S, a
-   window with a softcap, MQA and the reduced shape; 2e-5 in float32,
-   rtol 8e-3 / atol 2e-3 in bfloat16) and
+   window with a softcap, MQA, the reduced shape, and the prefill shapes
+   of moonshot-v1-16b-a3b, qwen2-vl-72b and musicgen-medium at B=4,
+   S=511; 2e-5 in float32, rtol 8e-3 / atol 2e-3 in bfloat16) and
    ssd_chunk (at the mamba2-2.7b prefill shape with grouped and per-cell
    B/C rows, in bfloat16, reduced and ragged; 1e-4).  Prints, after
    the rank-select phase (5a), each kernel's median time (CUDA events;
@@ -177,17 +178,31 @@ Phases, in order; any mismatch or exception exits non-zero:
    fig7_md_spill and of the reference engine's W=256 Jacobi with
    values, each from a separate torch.profiler run; the lock point may
    issue at most twice the reduction point's device activities;
-8. model phase (slice M): internlm2-1.8b and then mamba2-2.7b at full
-   width and depth, float32 weights drawn on the card from seed 0, serve
-   8 requests (the reference server's, prompts up to 511 tokens, 16 new
-   tokens) in waves of 4 through ``launch.serve.serve``; flash_attention
-   must launch 24 x 2 times and ssd_chunk 64 x 2, decode neither; logits
-   finite, tokens in range; prints prefill and per-token decode walls,
+8. model phase (slices M and H): one model resident at a time, float32
+   weights drawn on the card from seed 0, serves 8 requests (the
+   reference server's, prompts up to 511 tokens, 16 new tokens) in waves
+   of 4: internlm2-1.8b, mamba2-2.7b and musicgen-medium at full width and
+   depth, moonshot-v1-16b-a3b (MoE, 64 experts, top-6) at full width with
+   depth cut to 24 of 48 layers and qwen2-vl-72b (M-RoPE) at full width
+   with depth cut to 8 of 80 (the cuts keep the float32 weights on the
+   card: 57.5 and 38 GB); token models through ``launch.serve.serve``,
+   the ``embeds`` models (musicgen, qwen2-vl) through ``generate`` on
+   N(0, 1) prompt embeddings, qwen2-vl's with (3, B, S) positions of
+   text then an image grid.  flash_attention must launch once per
+   attention layer per wave (24, 24, 48, 8 x 2) and ssd_chunk once per
+   SSD layer (64 x 2), decode neither; logits finite, tokens in range
+   and the served ones; prints prefill and per-token decode walls,
    tokens/s, peak device memory and a traced wave's device time by
    kernel (the eight largest, and the port's own kernels whatever their
    rank).  Then each model with depth cut to 2 layers (the only cut)
-   against the same weights and requests on the CPU: greedy tokens and
-   teacher-forced logits equal within 1e-3.
+   against the same weights on the CPU: MoE routes equal but for near
+   ties within 1e-4 of router probability (counted; outputs after a
+   route difference in a row not compared), teacher-forced logits within
+   1e-3 and greedy tokens equal but for near ties.  grok-1-314b and
+   jamba-1.5-large-398b (MoE beside SSD layers), which no card holds at
+   full width, run reduced: the same serve run and checks on the card
+   (flash_attention 1 x 2, ssd_chunk 7 x 2 for jamba), then all layers
+   against the CPU.
 
 TF32 is off for every float comparison (printed at the start).  The
 launch counters are set to 0 just before each of the path phases (the
@@ -227,6 +242,12 @@ SOURCES = {"protocol_sweep": "src/repro_torch/kernels/csrc/protocol_sweep.cu",
            "page_diff": "src/repro_torch/kernels/csrc/page_diff.cu",
            "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
            "ssd_chunk": "src/repro_torch/kernels/csrc/ssd_chunk.cu"}
+# flash_attention's prefill shapes (B, Hq, Hkv, S, D) of the MoE, M-RoPE
+# and embeds models the model phase serves: B = 4 requests a wave, S = 511
+# the longest prompt the server makes
+FLASH_MODEL_SHAPES = (("moonshot-v1-16b-a3b", (4, 16, 16, 511, 128)),
+                      ("qwen2-vl-72b", (4, 64, 8, 511, 128)),
+                      ("musicgen-medium", (4, 24, 24, 511, 64)))
 TPU_KERNELS = {
     "pack_rows": "src/repro/kernels/protocol_sweep.py:134",
     "popcount_rows": "src/repro/kernels/protocol_sweep.py:232",
@@ -779,7 +800,7 @@ def report_kernels(results):
         for shape in [r] + [r[k] for k in ("lru", "batched", "bf16",
                                            "per_cell", "unaligned",
                                            "stacked")
-                            if k in r]:
+                            if k in r] + r.get("models", []):
             t_bytes = shape["bytes"] / HBM_BYTES_PER_S * 1e3
             peak = shape.get("flops_per_s", F32_FLOPS_PER_S)
             t_ops = shape.get("flops", 0) / peak * 1e3
@@ -1255,8 +1276,10 @@ def model_kernel_phase(torch, np, dev):
     (D=16, window 16, softcap 30); SSD at the mamba2-2.7b shape (M=640
     cells = 4 rows x 2 chunks x 80 heads, Q=256, P=64, N=128) with one B/C
     row per 80 heads as the model passes it, the same per cell, in
-    bfloat16, and at the reduced Q=32, P=16, N=16.  Timed at the first
-    shapes (and in bfloat16, and per cell); the library yardstick of
+    bfloat16, and at the reduced Q=32, P=16, N=16; attention also at the
+    prefill shapes of the MoE, M-RoPE and embeds models
+    (``FLASH_MODEL_SHAPES``).  Timed at the first shapes (and in
+    bfloat16, per cell, and at each model shape); the library yardstick of
     attention is scaled_dot_product_attention (timed, used nowhere in the
     port); SSD has none."""
     from repro_torch.kernels import flash_attention as fa
@@ -1271,6 +1294,8 @@ def model_kernel_phase(torch, np, dev):
              ("MQA", (4, 16, 1, 512, 128), f32, {}),
              ("reduced D=16", (4, 4, 2, 40, 16), f32,
               {"window": 16, "softcap": 30.0})]
+    cases += [(f"{arch} prefill", shape, f32, {})
+              for arch, shape in FLASH_MODEL_SHAPES]
     errs, timed = [], {}
     for label, (B, Hq, Hkv, S, D), dtype, kw in cases:
         q, k, v = flash_inputs(torch, np, rng, B, Hq, Hkv, S, D, dtype, dev)
@@ -1291,11 +1316,14 @@ def model_kernel_phase(torch, np, dev):
                      "atol": atol})
         if label.startswith("internlm2 prefill"):
             timed[dtype] = (q, k, v)
+        elif label.endswith(" prefill"):
+            timed[label] = (q, k, v)
     out = {}
-    for dtype, (q, k, v) in timed.items():
+    for key, (q, k, v) in timed.items():
+        dtype = q.dtype
         B, Hq, S, D = q.shape
         flops, nbytes = flash_work(B, Hq, S, D, q.element_size(), k.shape[1])
-        out[dtype] = dict(
+        out[key] = dict(
             shape=[B, Hq, k.shape[1], S, D, str(dtype)],
             ms=timed_ms(torch, lambda: fa.flash_attention(q, k, v), 20),
             plain_ms=timed_ms(torch, lambda: fa.flash_attention_plain(
@@ -1309,8 +1337,9 @@ def model_kernel_phase(torch, np, dev):
                 else TF32_SPLIT_FLOPS_PER_S))
     results = {"flash_attention": dict(
         err=max(e["max_abs_err"] for e in errs), cases=errs,
-        library="scaled_dot_product_attention", bf16=out[bf16],
-        **out[f32])}
+        library="scaled_dot_product_attention", bf16=out.pop(bf16),
+        models=[dict(out[f"{arch} prefill"], case=f"{arch} prefill")
+                for arch, _ in FLASH_MODEL_SHAPES], **out.pop(f32))}
 
     cases = [("mamba2 prefill, grouped B/C", (640, 256, 64, 128, 80), f32),
              ("mamba2 prefill, per-cell B/C", (640, 256, 64, 128, 1), f32),
@@ -1355,42 +1384,287 @@ def model_kernel_phase(torch, np, dev):
 # ---------------------------------------------------------------------------
 
 
-def step_logits(torch, cfg, params, wave, forced, device):
+def compare_routes(torch, got, want, first, p0, margin):
+    """Hold one forward pass's MoE routing ``got`` against ``want``: lists
+    of ``models.layers.ROUTES`` entries, one per MoE layer in order, over
+    B rows of S tokens at positions p0.. (S = T // B, B = len(first)).
+
+    ``first`` (a list, updated in place) holds each row's first position
+    whose outputs may differ between the two runs: a token whose route
+    differs changes its own output and, through attention or the SSD
+    state, every later position of its row in the later layers.  A token
+    before it (clean) must route the same (the same top-k set) unless it
+    is a near tie, the K-th and (K+1)-th of ``want``'s probabilities
+    within ``margin`` (a difference of the float32 sums on the two sides
+    then picks either); and must keep the same choices (not dropped at
+    capacity) unless some token of the layer routed differently (it shifts
+    the stable order behind it).  A route or kept-set difference taints
+    its row from its position on.  Raises ``AssertionError`` otherwise.
+    Returns counts: ``near_ties`` (clean tokens routed differently),
+    ``downstream`` (tainted tokens routed differently), ``dropped_differ``
+    (clean tokens kept differently), ``max_prob_err`` (of clean tokens
+    routed the same) and ``max_tie_gap``."""
+    if len(got) != len(want):
+        raise AssertionError(f"{len(got)} MoE calls against {len(want)}")
+    B = len(first)
+    out = dict(near_ties=0, downstream=0, dropped_differ=0,
+               max_prob_err=0.0, max_tie_gap=0.0)
+    for layer, (g, w) in enumerate(zip(got, want)):
+        ge, we = g["top_e"].cpu().long(), w["top_e"].cpu().long()
+        T, K = we.shape
+        S = T // B
+        pos = p0 + torch.arange(S)
+        clean = (pos[None, :] < torch.as_tensor(first)[:, None]).reshape(T)
+        diff = (ge.sort(-1).values != we.sort(-1).values).any(-1)
+        wp = w["probs"].cpu().float()
+        E = wp.shape[-1]
+        top = wp.topk(min(K + 1, E), dim=-1).values
+        gap = (top[:, K - 1] - top[:, K] if K < E
+               else torch.full((T,), float("inf")))
+        bad = diff & clean & (gap > margin)
+        if bad.any():
+            t = int(bad.nonzero()[0])
+            raise AssertionError(
+                f"MoE layer {layer}: token {t} (row {t // S}, position "
+                f"{p0 + t % S}) routes to {ge[t].tolist()} against "
+                f"{we[t].tolist()} with a gap of {float(gap[t]):.3e} between "
+                f"its K-th and (K+1)-th probabilities (margin {margin})")
+        tied = diff & clean
+        out["near_ties"] += int(tied.sum())
+        out["downstream"] += int((diff & ~clean).sum())
+        if tied.any():
+            out["max_tie_gap"] = max(out["max_tie_gap"],
+                                     float(gap[tied].max()))
+        same = clean & ~diff
+        if same.any():
+            out["max_prob_err"] = max(out["max_prob_err"], float(
+                (g["probs"].cpu().float() - wp)[same].abs().max()))
+        gk = torch.where(g["keep"].cpu(), ge, -1).sort(-1).values
+        wk = torch.where(w["keep"].cpu(), we, -1).sort(-1).values
+        kdiff = (gk != wk).any(-1) & ~diff
+        if (kdiff & clean).any() and not diff.any():
+            raise AssertionError(f"MoE layer {layer}: tokens "
+                                 f"{(kdiff & clean).nonzero()[:, 0].tolist()}"
+                                 " kept other choices with no route "
+                                 "difference in the layer")
+        out["dropped_differ"] += int((kdiff & clean).sum())
+        src = (diff | kdiff).reshape(B, S)
+        for b in range(B):
+            hit = src[b].nonzero()
+            if len(hit):
+                first[b] = min(first[b], p0 + int(hit[0]))
+    return out
+
+
+# the model phase's full-width runs: (arch, depth, the CPU twin's depth);
+# depth None is the config's own.  moonshot-v1-16b-a3b keeps 24 of its 48
+# layers and qwen2-vl-72b 8 of its 80 (float32 at full depth, 112 GB and
+# 291 GB, would not fit the card's 80 GB); widths are the published ones
+MODEL_RUNS = (("internlm2-1.8b", None, 2), ("mamba2-2.7b", None, 2),
+              ("moonshot-v1-16b-a3b", 24, 2), ("qwen2-vl-72b", 8, 2),
+              ("musicgen-medium", None, 2))
+# archs that fit no card at full width (a jamba super-block alone holds four
+# MoE layers of 9.66 B parameters): their reduced configs, card against CPU
+REDUCED_RUNS = ("grok-1-314b", "jamba-1.5-large-398b")
+# near-tie margin of MoE routing between the card and the CPU (router
+# probabilities; compare_routes), and the logits' tolerance
+ROUTE_MARGIN = 1e-4
+TWIN_TOL = 1e-3
+
+
+def mrope_positions(np, B, S):
+    """(3, B, S) int32 M-RoPE positions of a prompt that holds an image:
+    4 text positions, the same on the temporal, height and width axes,
+    then the image's patches row by row on a grid 8 wide, the temporal
+    axis held at 4 and the height and width axes counting rows and
+    columns from it, as Qwen2-VL numbers them.  With distinct axes each
+    section of the rotary frequencies turns by its own position (equal
+    axes would make M-RoPE plain RoPE)."""
+    n = min(S, 4)
+    i = np.arange(S - n)
+    t = np.r_[np.arange(n), np.full(i.size, n)]
+    h = np.r_[np.arange(n), n + i // 8]
+    w = np.r_[np.arange(n), n + i % 8]
+    grid = np.stack([t, h, w]).astype(np.int32)[:, None]
+    return np.broadcast_to(grid, (3, B, S)).copy()
+
+
+def prompt_of(np, cfg, toks, rng):
+    """The prompt batch of a (B, S) token wave: the tokens, or in an
+    ``embeds`` config N(0, 1) float32 embeddings of its shape drawn from
+    ``rng`` (as tests/test_system.py draws them); under M-RoPE also
+    ``mrope_positions``, text then an image grid."""
+    B, S = toks.shape
+    if cfg.input_mode == "embeds":
+        p = {"embeds": rng.standard_normal((B, S, cfg.d_model),
+                                           dtype=np.float32)}
+    else:
+        p = {"tokens": toks}
+    if cfg.mrope:
+        p["positions"] = mrope_positions(np, B, S)
+    return p
+
+
+def model_prompts(np, cfg, requests, batch: int):
+    """Each wave's prompt batch (``prompt_of`` of ``launch.serve.waves``;
+    embeddings from numpy seed 0)."""
+    from repro_torch.launch.serve import waves
+    rng = np.random.default_rng(0)
+    return [prompt_of(np, cfg, toks, rng) for toks in waves(requests, batch)]
+
+
+def serve_model(torch, cfg, params, requests, prompts, batch, max_new):
+    """Serve a model's requests on the card: ``launch.serve.serve`` for a
+    token config, ``serve.decode.generate`` wave by wave on the prompt
+    embeddings for an ``embeds`` one (the server answers token prompts
+    only).  Returns each wave's tokens and walls, as ``serve``."""
+    from repro_torch.launch.serve import serve
+    from repro_torch.serve.decode import generate
+    if cfg.input_mode == "tokens":
+        return serve(cfg, params, requests, batch=batch, max_new=max_new,
+                     device="cuda")
+    tokens, walls = [], []
+    for prompt in prompts:
+        w = {"prompt_len": prompt["embeds"].shape[1]}
+        t0 = time.perf_counter()
+        out = generate(cfg, params, prompt, max_new_tokens=max_new,
+                       device="cuda", walls=w)
+        tokens.append(out.cpu().numpy())
+        w["wall_s"] = time.perf_counter() - t0
+        walls.append(w)
+    return tokens, walls
+
+
+def layer_counts(cfg) -> dict:
+    """Launches one prefill makes: flash_attention once per attention
+    layer, ssd_chunk once per SSD layer."""
+    kinds = [spec.kind for spec in cfg.pattern] * cfg.n_superblocks
+    return {"flash_attention": kinds.count("attn"),
+            "ssd_chunk": kinds.count("ssm")}
+
+
+def to_device(params, device):
+    return {k: ([{n: t.to(device) for n, t in b.items()} for b in v]
+                if k == "blocks" else v.to(device))
+            for k, v in params.items()}
+
+
+def step_logits(torch, cfg, params, prompt, forced, device, routes=None):
     """Every step's logits of one wave through the serving steps a user
-    calls (``make_prefill_step``, then ``make_serve_step``), the decode
-    fed the tokens ``forced`` (B, T) instead of its own argmax (teacher
-    forcing, so a near tie cannot change what follows): (T, B, V) float32
-    on the host.  Float32 caches, as ``generate``."""
-    from repro_torch.serve.decode import make_prefill_step, make_serve_step
-    toks = torch.as_tensor(wave, device=device)
-    S, T = toks.shape[1], forced.shape[1]
-    logits, caches = make_prefill_step(cfg, max_len=S + T,
-                                       cache_dtype=torch.float32)(
-        params, {"tokens": toks})
+    calls (``make_prefill_step``, then ``make_serve_step`` on the decode
+    batches ``generate`` builds), the decode fed the tokens ``forced``
+    (B, T) instead of its own argmax (teacher forcing, so a near tie
+    cannot change what follows): (T, B, V) float32 on the host.
+    ``prompt`` is a (B, S) token array or a prompt batch.  Float32
+    caches, as ``generate``.  ``routes``, when a list, receives each
+    pass's MoE routing (the pass's ``models.layers.ROUTES`` on the
+    host)."""
+    from repro_torch.models import layers
+    from repro_torch.serve.decode import (make_prefill_step,
+                                          make_serve_step, prompt_len,
+                                          step_batch)
+    if not isinstance(prompt, dict):
+        prompt = {"tokens": prompt}
+    batch = {k: torch.as_tensor(v, device=device) for k, v in prompt.items()}
+    S, T = prompt_len(batch), forced.shape[1]
+
+    def logged(fn, *args):
+        if routes is None:
+            return fn(*args)
+        layers.ROUTES = []
+        try:
+            out = fn(*args)
+            routes.append([{k: v.cpu() for k, v in r.items()}
+                           for r in layers.ROUTES])
+        finally:
+            layers.ROUTES = None
+        return out
+
+    logits, caches = logged(make_prefill_step(
+        cfg, max_len=S + T, cache_dtype=torch.float32), params, batch)
     out = [logits.cpu()]
     step = make_serve_step(cfg)
     f = torch.as_tensor(forced, device=device)
     for i in range(T - 1):
-        _, logits, caches = step(params, {"tokens": f[:, i:i + 1]}, caches,
-                                 S + i)
+        _, logits, caches = logged(step, params, step_batch(
+            cfg, params, f[:, i], S + i), caches, S + i)
         out.append(logits.cpu())
     return torch.stack(out)
 
 
-def trace_generate(torch, cfg, params, wave, max_new):
-    """One traced ``generate`` of ``wave`` on the card (outside the
-    counted serve run): its wall, the device busy share (the union of the
-    intervals of every device activity torch.profiler records) and the
-    device time by kernel name, largest first."""
+def twin_compare(torch, np, cfg, card_params, cpu_params, prompts, tokens,
+                 tol=TWIN_TOL, margin=ROUTE_MARGIN):
+    """The card against the CPU on the same parameters: each wave's step
+    logits on the card (their argmax the card's served ``tokens``) and on
+    the CPU (plain kernel versions), both teacher-forced with the card's
+    tokens.  MoE routing first, pass by pass (``compare_routes``): a
+    token may route differently only at a near tie (router probabilities'
+    K-th and (K+1)-th within ``margin``, ten times the largest probability
+    difference of the tokens that route the same, which this checks), and
+    the logits of a position at or after a route difference in its row
+    are not compared.  The rest: logits within ``tol`` (absolute and
+    relative), the CPU's greedy token the card's except where the CPU's
+    top two logits lie within ``tol`` (counted as near ties).  Returns
+    (the largest logit difference, near-tie tokens, route counts)."""
+    from repro_torch.serve.decode import prompt_len
+    err, ties = 0.0, 0
+    counts = dict(near_ties=0, downstream=0, dropped_differ=0,
+                  max_prob_err=0.0, max_tie_gap=0.0, skipped_logits=0)
+    for prompt, toks in zip(prompts, tokens):
+        card_routes, cpu_routes = [], []
+        card = step_logits(torch, cfg, card_params, prompt, toks, "cuda",
+                           card_routes)
+        if not np.array_equal(card.argmax(-1).T.numpy(), toks):
+            raise AssertionError(f"{cfg.name}: the serving steps' tokens "
+                                 "differ from the served ones")
+        cpu = step_logits(torch, cfg, cpu_params, prompt, toks, "cpu",
+                          cpu_routes)
+        B, S = toks.shape[0], prompt_len(prompt)
+        first = [1 << 62] * B
+        for i, (g, w) in enumerate(zip(card_routes, cpu_routes)):
+            c = compare_routes(torch, g, w, first, 0 if i == 0 else S + i - 1,
+                               margin)
+            for k, v in c.items():
+                counts[k] = (max(counts[k], v) if k.startswith("max")
+                             else counts[k] + v)
+        pos = S - 1 + torch.arange(card.shape[0])
+        clean = pos[:, None] < torch.as_tensor(first)[None, :]     # (T, B)
+        counts["skipped_logits"] += int((~clean).sum())
+        if clean.any():
+            err = max(err, float((card - cpu)[clean].abs().max()))
+        if not torch.allclose(card[clean], cpu[clean], rtol=tol, atol=tol):
+            raise AssertionError(f"{cfg.name}: card logits differ from the "
+                                 f"CPU's (max abs err {err}, tol {tol})")
+        top2 = cpu.topk(2, dim=-1).values
+        tied = (top2[..., 0] - top2[..., 1]) <= tol
+        differ = (cpu.argmax(-1) != torch.as_tensor(toks).T) & clean
+        if (differ & ~tied).any():
+            raise AssertionError(f"{cfg.name}: greedy tokens differ from the "
+                                 "CPU's away from a near tie")
+        ties += int(differ.sum())
+    if counts["max_prob_err"] > margin / 10:
+        raise AssertionError(f"{cfg.name}: router probabilities differ by "
+                             f"{counts['max_prob_err']:.3e} between the card "
+                             f"and the CPU, over a tenth of the near-tie "
+                             f"margin {margin}")
+    return err, ties, counts
+
+
+def trace_generate(torch, cfg, params, prompt, max_new):
+    """One traced ``generate`` of ``prompt`` (a wave's prompt batch) on
+    the card (outside the counted serve run): its wall, the device busy
+    share (the union of the intervals of every device activity
+    torch.profiler records) and the device time by kernel name, largest
+    first."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.serve.decode import generate
+    from repro_torch.serve.decode import generate, prompt_len
     walls = {}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        generate(cfg, params, {"tokens": torch.as_tensor(wave)},
-                 max_new_tokens=max_new, device="cuda", walls=walls)
+        generate(cfg, params, prompt, max_new_tokens=max_new,
+                 device="cuda", walls=walls)
         wall = time.perf_counter() - t0
     acts = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not acts:
@@ -1411,9 +1685,10 @@ def trace_generate(torch, cfg, params, wave, max_new):
     top += [(n, t) for n, t in by_name.items()
             if ("flash_kernel" in n or "ssd_chunk_kernel" in n)
             and (n, t) not in top]
-    print(f"trace {cfg.name} one wave (prompt {wave.shape[1]}, {max_new} "
-          f"tokens): traced wall {wall:.3f} s (prefill {walls['prefill_s']:.3f}"
-          f" s, decode {walls['decode_s']:.3f} s), device busy {busy:.3f} s, "
+    print(f"trace {cfg.name} one wave (prompt {prompt_len(prompt)}, "
+          f"{max_new} tokens): traced wall {wall:.3f} s (prefill "
+          f"{walls['prefill_s']:.3f} s, decode {walls['decode_s']:.3f} s), "
+          f"device busy {busy:.3f} s, "
           f"idle share {1 - busy / wall:.4f}, {len(acts)} device "
           "activities; device seconds by kernel: "
           + "; ".join(f"{n[:60]} {t:.4f}" for n, t in top), flush=True)
@@ -1423,43 +1698,50 @@ def trace_generate(torch, cfg, params, wave, max_new):
 
 
 def model_phase(torch, np):
-    """The model serving path (slice M) on the card.
+    """The model serving path (slices M and H) on the card.
 
-    (a) internlm2-1.8b, then mamba2-2.7b (one resident at a time), at full
-    width and full depth, float32 parameters drawn on the card from a
-    torch.Generator seeded 0: ``launch.serve.serve`` answers 8 requests
-    made as the reference's server makes them (seed 0, prompt lengths in
-    [4, 512), max_new 16) in waves of 4.  The launch counters are set to 0
-    just before and read just after: flash_attention must launch once per
-    attention layer per wave (24 x 2) and ssd_chunk once per SSD layer per
-    wave (64 x 2), decode launching neither.  Every token lies in the
-    vocabulary; the serving steps, teacher-forced with the served tokens,
-    give finite logits whose argmax is the served token.
-    (b) the same two models with depth cut to 2 layers (width and every
-    other setting full), parameters drawn on the CPU from seed 0 and moved
-    to the card: served on the card, then each wave's step logits on the
-    card against the CPU (plain kernel versions), the CPU teacher-forced
-    with the card's tokens.  Logits within 1e-3 (absolute and
-    relative: float32 sums of up to 8192 terms in another order on each
-    side, through two layers and the LM head), and the CPU's greedy token
-    equal to the card's except where the CPU's top two logits lie within
-    1e-3 (counted as near ties).
+    (a) Each of ``runs`` in turn (one resident at a time) at full width,
+    at its stated depth (internlm2-1.8b, mamba2-2.7b and musicgen-medium
+    full; moonshot-v1-16b-a3b 24 of 48 layers, qwen2-vl-72b 8 of 80),
+    float32 parameters drawn on the card from a torch.Generator seeded 0,
+    answers 8 requests made as the reference's server makes them (seed 0,
+    prompt lengths in [4, 512), max_new 16) in waves of 4: token configs
+    through ``launch.serve.serve``, the ``embeds`` configs (musicgen,
+    qwen2-vl) through ``generate`` on N(0, 1) prompt embeddings of the
+    same wave shapes (``model_prompts``; qwen2-vl's M-RoPE positions
+    text then an image grid, ``mrope_positions``).  The launch counters
+    are set to 0 just before and read just after: flash_attention must
+    launch once per attention layer per wave and ssd_chunk once per SSD
+    layer per wave, decode launching neither.
+    Every token lies in the vocabulary; the serving steps, teacher-forced
+    with the served tokens, give finite logits whose argmax is the served
+    token.  Then the same model with depth cut to 2 layers (width and
+    every other setting full), parameters drawn on the card from seed 0
+    and copied to the CPU: served on the card, then held against the CPU
+    by ``twin_compare`` (logits within 1e-3: float32 sums of up to 29568
+    terms in another order on each side, through two layers and the LM
+    head; MoE routes equal but for near ties).
+    (b) Each of ``reduced`` (grok-1-314b; jamba-1.5-large-398b, where MoE
+    layers sit beside SSD layers) at its reduced config, all layers: the
+    same serve run, launch and token checks on the card, then the same
+    parameters held against the CPU by ``twin_compare``.
     Returns (rows, the model path's launches)."""
     import dataclasses as dc
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, get_reduced
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_chunk as sc
-    from repro_torch.launch.serve import make_requests, serve, waves
+    from repro_torch.launch.serve import make_requests
     from repro_torch.models.model import init_model_params
     n_req, batch, max_len, max_new = 8, 4, 528, 16
-    twin_tol = 1e-3
     counters = {"flash_attention": fa, "ssd_chunk": sc}
-    rows, launches = [], {}
-    for arch, kernel in (("internlm2-1.8b", "flash_attention"),
-                         ("mamba2-2.7b", "ssd_chunk")):
-        cfg = get_config(arch)
+    rows, launches = [], dict.fromkeys(counters, 0)
+    plan = ([(get_config(a), depth, twin) for a, depth, twin in MODEL_RUNS]
+            + [(get_reduced(a), None, None) for a in REDUCED_RUNS])
+    for full, depth, twin_depth in plan:
+        cfg = full if depth is None else dc.replace(full, n_layers=depth)
+        arch = cfg.name
         requests = make_requests(cfg.vocab_size, n_req, max_len, max_new, 0)
-        n_waves = len(waves(requests, batch))
+        prompts = model_prompts(np, cfg, requests, batch)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -1471,86 +1753,71 @@ def model_phase(torch, np):
         for mod in counters.values():
             mod.reset_launches()
         t0 = time.perf_counter()
-        tokens, walls = serve(cfg, params, requests, batch=batch,
-                              max_new=max_new, device="cuda")
+        tokens, walls = serve_model(torch, cfg, params, requests, prompts,
+                                    batch, max_new)
         serve_s = time.perf_counter() - t0
         launched = {k: m.LAUNCHES[k] for k, m in counters.items()}
-        want = {k: (cfg.n_layers * n_waves if k == kernel else 0)
-                for k in counters}
+        want = {k: n * len(prompts) for k, n in layer_counts(cfg).items()}
         if launched != want:
             raise AssertionError(f"{arch}: launches {launched}, expected "
                                  f"{want}")
-        launches[kernel] = launched[kernel]
+        for k in launches:
+            launches[k] += launched[k]
         peak = torch.cuda.max_memory_allocated()
-        for wave, toks in zip(waves(requests, batch), tokens):
+        for prompt, toks in zip(prompts, tokens):
             if toks.min() < 0 or toks.max() >= cfg.vocab_size:
                 raise AssertionError(f"{arch}: token out of range")
-            lg = step_logits(torch, cfg, params, wave, toks, "cuda")
+            lg = step_logits(torch, cfg, params, prompt, toks, "cuda")
             if not torch.isfinite(lg).all():
                 raise AssertionError(f"{arch}: non-finite logits")
             if not np.array_equal(lg.argmax(-1).T.numpy(), toks):
                 raise AssertionError(f"{arch}: the serving steps' greedy "
-                                     "tokens differ from serve's")
+                                     "tokens differ from the served ones")
         prefill = [w["prefill_s"] for w in walls]
         per_tok = [w["decode_s"] / (max_new - 1) for w in walls]
         tok_s = n_req * max_new / sum(w["wall_s"] for w in walls)
-        row = {"arch": arch, "depth": cfg.n_layers, "width": cfg.d_model,
+        row = {"arch": arch, "depth": cfg.n_layers,
+               "full_depth": full.n_layers, "width": cfg.d_model,
                "params": cfg.param_count(), "init_s": init_s,
                "serve_s": serve_s, "walls": walls, "tokens_per_s": tok_s,
                "max_memory_allocated": peak, "launches": launched,
                "sample": tokens[0][0, :8].tolist()}
-        print(f"model {arch} full width, {cfg.n_layers} layers "
-              f"({cfg.param_count()} params, f32): init {init_s:.3f} s, "
-              f"serve {serve_s:.3f} s; prefill wall per wave "
-              f"{[round(x, 4) for x in prefill]} s at prompt lengths "
-              f"{[w['prompt_len'] for w in walls]}; decode wall per token "
-              f"{[round(x * 1e3, 3) for x in per_tok]} ms (the f32 "
+        print(f"model {arch} width {cfg.d_model}, {cfg.n_layers} of "
+              f"{full.n_layers} layers ({cfg.param_count()} params, f32): "
+              f"init {init_s:.3f} s, serve {serve_s:.3f} s; prefill wall "
+              f"per wave {[round(x, 4) for x in prefill]} s at prompt "
+              f"lengths {[w['prompt_len'] for w in walls]}; decode wall per "
+              f"token {[round(x * 1e3, 3) for x in per_tok]} ms (the f32 "
               f"weights read once at the HBM rate: "
               f"{cfg.param_count() * 4 / HBM_BYTES_PER_S * 1e3:.3f} ms); "
               f"{tok_s:.2f} tokens/s; peak device memory {peak} B; "
               f"launches {launched}", flush=True)
-        row["trace"] = trace_generate(torch, cfg, params, waves(
-            requests, batch)[0], max_new)
-        del params
-        torch.cuda.empty_cache()
-
-        # (b) the card against the CPU, depth cut to 2 layers
-        cfg2 = dc.replace(cfg, n_layers=2)
+        if twin_depth is not None:
+            row["trace"] = trace_generate(torch, cfg, params, prompts[0],
+                                          max_new)
+            del params
+            torch.cuda.empty_cache()
+            cfg = dc.replace(full, n_layers=twin_depth)
+            params = init_model_params(
+                cfg, torch.Generator(device="cuda").manual_seed(0),
+                device="cuda")
+            tokens, _ = serve_model(torch, cfg, params, requests, prompts,
+                                    batch, max_new)
         t0 = time.perf_counter()
-        cpu_params = init_model_params(cfg2, torch.Generator().manual_seed(0),
-                                       device="cpu")
-        card_params = {k: ([{n: t.cuda() for n, t in b.items()}
-                            for b in v] if k == "blocks" else v.cuda())
-                       for k, v in cpu_params.items()}
-        tokens, _ = serve(cfg2, card_params, requests, batch=batch,
-                          max_new=max_new, device="cuda")
-        err, ties = 0.0, 0
-        for wave, toks in zip(waves(requests, batch), tokens):
-            card = step_logits(torch, cfg2, card_params, wave, toks, "cuda")
-            if not np.array_equal(card.argmax(-1).T.numpy(), toks):
-                raise AssertionError(f"{arch} 2 layers: the serving steps' "
-                                     "tokens differ from serve's")
-            cpu = step_logits(torch, cfg2, cpu_params, wave, toks, "cpu")
-            err = max(err, float((card - cpu).abs().max()))
-            if not torch.allclose(card, cpu, rtol=twin_tol, atol=twin_tol):
-                raise AssertionError(f"{arch} 2 layers: card logits differ "
-                                     f"from the CPU's (max abs err {err})")
-            top2 = cpu.topk(2, dim=-1).values
-            tied = (top2[..., 0] - top2[..., 1]) <= twin_tol
-            differ = cpu.argmax(-1).T.numpy() != toks
-            if (differ & ~tied.T.numpy()).any():
-                raise AssertionError(f"{arch} 2 layers: greedy tokens differ "
-                                     "from the CPU's away from a near tie")
-            ties += int(differ.sum())
+        cpu_params = to_device(params, "cpu")
+        err, ties, routes = twin_compare(torch, np, cfg, params, cpu_params,
+                                         prompts, tokens)
         twin_s = time.perf_counter() - t0
-        print(f"model {arch} full width, depth cut to 2 layers: card vs CPU "
-              f"logits max abs err {err:.3e} (tol {twin_tol}), greedy "
-              f"tokens equal ({ties} near-tie differences), {twin_s:.1f} s",
+        print(f"model {arch} width {cfg.d_model}, {cfg.n_layers} layers: "
+              f"card vs CPU logits max abs err {err:.3e} (tol {TWIN_TOL}), "
+              f"greedy tokens equal ({ties} near-tie differences); MoE "
+              f"routes {routes} (margin {ROUTE_MARGIN}); {twin_s:.1f} s",
               flush=True)
-        row.update(twin_max_abs_err=err, twin_tol=twin_tol,
-                   twin_near_ties=ties, twin_s=twin_s)
+        row.update(twin_depth=cfg.n_layers, twin_max_abs_err=err,
+                   twin_tol=TWIN_TOL, twin_near_ties=ties, twin_routes=routes,
+                   route_margin=ROUTE_MARGIN, twin_s=twin_s)
         rows.append(row)
-        del card_params, cpu_params
+        del params, cpu_params
         torch.cuda.empty_cache()
     return rows, launches
 

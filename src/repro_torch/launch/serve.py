@@ -9,6 +9,9 @@ reference, no mask reaches ``generate``: the pad tokens are attended.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b
 
 runs the reduced config of ``--arch`` on ``--device`` (default the card).
+It serves token prompts, as the reference's server does; an ``embeds``
+config (musicgen-medium, qwen2-vl-72b) is served through
+``serve.decode.generate`` with prompt embeddings.
 """
 from __future__ import annotations
 
@@ -53,7 +56,12 @@ def serve(cfg: ModelConfig, params, requests: List[np.ndarray], *,
     ``device``.  Returns the tokens of each wave ((len(wave), max_new)
     int32 arrays) and its walls (``prompt_len``, ``prefill_s``,
     ``decode_s``, ``wall_s``; host seconds ending in a device
-    synchronise)."""
+    synchronise).  Raises a ``ValueError`` on an ``embeds`` config: its
+    prompts are embeddings, which ``generate`` takes."""
+    if cfg.input_mode != "tokens":
+        raise ValueError(f"{cfg.name}: serve() answers token prompts; an "
+                         f"input_mode={cfg.input_mode!r} config takes "
+                         "prompt embeddings through serve.decode.generate")
     tokens, walls = [], []
     for toks in waves(requests, batch):
         w: Dict[str, float] = {"prompt_len": toks.shape[1]}

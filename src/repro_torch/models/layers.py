@@ -1,7 +1,8 @@
-"""Model layers of the dense path: RMSNorm, RoPE, GQA attention (the
+"""Model layers: RMSNorm, RoPE and M-RoPE, GQA attention (the
 flash_attention kernel for train/prefill, a plain single-token path for
-decode) and the SwiGLU/GeGLU MLP.  The port of the reference's
-``models/layers.py``; activations keep its (B, S, H, D) layout.
+decode), the SwiGLU/GeGLU MLP and the token-choice top-k MoE.  The port of
+the reference's ``models/layers.py``; activations keep its (B, S, H, D)
+layout.
 
 Attention.  In train/prefill mode the default ``attn_impl`` ("blocked")
 calls the ``flash_attention`` wrapper, which is GQA-native: no KV repeat,
@@ -13,12 +14,18 @@ version.  The reference computes the same function with the XLA
 oracle.  Decode is ``decode_attention``, plain torch on every device, as
 in the reference (it is not a Pallas kernel there).
 
-M-RoPE (``cfg.mrope``) and the MoE MLP wait for later slices of the port;
-``models/model.py`` refuses configs that need them.
+MoE.  ``moe_block`` is the reference's dropping dispatch with one
+dispatch group (the reference's group count without a sharding context):
+router softmax in float32, top-k, a stable sort of the (token, k) choices
+by expert, capacity ``C`` a expert, overflowing choices dropped.  Its
+dispatch is plain torch ops and its expert products ``torch.einsum``, as
+the reference computes them outside any Pallas kernel.  The
+expert-parallel ``moe_block_ep`` needs a device mesh and waits for the
+training slice.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -63,6 +70,26 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     """x: (B, S, H, D); positions: (B, S) int."""
     inv = rope_freqs(x.shape[-1], theta, x.device)              # (D/2,)
     ang = positions[..., None].float() * inv                    # (B, S, D/2)
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    return _apply_rot(x, cos, sin)
+
+
+def mrope_sections(head_dim: int) -> Tuple[int, int, int]:
+    """Qwen2-VL style (t, h, w) split of the D/2 frequency dims:
+    head_dim=128 -> (16, 24, 24), the published mrope_section."""
+    half = head_dim // 2
+    t = head_dim // 8
+    h = (half - t) // 2
+    return (t, h, half - t - h)
+
+
+def apply_mrope(x: torch.Tensor, positions_thw: torch.Tensor, theta: float):
+    """x: (B, S, H, D); positions_thw: (3, B, S) int (temporal, height,
+    width): each section of the frequencies turns by its own position."""
+    inv = rope_freqs(x.shape[-1], theta, x.device)              # (D/2,)
+    ang_all = positions_thw[..., None].float() * inv            # (3,B,S,D/2)
+    ang = torch.cat([part[i] for i, part in enumerate(torch.split(
+        ang_all, mrope_sections(x.shape[-1]), dim=-1))], dim=-1)
     cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
     return _apply_rot(x, cos, sin)
 
@@ -152,9 +179,6 @@ def attention_block(params, x, positions, cfg, spec, *, kv_cache=None,
     copies): the returned cache is the (k_buf, v_buf) passed in."""
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl={attn_impl!r}; allowed: {ATTN_IMPLS}")
-    if cfg.mrope:
-        raise ValueError(f"{cfg.name}: M-RoPE waits for the M-RoPE slice "
-                         "of the port (ROADMAP Queue 1 item 12)")
     S = x.shape[1]
     D = cfg.head_dim
     scale = cfg.query_scale if cfg.query_scale is not None else D ** -0.5
@@ -163,8 +187,9 @@ def attention_block(params, x, positions, cfg, spec, *, kv_cache=None,
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])          # (B,S,Hq,D)
     k = torch.einsum("bsd,dhk->bshk", x, params["wk"])          # (B,S,Hkv,D)
     v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    rope = apply_mrope if cfg.mrope else apply_rope
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
 
     if mode in ("train", "prefill"):
         if attn_impl == "reference":
@@ -203,10 +228,96 @@ def attention_block(params, x, positions, cfg, spec, *, kv_cache=None,
 # ---------------------------------------------------------------------------
 
 
-def mlp_block(params, x, cfg):
-    """SwiGLU, or GeGLU (tanh-approximated gelu, as ``jax.nn.gelu``) when
+def _act(cfg, h):
+    """SiLU, or gelu tanh-approximated (as ``jax.nn.gelu``) when
     ``cfg.geglu``."""
-    h = torch.einsum("bsd,df->bsf", x, params["w1"])
-    h = F.gelu(h, approximate="tanh") if cfg.geglu else F.silu(h)
+    return F.gelu(h, approximate="tanh") if cfg.geglu else F.silu(h)
+
+
+def mlp_block(params, x, cfg):
+    """SwiGLU, or GeGLU when ``cfg.geglu``."""
+    h = _act(cfg, torch.einsum("bsd,df->bsf", x, params["w1"]))
     h = h * torch.einsum("bsd,df->bsf", x, params["w3"])
     return torch.einsum("bsf,fd->bsd", h, params["w2"])
+
+
+# ---------------------------------------------------------------------------
+# MoE (token-choice top-k, gather/scatter dispatch with capacity dropping)
+# ---------------------------------------------------------------------------
+
+# When set to a list, moe_block appends each call's router output, a dict
+# of ``probs`` (T, E) float32, ``top_e`` (T, K) and ``keep`` (T, K), the
+# choice kept (not dropped at capacity), in (token, k) order: the routing
+# that the tests and chip_smoke.py compare between two runs before their
+# outputs.  Off (None) by default; the copies stay on the block's device.
+ROUTES: Optional[list] = None
+
+
+def moe_block(params, x, cfg, with_stats: bool = True):
+    """Token-choice top-k MoE with the reference's dropping dispatch in
+    one group.  x: (B, S, d).  Returns (out (B, S, d), stats): stats
+    ``aux_loss`` (the Switch load-balance loss, float32 scalar) and
+    ``expert_load`` ((E,) float32, the choices each expert kept), or
+    None unless ``with_stats`` (serving reads neither).
+
+    The (token, k) choices are sorted by expert with a stable sort, so
+    within an expert they keep token order; an expert keeps its first
+    ``C = max(1, int(T * K * capacity_factor) // E)`` and drops the rest
+    to a scratch slot.  At decode (T = B tokens) C is 1."""
+    m = cfg.moe
+    B, S, d = x.shape
+    T = B * S
+    E, K = m.n_experts, m.top_k
+    C = max(1, int(T * K * m.capacity_factor) // E)
+
+    xt = x.reshape(T, d)
+    logits = torch.matmul(xt, params["router"]).float()
+    probs = torch.softmax(logits, dim=-1)
+    top_w, top_e = torch.topk(probs, K, dim=-1)                 # (T, K)
+    top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+
+    # dispatch: sort the (token, k) choices by expert, stably
+    e_sorted, perm = torch.sort(top_e.reshape(T * K), stable=True)
+    w_sorted = top_w.reshape(T * K).to(x.dtype)[perm]
+    tok_sorted = perm // K                                      # (T*K,)
+    group_start = torch.searchsorted(
+        e_sorted, torch.arange(E, device=x.device, dtype=e_sorted.dtype))
+    pos_in_e = torch.arange(T * K, device=x.device) - group_start[e_sorted]
+    keep = pos_in_e < C
+    slot = torch.where(keep, e_sorted * C + pos_in_e,
+                       torch.full_like(e_sorted, E * C))        # drop
+
+    xe = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device)
+    xe[slot] = xt[tok_sorted]
+    xe = xe[:E * C].reshape(E, C, d)
+    h = _act(cfg, torch.einsum("ecd,edf->ecf", xe, params["w1"]))
+    h = h * torch.einsum("ecd,edf->ecf", xe, params["w3"])
+    ye = torch.einsum("ecf,efd->ecd", h, params["w2"]).reshape(E * C, d)
+
+    picked = ye[torch.clamp(slot, max=E * C - 1)]
+    picked = torch.where(keep[:, None], picked, torch.zeros((), dtype=x.dtype,
+                                                            device=x.device))
+    # the weighted scatter-add: each choice lands in its own (token, k) row
+    # (perm is a permutation, so no two additions race on the card), then
+    # a token's K rows are summed in k order: the same bits every run
+    out = torch.zeros((T * K, d), dtype=x.dtype, device=x.device).index_add_(
+        0, perm, picked * w_sorted[:, None]).reshape(T, K, d).sum(1)
+
+    if m.n_shared:
+        hs = _act(cfg, torch.einsum("td,sdf->tsf", xt, params["shared_w1"]))
+        hs = hs * torch.einsum("td,sdf->tsf", xt, params["shared_w3"])
+        out = out + torch.einsum("tsf,sfd->td", hs, params["shared_w2"])
+
+    if ROUTES is not None:
+        kept = torch.empty_like(keep)
+        kept[perm] = keep
+        ROUTES.append({"probs": probs, "top_e": top_e,
+                       "keep": kept.reshape(T, K)})
+    if not with_stats:
+        return out.reshape(B, S, d), None
+    # load-balance aux loss (Switch): E * sum_e f_e * p_e
+    f_e = F.one_hot(top_e[:, 0], E).float().mean(0)
+    aux_loss = E * torch.sum(f_e * probs.mean(0))
+    load = torch.zeros((E,), dtype=torch.float32, device=x.device).index_add_(
+        0, e_sorted, keep.float())
+    return out.reshape(B, S, d), {"aux_loss": aux_loss, "expert_load": load}

@@ -7,11 +7,12 @@ Parameters are a plain dict of tensors in the reference's layout:
 ``cfg.pattern``, each tensor stacked on a leading layer dimension of
 ``cfg.n_superblocks``) and ``lm_head`` (d, V) unless the embeddings are
 tied.  Caches are one (k, v) or (conv_tail, ssm_state) pair per pattern
-position, stacked the same way.
+position, stacked the same way.  Every architecture of the registry runs:
+dense and MoE MLPs, attention and SSD mixers, RoPE and M-RoPE (positions
+(3, B, S)), token and ``embeds`` inputs.
 
-Not ported yet, and refused with a ``ValueError`` naming the slice:
-MoE layers, M-RoPE and ``input_mode="embeds"`` (ROADMAP Queue 1 item 12),
-and training (``loss_fn``, ``chunked_ce_loss``; item 13).
+Training (``loss_fn``, ``chunked_ce_loss``, remat) is not ported yet
+(ROADMAP Queue 1 item 13).
 """
 from __future__ import annotations
 
@@ -24,21 +25,6 @@ from repro_torch.core.config import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models.params import ParamSpec, init_params
-
-
-def check_supported(cfg: ModelConfig):
-    """Raise a ``ValueError`` naming the later slice of the port that a
-    config needs."""
-    if any(spec.mlp == "moe" for spec in cfg.pattern):
-        raise ValueError(f"{cfg.name}: MoE layers wait for the MoE slice of "
-                         "the port (ROADMAP Queue 1 item 12)")
-    if cfg.mrope:
-        raise ValueError(f"{cfg.name}: M-RoPE waits for the M-RoPE slice of "
-                         "the port (ROADMAP Queue 1 item 12)")
-    if cfg.input_mode != "tokens":
-        raise ValueError(f"{cfg.name}: input_mode={cfg.input_mode!r} waits "
-                         "for the embeds slice of the port (ROADMAP Queue 1 "
-                         "item 12)")
 
 
 # ---------------------------------------------------------------------------
@@ -89,6 +75,22 @@ def _mlp_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     }
 
 
+def _moe_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    m = cfg.moe
+    d, f, E = cfg.d_model, m.d_ff_expert, m.n_experts
+    sp = {
+        "router": ParamSpec((d, E), "normal", d ** -0.5),
+        "w1": ParamSpec((E, d, f), "normal", d ** -0.5),
+        "w3": ParamSpec((E, d, f), "normal", d ** -0.5),
+        "w2": ParamSpec((E, f, d), "normal", f ** -0.5),
+    }
+    if m.n_shared:
+        sp["shared_w1"] = ParamSpec((m.n_shared, d, f), "normal", d ** -0.5)
+        sp["shared_w3"] = ParamSpec((m.n_shared, d, f), "normal", d ** -0.5)
+        sp["shared_w2"] = ParamSpec((m.n_shared, f, d), "normal", f ** -0.5)
+    return sp
+
+
 def _layer_specs(cfg: ModelConfig, spec: LayerSpec) -> Dict[str, ParamSpec]:
     d = cfg.d_model
     out: Dict[str, ParamSpec] = {"ln": ParamSpec((d,), "zeros")}
@@ -102,7 +104,8 @@ def _layer_specs(cfg: ModelConfig, spec: LayerSpec) -> Dict[str, ParamSpec]:
         out["ln_mlp"] = ParamSpec((d,), "zeros")
         if cfg.use_post_norm:
             out["ln_mlp_post"] = ParamSpec((d,), "zeros")
-        out.update({f"mlp_{k}": v for k, v in _mlp_specs(cfg).items()})
+        mlp = _mlp_specs(cfg) if spec.mlp == "dense" else _moe_specs(cfg)
+        out.update({f"mlp_{k}": v for k, v in mlp.items()})
     return out
 
 
@@ -112,7 +115,6 @@ def _stack(spec_dict: Dict[str, ParamSpec], n: int) -> Dict[str, ParamSpec]:
 
 
 def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
-    check_supported(cfg)
     tree: Dict[str, Any] = {
         "embed": ParamSpec((cfg.vocab_size, cfg.d_model), "normal", 1.0),
         "final_ln": ParamSpec((cfg.d_model,), "zeros"),
@@ -142,38 +144,63 @@ def _apply_layer(cfg, spec: LayerSpec, p, x, positions, *, mode, cache,
     if cfg.use_post_norm:
         out = L.rmsnorm(out, p["ln_post"], cfg.norm_eps)
     x = x + out
+    stats = None
     if spec.mlp != "none":
         h2 = L.rmsnorm(x, p["ln_mlp"], cfg.norm_eps)
         mp = {k[4:]: v for k, v in p.items() if k.startswith("mlp_")}
-        out2 = L.mlp_block(mp, h2, cfg)
+        if spec.mlp == "dense":
+            out2 = L.mlp_block(mp, h2, cfg)
+        else:
+            out2, stats = L.moe_block(mp, h2, cfg,
+                                      with_stats=mode == "train")
         if cfg.use_post_norm:
             out2 = L.rmsnorm(out2, p["ln_mlp_post"], cfg.norm_eps)
         x = x + out2
-    return x, new_cache
+    return x, new_cache, stats
 
 
 def run_stack(cfg: ModelConfig, params, x, positions, *, mode: str = "train",
               caches=None, cur_len=None, attn_impl: str = "blocked"):
     """Apply all layers, a Python loop over super-blocks.  Returns
-    (hidden, new_caches); new_caches is None in train mode.
+    (hidden, new_caches, stats_sum); new_caches is None in train mode.
+    stats_sum holds ``aux_loss`` and, for an MoE config, ``expert_load``,
+    summed over the MoE layers as the reference sums them (over a
+    super-block's positions, then over super-blocks; the reference's
+    other layers add zeros), zeros without MoE layers.  Only train mode
+    computes them: prefill and decode return the zeros, since serving
+    reads no stats (the reference's jit drops them there as dead code).
 
     A layer whose new cache is the slice of the stacked buffer it was
     given (attention writes its KV in place) leaves the buffer as it is;
     other new caches (the SSD state and conv tail) are stacked afresh, in
     the dtype the layer computed them in, as the reference's scan does."""
-    check_supported(cfg)
     per_layer: List[List[Any]] = [[] for _ in cfg.pattern]
+    per_block = []
     for i in range(cfg.n_superblocks):
+        acc = None
         for pos, spec in enumerate(cfg.pattern):
             p = {k: v[i] for k, v in params["blocks"][pos].items()}
             cache = (None if caches is None else
                      tuple(buf[i] for buf in caches[pos]))
-            x, ncache = _apply_layer(cfg, spec, p, x, positions, mode=mode,
-                                     cache=cache, cur_len=cur_len,
-                                     attn_impl=attn_impl)
+            x, ncache, stats = _apply_layer(
+                cfg, spec, p, x, positions, mode=mode, cache=cache,
+                cur_len=cur_len, attn_impl=attn_impl)
             per_layer[pos].append((cache, ncache))
+            if stats is not None:
+                acc = stats if acc is None else {k: acc[k] + v
+                                                for k, v in stats.items()}
+        if acc is not None:
+            per_block.append(acc)
+    if per_block:
+        stats_sum = {k: torch.stack([b[k] for b in per_block]).sum(0)
+                     for k in per_block[0]}
+    else:
+        stats_sum = {"aux_loss": x.new_zeros((), dtype=torch.float32)}
+        if cfg.moe is not None:
+            stats_sum["expert_load"] = x.new_zeros((cfg.moe.n_experts,),
+                                                   dtype=torch.float32)
     if mode == "train":
-        return x, None
+        return x, None, stats_sum
     new_caches = []
     for pos, runs in enumerate(per_layer):
         pair = []
@@ -184,7 +211,7 @@ def run_stack(cfg: ModelConfig, params, x, positions, *, mode: str = "train",
             else:
                 pair.append(torch.stack([new[part] for _, new in runs]))
         new_caches.append(tuple(pair))
-    return x, new_caches
+    return x, new_caches, stats_sum
 
 
 # ---------------------------------------------------------------------------
@@ -193,6 +220,8 @@ def run_stack(cfg: ModelConfig, params, x, positions, *, mode: str = "train",
 
 
 def embed_inputs(cfg: ModelConfig, params, batch):
+    if cfg.input_mode == "embeds":
+        return batch["embeds"]
     x = params["embed"][batch["tokens"]]
     if cfg.tie_embeddings:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)  # gemma
@@ -219,8 +248,11 @@ def _logits(cfg, params, hidden_last):
 
 
 def make_positions(cfg: ModelConfig, B: int, S: int, offset=0, device=None):
+    """(B, S) int32 positions from ``offset``; (3, B, S) under M-RoPE, the
+    same positions on the temporal, height and width axes."""
     pos = torch.arange(S, dtype=torch.int32, device=device)[None, :] + offset
-    return pos.expand(B, S)
+    pos = pos.expand(B, S)
+    return pos.expand(3, B, S) if cfg.mrope else pos
 
 
 def init_caches(cfg: ModelConfig, B: int, max_len: int,
@@ -254,14 +286,16 @@ def forward_hidden(cfg, params, batch, *, mode, caches, cur_len,
     if positions is None:
         positions = make_positions(cfg, B, S_, offset=cur_len or 0,
                                    device=x.device)
-    hidden, new_caches = run_stack(cfg, params, x, positions, mode=mode,
-                                   caches=caches, cur_len=cur_len,
-                                   attn_impl=attn_impl)
+    hidden, new_caches, _ = run_stack(cfg, params, x, positions, mode=mode,
+                                      caches=caches, cur_len=cur_len,
+                                      attn_impl=attn_impl)
     return L.rmsnorm(hidden, params["final_ln"], cfg.norm_eps), new_caches
 
 
 def decode_step(cfg: ModelConfig, params, batch, caches, cur_len):
-    """One-token decode. batch: tokens (B, 1).  Returns
+    """One-token decode. batch: tokens (B, 1) or embeds (B, 1, d), and
+    ``positions`` ((3, B, 1) under M-RoPE) unless the default ones from
+    ``cur_len`` apply.  Returns
     (next_token_logits (B, V) float32, new_caches).  The KV buffers of
     ``caches`` are written in place."""
     hidden, new_caches = forward_hidden(cfg, params, batch, mode="decode",
@@ -271,10 +305,12 @@ def decode_step(cfg: ModelConfig, params, batch, caches, cur_len):
 
 def prefill(cfg: ModelConfig, params, batch, max_len: int,
             attn_impl="blocked", cache_dtype=torch.bfloat16):
-    """Run the prompt, returning (last_hidden, primed caches, prompt_len)."""
-    tokens = batch["tokens"]
-    B, S_ = tokens.shape[0], tokens.shape[1]
-    caches = init_caches(cfg, B, max_len, cache_dtype, device=tokens.device)
+    """Run the prompt (``tokens`` (B, S) or ``embeds`` (B, S, d), as
+    ``cfg.input_mode`` says, and optional ``positions``), returning
+    (last_hidden, primed caches, prompt_len)."""
+    x = batch["tokens"] if cfg.input_mode == "tokens" else batch["embeds"]
+    B, S_ = x.shape[0], x.shape[1]
+    caches = init_caches(cfg, B, max_len, cache_dtype, device=x.device)
     hidden, new_caches = forward_hidden(cfg, params, batch, mode="prefill",
                                         caches=caches, cur_len=0,
                                         attn_impl=attn_impl)

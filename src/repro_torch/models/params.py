@@ -38,7 +38,8 @@ def init_param(spec: ParamSpec, generator: torch.Generator,
         std = spec.scale * fan_in ** -0.5
     draw = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
                        device=dev)
-    return (draw * std).to(dtype)
+    # scaled in place: a full-width expert stack is ~18 GB in float32
+    return draw.mul_(std).to(dtype)
 
 
 def init_params(spec_tree: Any, generator: torch.Generator,

@@ -19,11 +19,17 @@ def make_prefill_step(cfg: ModelConfig, *, max_len: Optional[int] = None,
 
     def prefill_step(params, batch):
         hidden, caches, _ = M.prefill(
-            cfg, params, batch, max_len=max_len or batch["tokens"].shape[1],
+            cfg, params, batch, max_len=max_len or prompt_len(batch),
             attn_impl=attn_impl, cache_dtype=cache_dtype)
         return M._logits(cfg, params, hidden[:, -1]), caches
 
     return prefill_step
+
+
+def prompt_len(batch) -> int:
+    """The sequence length of a batch of ``tokens`` (B, S) or ``embeds``
+    (B, S, d)."""
+    return batch.get("tokens", batch.get("embeds")).shape[1]
 
 
 def make_serve_step(cfg: ModelConfig):
@@ -41,13 +47,32 @@ def make_serve_step(cfg: ModelConfig):
     return serve_step
 
 
+def step_batch(cfg: ModelConfig, params, tok: torch.Tensor, cur: int):
+    """The decode batch of the (B,) tokens ``tok`` at position ``cur``:
+    ``tokens`` (B, 1), or in an ``embeds`` config their rows of the token
+    table, (B, 1, d); under M-RoPE also ``positions``, (3, B, 1) filled
+    with ``cur``."""
+    if cfg.input_mode == "embeds":
+        batch = {"embeds": params["embed"][tok][:, None]}
+    else:
+        batch = {"tokens": tok[:, None]}
+    if cfg.mrope:
+        batch["positions"] = torch.full((3, tok.shape[0], 1), cur,
+                                        dtype=torch.int32, device=tok.device)
+    return batch
+
+
 def generate(cfg: ModelConfig, params, prompt_batch, *, max_new_tokens: int,
              attn_impl="blocked", cache_dtype=torch.float32, device="cuda",
              walls: Optional[dict] = None):
     """Greedy generation (prefill, then a decode loop) on ``device`` (the
     card unless the CPU is asked for; raises without a card).  The
-    parameters must already lie there; the prompt's tokens are moved.
-    Returns (B, max_new_tokens) int32 tokens on ``device``.
+    parameters must already lie there; the prompt batch (``tokens`` or
+    ``embeds``, and ``positions`` if given) is moved.  In an ``embeds``
+    config each decode step embeds its token with the token table (the
+    reference's modality-frontend stub); under M-RoPE it passes the
+    position ``cur`` on all three axes.  Returns (B, max_new_tokens) int32
+    tokens on ``device``.
 
     ``walls``, when given, receives ``prefill_s`` and ``decode_s``: host
     seconds, each span ending in a device synchronise."""
@@ -55,8 +80,9 @@ def generate(cfg: ModelConfig, params, prompt_batch, *, max_new_tokens: int,
     if params["embed"].device.type != dev.type:
         raise ValueError(f"parameters on {params['embed'].device}, "
                          f"generate on {dev}")
-    tokens = torch.as_tensor(prompt_batch["tokens"], device=dev)
-    S = tokens.shape[1]
+    prompt = {k: torch.as_tensor(v, device=dev)
+              for k, v in prompt_batch.items()}
+    S = prompt_len(prompt)
     prefill_step = make_prefill_step(cfg, max_len=S + max_new_tokens,
                                      attn_impl=attn_impl,
                                      cache_dtype=cache_dtype)
@@ -68,15 +94,15 @@ def generate(cfg: ModelConfig, params, prompt_batch, *, max_new_tokens: int,
         return time.perf_counter()
 
     t0 = sync() if walls is not None else None
-    logits, caches = prefill_step(params, {"tokens": tokens})
+    logits, caches = prefill_step(params, prompt)
     tok = torch.argmax(logits, dim=-1).to(torch.int32)
     if walls is not None:
         t1 = sync()
     out = [tok]
     cur = S
     for _ in range(max_new_tokens - 1):
-        tok, _, caches = serve_step(params, {"tokens": tok[:, None]}, caches,
-                                    cur)
+        batch = step_batch(cfg, params, tok, cur)
+        tok, _, caches = serve_step(params, batch, caches, cur)
         out.append(tok)
         cur += 1
     if walls is not None:

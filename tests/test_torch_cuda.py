@@ -746,11 +746,17 @@ def test_inplace_merges_match_plain_versions(dev):
 
 
 @pytest.mark.parametrize("arch", ["internlm2-1.8b", "mamba2-2.7b",
-                                  "gemma2-27b", "granite-20b"])
+                                  "gemma2-27b", "granite-20b",
+                                  "grok-1-314b", "moonshot-v1-16b-a3b",
+                                  "jamba-1.5-large-398b", "qwen2-vl-72b",
+                                  "musicgen-medium"])
 def test_reduced_models_match_cpu(f32_card, arch):
     """A reduced model on the card against the same parameters on the
     CPU: greedy tokens equal, every step's logits (teacher-forced with the
-    card's tokens) within 1e-4, and the card run through the kernels."""
+    card's tokens) within 1e-4, and the card run through the kernels.
+    Embeds configs take N(0, 1) prompt embeddings, M-RoPE configs
+    (3, B, S) positions of text then an image grid
+    (``chip_smoke.prompt_of``)."""
     import chip_smoke
     from repro_torch.configs import get_reduced
     from repro_torch.kernels import flash_attention as fa
@@ -762,23 +768,21 @@ def test_reduced_models_match_cpu(f32_card, arch):
                             device="cpu")
     card = {k: ([{n: t.cuda() for n, t in b.items()} for b in v]
                 if k == "blocks" else v.cuda()) for k, v in cpu.items()}
-    toks = np.random.default_rng(4).integers(0, cfg.vocab_size, (3, 45),
-                                             dtype=np.int32)
+    rng = np.random.default_rng(4)
+    toks = rng.integers(0, cfg.vocab_size, (3, 45), dtype=np.int32)
+    prompt = chip_smoke.prompt_of(np, cfg, toks, rng)
     before = (fa.LAUNCHES["flash_attention"], sc.LAUNCHES["ssd_chunk"])
-    got = generate(cfg, card, {"tokens": torch.from_numpy(toks)},
-                   max_new_tokens=6, device="cuda").cpu()
+    got = generate(cfg, card, prompt, max_new_tokens=6, device="cuda").cpu()
     launched = (fa.LAUNCHES["flash_attention"] - before[0],
                 sc.LAUNCHES["ssd_chunk"] - before[1])
-    want = generate(cfg, cpu, {"tokens": torch.from_numpy(toks)},
-                    max_new_tokens=6, device="cpu")
+    want = generate(cfg, cpu, prompt, max_new_tokens=6, device="cpu")
     assert torch.equal(got, want)
-    kinds = {spec.kind for spec in cfg.pattern}
-    assert launched == (cfg.n_layers if "attn" in kinds else 0,
-                        cfg.n_layers if "ssm" in kinds else 0)
+    n = chip_smoke.layer_counts(cfg)
+    assert launched == (n["flash_attention"], n["ssd_chunk"])
     forced = got.numpy()
     torch.testing.assert_close(
-        chip_smoke.step_logits(torch, cfg, card, toks, forced, "cuda"),
-        chip_smoke.step_logits(torch, cfg, cpu, toks, forced, "cpu"),
+        chip_smoke.step_logits(torch, cfg, card, prompt, forced, "cuda"),
+        chip_smoke.step_logits(torch, cfg, cpu, prompt, forced, "cpu"),
         rtol=1e-4, atol=1e-4)
 
 

@@ -10,8 +10,6 @@
 * the knobs of ported slices (race detection and the recovery hooks
   among them, and the reference engine) build a runtime, and the
   reference engine raises on the recovery hooks, naming the slice;
-* model configs that need a later slice (MoE, M-RoPE, embeds) raise a
-  ``ValueError`` naming it;
 * ``chip_smoke.py`` fails, printing no result, without a card and in a
   directory that holds nothing else of the repo."""
 import ast
@@ -181,26 +179,6 @@ def test_model_entry_points_default_to_the_card():
         serve(cfg, params, [prompt["tokens"][0].numpy()], batch=1, max_new=2)
     out = generate(cfg, params, prompt, max_new_tokens=2, device="cpu")
     assert out.shape == (1, 2) and out.device.type == "cpu"
-
-
-@pytest.mark.parametrize("arch,slice_name", [
-    ("grok-1-314b", "MoE slice"), ("jamba-1.5-large-398b", "MoE slice"),
-    ("qwen2-vl-72b", "M-RoPE slice"), ("musicgen-medium", "embeds slice")])
-def test_later_slice_models_raise(arch, slice_name):
-    from repro_torch.configs import get_reduced
-    from repro_torch.models import model as M
-    cfg = get_reduced(arch)
-    with pytest.raises(ValueError, match=slice_name):
-        M.init_model_params(cfg, device="cpu")
-    with pytest.raises(ValueError, match=slice_name):
-        M.param_specs(cfg)
-    # a config that only borrows the parameters of a ported one still
-    # refuses to run
-    dense = get_reduced("internlm2-1.8b")
-    params = M.init_model_params(dense, device="cpu")
-    tokens = {"tokens": torch.zeros((1, 3), dtype=torch.int64)}
-    with pytest.raises(ValueError, match=slice_name):
-        M.prefill(cfg, params, tokens, max_len=4)
 
 
 def _smoke(cwd: Path, script: Path):

@@ -35,7 +35,12 @@ from repro_torch.models.carry import params_from_numpy  # noqa: E402
 from repro_torch.serve import decode as D  # noqa: E402
 
 TOL = dict(rtol=1e-4, atol=1e-4)
-SLICE_ARCHS = ("internlm2-1.8b", "mamba2-2.7b", "gemma2-27b", "granite-20b")
+# the dense token archs of the first model slice; the MoE, M-RoPE and
+# embeds archs' whole-model parity is tests/test_torch_moe.py
+TOKEN_ARCHS = ("internlm2-1.8b", "mamba2-2.7b", "gemma2-27b", "granite-20b")
+SLICE_ARCHS = TOKEN_ARCHS + ("grok-1-314b", "moonshot-v1-16b-a3b",
+                             "jamba-1.5-large-398b", "qwen2-vl-72b",
+                             "musicgen-medium")
 
 
 def _close(got, want):
@@ -260,7 +265,7 @@ def test_mamba2_block_prefill_and_decode():
 # ---------------------------------------------------------------------------
 
 
-@pytest.fixture(scope="module", params=SLICE_ARCHS)
+@pytest.fixture(scope="module", params=TOKEN_ARCHS)
 def pair(request):
     arch = request.param
     rcfg, cfg = ref_reduced(arch), get_reduced(arch)
