@@ -202,7 +202,22 @@ Phases, in order; any mismatch or exception exits non-zero:
    jamba-1.5-large-398b (MoE beside SSD layers), which no card holds at
    full width, run reduced: the same serve run and checks on the card
    (flash_attention 1 x 2, ssd_chunk 7 x 2 for jamba), then all layers
-   against the CPU.
+   against the CPU;
+9. train phase (slice I): internlm2-1.8b at full width and depth
+   (1,889,110,016 float32 parameters drawn on the card from seed 0)
+   trained by ``make_train_step`` (AdamW, remat "full") for 4 steps on
+   ``make_pipeline``'s synthetic batches of 2 x 4096 tokens (the train_4k
+   shape's sequence, its global batch of 256 cut to 2): loss and grad
+   norm finite, flash_attention launched 2 x 24 times a step and no other
+   kernel; prints each step's wall, tokens/s, model TFLOP/s and peak
+   device memory.  Then its full-width 2-layer twin, one train step on
+   the card against the CPU on one batch of 1 x 512 tokens (loss within
+   1e-4, grad norm 1e-4 relative, every gradient leaf 1e-3 of its largest
+   value, the card's AdamW on the CPU's gradients within 1e-6); the
+   Trainer on the card at tests/test_trainer.py's settings, 8 steps, a
+   failure injected at step 6 and restarted from the step-4 checkpoint,
+   bit-equal to the uninjected run; and jamba-1.5-large-398b reduced (MoE
+   beside SSD layers), one train step card against CPU, routes first.
 
 TF32 is off for every float comparison (printed at the start).  The
 launch counters are set to 0 just before each of the path phases (the
@@ -248,6 +263,10 @@ SOURCES = {"protocol_sweep": "src/repro_torch/kernels/csrc/protocol_sweep.cu",
 FLASH_MODEL_SHAPES = (("moonshot-v1-16b-a3b", (4, 16, 16, 511, 128)),
                       ("qwen2-vl-72b", (4, 64, 8, 511, 128)),
                       ("musicgen-medium", (4, 24, 24, 511, 64)))
+# flash_attention's shape on the train path: internlm2-1.8b's layers at the
+# train phase's batch, B = 2 sequences of S = 4096 (64 query tiles, 128
+# key tiles of the float32 kernel)
+FLASH_TRAIN_SHAPE = ("internlm2-1.8b train", (2, 16, 8, 4096, 128))
 TPU_KERNELS = {
     "pack_rows": "src/repro/kernels/protocol_sweep.py:134",
     "popcount_rows": "src/repro/kernels/protocol_sweep.py:232",
@@ -1278,8 +1297,10 @@ def model_kernel_phase(torch, np, dev):
     row per 80 heads as the model passes it, the same per cell, in
     bfloat16, and at the reduced Q=32, P=16, N=16; attention also at the
     prefill shapes of the MoE, M-RoPE and embeds models
-    (``FLASH_MODEL_SHAPES``).  Timed at the first shapes (and in
-    bfloat16, per cell, and at each model shape); the library yardstick of
+    (``FLASH_MODEL_SHAPES``) and at the train phase's shape
+    (``FLASH_TRAIN_SHAPE``, float32, S = 4096).  Timed at the first
+    shapes (and in bfloat16, per cell, and at each model shape and the
+    train shape); the library yardstick of
     attention is scaled_dot_product_attention (timed, used nowhere in the
     port); SSD has none."""
     from repro_torch.kernels import flash_attention as fa
@@ -1294,8 +1315,9 @@ def model_kernel_phase(torch, np, dev):
              ("MQA", (4, 16, 1, 512, 128), f32, {}),
              ("reduced D=16", (4, 4, 2, 40, 16), f32,
               {"window": 16, "softcap": 30.0})]
-    cases += [(f"{arch} prefill", shape, f32, {})
-              for arch, shape in FLASH_MODEL_SHAPES]
+    model_cases = [(f"{arch} prefill", shape)
+                   for arch, shape in FLASH_MODEL_SHAPES] + [FLASH_TRAIN_SHAPE]
+    cases += [(label, shape, f32, {}) for label, shape in model_cases]
     errs, timed = [], {}
     for label, (B, Hq, Hkv, S, D), dtype, kw in cases:
         q, k, v = flash_inputs(torch, np, rng, B, Hq, Hkv, S, D, dtype, dev)
@@ -1316,7 +1338,7 @@ def model_kernel_phase(torch, np, dev):
                      "atol": atol})
         if label.startswith("internlm2 prefill"):
             timed[dtype] = (q, k, v)
-        elif label.endswith(" prefill"):
+        elif label in dict(model_cases):
             timed[label] = (q, k, v)
     out = {}
     for key, (q, k, v) in timed.items():
@@ -1338,8 +1360,8 @@ def model_kernel_phase(torch, np, dev):
     results = {"flash_attention": dict(
         err=max(e["max_abs_err"] for e in errs), cases=errs,
         library="scaled_dot_product_attention", bf16=out.pop(bf16),
-        models=[dict(out[f"{arch} prefill"], case=f"{arch} prefill")
-                for arch, _ in FLASH_MODEL_SHAPES], **out.pop(f32))}
+        models=[dict(out[label], case=label) for label, _ in model_cases],
+        **out.pop(f32))}
 
     cases = [("mamba2 prefill, grouped B/C", (640, 256, 64, 128, 80), f32),
              ("mamba2 prefill, per-cell B/C", (640, 256, 64, 128, 1), f32),
@@ -1819,6 +1841,393 @@ def model_phase(torch, np):
         rows.append(row)
         del params, cpu_params
         torch.cuda.empty_cache()
+    return rows, launches
+
+
+# ---------------------------------------------------------------------------
+# train phase
+# ---------------------------------------------------------------------------
+
+# (a): internlm2-1.8b at full width and depth, the train_4k shape's
+# sequence (4096) with its global batch of 256 cut to 2, four steps of
+# AdamW under remat "full"
+TRAIN_ARCH = "internlm2-1.8b"
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 4096, 2, 4
+# (b): the full-width 2-layer twin on one batch of 1 x 512 tokens; its
+# tolerances: loss absolute, grad norm relative, each gradient leaf
+# relative to its largest |value|, the card's AdamW update on the CPU's
+# gradients against the CPU's update (absolute on parameters, relative
+# to the leaf's largest |value| on the moments)
+TWIN_LAYERS, TWIN_SEQ = 2, 512
+TRAIN_LOSS_TOL = 1e-4
+TRAIN_NORM_RTOL = 1e-4
+TRAIN_GRAD_TOL = 1e-3
+TRAIN_OPT_TOL = 1e-6
+# (c): the Trainer at tests/test_trainer.py's settings, 8 steps,
+# checkpoints every 4, a failure injected at step 6
+TRAINER_STEPS, TRAINER_CKPT_EVERY, TRAINER_FAIL_AT = 8, 4, 6
+
+
+def kernel_counters():
+    """Every kernel module of the port, by name (their LAUNCHES merged)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import page_diff as pd
+    from repro_torch.kernels import protocol_sweep as ps
+    from repro_torch.kernels import ssd_chunk as sc
+    return (ps, pd, fa, sc)
+
+
+def reset_counters():
+    for mod in kernel_counters():
+        mod.reset_launches()
+
+
+def read_counters() -> dict:
+    out = {}
+    for mod in kernel_counters():
+        out.update(mod.LAUNCHES)
+    return out
+
+
+def train_batch(np, cfg, B, S, step=0, seed=0):
+    """The synthetic stream's batch ``step`` (``data.SyntheticTokens``):
+    tokens and targets, plus N(0, 1) embeddings in an ``embeds`` config and
+    (3, B, S) positions under M-RoPE."""
+    from repro_torch.data import SyntheticTokens
+    batch = SyntheticTokens(cfg.vocab_size, S, B, seed).batch_at(step)
+    rng = np.random.default_rng(seed)
+    if cfg.input_mode == "embeds":
+        del batch["tokens"]
+        batch["embeds"] = rng.standard_normal((B, S, cfg.d_model)).astype(
+            np.float32)
+    if cfg.mrope:
+        batch["positions"] = mrope_positions(np, B, S)
+    return batch
+
+
+def train_twin(torch, np, cfg, card_params, batch, hp,
+               margin=ROUTE_MARGIN, device="cuda"):
+    """One train step of ``cfg`` from ``card_params`` on ``batch`` (numpy)
+    on the card, against the CPU on the same parameters.
+
+    The card runs ``make_train_step`` from zero AdamW moments; both sides
+    then run the step's two halves, ``value_and_grad`` of the loss (MoE routes logged and
+    held to each other first, ``compare_routes``) and ``adamw_update``.
+    Checks: the card's step equal to its own two halves; loss within
+    ``TRAIN_LOSS_TOL``, grad norm within ``TRAIN_NORM_RTOL``, every
+    gradient leaf within ``TRAIN_GRAD_TOL`` of its largest |value|; and
+    the card's ``adamw_update`` of the CPU's gradients against the CPU's
+    own: parameters within ``TRAIN_OPT_TOL``, moments within it relative
+    to the leaf's largest |value| (this keeps the optimiser's exactness
+    apart from the gradients' summation order: a first Adam step is about
+    lr * sign(g), which noise in a tiny gradient would flip).  Returns a
+    row of the errors, the route counts, the launches of the card's step
+    (``step_launches``) and those of the step and its halves on the card
+    together (``launches``: the halves run the same forward and remat
+    again).  ``device``
+    names the card's side (``"cpu"`` rehearses the function on the CPU,
+    against itself)."""
+    from repro_torch.models import layers
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import adamw_update, init_opt_state
+    from repro_torch.train.train_step import make_train_step, value_and_grad
+    from repro_torch.utils.tree import tree_flatten, tree_leaves, tree_map
+    cpu_params = tree_map(lambda t: t.cpu(), card_params)
+    sides = {"card": card_params, "cpu": cpu_params}
+    batches = {side: {k: torch.as_tensor(v, device=p["embed"].device)
+                      for k, v in batch.items()} for side, p in sides.items()}
+    opts = {side: init_opt_state(p) for side, p in sides.items()}
+    reset_counters()
+    stepped, _, step_m = make_train_step(cfg, hp)(
+        card_params, opts["card"], batches["card"], 0)
+    sync(torch, device)
+    launched = read_counters()
+    lr = float(step_m["lr"])
+
+    def loss_f(p, b):
+        return M.loss_fn(cfg, p, b, attn_impl=hp.attn_impl, remat=hp.remat,
+                         ce_chunk=hp.ce_chunk,
+                         remat_segment=hp.remat_segment)
+    out, routes = {}, {}
+    reset_counters()
+    for side, p in sides.items():
+        layers.ROUTES = []
+        try:
+            (loss, _), grads = value_and_grad(loss_f, p, batches[side])
+            routes[side] = [{k: v.detach().cpu() for k, v in r.items()}
+                            for r in layers.ROUTES]
+        finally:
+            layers.ROUTES = None
+        out[side] = (loss, grads, adamw_update(p, grads, opts[side], 0, lr,
+                                               hp.adamw))
+    sync(torch, device)
+    halves = read_counters()
+    first = [1 << 62] * batch["targets"].shape[0]
+    route_counts = compare_routes(torch, routes["card"], routes["cpu"],
+                                  first, 0, margin)
+    if route_counts["near_ties"] or route_counts["max_prob_err"] > margin / 10:
+        raise AssertionError(f"{cfg.name}: MoE routes differ between the "
+                             f"card and the CPU: {route_counts}")
+    (gl, gg, (gp, _, gn)), (wl, wg, (wp, wo, wn)) = out["card"], out["cpu"]
+    if not (torch.equal(step_m["loss"], gl) and torch.equal(step_m["grad_norm"], gn)
+            and all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(stepped), tree_leaves(gp)))):
+        raise AssertionError(f"{cfg.name}: make_train_step differs from "
+                             "its value_and_grad and adamw_update")
+    row = {"loss_err": abs(float(gl) - float(wl)),
+           "grad_norm_rel_err": abs(float(gn) - float(wn)) / float(wn),
+           "loss": float(wl), "grad_norm": float(wn), "routes": route_counts,
+           "step_launches": launched,
+           "launches": {k: v + halves[k] for k, v in launched.items()}}
+    if not (np.isfinite(float(gl)) and row["loss_err"] <= TRAIN_LOSS_TOL
+            and row["grad_norm_rel_err"] <= TRAIN_NORM_RTOL):
+        raise AssertionError(f"{cfg.name}: train step differs from the "
+                             f"CPU's: {row}")
+    grad_err, worst = 0.0, None
+    for (k, a), b in zip(tree_flatten(gg), tree_leaves(wg)):
+        e = float((a.cpu() - b).abs().max()) / max(float(b.abs().max()),
+                                                    1e-30)
+        if e > grad_err:
+            grad_err, worst = e, k
+    row.update(grad_err=grad_err, grad_err_leaf=worst)
+    if grad_err > TRAIN_GRAD_TOL:
+        raise AssertionError(f"{cfg.name}: gradient {worst} differs from the "
+                             f"CPU's by {grad_err:.3e} of its largest value")
+    # the optimiser alone: the card's update of the CPU's gradients
+    to_card = lambda t: t.to(device)  # noqa: E731
+    cp, co, _ = adamw_update(card_params, tree_map(to_card, wg),
+                             opts["card"], 0, lr, hp.adamw)
+    p_err = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+        tree_leaves(cp), tree_leaves(wp)))
+    o_err = max(float((a.cpu() - b).abs().max())
+                / max(float(b.abs().max()), 1e-30)
+                for a, b in zip(tree_leaves(co), tree_leaves(wo)))
+    row.update(opt_param_err=p_err, opt_moment_rel_err=o_err)
+    if p_err > TRAIN_OPT_TOL or o_err > TRAIN_OPT_TOL:
+        raise AssertionError(f"{cfg.name}: the card's AdamW update differs "
+                             f"from the CPU's: parameters {p_err:.3e}, "
+                             f"moments {o_err:.3e}")
+    return row
+
+
+def sync(torch, device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def train_trainer(torch, cfg, ckpt_dir, injector, device="cuda"):
+    """The port's Trainer on the card at tests/test_trainer.py's settings,
+    ``TRAINER_STEPS`` steps, checkpoints every ``TRAINER_CKPT_EVERY``."""
+    from repro_torch.data import DataConfig
+    from repro_torch.train.train_step import TrainHParams
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    hp = TrainHParams(lr=1e-3, warmup=2, total_steps=TRAINER_STEPS,
+                      remat=None, ce_chunk=32)
+    tc = TrainerConfig(total_steps=TRAINER_STEPS,
+                       ckpt_every=TRAINER_CKPT_EVERY, ckpt_dir=str(ckpt_dir),
+                       log_every=1000, ckpt_async=True)
+    data = DataConfig(kind="synthetic", vocab_size=cfg.vocab_size,
+                      seq_len=32, global_batch=4)
+    return Trainer(cfg, hp, tc, data, injector=injector,
+                   log_fn=lambda *_: None, device=device).run()
+
+
+def train_phase(torch, np, card, steps=TRAIN_STEPS, device="cuda",
+                full=None, seq=TRAIN_SEQ, twin_seq=TWIN_SEQ):
+    """One-process training (slice I) on the card.
+
+    (a) internlm2-1.8b at full width and depth, float32 parameters drawn
+    on the card from a torch.Generator seeded 0 (``init_train_state``),
+    trained by ``make_train_step`` (AdamW, remat "full") for ``steps``
+    steps on ``make_pipeline``'s synthetic batches of 2 x 4096 tokens:
+    loss and grad norm finite at every step, flash_attention launched
+    2 x 24 times a step (the forward and the remat's recompute; the
+    backward recomputes the plain version) and no other kernel.  Prints
+    each step's wall, tokens/s, model TFLOP/s (6 N tokens a step; the
+    remat's second forward, 2 N tokens, is not counted) and peak memory.
+    (b) The same config with depth cut to 2 layers, parameters drawn on
+    the card and copied to the CPU: one train step on each side on the
+    synthetic stream's first 1 x 512 batch (``train_twin``).
+    (c) The Trainer on the card at tests/test_trainer.py's settings, run
+    once uninjected and once with a failure at step 6 (one restart from
+    the step-4 checkpoint): final parameters and moments bit-equal.
+    (d) jamba-1.5-large-398b reduced (MoE beside SSD layers): one train
+    step on the card against the CPU (``train_twin``, routes compared
+    first); both autograd Functions run.
+    Returns (rows, the train path's launches: (a), (b)'s and (d)'s card
+    steps and (c)'s two runs).  ``device="cpu"`` with a small ``full``
+    config, ``seq`` and ``twin_seq`` rehearses the phase on the CPU
+    (against itself; launch checks hold there as counted calls do not)."""
+    import dataclasses as dc
+    import shutil
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.data import DataConfig, make_pipeline
+    from repro_torch.ft import FailureInjector
+    from repro_torch.train.train_step import (TrainHParams, init_train_state,
+                                              make_train_step)
+    from repro_torch.utils.tree import tree_leaves
+    rows, launches = {}, {}
+
+    def count(reading):
+        for k, v in reading.items():
+            launches[k] = launches.get(k, 0) + v
+
+    card_run = torch.device(device).type == "cuda"
+
+    def check_launches(c, row, passes):
+        """The card's step of ``c`` launches each kernel ``passes`` times a
+        layer of its kind (the forward, and the remat's rerun), and its
+        halves once more as many."""
+        n = layer_counts(c)
+        step = {k: n.get(k, 0) * passes * card_run
+                for k in row["step_launches"]}
+        if (row["step_launches"], row["launches"]) != (
+                step, {k: 2 * v for k, v in step.items()}):
+            raise AssertionError(
+                f"{c.name}: launches {row['step_launches']} in the step, "
+                f"{row['launches']} with its halves; expected {step} and "
+                "twice that")
+
+    def draw(c):
+        return init_train_state(c, torch.Generator(device=device).manual_seed(
+            0), device=device)
+
+    # (a) full width and depth
+    cfg = full or get_config(TRAIN_ARCH)
+    hp = TrainHParams(lr=3e-4, warmup=2, total_steps=100, remat="full",
+                      ce_chunk=min(1024, seq))
+    if card_run:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    params, opt = draw(cfg)
+    step_fn = make_train_step(cfg, hp)
+    pipe = make_pipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                    global_batch=TRAIN_BATCH),
+                         device=device)
+    walls, metrics = [], []
+    reset_counters()
+    try:
+        for _ in range(steps):
+            step, batch = next(pipe)
+            sync(torch, device)
+            t0 = time.perf_counter()
+            params, opt, m = step_fn(params, opt, batch, step)
+            m = {k: float(v) for k, v in m.items()}     # ends on the card
+            walls.append(time.perf_counter() - t0)
+            metrics.append(m)
+            if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])):
+                raise AssertionError(f"{cfg.name} step {step}: {m}")
+    finally:
+        pipe.close()
+    reading = read_counters()
+    want = {k: 0 for k in reading}
+    want["flash_attention"] = (2 * layer_counts(cfg)["flash_attention"]
+                               * steps if card_run else 0)
+    if reading != want:
+        raise AssertionError(f"{cfg.name} training: launches {reading}, "
+                             f"expected {want}")
+    count(reading)
+    peak = torch.cuda.max_memory_allocated() if card_run else None
+    n, tokens = cfg.param_count(), TRAIN_BATCH * seq
+    flops = 6 * n * tokens
+    tflops = [flops / w / 1e12 for w in walls]
+    rows["full"] = {"arch": cfg.name, "layers": cfg.n_layers,
+                    "width": cfg.d_model, "params": n,
+                    "batch": TRAIN_BATCH, "seq": seq,
+                    "remat": hp.remat, "walls_s": walls,
+                    "tokens_per_s": [tokens / w for w in walls],
+                    "model_tflops": tflops, "metrics": metrics,
+                    "max_memory_allocated": peak, "launches": reading}
+    print(f"train {cfg.name} width {cfg.d_model}, {cfg.n_layers} layers "
+          f"({n} params, f32), batch {TRAIN_BATCH} x {seq}, remat "
+          f"{hp.remat}: wall per step {[round(w, 4) for w in walls]} s, "
+          f"tokens/s {[round(tokens / w, 1) for w in walls]}, model TFLOP/s "
+          f"(6 N tokens = {flops:.4g} a step) {[round(t, 2) for t in tflops]}"
+          f"; loss {[round(m['loss'], 5) for m in metrics]}, grad norm "
+          f"{[round(m['grad_norm'], 5) for m in metrics]}; peak device "
+          f"memory {peak} B; launches {reading}; {card}", flush=True)
+    del params, opt, step_fn
+    if card_run:
+        torch.cuda.empty_cache()
+
+    # (b) the full-width 2-layer twin
+    twin = dc.replace(cfg, n_layers=TWIN_LAYERS)
+    params = draw(twin)[0]
+    t0 = time.perf_counter()
+    row = train_twin(torch, np, twin, params,
+                     train_batch(np, twin, 1, twin_seq),
+                     dc.replace(hp, ce_chunk=min(1024, twin_seq)),
+                     device=device)
+    row["wall_s"] = time.perf_counter() - t0
+    check_launches(twin, row, 2)
+    count(row["launches"])
+    rows["twin"] = row
+    print(f"train {twin.name} width {twin.d_model}, {twin.n_layers} layers "
+          f"({twin.param_count()} params), 1 x {twin_seq} tokens, card vs "
+          f"CPU: loss {row['loss']:.6f} err {row['loss_err']:.3e} (tol "
+          f"{TRAIN_LOSS_TOL}), grad norm {row['grad_norm']:.6f} rel err "
+          f"{row['grad_norm_rel_err']:.3e} (tol {TRAIN_NORM_RTOL}), worst "
+          f"gradient leaf {row['grad_err_leaf']} {row['grad_err']:.3e} of its "
+          f"largest value (tol {TRAIN_GRAD_TOL}); AdamW on the CPU's "
+          f"gradients: parameters {row['opt_param_err']:.3e}, moments "
+          f"{row['opt_moment_rel_err']:.3e} (tol {TRAIN_OPT_TOL}); launches "
+          f"{row['launches']}; {row['wall_s']:.1f} s", flush=True)
+    del params
+    if card_run:
+        torch.cuda.empty_cache()
+
+    # (c) the Trainer: restart after an injected failure, bit-equal
+    small = get_reduced(TRAIN_ARCH)
+    root = ROOT / "chiprun_out" / "train_ckpts"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    reset_counters()
+    ref = train_trainer(torch, small, root / "clean", None, device)
+    rec = train_trainer(torch, small, root / "injected",
+                        FailureInjector(at_steps=[TRAINER_FAIL_AT]), device)
+    sync(torch, device)
+    reading = read_counters()
+    count(reading)
+    shutil.rmtree(root, ignore_errors=True)
+    equal = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves([ref["params"], ref["opt"]]),
+        tree_leaves([rec["params"], rec["opt"]])))
+    if rec["restarts"] != 1 or rec["step"] != TRAINER_STEPS or not equal:
+        raise AssertionError(f"Trainer restart: restarts {rec['restarts']}, "
+                             f"step {rec['step']}, bit-equal {equal}")
+    # steps run: the clean run's, the injected run's before the failure,
+    # and its replay from the last checkpoint; one forward a step (no remat)
+    want = (layer_counts(small)["flash_attention"]
+            * (2 * TRAINER_STEPS + TRAINER_FAIL_AT - TRAINER_CKPT_EVERY)
+            if card_run else 0)
+    if reading["flash_attention"] != want:
+        raise AssertionError(f"Trainer runs: launches {reading}, expected "
+                             f"flash_attention {want}")
+    rows["trainer"] = {"restarts": rec["restarts"], "bit_equal": equal,
+                       "losses": [h["loss"] for h in rec["history"]],
+                       "wall_s": time.perf_counter() - t0,
+                       "launches": reading}
+    print(f"train Trainer {small.name} reduced, {TRAINER_STEPS} steps, "
+          f"checkpoints every {TRAINER_CKPT_EVERY}, failure at step "
+          f"{TRAINER_FAIL_AT}: {rec['restarts']} restart, final parameters "
+          f"and moments bit-equal to the uninjected run; losses "
+          f"{[round(h['loss'], 5) for h in rec['history']]}; launches "
+          f"{reading}; {rows['trainer']['wall_s']:.1f} s", flush=True)
+
+    # (d) jamba reduced: MoE beside SSD layers, both autograd Functions
+    jamba = get_reduced("jamba-1.5-large-398b")
+    row = train_twin(torch, np, jamba, draw(jamba)[0],
+                     train_batch(np, jamba, 2, 64),
+                     dc.replace(hp, remat=None, ce_chunk=64), device=device)
+    check_launches(jamba, row, 1)
+    count(row["launches"])
+    rows["jamba"] = row
+    print(f"train {jamba.name} reduced, card vs CPU: loss err "
+          f"{row['loss_err']:.3e}, grad norm rel err "
+          f"{row['grad_norm_rel_err']:.3e}, worst gradient leaf "
+          f"{row['grad_err_leaf']} {row['grad_err']:.3e}; AdamW "
+          f"{row['opt_param_err']:.3e} / {row['opt_moment_rel_err']:.3e}; "
+          f"routes {row['routes']}; launches {row['launches']}", flush=True)
     return rows, launches
 
 
@@ -3388,12 +3797,15 @@ def main() -> int:
                                      np)
     profiled = phase("profile", profile_phase, torch)
     models, model_launches = phase("model", model_phase, torch, np)
+    trains, train_launches = phase("train", train_phase, torch, np, card)
 
     total = {k: launches[k] + spill_launches[k] + span_launches[k]
              + race_launches[k] + serve_launches[k] + recovery_launches[k]
              + cluster_launches[k] for k in ps.LAUNCHES}
     total.update(ref_launches)
     total.update(model_launches)
+    for k, v in train_launches.items():
+        total[k] = total.get(k, 0) + v
     table = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[SOURCE_OF[name]],
          "replaces": TPU_KERNELS[name], "launches": total[name],
@@ -3405,6 +3817,7 @@ def main() -> int:
     print(f"launches on the spill path: {spill_launches}", flush=True)
     print(f"launches on the reference path: {ref_launches}", flush=True)
     print(f"launches on the model path: {model_launches}", flush=True)
+    print(f"launches on the train path: {train_launches}", flush=True)
     print(f"launches on the span path: {span_launches}", flush=True)
     print(f"launches on the race path: {race_launches}", flush=True)
     print(f"launches on the serving path: {serve_launches}", flush=True)
@@ -3422,6 +3835,7 @@ def main() -> int:
          "cluster_points": clusters,
          "spill_points": spills,
          "reference_points": references, "models": models,
+         "train": trains, "launches_train": train_launches,
          "victim_scans": [[L, k, n] for (L, k), (n, _) in scans.items()],
          "launches_main": launches, "launches_span": span_launches,
          "launches_race": race_launches,

@@ -15,9 +15,13 @@ which restore ignores and ``gc_incomplete`` removes.  Durability: every
 save fsyncs the tmp file before its rename, then the step directory and
 its parent after the manifest rename.
 
-This is the flat name->array path that the coherence engine's snapshots
-use (``ft.coherence``); the pytree save and restore of a model's
-parameters come with the training slice.
+Two paths share the layout: the flat name->array path that the
+coherence engine's snapshots use (``save_arrays``, ``load_arrays``;
+``ft.coherence``), and the tree path of the trainer
+(``save_checkpoint``, ``restore_checkpoint``), which writes each leaf of
+a nested dict/list tree of tensors under its path in the reference's
+``jax.tree_util.keystr`` form (``['params']['blocks'][0]['wq']``), so a
+tree the reference saved restores here and the other way round.
 """
 from __future__ import annotations
 
@@ -28,9 +32,12 @@ import shutil
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
+import torch
+
+from repro_torch.utils.tree import tree_flatten, tree_unflatten
 
 _MANIFEST = "MANIFEST.json"
 _STEP_RE = re.compile(r"^step_(\d{9})$")
@@ -82,6 +89,60 @@ def _step_dirs(root: Path):
         if m and p.is_dir():
             out.append((int(m.group(1)), p))
     return out
+
+
+def _host_leaves(tree) -> Dict[str, np.ndarray]:
+    """The tree's leaves on the host, by path (a copy, taken now)."""
+    return {k: (v.detach().cpu().numpy().copy() if torch.is_tensor(v)
+                else np.array(v)) for k, v in tree_flatten(tree)}
+
+
+def save_checkpoint(root, step: int, tree, *, blocking: bool = True,
+                    extra: Optional[dict] = None, host: int = 0
+                    ) -> "threading.Thread | None":
+    """Copy ``tree``'s leaves to the host now; write the shard and the
+    manifest now, or on a background thread when ``blocking=False`` (the
+    thread is returned)."""
+    d = _step_dir(Path(root), step)
+    d.mkdir(parents=True, exist_ok=True)
+    host_flat = _host_leaves(tree)
+    spec = {k: {"shape": list(v.shape), "dtype": str(v.dtype)}
+            for k, v in host_flat.items()}
+
+    def _write():
+        manifest = {"step": step, "time": time.time(), "n_hosts": 1,
+                    "leaves": spec, "extra": extra or {}}
+        _write_committed(d, host_flat, manifest, host)
+
+    if blocking:
+        _write()
+        return None
+    t = threading.Thread(target=_write, daemon=True)
+    t.start()
+    return t
+
+
+def restore_checkpoint(root, step: int, template) -> Any:
+    """Step ``step``'s arrays in ``template``'s structure: each leaf read
+    by its path, checked against the template leaf's shape, and cast to
+    its dtype on its device."""
+    data, _ = load_arrays(root, step)
+    out = []
+    for key, tmpl in tree_flatten(template):
+        if key not in data:
+            raise ValueError(f"checkpoint step {step} has no leaf {key}")
+        arr = data[key]
+        if tuple(arr.shape) != tuple(tmpl.shape):
+            raise ValueError(f"{key}: shape {arr.shape} != "
+                             f"{tuple(tmpl.shape)}")
+        out.append(torch.from_numpy(np.ascontiguousarray(arr)).to(
+            device=tmpl.device, dtype=tmpl.dtype))
+    return tree_unflatten(template, out)
+
+
+def restore_extra(root, step: int) -> dict:
+    d = _step_dir(Path(root), step)
+    return json.loads((d / _MANIFEST).read_text())["extra"]
 
 
 def latest_step(root) -> Optional[int]:
@@ -141,6 +202,19 @@ class CheckpointManager:
         self.async_write = async_write
         self._inflight: Optional[threading.Thread] = None
         gc_incomplete(self.root)
+
+    def save(self, step: int, tree, *, extra: Optional[dict] = None):
+        """``save_checkpoint`` of a tree with the manager's rotation and
+        its at-most-one-in-flight async discipline; the leaves are copied
+        to the host before this returns."""
+        self.wait()
+        self._inflight = save_checkpoint(
+            self.root, step, tree, blocking=not self.async_write, extra=extra)
+        self._rotate(pending=step)
+
+    def restore(self, step: int, template):
+        self.wait()
+        return restore_checkpoint(self.root, step, template)
 
     def save_arrays(self, step: int, arrays: Dict[str, np.ndarray], *,
                     extra: Optional[dict] = None):

@@ -28,6 +28,15 @@ launch and to ``CALLS[name]`` per call on any device.  A tensor on the
 CPU takes the plain PyTorch version (``flash_attention_plain``, the
 materialised softmax of the reference's oracle); a CUDA tensor gets the
 kernel or an exception, never the plain version.
+
+The wrapper is differentiable through ``FlashAttention``, an autograd
+Function whose forward is the above and whose backward recomputes the
+plain version under autograd from the saved q, k and v
+(``flash_attention_plain_grads``), in blocks of ``BWD_QUERY_ROWS`` query
+rows so that the recompute never holds the whole (B, Hq, S, S) scores.
+There is no backward kernel: the reference differentiates XLA's
+``blocked_attention``, not its Pallas kernel.  Under remat the forward,
+kernel launch included, runs again before the backward.
 """
 from __future__ import annotations
 
@@ -45,6 +54,8 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _GRID_Y = 65535            # query tiles of 64 rows on the grid's y axis
 # keys of the kernel's KV tile in each dtype
 KEY_TILE = {torch.float32: 32, torch.bfloat16: 64}
+# query rows a block of the backward's plain recompute
+BWD_QUERY_ROWS = 1024
 
 _P = ctypes.c_void_p
 _L = ctypes.c_longlong
@@ -60,13 +71,14 @@ CALLS = _KERNELS.calls
 reset_launches = _KERNELS.reset
 
 
-def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, scale: Optional[float] = None,
-                          causal: bool = True, window: Optional[int] = None,
-                          softcap: Optional[float] = None) -> torch.Tensor:
-    """The reference oracle (``ref.flash_attention_ref``): the KV heads
-    repeated, the (S, S) scores materialised in float32, a full softmax."""
-    B, Hq, S, D = q.shape
+def _attention_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    q0: int, scale: Optional[float], causal: bool,
+                    window: Optional[int], softcap: Optional[float]
+                    ) -> torch.Tensor:
+    """The plain version for the query rows q0, q0 + 1, ... that ``q``
+    holds, against every key of ``k`` and ``v`` (positions from 0)."""
+    B, Hq, Sq, D = q.shape
+    S = k.shape[2]
     G = Hq // k.shape[1]
     scale = D ** -0.5 if scale is None else scale
     kr = k.repeat_interleave(G, dim=1).float()
@@ -74,15 +86,64 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = torch.matmul(q.float(), kr.transpose(-1, -2)) * scale
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
-    pos = torch.arange(S, device=q.device)
-    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    qpos = torch.arange(q0, q0 + Sq, device=q.device)
+    kpos = torch.arange(S, device=q.device)
+    mask = torch.ones((Sq, S), dtype=torch.bool, device=q.device)
     if causal:
-        mask &= pos[:, None] >= pos[None, :]
+        mask &= qpos[:, None] >= kpos[None, :]
     if window is not None:
-        mask &= pos[:, None] - pos[None, :] < window
+        mask &= qpos[:, None] - kpos[None, :] < window
     s = torch.where(mask, s, torch.full((), _NEG_INF, device=q.device))
     p = torch.softmax(s, dim=-1)
     return torch.matmul(p, vr).to(q.dtype)
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, scale: Optional[float] = None,
+                          causal: bool = True, window: Optional[int] = None,
+                          softcap: Optional[float] = None) -> torch.Tensor:
+    """The reference oracle (``ref.flash_attention_ref``): the KV heads
+    repeated, the (S, S) scores materialised in float32, a full softmax."""
+    return _attention_rows(q, k, v, 0, scale, causal, window, softcap)
+
+
+def flash_attention_plain_grads(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, grad: torch.Tensor, *,
+                                scale: Optional[float] = None,
+                                causal: bool = True,
+                                window: Optional[int] = None,
+                                softcap: Optional[float] = None,
+                                rows: int = BWD_QUERY_ROWS):
+    """(dq, dk, dv): the plain version's gradients for the output
+    gradient ``grad``, recomputed under autograd from the inputs, in
+    blocks of ``rows`` query rows, each against the keys it can see (the
+    keys before the block's end when causal).  A block's (B, Hq, rows,
+    keys) float32 scores are what the recompute holds at once, in place
+    of the whole (B, Hq, S, S).  k and v enter in float32, so the blocks'
+    dk and dv (and a GQA group's heads) add in float32: in float32 and at
+    one block (S <= rows) this is the plain version's autograd as it
+    stands; in bfloat16 every gradient is the float32 one rounded once
+    to bfloat16 (autograd of the bfloat16 plain version would round a
+    group's terms before adding them)."""
+    S = q.shape[2]
+    with torch.enable_grad():
+        # the blocks' dk and dv add in float32, rounded once to k's dtype
+        kk = k.detach().float().requires_grad_(True)
+        vv = v.detach().float().requires_grad_(True)
+        dq, dk, dv = [], None, None
+        for a in range(0, S, rows):
+            b = min(S, a + rows)
+            end = b if causal else S
+            qb = q[:, :, a:b].detach().requires_grad_(True)
+            out = _attention_rows(qb, kk[:, :, :end], vv[:, :, :end], a,
+                                  scale, causal, window, softcap)
+            gq, gk, gv = torch.autograd.grad(out, (qb, kk, vv),
+                                             grad[:, :, a:b])
+            dq.append(gq)
+            dk = gk if dk is None else dk + gk
+            dv = gv if dv is None else dv + gv
+    return (torch.cat(dq, dim=2) if len(dq) > 1 else dq[0], dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def _tiled(q, k, v, scale, causal, window, softcap, qk, pv):
@@ -192,13 +253,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"softcap must be > 0 or None, got {softcap}")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    scale: Optional[float] = None, causal: bool = True,
-                    window: Optional[int] = None,
-                    softcap: Optional[float] = None) -> torch.Tensor:
-    """q (B, Hq, S, D), k/v (B, Hkv, S, D) -> (B, Hq, S, D) in q's dtype."""
-    _KERNELS.called("flash_attention")
-    _check(q, k, v, window, softcap)
+def _forward(q, k, v, scale, causal, window, softcap) -> torch.Tensor:
+    """The kernel on a CUDA tensor, the plain version on the CPU."""
     if not on_card(q):
         return flash_attention_plain(q, k, v, scale=scale, causal=causal,
                                      window=window, softcap=softcap)
@@ -223,3 +279,33 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             0 if window is None else int(window),
             0.0 if softcap is None else float(softcap))
     return out
+
+
+class FlashAttention(torch.autograd.Function):
+    """Forward: the kernel (the plain version on the CPU).  Backward: the
+    plain version's gradients, recomputed under autograd from the saved
+    inputs (``flash_attention_plain_grads``); no backward kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal, window, softcap):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = dict(scale=scale, causal=causal, window=window,
+                        softcap=softcap)
+        return _forward(q, k, v, scale, causal, window, softcap)
+
+    @staticmethod
+    def backward(ctx, grad):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = flash_attention_plain_grads(q, k, v, grad, **ctx.opts)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    scale: Optional[float] = None, causal: bool = True,
+                    window: Optional[int] = None,
+                    softcap: Optional[float] = None) -> torch.Tensor:
+    """q (B, Hq, S, D), k/v (B, Hkv, S, D) -> (B, Hq, S, D) in q's dtype;
+    differentiable (``FlashAttention``)."""
+    _KERNELS.called("flash_attention")
+    _check(q, k, v, window, softcap)
+    return FlashAttention.apply(q, k, v, scale, causal, window, softcap)

@@ -28,6 +28,12 @@ The wrapper checks its operands, allocates the outputs with
 device.  A tensor on the CPU takes the plain PyTorch version
 (``ssd_chunk_plain``, the reference's oracle); a CUDA tensor gets the
 kernel or an exception, never the plain version.
+
+The wrapper is differentiable through ``SSDChunk``, an autograd Function
+whose forward is the above and whose backward recomputes
+``ssd_chunk_plain`` under autograd from the saved inputs.  There is no
+backward kernel: the reference differentiates its jnp ``ssd_chunked``,
+not its Pallas kernel.
 """
 from __future__ import annotations
 
@@ -135,13 +141,8 @@ def _check(x, dt, cum, B_, C_):
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
 
 
-def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
-              B_: torch.Tensor, C_: torch.Tensor
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Intra-chunk SSD: x (M, Q, P), dt/cum (M, Q, 1), B_/C_ (Mg, Q, N)
-    -> y (M, Q, P) float32, state (M, P, N) float32."""
-    _KERNELS.called("ssd_chunk")
-    _check(x, dt, cum, B_, C_)
+def _forward(x, dt, cum, B_, C_):
+    """The kernel on a CUDA tensor, the plain version on the CPU."""
     if not on_card(x):
         return ssd_chunk_plain(x, dt, cum, B_, C_)
     M, Q, P = x.shape
@@ -164,3 +165,39 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
                         y.data_ptr(), state.data_ptr(), DTYPES[x.dtype], M,
                         Q, P, N, M // B_.shape[0])
     return y, state
+
+
+def ssd_chunk_plain_grads(inputs, grads):
+    """The plain version's gradients for the output gradients ``grads``
+    (of y and state), recomputed under autograd from ``inputs`` (x, dt,
+    cum, B_, C_): one gradient an input."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in inputs]
+        outs = ssd_chunk_plain(*leaves)
+        return torch.autograd.grad(outs, leaves, grads)
+
+
+class SSDChunk(torch.autograd.Function):
+    """Forward: the kernel (the plain version on the CPU).  Backward: the
+    plain version's gradients, recomputed under autograd from the saved
+    inputs (``ssd_chunk_plain_grads``); no backward kernel."""
+
+    @staticmethod
+    def forward(ctx, x, dt, cum, B_, C_):
+        ctx.save_for_backward(x, dt, cum, B_, C_)
+        return _forward(x, dt, cum, B_, C_)
+
+    @staticmethod
+    def backward(ctx, gy, gstate):
+        return ssd_chunk_plain_grads(ctx.saved_tensors, (gy, gstate))
+
+
+def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
+              B_: torch.Tensor, C_: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Intra-chunk SSD: x (M, Q, P), dt/cum (M, Q, 1), B_/C_ (Mg, Q, N)
+    -> y (M, Q, P) float32, state (M, P, N) float32; differentiable
+    (``SSDChunk``)."""
+    _KERNELS.called("ssd_chunk")
+    _check(x, dt, cum, B_, C_)
+    return SSDChunk.apply(x, dt, cum, B_, C_)

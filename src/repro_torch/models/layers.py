@@ -12,16 +12,19 @@ version.  The reference computes the same function with the XLA
 ``blocked_attention``; its tests hold the two equal
 (``tests/test_kernels.py``).  ``attn_impl="reference"`` keeps the naive
 oracle.  Decode is ``decode_attention``, plain torch on every device, as
-in the reference (it is not a Pallas kernel there).
+in the reference (it is not a Pallas kernel there).  In train mode the
+wrapper is differentiable: its autograd Function runs the kernel forward
+and recomputes the plain version's gradients in the backward.
 
 MoE.  ``moe_block`` is the reference's dropping dispatch with one
 dispatch group (the reference's group count without a sharding context):
 router softmax in float32, top-k, a stable sort of the (token, k) choices
 by expert, capacity ``C`` a expert, overflowing choices dropped.  Its
 dispatch is plain torch ops and its expert products ``torch.einsum``, as
-the reference computes them outside any Pallas kernel.  The
-expert-parallel ``moe_block_ep`` needs a device mesh and waits for the
-training slice.
+the reference computes them outside any Pallas kernel.  In train mode
+it also returns the router's stats (``aux_loss``, ``expert_load``), which
+the training loss reads.  The expert-parallel ``moe_block_ep`` needs a
+device mesh across processes and waits for ROADMAP item 13d.
 """
 from __future__ import annotations
 

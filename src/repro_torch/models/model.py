@@ -11,14 +11,23 @@ position, stacked the same way.  Every architecture of the registry runs:
 dense and MoE MLPs, attention and SSD mixers, RoPE and M-RoPE (positions
 (3, B, S)), token and ``embeds`` inputs.
 
-Training (``loss_fn``, ``chunked_ce_loss``, remat) is not ported yet
-(ROADMAP Queue 1 item 13).
+Training: ``loss_fn`` runs the stack in train mode, then the final norm
+and ``chunked_ce_loss`` (cross-entropy a sequence chunk at a time, so the
+(B, S, V) logits are never whole), plus the MoE router's aux loss.
+``run_stack`` takes the reference's remat options: ``"full"`` wraps each
+super-block in a non-reentrant ``torch.utils.checkpoint``; ``"dots"``
+and ``"dots_no_batch"`` are selective checkpoints that keep the outputs
+of matrix products (``mm``/``bmm``/``addmm``, or ``mm``/``addmm``) and
+recompute the rest; ``remat_segment`` > 1 checkpoints segments of
+super-blocks as well.  Remat changes memory, never values.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.core.config import resolve_device
@@ -159,8 +168,48 @@ def _apply_layer(cfg, spec: LayerSpec, p, x, positions, *, mode, cache,
     return x, new_cache, stats
 
 
+REMATS = (None, "full", "dots", "dots_no_batch")
+# the products whose outputs the selective remats keep (the reference's
+# ``checkpoint_dots`` and ``checkpoint_dots_with_no_batch_dims``)
+_SAVED_OPS = {
+    "dots": (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+             torch.ops.aten.addmm.default),
+    "dots_no_batch": (torch.ops.aten.mm.default,
+                      torch.ops.aten.addmm.default),
+}
+
+
+def _save_products(ops, ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in ops
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_wrap(fn, remat: Optional[str]):
+    """``fn`` under the remat option ``remat`` (the identity for None)."""
+    if remat not in REMATS:
+        raise ValueError(f"remat={remat!r}; allowed: {REMATS}")
+    if remat is None:
+        return fn
+    kw = {}
+    if remat != "full":
+        policy = functools.partial(_save_products, _SAVED_OPS[remat])
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, policy)
+
+    def wrapped(*args):
+        return ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
+    return wrapped
+
+
+def _add_stats(acc, stats):
+    if stats is None:
+        return acc
+    return stats if acc is None else {k: acc[k] + v for k, v in stats.items()}
+
+
 def run_stack(cfg: ModelConfig, params, x, positions, *, mode: str = "train",
-              caches=None, cur_len=None, attn_impl: str = "blocked"):
+              caches=None, cur_len=None, attn_impl: str = "blocked",
+              remat: Optional[str] = None, remat_segment: int = 0):
     """Apply all layers, a Python loop over super-blocks.  Returns
     (hidden, new_caches, stats_sum); new_caches is None in train mode.
     stats_sum holds ``aux_loss`` and, for an MoE config, ``expert_load``,
@@ -170,27 +219,63 @@ def run_stack(cfg: ModelConfig, params, x, positions, *, mode: str = "train",
     computes them: prefill and decode return the zeros, since serving
     reads no stats (the reference's jit drops them there as dead code).
 
+    In train mode ``remat`` checkpoints each super-block, and
+    ``remat_segment`` > 1 (when it divides the super-blocks into more
+    than one segment) each segment of ``remat_segment`` super-blocks too,
+    as the reference's sqrt-N remat does.
+
     A layer whose new cache is the slice of the stacked buffer it was
     given (attention writes its KV in place) leaves the buffer as it is;
     other new caches (the SSD state and conv tail) are stacked afresh, in
     the dtype the layer computed them in, as the reference's scan does."""
-    per_layer: List[List[Any]] = [[] for _ in cfg.pattern]
-    per_block = []
-    for i in range(cfg.n_superblocks):
-        acc = None
+    train = mode == "train"
+    # one layer's parameters are views of the stacked tensors: unbind
+    # hands back one stacked gradient, not a stack-sized one per layer
+    layers = [{k: v.unbind(0) for k, v in blk.items()}
+              for blk in params["blocks"]]
+
+    def superblock(x, i):
+        acc, runs = None, []
         for pos, spec in enumerate(cfg.pattern):
-            p = {k: v[i] for k, v in params["blocks"][pos].items()}
+            p = {k: v[i] for k, v in layers[pos].items()}
             cache = (None if caches is None else
                      tuple(buf[i] for buf in caches[pos]))
             x, ncache, stats = _apply_layer(
                 cfg, spec, p, x, positions, mode=mode, cache=cache,
                 cur_len=cur_len, attn_impl=attn_impl)
-            per_layer[pos].append((cache, ncache))
-            if stats is not None:
-                acc = stats if acc is None else {k: acc[k] + v
-                                                for k, v in stats.items()}
-        if acc is not None:
-            per_block.append(acc)
+            runs.append((cache, ncache))
+            acc = _add_stats(acc, stats)
+        return x, acc, runs
+
+    per_layer: List[List[Any]] = [[] for _ in cfg.pattern]
+    per_block = []
+    n_sb = cfg.n_superblocks
+    if train:
+        body = remat_wrap(lambda x, i: superblock(x, i)[:2], remat)
+        inner = n_sb
+        if remat_segment > 1 and n_sb % remat_segment == 0 \
+                and n_sb // remat_segment > 1:
+            inner = remat_segment
+
+        def segment(x, first):
+            accs = []
+            for i in range(first, first + inner):
+                x, acc = body(x, i)
+                accs.append(acc)
+            return x, accs
+
+        if inner < n_sb:
+            segment = remat_wrap(segment, "full")
+        for first in range(0, n_sb, inner):
+            x, accs = segment(x, first)
+            per_block += [a for a in accs if a is not None]
+    else:
+        for i in range(n_sb):
+            x, acc, runs = superblock(x, i)
+            for pos, run in enumerate(runs):
+                per_layer[pos].append(run)
+            if acc is not None:
+                per_block.append(acc)
     if per_block:
         stats_sum = {k: torch.stack([b[k] for b in per_block]).sum(0)
                      for k in per_block[0]}
@@ -199,7 +284,7 @@ def run_stack(cfg: ModelConfig, params, x, positions, *, mode: str = "train",
         if cfg.moe is not None:
             stats_sum["expert_load"] = x.new_zeros((cfg.moe.n_experts,),
                                                    dtype=torch.float32)
-    if mode == "train":
+    if train:
         return x, None, stats_sum
     new_caches = []
     for pos, runs in enumerate(per_layer):
@@ -242,6 +327,36 @@ def _logits(cfg, params, hidden_last):
     return logits
 
 
+def chunked_ce_loss(cfg: ModelConfig, params, hidden, targets, *,
+                    chunk: int = 1024, mask=None):
+    """Mean cross-entropy of ``targets`` (B, S) under the LM head over
+    ``hidden`` (B, S, d), a chunk of ``chunk`` positions at a time (float32
+    logits of (B, chunk, V) at once), the chunks' sums added in order from
+    0 as the reference's scan adds them; ``mask`` (B, S) weights the
+    positions (the count of weighted positions divides)."""
+    B, S_, d = hidden.shape
+    c = min(chunk, S_)
+    if S_ % c:
+        raise ValueError(f"sequence {S_} is not a multiple of the CE chunk "
+                         f"{c}")
+    w = _lm_matrix(cfg, params).float()
+    loss = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    ntok = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for a in range(0, S_, c):
+        logits = torch.matmul(hidden[:, a:a + c].float(), w)
+        if cfg.final_softcap is not None:
+            logits = cfg.final_softcap * torch.tanh(logits
+                                                    / cfg.final_softcap)
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1,
+                          targets[:, a:a + c, None].long())[..., 0]
+        mc = (torch.ones_like(lse) if mask is None
+              else mask[:, a:a + c].float())
+        loss = loss + ((lse - ll) * mc).sum()
+        ntok = ntok + mc.sum()
+    return loss / torch.clamp(ntok, min=1.0)
+
+
 # ---------------------------------------------------------------------------
 # Public entry points
 # ---------------------------------------------------------------------------
@@ -253,6 +368,36 @@ def make_positions(cfg: ModelConfig, B: int, S: int, offset=0, device=None):
     pos = torch.arange(S, dtype=torch.int32, device=device)[None, :] + offset
     pos = pos.expand(B, S)
     return pos.expand(3, B, S) if cfg.mrope else pos
+
+
+def loss_fn(cfg: ModelConfig, params, batch, *, attn_impl="blocked",
+            remat=None, ce_chunk=1024, remat_segment=0):
+    """Training loss.  batch: ``tokens`` (B, S) or ``embeds`` (B, S, d),
+    ``targets`` (B, S), optional ``positions`` and ``loss_mask``.
+    Returns (loss, metrics): the mean cross-entropy plus, for an MoE
+    config, ``router_aux_weight * aux_loss / n_layers``; metrics ``ce``,
+    ``aux_loss`` and, for an MoE config, ``expert_load`` (E,)."""
+    x = embed_inputs(cfg, params, batch)
+    B, S_ = x.shape[0], x.shape[1]
+    positions = batch.get("positions")
+    if positions is None:
+        positions = make_positions(cfg, B, S_, device=x.device)
+    hidden, _, stats = run_stack(cfg, params, x, positions, mode="train",
+                                 attn_impl=attn_impl, remat=remat,
+                                 remat_segment=remat_segment)
+    hidden = L.rmsnorm(hidden, params["final_ln"], cfg.norm_eps)
+    ce = chunked_ce_loss(cfg, params, hidden, batch["targets"],
+                         chunk=ce_chunk, mask=batch.get("loss_mask"))
+    aux = stats["aux_loss"]
+    aux = aux.sum() if aux.dim() else aux
+    total = ce
+    if cfg.moe is not None:
+        total = total + cfg.moe.router_aux_weight * aux / cfg.n_layers
+    metrics = {"ce": ce, "aux_loss": aux}
+    if cfg.moe is not None:
+        load = stats["expert_load"]
+        metrics["expert_load"] = load.sum(0) if load.dim() > 1 else load
+    return total, metrics
 
 
 def init_caches(cfg: ModelConfig, B: int, max_len: int,

@@ -1,0 +1,129 @@
+"""Trainer: the fault-tolerant training loop (the port of the reference's
+``train/trainer.py``).
+
+It wires the data pipeline (stateless by step, prefetched), the train
+step, the checkpoint manager (async, keep-last-k) and the FT runtime
+(failure injection -> restore -> resume; straggler monitor).  All mutable
+state is (params, opt_state, step); everything else is rebuilt from the
+configs, so recovery is a restore and a jump of the pipeline.  One
+process: ``path="gspmd"`` (the step of ``make_train_step``); the explicit
+RegC path waits for ROADMAP item 13d.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Dict, List, Optional
+
+import torch
+
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.config import resolve_device
+from repro_torch.data import DataConfig, make_pipeline
+from repro_torch.ft import FailureInjector, StragglerMonitor, WorkerFailure
+from repro_torch.train.train_step import (
+    REGC_PENDING, TrainHParams, init_train_state, make_train_step,
+)
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    total_steps: int = 100
+    ckpt_every: int = 50
+    ckpt_dir: str = "ckpts"
+    ckpt_keep: int = 3
+    ckpt_async: bool = True
+    log_every: int = 10
+    path: str = "gspmd"               # 'gspmd' ('regc' waits for item 13d)
+    max_restarts: int = 3
+    seed: int = 0
+
+
+class Trainer:
+    """``run()`` trains from the latest checkpoint in ``tc.ckpt_dir`` (or
+    from parameters seeded with ``tc.seed``) to ``tc.total_steps`` on
+    ``device`` (the card unless the CPU is asked for; raises without a
+    card), restarting after a ``WorkerFailure`` up to ``tc.max_restarts``
+    times."""
+
+    def __init__(self, cfg: ModelConfig, hp: TrainHParams, tc: TrainerConfig,
+                 data: DataConfig, *,
+                 injector: Optional[FailureInjector] = None,
+                 log_fn: Callable[[str], None] = print, device="cuda"):
+        if tc.path == "regc":
+            raise NotImplementedError(REGC_PENDING)
+        if tc.path != "gspmd":
+            raise ValueError(f"path={tc.path!r}; allowed: 'gspmd'")
+        self.device = resolve_device(device)
+        self.cfg, self.hp, self.tc, self.data = cfg, hp, tc, data
+        self.injector = injector
+        self.log = log_fn
+        self.step_fn = make_train_step(cfg, hp)
+        self.ckpt = CheckpointManager(tc.ckpt_dir, keep=tc.ckpt_keep,
+                                      async_write=tc.ckpt_async)
+        self.straggler = StragglerMonitor(1)
+        self.history: List[Dict] = []
+        self.restarts = 0
+
+    # ------------------------------------------------------------------
+    def _init_state(self):
+        gen = torch.Generator(device=self.device).manual_seed(self.tc.seed)
+        return init_train_state(self.cfg, gen, device=self.device)
+
+    def _resume_or_init(self):
+        last = self.ckpt.latest()
+        if last is None:
+            params, opt = self._init_state()
+            return params, opt, 0
+        params_t, opt_t = self._init_state()
+        state = self.ckpt.restore(last, {"params": params_t, "opt": opt_t})
+        self.log(f"[trainer] restored checkpoint step={last}")
+        return state["params"], state["opt"], last
+
+    # ------------------------------------------------------------------
+    def run(self) -> Dict:
+        while True:
+            try:
+                return self._run_inner()
+            except WorkerFailure as e:
+                self.restarts += 1
+                if self.restarts > self.tc.max_restarts:
+                    raise
+                self.log(f"[trainer] {e} -> restart "
+                         f"{self.restarts}/{self.tc.max_restarts}")
+
+    def _run_inner(self) -> Dict:
+        params, opt, start = self._resume_or_init()
+        pipe = make_pipeline(self.data, start_step=start, device=self.device)
+        t_prev = time.perf_counter()
+        try:
+            step = start
+            while step < self.tc.total_steps:
+                step, batch = next(pipe)
+                if self.injector is not None:       # simulated failure point
+                    self.injector.check(step)
+                params, opt, metrics = self.step_fn(params, opt, batch, step)
+                loss = float(metrics["loss"])       # blocks; paces the loop
+                now = time.perf_counter()
+                dur = now - t_prev
+                t_prev = now
+                slow = self.straggler.observe([dur])
+                rec = {"step": step, "loss": loss, "t_s": dur,
+                       "straggler": bool(slow)}
+                self.history.append(rec)
+                if step % self.tc.log_every == 0:
+                    self.log(f"[trainer] step={step} loss={loss:.4f} "
+                             f"({dur*1e3:.0f} ms)")
+                next_step = step + 1
+                if next_step % self.tc.ckpt_every == 0 \
+                        or next_step == self.tc.total_steps:
+                    self.ckpt.save(next_step,
+                                   {"params": params, "opt": opt},
+                                   extra={"loss": loss})
+                step = next_step
+        finally:
+            pipe.close()
+        self.ckpt.wait()
+        return {"params": params, "opt": opt, "step": step,
+                "history": self.history, "restarts": self.restarts}

@@ -786,6 +786,95 @@ def test_reduced_models_match_cpu(f32_card, arch):
         rtol=1e-4, atol=1e-4)
 
 
+def test_flash_attention_function_grads_on_card(f32_card):
+    """The autograd Function on the card: the kernel's forward (launched,
+    its value) and gradients equal to autograd of the plain version there,
+    float32 within 1e-4 of the largest gradient; bfloat16 against the
+    float32 gradients of the same values at the kernel's tolerances (the
+    Function rounds them once); S = 1500 recomputes in two query
+    blocks."""
+    import chip_smoke
+    from repro_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(35)
+    for (B, Hq, Hkv, S, D) in ((2, 4, 2, 40, 16), (1, 8, 1, 100, 32),
+                               (1, 4, 2, 1500, 64)):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (t.requires_grad_(True) for t in chip_smoke.flash_inputs(
+                torch, np, rng, B, Hq, Hkv, S, D, dtype, f32_card))
+            for kw in ({}, {"window": 16, "softcap": 30.0}):
+                before = fa.LAUNCHES["flash_attention"]
+                out = fa.flash_attention(q, k, v, **kw)
+                assert fa.LAUNCHES["flash_attention"] == before + 1
+                with torch.no_grad():
+                    assert torch.equal(out, fa.flash_attention(q, k, v, **kw))
+                g = torch.randn(out.shape, device=f32_card).to(dtype)
+                got = torch.autograd.grad(out, (q, k, v), g)
+                # bfloat16 against the float32 gradients of the same values
+                up = [t.detach().float().requires_grad_(True)
+                      for t in (q, k, v)]
+                want = torch.autograd.grad(
+                    fa.flash_attention_plain(*up, **kw), up, g.float())
+                for a, b in zip(got, want):
+                    assert a.dtype == dtype
+                    if dtype == torch.float32:
+                        torch.testing.assert_close(
+                            a, b, rtol=0, atol=1e-4 * float(b.abs().max()))
+                    else:
+                        torch.testing.assert_close(a.float(), b,
+                                                   rtol=8e-3, atol=2e-3)
+
+
+def test_ssd_chunk_function_grads_on_card(f32_card):
+    """The SSD autograd Function on the card: the kernel's forward and
+    the plain version's gradients, within 1e-4 of the largest gradient."""
+    import chip_smoke
+    from repro_torch.kernels import ssd_chunk as sc
+    rng = np.random.default_rng(36)
+    for (M, Q, P, N, rep) in ((4, 64, 32, 64, 1), (8, 32, 16, 32, 4),
+                              (6, 7, 16, 16, 3)):
+        args = [t.requires_grad_(True) for t in chip_smoke.ssd_inputs(
+            torch, np, rng, M, Q, P, N, rep, torch.float32, f32_card)]
+        before = sc.LAUNCHES["ssd_chunk"]
+        y, st = sc.ssd_chunk(*args)
+        assert sc.LAUNCHES["ssd_chunk"] == before + 1
+        gy, gs = torch.randn_like(y), torch.randn_like(st)
+        got = torch.autograd.grad((y, st), args, (gy, gs))
+        want = torch.autograd.grad(sc.ssd_chunk_plain(*args), args, (gy, gs))
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=0,
+                                       atol=1e-4 * float(b.abs().max()))
+
+
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "mamba2-2.7b",
+                                  "gemma2-27b", "granite-20b", "llama3-405b",
+                                  "grok-1-314b", "moonshot-v1-16b-a3b",
+                                  "jamba-1.5-large-398b", "qwen2-vl-72b",
+                                  "musicgen-medium"])
+def test_reduced_train_step_matches_cpu(f32_card, arch):
+    """One train step (AdamW, remat "full") of a reduced model on the card
+    against the CPU on the same parameters (``chip_smoke.train_twin``:
+    routes first, loss within 1e-4, grad norm 1e-4 relative, gradient
+    leaves 1e-3 of their largest value, the card's AdamW on the CPU's
+    gradients within 1e-6), through the kernels: each attention and SSD
+    layer launched twice in the step (the forward and the remat's
+    recompute), and twice again in the step's halves that the twin reruns
+    on the card."""
+    import chip_smoke
+    from repro_torch.configs import get_reduced
+    from repro_torch.train.train_step import TrainHParams, init_train_state
+    cfg = get_reduced(arch)
+    params = init_train_state(cfg, torch.Generator(device="cuda").manual_seed(
+        3), device="cuda")[0]
+    hp = TrainHParams(lr=1e-3, warmup=2, total_steps=10, remat="full",
+                      ce_chunk=32)
+    row = chip_smoke.train_twin(torch, np, cfg, params,
+                                chip_smoke.train_batch(np, cfg, 2, 32), hp)
+    n = chip_smoke.layer_counts(cfg)
+    for key, passes in (("step_launches", 2), ("launches", 4)):
+        assert (row[key]["flash_attention"], row[key]["ssd_chunk"]) == (
+            passes * n["flash_attention"], passes * n["ssd_chunk"]), key
+
+
 @pytest.mark.parametrize("backend", ("kernels", "fused"))
 def test_cuda_kv_serving_matches_cpu(dev, backend):
     """The serving workload (slice F) at W=16 under benchmarks/

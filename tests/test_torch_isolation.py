@@ -5,8 +5,12 @@
   (AST scan);
 * ``repro_torch`` imports and runs a small CPU trace in a process where
   ``import jax`` fails, and there ``repro_torch.cluster`` imports and
-  composes the trace's two shard slices into a snapshot that restores;
-* entry points run on the card by default and raise without one;
+  composes the trace's two shard slices into a snapshot that restores,
+  and a reduced model takes a train step;
+* entry points run on the card by default and raise without one (the
+  training ones too: ``Trainer``, ``init_train_state``,
+  ``make_pipeline``, ``launch.train``), and the explicit RegC train path
+  raises, naming ROADMAP item 13d;
 * the knobs of ported slices (race detection and the recovery hooks
   among them, and the reference engine) build a runtime, and the
   reference engine raises on the recovery hooks, naming the slice;
@@ -64,6 +68,22 @@ def test_port_runs_without_jax(tmp_path):
         "    [rt.snapshot(rows=(0, 1)), rt.snapshot(rows=(1, 4))])\n"
         "again = RegCScaleRuntime.from_snapshot(*full, device='cpu')\n"
         "assert state_digest(again) == state_digest(rt)\n"
+        "import torch\n"
+        "from repro_torch.configs import get_reduced\n"
+        "from repro_torch.train.train_step import (TrainHParams,\n"
+        "    init_train_state, make_train_step)\n"
+        "from repro_torch.data import DataConfig, make_pipeline\n"
+        "cfg = get_reduced('internlm2-1.8b')\n"
+        "p, opt = init_train_state(cfg, torch.Generator().manual_seed(0),\n"
+        "                          device='cpu')\n"
+        "pipe = make_pipeline(DataConfig(vocab_size=cfg.vocab_size,\n"
+        "    seq_len=16, global_batch=2), device='cpu')\n"
+        "step, batch = next(pipe)\n"
+        "pipe.close()\n"
+        "p2, opt2, m = make_train_step(cfg, TrainHParams(ce_chunk=16))(\n"
+        "    p, opt, batch, step)\n"
+        "assert torch.isfinite(m['loss']) and float(m['grad_norm']) > 0\n"
+        "assert not torch.equal(p2['embed'], p['embed'])\n"
         "assert 'jax' not in [m for m in sys.modules if sys.modules[m]]\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -179,6 +199,59 @@ def test_model_entry_points_default_to_the_card():
         serve(cfg, params, [prompt["tokens"][0].numpy()], batch=1, max_new=2)
     out = generate(cfg, params, prompt, max_new_tokens=2, device="cpu")
     assert out.shape == (1, 2) and out.device.type == "cpu"
+
+
+def test_train_entry_points_default_to_the_card(tmp_path):
+    from repro_torch.configs import get_reduced
+    from repro_torch.data import DataConfig, make_pipeline
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train.train_step import TrainHParams, init_train_state
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = get_reduced("internlm2-1.8b")
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=16, global_batch=2)
+    tc = TrainerConfig(total_steps=1, ckpt_dir=str(tmp_path / "ck"))
+    if torch.cuda.is_available():
+        p, _ = init_train_state(cfg)
+        assert p["embed"].device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_train_state(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_pipeline(data)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(cfg, TrainHParams(), tc, data)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_train.main(["--steps", "1", "--ckpt-dir",
+                           str(tmp_path / "ck")])
+    assert not (tmp_path / "ck").exists()
+
+
+def test_regc_train_path_raises_naming_13d(tmp_path):
+    """The RegC path and every sync policy but the default (which one
+    process would ignore) raise, before a checkpoint directory is made."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.data import DataConfig
+    from repro_torch.regc_sync.policies import RegCSyncPolicy
+    from repro_torch.train.train_step import (TrainHParams, make_train_step,
+                                              make_train_step_regc)
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = get_reduced("internlm2-1.8b")
+    with pytest.raises(NotImplementedError, match="13d"):
+        make_train_step_regc(cfg, TrainHParams(), mesh=None)
+    with pytest.raises(NotImplementedError, match="13d"):
+        Trainer(cfg, TrainHParams(), TrainerConfig(
+            path="regc", ckpt_dir=str(tmp_path / "ck")), DataConfig(),
+            device="cpu")
+    for sync in (RegCSyncPolicy(compression="int8_ring"),
+                 RegCSyncPolicy(granularity="object"),
+                 RegCSyncPolicy(ordinary_sync="eager")):
+        hp = TrainHParams(sync=sync)
+        with pytest.raises(NotImplementedError, match="13d"):
+            make_train_step(cfg, hp)
+        with pytest.raises(NotImplementedError, match="13d"):
+            Trainer(cfg, hp, TrainerConfig(ckpt_dir=str(tmp_path / "ck")),
+                    DataConfig(), device="cpu")
+    assert not (tmp_path / "ck").exists()
 
 
 def _smoke(cwd: Path, script: Path):
