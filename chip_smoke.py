@@ -217,7 +217,29 @@ Phases, in order; any mismatch or exception exits non-zero:
    Trainer on the card at tests/test_trainer.py's settings, 8 steps, a
    failure injected at step 6 and restarted from the step-4 checkpoint,
    bit-equal to the uninjected run; and jamba-1.5-large-398b reduced (MoE
-   beside SSD layers), one train step card against CPU, routes first.
+   beside SSD layers), one train step card against CPU, routes first;
+9a. regc phase (slice J): RegC gradient sync across processes.  (a) The
+   full-width 2-layer internlm2-1.8b takes one ``make_train_step`` step
+   on a global batch of 4 x 2048 in 2 microbatches in this process (its
+   loss, grad norm and gradients kept on the host); then two ranks,
+   spawned on the card and joined over gloo (NCCL refuses two ranks on
+   one device), draw the same parameters and take one
+   ``make_train_step_regc`` step each from them under
+   benchmarks/regc_training.py's four policies (lazy_object, lazy_bucket
+   at 64 MiB buckets, eager_object, int8_ring): loss within 1e-4, grad
+   norm 1e-4 relative (int8_ring 4e-3), the psum policies' synced
+   gradients 1e-3 of each leaf's largest value and int8_ring's 2e-2 of it
+   and the reference test's ring bound, |ring - psum| / (|psum| + 1e-3)
+   < 0.05, elementwise (and on its own input on the card), both ranks'
+   parameters and moments equal after
+   every step (a positional checksum of their bits), the counted
+   collectives equal to the rule for this tree; prints each step's wall,
+   the sync's wall, bytes, messages, the backend, the host staging and
+   each rank's peak memory over its steps (the one-process gradients
+   held on the host, pinned, and compared leaf by leaf on the card).  (b) ``launch.train --path regc
+   --sync-compression int8_ring`` on 2 ranks under
+   ``python -m torch.distributed.run``, 6 steps, checkpoints every 3:
+   both ranks end on the same loss and rank 0's checkpoint holds step 6.
 
 TF32 is off for every float comparison (printed at the start).  The
 launch counters are set to 0 just before each of the path phases (the
@@ -267,6 +289,10 @@ FLASH_MODEL_SHAPES = (("moonshot-v1-16b-a3b", (4, 16, 16, 511, 128)),
 # train phase's batch, B = 2 sequences of S = 4096 (64 query tiles, 128
 # key tiles of the float32 kernel)
 FLASH_TRAIN_SHAPE = ("internlm2-1.8b train", (2, 16, 8, 4096, 128))
+# and on the regc path (phase 9a): the one-process step's microbatch of
+# B = 2 sequences of S = 2048, and a rank's microbatch of B = 1
+FLASH_REGC_SHAPES = (("internlm2-1.8b regc one-process", (2, 16, 8, 2048, 128)),
+                     ("internlm2-1.8b regc rank", (1, 16, 8, 2048, 128)))
 TPU_KERNELS = {
     "pack_rows": "src/repro/kernels/protocol_sweep.py:134",
     "popcount_rows": "src/repro/kernels/protocol_sweep.py:232",
@@ -1297,10 +1323,11 @@ def model_kernel_phase(torch, np, dev):
     row per 80 heads as the model passes it, the same per cell, in
     bfloat16, and at the reduced Q=32, P=16, N=16; attention also at the
     prefill shapes of the MoE, M-RoPE and embeds models
-    (``FLASH_MODEL_SHAPES``) and at the train phase's shape
-    (``FLASH_TRAIN_SHAPE``, float32, S = 4096).  Timed at the first
-    shapes (and in bfloat16, per cell, and at each model shape and the
-    train shape); the library yardstick of
+    (``FLASH_MODEL_SHAPES``), at the train phase's shape
+    (``FLASH_TRAIN_SHAPE``, float32, S = 4096) and at the regc phase's
+    two (``FLASH_REGC_SHAPES``, float32, S = 2048).  Timed at the first
+    shapes (and in bfloat16, per cell, and at each model, train and regc
+    shape); the library yardstick of
     attention is scaled_dot_product_attention (timed, used nowhere in the
     port); SSD has none."""
     from repro_torch.kernels import flash_attention as fa
@@ -1316,7 +1343,8 @@ def model_kernel_phase(torch, np, dev):
              ("reduced D=16", (4, 4, 2, 40, 16), f32,
               {"window": 16, "softcap": 30.0})]
     model_cases = [(f"{arch} prefill", shape)
-                   for arch, shape in FLASH_MODEL_SHAPES] + [FLASH_TRAIN_SHAPE]
+                   for arch, shape in FLASH_MODEL_SHAPES] + [
+                       FLASH_TRAIN_SHAPE, *FLASH_REGC_SHAPES]
     cases += [(label, shape, f32, {}) for label, shape in model_cases]
     errs, timed = [], {}
     for label, (B, Hq, Hkv, S, D), dtype, kw in cases:
@@ -2228,6 +2256,356 @@ def train_phase(torch, np, card, steps=TRAIN_STEPS, device="cuda",
           f"{row['grad_err_leaf']} {row['grad_err']:.3e}; AdamW "
           f"{row['opt_param_err']:.3e} / {row['opt_moment_rel_err']:.3e}; "
           f"routes {row['routes']}; launches {row['launches']}", flush=True)
+    return rows, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 9a: RegC gradient sync across processes (slice J)
+# ---------------------------------------------------------------------------
+
+# (a): two ranks share the card over gloo; the full-width 2-layer twin;
+# a global batch of 4 x 2048 (2 rows a rank) in 2 microbatches; one step
+# a policy from the same state, benchmarks/regc_training.py's four, with
+# lazy_bucket at the default 64 MiB buckets
+REGC_RANKS, REGC_BATCH, REGC_SEQ, REGC_MICRO = 2, 4, 2048, 2
+REGC_POLICIES = (
+    ("lazy_object", {"ordinary_sync": "lazy", "granularity": "object"}),
+    ("lazy_bucket", {"ordinary_sync": "lazy", "granularity": "bucket"}),
+    ("eager_object", {"ordinary_sync": "eager", "granularity": "object"}),
+    ("int8_ring", {"ordinary_sync": "lazy", "granularity": "object",
+                   "compression": "int8_ring"}))
+# the int8 ring: tests/test_regc_sync.py's bound |ring - psum| / (|psum|
+# + 1e-3) < 0.05 on its own input and elementwise on the full-width
+# gradients (their 1e-3 floor sits above the ring's error there, not at
+# reduced width); each gradient leaf within 2e-2 of its largest |value|
+# and the grad norm within 4e-3, relative: about 3x and 10x the ring's
+# errors on the card (7.475e-3 and 3.716e-4 at full width; 7.3e-3 and
+# 9.6e-5 at reduced width on the CPU), where a lossless sync is held to
+# TRAIN_GRAD_TOL and TRAIN_NORM_RTOL
+REGC_RING_TOL = 0.05
+REGC_RING_LEAF_TOL, REGC_RING_NORM_TOL = 2e-2, 4e-3
+# (b): launch.train --path regc, int8_ring, under torch.distributed.run
+REGC_LAUNCH_STEPS, REGC_LAUNCH_CKPT_EVERY = 6, 3
+
+
+def tree_digest(torch, tree):
+    """Per leaf, the sum of its 32-bit words (as int64) and their sum
+    weighted by position: two ranks' trees of equal digests hold equal
+    bits but for a collision of both 64-bit sums.  On the host."""
+    from repro_torch.utils.tree import tree_leaves
+    out = []
+    for leaf in tree_leaves(tree):
+        w = leaf.detach().contiguous().view(torch.int32).reshape(-1).to(
+            torch.int64)
+        pos = torch.arange(1, w.numel() + 1, dtype=torch.int64,
+                           device=w.device)
+        out += [w.sum(), (w * pos).sum()]
+        del w, pos
+    return torch.stack(out).cpu()
+
+
+def regc_counts(sizes, policy: dict, n_micro: int, world: int) -> dict:
+    """The collectives one rank counts in a step: (bytes, messages) of
+    all-reduce and collective-permute.  The gradients sync once (lazy)
+    or every microbatch (eager) as one vector a leaf (object) or a bucket
+    (closed once it holds ``bucket_bytes``); psum: one all-reduce of 4
+    bytes an element; int8_ring: 2 (world - 1) hops of two permutes,
+    ceil(n / world) bytes of codes and a 4-byte scale; then the loss's
+    4-byte all-reduce."""
+    from repro_torch.regc_sync.policies import RegCSyncPolicy
+    pol = RegCSyncPolicy(**policy)
+    flats = list(sizes)
+    if pol.granularity == "bucket":
+        flats, cur = [], 0
+        for n in sizes:
+            cur += n
+            if cur * 4 >= pol.bucket_bytes:
+                flats.append(cur)
+                cur = 0
+        flats += [cur] if cur else []
+    syncs = n_micro if pol.ordinary_sync == "eager" else 1
+    if pol.compression == "int8_ring":
+        hops = 2 * (world - 1)
+        return {"all-reduce": (4, 1), "collective-permute": (
+            syncs * sum(hops * -(-n // world) + hops * 4 for n in flats),
+            syncs * 2 * hops * len(flats))}
+    return {"all-reduce": (syncs * 4 * sum(flats) + 4, syncs * len(flats) + 1),
+            "collective-permute": (0, 0)}
+
+
+def regc_rank(cfg, hp, batch, grads_path, sizes, one, digest0, device,
+              ring_elementwise=True):
+    """One rank of (a): the four policies' steps, checked on the rank
+    against the one-process step (``one``: loss and grad norm; gradients
+    in the float32 file ``grads_path``, kept on the host and brought to
+    the device a leaf at a time).  Returns the rows and the rank's peak
+    memory over the steps; raises after the last policy if any failed,
+    with every row."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.ranks import rank_device
+    from repro_torch.regc_sync import policies as P
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step_regc)
+    from repro_torch.utils.tree import tree_flatten
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = rank_device(device)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    card_run = dev.type == "cuda"
+    t_setup = time.perf_counter()
+    mesh = make_host_mesh((world,), ("data",))
+    # the reference test's ring bound on its own kind of input, here
+    x = (torch.arange(world * 64, dtype=torch.float32).reshape(world, 64)
+         / 100.0 - 2.0)
+    ring = P.ring_allreduce_int8(x[rank].to(dev), "data", world,
+                                 mesh=mesh).cpu()
+    psum = x.double().sum(0)
+    ring_input_err = float(((ring.double() - psum).abs()
+                            / (psum.abs() + 1e-3)).max())
+    if not ring_input_err < REGC_RING_TOL:
+        raise AssertionError(f"int8 ring on the reference test's input: "
+                             f"{ring_input_err} of its bound")
+    params, opt = init_train_state(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    if tree_digest(torch, params).tolist() != digest0:
+        raise AssertionError(f"rank {rank}: parameters differ from the "
+                             "one-process step's")
+    flat = np.load(grads_path, mmap_mode="r")
+    bounds = np.cumsum([0] + list(sizes))
+    ref = [torch.from_numpy(np.array(flat[a:b]))
+           for a, b in zip(bounds[:-1], bounds[1:])]
+    del flat
+    if card_run:
+        ref = [t.pin_memory() for t in ref]
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    setup_s = time.perf_counter() - t_setup
+    if card_run:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    rows, failed = {}, []
+    for tag, policy in REGC_POLICIES:
+        step = make_train_step_regc(
+            cfg, dataclasses.replace(hp, sync=P.RegCSyncPolicy(**policy)),
+            mesh)
+        reset_counters()
+        P.reset_collectives()
+        P.SYNC_WALLS = []
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        try:
+            p2, o2, m, g = step(params, opt, batch, 0, with_grads=True)
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+            wall = time.perf_counter() - t0
+        finally:
+            walls, P.SYNC_WALLS = P.SYNC_WALLS, None
+        row = {"wall_s": wall, "sync_walls_s": walls, "loss": loss,
+               "grad_norm": gnorm, "loss_err": abs(loss - one["loss"]),
+               "grad_norm_rel_err": abs(gnorm - one["grad_norm"])
+               / one["grad_norm"],
+               "bytes": dict(P.COLLECTIVE_BYTES),
+               "messages": dict(P.COLLECTIVE_MSGS),
+               "staged": dict(P.STAGED), "launches": read_counters()}
+        ring = policy.get("compression") == "int8_ring"
+        worst, elem = (0.0, None), 0.0
+        for (k, leaf), want in zip(tree_flatten(g), ref):
+            want = want.to(dev)
+            diff = (leaf.reshape(-1) - want).abs()
+            e = float(diff.max()) / max(float(want.abs().max()), 1e-30)
+            if e > worst[0]:
+                worst = (e, k)
+            if ring:
+                elem = max(elem, float((diff / (want.abs() + 1e-3)).max()))
+            del diff, want
+        row.update(grad_err=worst[0], grad_err_leaf=worst[1])
+        if ring:
+            row.update(ring_elementwise=elem, ring_input_err=ring_input_err)
+        mine = tree_digest(torch, [p2, o2])
+        theirs = [torch.zeros_like(mine) for _ in range(world)]
+        dist.all_gather(theirs, mine)
+        row["ranks_equal"] = all(torch.equal(t, mine) for t in theirs)
+        counted = {k: (row["bytes"][k], row["messages"][k])
+                   for k in row["bytes"]}
+        row["counts_ok"] = counted == regc_counts(sizes, policy, hp.n_micro,
+                                                  world)
+        del p2, o2, m, g
+        tol = REGC_RING_LEAF_TOL if ring else TRAIN_GRAD_TOL
+        norm_tol = REGC_RING_NORM_TOL if ring else TRAIN_NORM_RTOL
+        if not (np.isfinite(loss) and row["loss_err"] <= TRAIN_LOSS_TOL
+                and row["grad_norm_rel_err"] <= norm_tol
+                and row["grad_err"] <= tol and row["ranks_equal"]
+                and row["counts_ok"]
+                and not (ring and ring_elementwise
+                         and not elem < REGC_RING_TOL)):
+            failed.append(tag)
+        rows[tag] = row
+    if failed:
+        raise AssertionError(f"rank {rank}: {failed} failed; rows {rows}")
+    peak = torch.cuda.max_memory_allocated(dev) if card_run else None
+    return {"rank": rank, "device": str(dev), "rows": rows, "peak": peak,
+            "setup_s": setup_s}
+
+
+def regc_launch(torch, work: Path, device: str) -> dict:
+    """(b): ``launch.train --path regc`` on ``REGC_RANKS`` ranks under
+    ``python -m torch.distributed.run --standalone``."""
+    import os
+    from repro_torch.checkpoint import latest_step
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+              "MASTER_PORT"):
+        env.pop(k, None)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(REGC_RANKS), "-m", "repro_torch.launch.train",
+         "--path", "regc", "--sync-compression", "int8_ring", "--backend",
+         "gloo", "--device", device, "--steps", str(REGC_LAUNCH_STEPS),
+         "--ckpt-every", str(REGC_LAUNCH_CKPT_EVERY), "--ckpt-dir",
+         str(work / "ckpts")],
+        cwd=work, env=env, capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"launch.train --path regc exited "
+                             f"{proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    lines = proc.stdout.splitlines()
+    done = [x for x in lines if x.startswith("done: ")]
+    ranks = [x for x in lines if x.startswith("ranks: ")]
+    if len(done) != 1 or len(ranks) != 1:
+        raise AssertionError(f"launch.train printed {done} {ranks}")
+    losses = json.loads(ranks[0].split("final_losses=")[1].split(
+        " launches=")[0])
+    launched = json.loads(ranks[0].split(" launches=")[1].replace("'", '"'))
+    step = latest_step(work / "ckpts")
+    if (len(losses) != REGC_RANKS or len(set(losses)) != 1
+            or not done[0].startswith(f"done: step={REGC_LAUNCH_STEPS} ")
+            or step != REGC_LAUNCH_STEPS):
+        raise AssertionError(f"launch.train --path regc: {done[0]}, "
+                             f"{ranks[0]}, checkpoint step {step}")
+    return {"done": done[0], "ranks": ranks[0], "final_losses": losses,
+            "ckpt_step": step, "wall_s": wall, "launches": launched}
+
+
+def regc_phase(torch, np, card, device="cuda", cfg=None, seq=REGC_SEQ,
+               launch=True):
+    """Phase 9a (see the module's note).  Returns (rows, the regc path's
+    launches: the one-process step's, the ranks' and (b)'s).  ``device=
+    "cpu"`` with a small ``cfg`` and ``seq`` rehearses it on the CPU.
+    The ring's elementwise bound is held at full width only (a ``cfg``
+    given, it is printed, not held)."""
+    ring_elementwise = cfg is None
+    import shutil
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.launch.ranks import spawn_ranks
+    from repro_torch.train.train_step import (TrainHParams, init_train_state,
+                                              make_train_step)
+    from repro_torch.utils.tree import tree_flatten
+    cfg = cfg or dataclasses.replace(get_config(TRAIN_ARCH),
+                                     n_layers=TWIN_LAYERS)
+    hp = TrainHParams(lr=3e-4, warmup=2, total_steps=100, remat="full",
+                      ce_chunk=min(1024, seq), n_micro=REGC_MICRO)
+    card_run = torch.device(device).type == "cuda"
+    work = ROOT / "build" / "regc_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    batch = train_batch(np, cfg, REGC_BATCH, seq)
+    # the one-process step on the global batch; its results to the host
+    if card_run:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    params, opt = init_train_state(
+        cfg, torch.Generator(device=device).manual_seed(0), device=device)
+    digest0 = tree_digest(torch, params).tolist()
+    reset_counters()
+    t0 = time.perf_counter()
+    _, _, m, grads = make_train_step(cfg, hp)(
+        params, opt, {k: torch.as_tensor(v, device=device)
+                      for k, v in batch.items()}, 0, with_grads=True)
+    one = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+           "wall_s": time.perf_counter() - t0, "launches": read_counters(),
+           "peak": torch.cuda.max_memory_allocated() if card_run else None}
+    leaves = tree_flatten(grads)
+    sizes = [g.numel() for _, g in leaves]
+    out = np.lib.format.open_memmap(work / "grads.npy", mode="w+",
+                                    dtype=np.float32, shape=(sum(sizes),))
+    off = 0
+    for (_, g), n in zip(leaves, sizes):
+        out[off:off + n] = g.reshape(-1).cpu().numpy()
+        off += n
+    out.flush()
+    del out, params, opt, grads, m, leaves
+    if card_run:
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(
+        REGC_RANKS, "chip_smoke:regc_rank",
+        (cfg, hp, batch, str(work / "grads.npy"), sizes, one, digest0,
+         device, ring_elementwise), backend="gloo", init_method=f"file://{work / 'store'}",
+        timeout_s=600)
+    ranks_wall = time.perf_counter() - t0
+    (work / "grads.npy").unlink()
+    per_step = 2 * REGC_MICRO * layer_counts(cfg)["flash_attention"]
+    launches = dict(one["launches"])
+    for r in ranks:
+        for tag, row in r["rows"].items():
+            want = per_step if card_run else 0
+            if row["launches"]["flash_attention"] != want:
+                raise AssertionError(f"rank {r['rank']} {tag}: launches "
+                                     f"{row['launches']}, flash_attention "
+                                     f"{want} expected")
+            for k, v in row["launches"].items():
+                launches[k] += v
+    if one["launches"]["flash_attention"] != (per_step if card_run else 0):
+        raise AssertionError(f"one-process step: launches {one['launches']}")
+    print(f"regc {cfg.name} width {cfg.d_model}, {cfg.n_layers} layers "
+          f"({cfg.param_count()} params, f32), global batch {REGC_BATCH} x "
+          f"{seq} in {REGC_MICRO} microbatches, remat {hp.remat}: one-process "
+          f"step {one['wall_s']:.3f} s, loss {one['loss']:.6f}, grad norm "
+          f"{one['grad_norm']:.6f}, peak {one['peak']} B; {REGC_RANKS} ranks "
+          f"on {ranks[0]['device']} over gloo ({ranks_wall:.1f} s with "
+          f"their start); {card}", flush=True)
+    for tag, _ in REGC_POLICIES:
+        rs = [r["rows"][tag] for r in ranks]
+        extra = (f", ring elementwise |ring - psum| / (|psum| + 1e-3) "
+                 f"{rs[0]['ring_elementwise']:.4g} (reference input "
+                 f"{rs[0]['ring_input_err']:.4g})" if "ring_input_err"
+                 in rs[0] else "")
+        print(f"regc {tag}: step wall {[round(r['wall_s'], 4) for r in rs]}"
+              f" s, sync walls {[[round(w, 4) for w in r['sync_walls_s']] for r in rs]}"
+              f" s, loss err {rs[0]['loss_err']:.3e}, grad norm rel err "
+              f"{rs[0]['grad_norm_rel_err']:.3e}, worst gradient leaf "
+              f"{rs[0]['grad_err_leaf']} {max(r['grad_err'] for r in rs):.3e}"
+              f" of its largest value{extra}; bytes {rs[0]['bytes']}, "
+              f"messages {rs[0]['messages']} a rank (rule kept), backend "
+              f"gloo, staged to the host {rs[0]['staged']}; ranks equal "
+              f"{all(r['ranks_equal'] for r in rs)}; launches "
+              f"{ {k: v for k, v in rs[0]['launches'].items() if v} } a "
+              "rank", flush=True)
+    print(f"regc peak device memory by rank over the four steps and their "
+          f"checks: {[r['peak'] for r in ranks]} B; set-up (mesh, "
+          f"parameters, the one-process gradients loaded to the host) "
+          f"{[round(r['setup_s'], 2) for r in ranks]} s", flush=True)
+    rows = {"one_process": one, "ranks": ranks, "ranks_wall_s": ranks_wall}
+    if launch:
+        b = regc_launch(torch, work, "cuda" if card_run else "cpu")
+        want = (REGC_LAUNCH_STEPS * REGC_RANKS
+                * layer_counts(get_reduced(TRAIN_ARCH))["flash_attention"]
+                if card_run else 0)
+        if b["launches"]["flash_attention"] != want:
+            raise AssertionError(f"launch.train: launches {b['launches']}, "
+                                 f"flash_attention {want} expected")
+        for k, v in b["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        rows["launch"] = b
+        print(f"regc launch.train --path regc --sync-compression int8_ring, "
+              f"{REGC_RANKS} ranks under torch.distributed.run: "
+              f"{b['done']}; final losses {b['final_losses']}; checkpoint "
+              f"step {b['ckpt_step']}; launches {b['launches']}; "
+              f"{b['wall_s']:.1f} s", flush=True)
+    shutil.rmtree(work, ignore_errors=True)
     return rows, launches
 
 
@@ -3798,13 +4176,14 @@ def main() -> int:
     profiled = phase("profile", profile_phase, torch)
     models, model_launches = phase("model", model_phase, torch, np)
     trains, train_launches = phase("train", train_phase, torch, np, card)
+    regcs, regc_launches = phase("regc", regc_phase, torch, np, card)
 
     total = {k: launches[k] + spill_launches[k] + span_launches[k]
              + race_launches[k] + serve_launches[k] + recovery_launches[k]
              + cluster_launches[k] for k in ps.LAUNCHES}
     total.update(ref_launches)
     total.update(model_launches)
-    for k, v in train_launches.items():
+    for k, v in list(train_launches.items()) + list(regc_launches.items()):
         total[k] = total.get(k, 0) + v
     table = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[SOURCE_OF[name]],
@@ -3818,6 +4197,7 @@ def main() -> int:
     print(f"launches on the reference path: {ref_launches}", flush=True)
     print(f"launches on the model path: {model_launches}", flush=True)
     print(f"launches on the train path: {train_launches}", flush=True)
+    print(f"launches on the regc path: {regc_launches}", flush=True)
     print(f"launches on the span path: {span_launches}", flush=True)
     print(f"launches on the race path: {race_launches}", flush=True)
     print(f"launches on the serving path: {serve_launches}", flush=True)
@@ -3836,6 +4216,7 @@ def main() -> int:
          "spill_points": spills,
          "reference_points": references, "models": models,
          "train": trains, "launches_train": train_launches,
+         "regc": regcs, "launches_regc": regc_launches,
          "victim_scans": [[L, k, n] for (L, k), (n, _) in scans.items()],
          "launches_main": launches, "launches_span": span_launches,
          "launches_race": race_launches,

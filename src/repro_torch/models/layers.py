@@ -24,7 +24,7 @@ dispatch is plain torch ops and its expert products ``torch.einsum``, as
 the reference computes them outside any Pallas kernel.  In train mode
 it also returns the router's stats (``aux_loss``, ``expert_load``), which
 the training loss reads.  The expert-parallel ``moe_block_ep`` needs a
-device mesh across processes and waits for ROADMAP item 13d.
+device mesh across processes and waits for ROADMAP item 13e.
 """
 from __future__ import annotations
 

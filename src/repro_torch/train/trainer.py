@@ -5,9 +5,16 @@ It wires the data pipeline (stateless by step, prefetched), the train
 step, the checkpoint manager (async, keep-last-k) and the FT runtime
 (failure injection -> restore -> resume; straggler monitor).  All mutable
 state is (params, opt_state, step); everything else is rebuilt from the
-configs, so recovery is a restore and a jump of the pipeline.  One
-process: ``path="gspmd"`` (the step of ``make_train_step``); the explicit
-RegC path waits for ROADMAP item 13d.
+configs, so recovery is a restore and a jump of the pipeline.
+
+``path="gspmd"`` runs ``make_train_step`` in one process.
+``path="regc"`` runs ``make_train_step_regc`` on every rank of ``mesh``
+(a ``launch.mesh.Mesh``) over ``tc.dp_axes``: every rank runs the same
+global pipeline and keeps its rows; rank 0 writes the checkpoints and a
+barrier follows each save; before a restore rank 0's writes end and a
+barrier lets every rank read the same latest step, so an injected
+``WorkerFailure`` (raised on every rank at the same step) restarts every
+rank there.
 """
 from __future__ import annotations
 
@@ -16,6 +23,7 @@ import time
 from typing import Callable, Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs.base import ModelConfig
@@ -23,7 +31,7 @@ from repro_torch.core.config import resolve_device
 from repro_torch.data import DataConfig, make_pipeline
 from repro_torch.ft import FailureInjector, StragglerMonitor, WorkerFailure
 from repro_torch.train.train_step import (
-    REGC_PENDING, TrainHParams, init_train_state, make_train_step,
+    TrainHParams, init_train_state, make_train_step, make_train_step_regc,
 )
 
 
@@ -35,7 +43,8 @@ class TrainerConfig:
     ckpt_keep: int = 3
     ckpt_async: bool = True
     log_every: int = 10
-    path: str = "gspmd"               # 'gspmd' ('regc' waits for item 13d)
+    path: str = "gspmd"               # 'gspmd' | 'regc'
+    dp_axes: tuple = ("data",)
     max_restarts: int = 3
     seed: int = 0
 
@@ -45,21 +54,27 @@ class Trainer:
     from parameters seeded with ``tc.seed``) to ``tc.total_steps`` on
     ``device`` (the card unless the CPU is asked for; raises without a
     card), restarting after a ``WorkerFailure`` up to ``tc.max_restarts``
-    times."""
+    times.  On ``path="regc"`` every rank of ``mesh`` makes its own
+    Trainer, on its own ``device``."""
 
     def __init__(self, cfg: ModelConfig, hp: TrainHParams, tc: TrainerConfig,
-                 data: DataConfig, *,
+                 data: DataConfig, *, mesh=None,
                  injector: Optional[FailureInjector] = None,
                  log_fn: Callable[[str], None] = print, device="cuda"):
-        if tc.path == "regc":
-            raise NotImplementedError(REGC_PENDING)
-        if tc.path != "gspmd":
-            raise ValueError(f"path={tc.path!r}; allowed: 'gspmd'")
+        if tc.path not in ("gspmd", "regc"):
+            raise ValueError(f"path={tc.path!r}; allowed: 'gspmd', 'regc'")
         self.device = resolve_device(device)
         self.cfg, self.hp, self.tc, self.data = cfg, hp, tc, data
         self.injector = injector
         self.log = log_fn
-        self.step_fn = make_train_step(cfg, hp)
+        if tc.path == "regc":
+            if mesh is None:
+                raise ValueError("the explicit RegC path needs a mesh")
+            self.step_fn = make_train_step_regc(cfg, hp, mesh,
+                                                dp_axes=tc.dp_axes)
+        else:
+            self.step_fn = make_train_step(cfg, hp)
+        self.writer = tc.path == "gspmd" or dist.get_rank() == 0
         self.ckpt = CheckpointManager(tc.ckpt_dir, keep=tc.ckpt_keep,
                                       async_write=tc.ckpt_async)
         self.straggler = StragglerMonitor(1)
@@ -71,7 +86,13 @@ class Trainer:
         gen = torch.Generator(device=self.device).manual_seed(self.tc.seed)
         return init_train_state(self.cfg, gen, device=self.device)
 
+    def _barrier(self):
+        if self.tc.path == "regc":
+            dist.barrier()
+
     def _resume_or_init(self):
+        self.ckpt.wait()        # rank 0's writes end before anyone reads
+        self._barrier()
         last = self.ckpt.latest()
         if last is None:
             params, opt = self._init_state()
@@ -118,12 +139,15 @@ class Trainer:
                 next_step = step + 1
                 if next_step % self.tc.ckpt_every == 0 \
                         or next_step == self.tc.total_steps:
-                    self.ckpt.save(next_step,
-                                   {"params": params, "opt": opt},
-                                   extra={"loss": loss})
+                    if self.writer:
+                        self.ckpt.save(next_step,
+                                       {"params": params, "opt": opt},
+                                       extra={"loss": loss})
+                    self._barrier()
                 step = next_step
         finally:
             pipe.close()
         self.ckpt.wait()
+        self._barrier()
         return {"params": params, "opt": opt, "step": step,
                 "history": self.history, "restarts": self.restarts}

@@ -875,6 +875,29 @@ def test_reduced_train_step_matches_cpu(f32_card, arch):
             passes * n["flash_attention"], passes * n["ssd_chunk"]), key
 
 
+def test_regc_ranks_on_card_match_one_process_step(f32_card):
+    """Two ranks share the card over gloo and take one RegC step each
+    under the four policies of benchmarks/regc_training.py from the
+    reduced internlm2's parameters (``chip_smoke.regc_phase`` at reduced
+    width, without its launch.train run): loss, grad norm and synced
+    gradients against the one-process step on the card, both ranks'
+    parameters and moments equal, the counted collectives equal to the
+    rule, and each step through the attention kernel."""
+    import chip_smoke
+    from repro_torch.configs import get_reduced
+    cfg = get_reduced("internlm2-1.8b")
+    rows, launches = chip_smoke.regc_phase(
+        torch, np, chip_smoke.card_line(), cfg=cfg, seq=64, launch=False)
+    per_step = 2 * chip_smoke.REGC_MICRO  # forward and remat, a microbatch
+    assert launches["flash_attention"] == per_step * (
+        1 + chip_smoke.REGC_RANKS * len(chip_smoke.REGC_POLICIES))
+    for r in rows["ranks"]:
+        assert r["device"].startswith("cuda")
+        for tag, row in r["rows"].items():
+            assert row["ranks_equal"] and row["counts_ok"], tag
+            assert row["staged"]["messages"] > 0, tag     # gloo: host copies
+
+
 @pytest.mark.parametrize("backend", ("kernels", "fused"))
 def test_cuda_kv_serving_matches_cpu(dev, backend):
     """The serving workload (slice F) at W=16 under benchmarks/

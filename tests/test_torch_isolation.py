@@ -9,8 +9,9 @@
   and a reduced model takes a train step;
 * entry points run on the card by default and raise without one (the
   training ones too: ``Trainer``, ``init_train_state``,
-  ``make_pipeline``, ``launch.train``), and the explicit RegC train path
-  raises, naming ROADMAP item 13d;
+  ``make_pipeline``, ``launch.train``); the explicit RegC train path
+  builds and takes a step in one process, and a sharding context raises,
+  naming ROADMAP item 13e;
 * the knobs of ported slices (race detection and the recovery hooks
   among them, and the reference engine) build a runtime, and the
   reference engine raises on the recovery hooks, naming the slice;
@@ -84,6 +85,20 @@ def test_port_runs_without_jax(tmp_path):
         "    p, opt, batch, step)\n"
         "assert torch.isfinite(m['loss']) and float(m['grad_norm']) > 0\n"
         "assert not torch.equal(p2['embed'], p['embed'])\n"
+        "from repro_torch.launch.mesh import make_host_mesh\n"
+        "from repro_torch.launch.ranks import init_world\n"
+        "from repro_torch.regc_sync import RegCSyncPolicy\n"
+        "from repro_torch.train.train_step import make_train_step_regc\n"
+        "assert init_world('gloo')\n"
+        "hp = TrainHParams(ce_chunk=16, sync=RegCSyncPolicy(\n"
+        "    granularity='object', compression='int8_ring'))\n"
+        "step_fn = make_train_step_regc(cfg, hp, make_host_mesh((1,), ('data',)))\n"
+        "p3, _, m3 = step_fn(p, opt, batch, step)\n"
+        "assert torch.equal(m3['loss'], m['loss'])\n"
+        "assert all(torch.equal(a, b) for a, b in zip(\n"
+        "    p2.values(), p3.values()) if torch.is_tensor(a))\n"
+        "import torch.distributed as dist\n"
+        "dist.destroy_process_group()\n"
         "assert 'jax' not in [m for m in sys.modules if sys.modules[m]]\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -227,8 +242,11 @@ def test_train_entry_points_default_to_the_card(tmp_path):
 
 
 def test_regc_train_path_raises_naming_13d(tmp_path):
-    """The RegC path and every sync policy but the default (which one
-    process would ignore) raise, before a checkpoint directory is made."""
+    """ROADMAP item 13d is ported: the RegC path builds (its Trainer needs
+    a mesh).  What still raises, before a checkpoint directory is made:
+    a sharding context (item 13e) and, on the one-process path, every
+    sync policy but the default (which it would ignore), naming the regc
+    path where the policy applies."""
     from repro_torch.configs import get_reduced
     from repro_torch.data import DataConfig
     from repro_torch.regc_sync.policies import RegCSyncPolicy
@@ -236,9 +254,12 @@ def test_regc_train_path_raises_naming_13d(tmp_path):
                                               make_train_step_regc)
     from repro_torch.train.trainer import Trainer, TrainerConfig
     cfg = get_reduced("internlm2-1.8b")
-    with pytest.raises(NotImplementedError, match="13d"):
-        make_train_step_regc(cfg, TrainHParams(), mesh=None)
-    with pytest.raises(NotImplementedError, match="13d"):
+    with pytest.raises(NotImplementedError, match="13e"):
+        make_train_step_regc(cfg, TrainHParams(), mesh=None,
+                             inner_ctx=object())
+    with pytest.raises(NotImplementedError, match="13e"):
+        make_train_step(cfg, TrainHParams(), ctx=object())
+    with pytest.raises(ValueError, match="needs a mesh"):
         Trainer(cfg, TrainHParams(), TrainerConfig(
             path="regc", ckpt_dir=str(tmp_path / "ck")), DataConfig(),
             device="cpu")
@@ -246,9 +267,9 @@ def test_regc_train_path_raises_naming_13d(tmp_path):
                  RegCSyncPolicy(granularity="object"),
                  RegCSyncPolicy(ordinary_sync="eager")):
         hp = TrainHParams(sync=sync)
-        with pytest.raises(NotImplementedError, match="13d"):
+        with pytest.raises(NotImplementedError, match="regc"):
             make_train_step(cfg, hp)
-        with pytest.raises(NotImplementedError, match="13d"):
+        with pytest.raises(NotImplementedError, match="regc"):
             Trainer(cfg, hp, TrainerConfig(ckpt_dir=str(tmp_path / "ck")),
                     DataConfig(), device="cpu")
     assert not (tmp_path / "ck").exists()

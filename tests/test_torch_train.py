@@ -357,7 +357,7 @@ def test_ssd_chunk_function_grads():
 
 def test_train_step_refusals():
     cfg = get_reduced("internlm2-1.8b")
-    with pytest.raises(NotImplementedError, match="13d"):
+    with pytest.raises(NotImplementedError, match="13e"):
         T.make_train_step(cfg, T.TrainHParams(), ctx=object())
     with pytest.raises(ValueError, match="opt_impl"):
         T.make_train_step(cfg, T.TrainHParams(opt_impl="sgd"))

@@ -106,11 +106,16 @@ def test_launch_train_on_cpu(tmp_path, capsys):
     assert out["step"] == 3 and out["restarts"] == 0
     assert "done: step=3" in capsys.readouterr().out
     assert latest_step(tmp_path / "ck") == 3
-    with pytest.raises(NotImplementedError, match="13d"):
-        launch_train.main(["--path", "regc", "--device", "cpu"])
+    # the RegC path runs (one process without torch.distributed.run's
+    # environment); its sync options, ignored by one process, raise
+    # on the default path, naming the regc path where they apply
+    out = launch_train.main(["--path", "regc", "--device", "cpu", "--steps",
+                             "2", "--seq-len", "16", "--ckpt-dir",
+                             str(tmp_path / "regc")])
+    assert out["step"] == 2 and latest_step(tmp_path / "regc") == 2
     for flag, value in (("--sync-compression", "int8_ring"),
                         ("--sync-granularity", "object")):
-        with pytest.raises(NotImplementedError, match="13d"):
+        with pytest.raises(NotImplementedError, match="regc"):
             launch_train.main([flag, value, "--device", "cpu", "--ckpt-dir",
                                str(tmp_path / "refused")])
     assert not (tmp_path / "refused").exists()
