@@ -121,13 +121,13 @@ Phases, in order; any mismatch or exception exits non-zero:
    restored on the CPU, and one taken on the CPU and restored on the
    card, all finishing bit-equal.  Prints ``t_ckpt``, ``t_restore``,
    ``t_recovery``, walls and ``ckpt_bytes``;
-4e. cluster phase (slice G): the 12 committed fig10_availability rows at
-   W=256 (both drivers), ``samhita_s1``, ``_s2`` and ``_s4``, clean and
-   ``_fault``, at benchmarks/availability.py's settings (8 pages a
+4e. cluster phase (slice G): 6 of the 12 committed fig10_availability
+   rows at W=256 (both drivers), ``samhita_s1`` and ``_s4`` clean and
+   ``samhita_s4_fault``, at benchmarks/availability.py's settings (8 pages a
    worker, the recovery program, ``ChaosNet`` and straggler settings, 3
    RPC attempts; the faulted rows SIGKILL the last rank and partition
    rank 0's replies, recovered by respawn) but a 1.0 s deadline floor
-   (``CARD_RPC_TIMEOUT_S``) on 'fused': ``ClusterRuntime`` spawns 1, 2
+   (``CARD_RPC_TIMEOUT_S``) on 'fused': ``ClusterRuntime`` spawns 1
    or 4 shard processes, each a full replica with its planes on the
    card.  Each run is bit-equal to a single-process run on the card,
    its round digests in lockstep with that run's, and equal to its
@@ -240,6 +240,30 @@ Phases, in order; any mismatch or exception exits non-zero:
    --sync-compression int8_ring`` on 2 ranks under
    ``python -m torch.distributed.run``, 6 steps, checkpoints every 3:
    both ranks end on the same loss and rank 0's checkpoint holds step 6.
+9b. tp phase (slice K): tensor, expert and FSDP parallelism of
+   training.  moonshot-v1-16b-a3b at full width (d_model 2048, 16
+   heads, 64 experts of d_ff 1408, top-6, vocabulary 163840), remat
+   "full", sequences of 1024, ``DEFAULT_RULES`` (what the reference's
+   ``rules_for`` gives an MoE train shape), parameters drawn on the card
+   from seed 0.  (a) 2 layers, mesh (1, 2) ("data", "model"), a global
+   batch of 2, one step each with ``moe_impl`` dense and ep from the
+   same state; (b) 1 layer, mesh (2, 2) (FSDP over data, two dispatch
+   groups, the data-axis gradient sums), a global batch of 4, ep.  Each
+   run: first the one-process ``make_train_step`` step in this process
+   with ``moe_block`` at the run's groups (the ep runs with each group's
+   aux loss averaged), its scalars, routes and gradients kept on the
+   host (a float32 file under ``build/``), the card freed; then 2 or 4
+   ranks spawned on the card over gloo draw the same parameters, keep
+   their blocks (``shard_state``) and take the sharded step: loss within
+   1e-4, grad norm 1e-4 relative, every gradient block within 1e-3 of
+   its leaf's largest |value|, the sharded AdamW of the one-process
+   gradients within 1e-6 of AdamW's own, MoE routes equal but for
+   counted near ties (``compare_routes``), ``aux_loss`` within 1e-6,
+   ``expert_load`` equal, and every block held by several ranks
+   bit-equal (a positional checksum); flash_attention launched twice a
+   layer a rank (forward and remat).  Prints each rank's step wall, the
+   collectives' bytes and messages a rank by kind and axes, the bytes
+   staged through the host, the peak memory a rank and the backend.
 
 TF32 is off for every float comparison (printed at the start).  The
 launch counters are set to 0 just before each of the path phases (the
@@ -293,6 +317,9 @@ FLASH_TRAIN_SHAPE = ("internlm2-1.8b train", (2, 16, 8, 4096, 128))
 # B = 2 sequences of S = 2048, and a rank's microbatch of B = 1
 FLASH_REGC_SHAPES = (("internlm2-1.8b regc one-process", (2, 16, 8, 2048, 128)),
                      ("internlm2-1.8b regc rank", (1, 16, 8, 2048, 128)))
+# phase 9b's shape a rank: moonshot-v1-16b-a3b's 16 heads split over two
+# model ranks, 2 rows of 1024 a rank in (a) and (b)
+FLASH_TP_SHAPES = (("moonshot-v1-16b-a3b tp rank", (2, 8, 8, 1024, 128)),)
 TPU_KERNELS = {
     "pack_rows": "src/repro/kernels/protocol_sweep.py:134",
     "popcount_rows": "src/repro/kernels/protocol_sweep.py:232",
@@ -356,9 +383,16 @@ RECOVERY_CHAOS_SEED = 11
 # cluster phase: benchmarks/availability.py's settings (PAGES_PER_WORKER,
 # SHARDS, RPC_TIMEOUT_S, RPC_ATTEMPTS; the recovery program and chaos
 # settings above), on the W=256 rows of both drivers (the W=16 rows run
-# on the CPU, in tests/test_torch_cluster.py)
+# on the CPU, in tests/test_torch_cluster.py).  The smoke runs 6 of the
+# 12 rows: of its SHARDS (1, 2, 4) the 1- and 4-shard clean rows and the
+# 4-shard faulted ones; the 2-shard rows and the 1-shard faulted ones
+# (176 s of the phase's 320 s on an H100) were cut for the tp phase's time;
+# 2 shards with a kill and a partition run on the card in
+# tests/test_torch_cuda.py, and the cut rows' kinds on the CPU in
+# tests/test_torch_cluster*.py
 AVAIL_PAGES_PER_WORKER = 8
-AVAIL_SHARDS = (1, 2, 4)
+AVAIL_SHARDS = (1, 4)
+AVAIL_FAULT_SHARDS = (4,)
 AVAIL_GROUPS = ((256, "loop"), (256, "batched"))
 AVAIL_RPC_TIMEOUT_S = 0.25
 AVAIL_RPC_ATTEMPTS = 3
@@ -507,11 +541,15 @@ def timed_ms(torch, fn, n: int = 50, rounds: int = 5) -> float:
     return statistics.median(per)
 
 
-def profiled_ms(torch, fn, name: str, n: int = 100) -> float:
+def profiled_ms(torch, fn, name: str, n: int = 100):
     """Median device time of one launch of the kernel whose name holds
     ``name``, over ``n`` calls of ``fn`` traced by torch.profiler: the
     kernel alone, without the host's launch cost.  A trace that recorded
-    none of them (seen once on the card) is taken again, up to twice."""
+    none of them (seen once on the card) is taken again, up to twice;
+    when a trace recorded no device event at all the third time (the
+    profiler on that card lost its device trace: seen once, in the
+    rank-select phase after the cluster phase), None: the device time is
+    not measured, and the kernel's CUDA-event time stands alone."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -525,6 +563,10 @@ def profiled_ms(torch, fn, name: str, n: int = 100) -> float:
         times = [e.time_range.elapsed_us() for e in seen if name in e.name]
         if times:
             return statistics.median(times) * 1e-3
+    if not seen:
+        print(f"torch.profiler recorded no device event in 3 traces of "
+              f"{name}: its device time is not measured", flush=True)
+        return None
     raise AssertionError(f"torch.profiler recorded no {name} kernel among "
                          f"{sorted({e.name for e in seen})}")
 
@@ -856,9 +898,11 @@ def report_kernels(results):
             err = f"  max_abs_err={r['err']}" if shape is r else ""
             if "c_entry_ms" in shape:
                 err += f"  C entry alone {shape['c_entry_ms'] * 1e3:.2f} us"
-            if "profiled_ms" in shape:
+            if shape.get("profiled_ms") is not None:
                 err += (f"  on the device {shape['profiled_ms'] * 1e3:.2f} us "
                         "(profiler)")
+            elif "profiled_ms" in shape:
+                err += "  on the device not measured (profiler)"
             if "packed_bytes" in shape:
                 shape["packed_bound_ms"] = (shape["packed_bytes"]
                                             / HBM_BYTES_PER_S * 1e3)
@@ -1324,8 +1368,9 @@ def model_kernel_phase(torch, np, dev):
     bfloat16, and at the reduced Q=32, P=16, N=16; attention also at the
     prefill shapes of the MoE, M-RoPE and embeds models
     (``FLASH_MODEL_SHAPES``), at the train phase's shape
-    (``FLASH_TRAIN_SHAPE``, float32, S = 4096) and at the regc phase's
-    two (``FLASH_REGC_SHAPES``, float32, S = 2048).  Timed at the first
+    (``FLASH_TRAIN_SHAPE``, float32, S = 4096), at the regc phase's
+    two (``FLASH_REGC_SHAPES``, float32, S = 2048) and at a rank's of the
+    tp phase (``FLASH_TP_SHAPES``, float32, S = 1024).  Timed at the first
     shapes (and in bfloat16, per cell, and at each model, train and regc
     shape); the library yardstick of
     attention is scaled_dot_product_attention (timed, used nowhere in the
@@ -1344,7 +1389,8 @@ def model_kernel_phase(torch, np, dev):
               {"window": 16, "softcap": 30.0})]
     model_cases = [(f"{arch} prefill", shape)
                    for arch, shape in FLASH_MODEL_SHAPES] + [
-                       FLASH_TRAIN_SHAPE, *FLASH_REGC_SHAPES]
+                       FLASH_TRAIN_SHAPE, *FLASH_REGC_SHAPES,
+                       *FLASH_TP_SHAPES]
     cases += [(label, shape, f32, {}) for label, shape in model_cases]
     errs, timed = [], {}
     for label, (B, Hq, Hkv, S, D), dtype, kw in cases:
@@ -2293,15 +2339,25 @@ def tree_digest(torch, tree):
     weighted by position: two ranks' trees of equal digests hold equal
     bits but for a collision of both 64-bit sums.  On the host."""
     from repro_torch.utils.tree import tree_leaves
-    out = []
-    for leaf in tree_leaves(tree):
-        w = leaf.detach().contiguous().view(torch.int32).reshape(-1).to(
-            torch.int64)
-        pos = torch.arange(1, w.numel() + 1, dtype=torch.int64,
+    return torch.cat([leaf_digest(torch, leaf) for leaf in tree_leaves(tree)])
+
+
+DIGEST_CHUNK = 1 << 26
+
+
+def leaf_digest(torch, leaf):
+    """``tree_digest`` of one leaf, summed ``DIGEST_CHUNK`` words at a time
+    (int64 sums wrap alike in any grouping), so its temporaries stay
+    under 1.1 GB whatever the leaf's size."""
+    words = leaf.detach().contiguous().view(torch.int32).reshape(-1)
+    total = torch.zeros(2, dtype=torch.int64, device=words.device)
+    for a in range(0, words.numel(), DIGEST_CHUNK):
+        w = words[a:a + DIGEST_CHUNK].to(torch.int64)
+        pos = torch.arange(a + 1, a + 1 + w.numel(), dtype=torch.int64,
                            device=w.device)
-        out += [w.sum(), (w * pos).sum()]
+        total += torch.stack([w.sum(), (w * pos).sum()])
         del w, pos
-    return torch.stack(out).cpu()
+    return total.cpu()
 
 
 def regc_counts(sizes, policy: dict, n_micro: int, world: int) -> dict:
@@ -2607,6 +2663,395 @@ def regc_phase(torch, np, card, device="cuda", cfg=None, seq=REGC_SEQ,
               f"{b['wall_s']:.1f} s", flush=True)
     shutil.rmtree(work, ignore_errors=True)
     return rows, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 9b: tensor, expert and FSDP parallelism of training (slice K)
+# ---------------------------------------------------------------------------
+
+# moonshot-v1-16b-a3b at full width, DEFAULT_RULES (what the reference's
+# rules_for gives an MoE train shape), remat "full", sequences of 1024:
+# (a) 2 layers on a (1, 2) ("data", "model") mesh, a global batch of 2,
+# one step with moe_impl dense and one with ep from the same state;
+# (b) 1 layer on a (2, 2) mesh (FSDP over data, two dispatch groups), a
+# global batch of 4, ep.  (tag, mesh, layers, batch, impls)
+TP_ARCH, TP_SEQ = "moonshot-v1-16b-a3b", 1024
+TP_RUNS = (("a", (1, 2), 2, 2, ("dense", "ep")),
+           ("b", (2, 2), 1, 4, ("ep",)))
+TP_AXES = ("data", "model")
+# aux_loss: float32 sums of the router's probabilities in another order
+# (1e-6 absolute of a loss near 1); expert_load (whole counts) equal
+# unless a routing near tie was counted
+TP_AUX_TOL = 1e-6
+
+
+def tp_groups(cfg, shape, impl):
+    """The one-process comparator's MoE groups and aux definition for a
+    run on ``shape``: the dense block's ``moe_groups`` (as many as the
+    batch's data shards), or the ep block's one a data shard with each
+    shard's aux loss averaged."""
+    n = shape[TP_AXES.index("data")]
+    ep = impl == "ep" and cfg.moe.n_experts % shape[1] == 0
+    return n, ep and n > 1
+
+
+def tp_rank(cfg, hp, batch, impls, shape, work, one, device):
+    """One rank of phase 9b: for each ``impls`` entry, the sharded step
+    from the seeded state, checked here against the one-process step of
+    ``one`` (loss, grad norm, routes, aux_loss, expert_load; gradients
+    in a float32 file of ``work``, read a block at a time) and the
+    sharded AdamW update of those gradients against AdamW's own on them.
+    Returns the rows (each with the rank's peak memory over its
+    step); raises after the last impl if any check failed."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.ranks import rank_device
+    from repro_torch.models import collectives as C
+    from repro_torch.models import layers
+    from repro_torch.models import sharding as SH
+    from repro_torch.models.model import param_specs
+    from repro_torch.models.params import init_param
+    from repro_torch.optim.adamw import adamw_update, init_opt_state
+    from repro_torch.train import train_step as T
+    from repro_torch.utils.tree import (tree_flatten, tree_leaves,
+                                        tree_unflatten)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    dev = rank_device(device)
+    card_run = dev.type == "cuda"
+    rank, world = dist.get_rank(), dist.get_world_size()
+    mesh = make_host_mesh(shape, TP_AXES)
+    work = Path(work)
+    offs = np.cumsum([0] + one["sizes"])
+    shapes = [p.shape for p in SH.spec_leaves(param_specs(cfg))]
+
+    def block(f, i, spec):
+        """Leaf ``i``'s block of this rank from the host file ``f``."""
+        a = f[offs[i]:offs[i + 1]].reshape(shapes[i])
+        idx = []
+        for n, e in zip(shapes[i], spec):
+            axes = SH.entry_axes(e)
+            k = n // mesh.size(axes) if axes else n
+            j = mesh.block_index(axes) if axes else 0
+            idx.append(slice(j * k, (j + 1) * k))
+        return torch.from_numpy(np.array(a[tuple(idx)])).to(dev)
+
+    # the seeded parameters drawn a leaf at a time, in init_params's
+    # order, each digested and cut to this rank's block before the next
+    # (every impl lays them out alike: DEFAULT_RULES): a full leaf at most
+    # on the card at once
+    gen = torch.Generator(device=dev).manual_seed(0)
+    blocks, digest = [], []
+    for pspec, spec in zip(SH.spec_leaves(param_specs(cfg)),
+                           T.leaf_specs(cfg, SH.ShardingCtx(
+                               mesh, SH.DEFAULT_RULES))):
+        leaf = init_param(pspec, gen, torch.float32)
+        digest.append(leaf_digest(torch, leaf))
+        blocks.append(SH.local_block(leaf, spec, mesh).contiguous())
+        del leaf
+    if torch.cat(digest).tolist() != one["digest"]:
+        raise AssertionError(f"rank {rank}: parameters differ from the "
+                             "one-process step's")
+    params = tree_unflatten(param_specs(cfg), blocks)
+    del blocks
+    if card_run:
+        torch.cuda.empty_cache()
+    tbatch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    setup_s = time.perf_counter() - t_start
+    rows, failed = {}, []
+    for impl in impls:
+        ctx = SH.ShardingCtx(mesh, SH.DEFAULT_RULES, moe_impl=impl)
+        specs = T.leaf_specs(cfg, ctx)
+        t_eval = time.perf_counter()
+        layers.ROUTES = []
+        try:
+            _, mts = T.eval_loss(cfg, hp, params, tbatch, ctx)
+            routes = [{k: v.detach().cpu() for k, v in r.items()}
+                      for r in layers.ROUTES]
+        finally:
+            layers.ROUTES = None
+        # this rank's rows of the one-process routes
+        layout = SH.RankLayout.for_batch(ctx, batch["targets"].shape[0])
+        rows_loc = batch["targets"].shape[0] // layout.n_blocks
+        t_loc = rows_loc * batch["targets"].shape[1]
+        lo = (mesh.block_index(layout.batch_axes) if layout.batch_axes
+              else 0) * t_loc
+        want = [{k: v[lo:lo + t_loc] for k, v in r.items()}
+                for r in one["routes"][impl]]
+        route_counts = compare_routes(torch, routes, want, [1 << 62] *
+                                      rows_loc, 0, ROUTE_MARGIN)
+        opt = init_opt_state(params)
+        if card_run:
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        eval_s = time.perf_counter() - t_eval
+        reset_counters()
+        C.reset_collectives()
+        t0 = time.perf_counter()
+        p2, o2, m, g = T.make_train_step(cfg, hp, ctx)(
+            params, opt, tbatch, 0, with_grads=True)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) if card_run else None
+        launched = read_counters()
+        coll = {f"{k} {'x'.join(a)}": (C.COLLECTIVE_BYTES[(k, a)],
+                                       C.COLLECTIVE_MSGS[(k, a)])
+                for k, a in sorted(C.COLLECTIVE_BYTES)}
+        ref = one["impl"][impl]
+        t_check = time.perf_counter()
+        row = {"wall_s": wall, "setup_s": setup_s, "eval_s": eval_s,
+               "loss": loss, "grad_norm": gnorm,
+               "loss_err": abs(loss - ref["loss"]),
+               "grad_norm_rel_err": abs(gnorm - ref["grad_norm"])
+               / ref["grad_norm"],
+               "aux_err": abs(float(mts["aux_loss"]) - ref["aux_loss"]),
+               "load_equal": mts["expert_load"].cpu().tolist()
+               == ref["expert_load"], "routes": route_counts,
+               "collectives": coll, "staged": dict(C.STAGED), "peak": peak,
+               "launches": launched}
+        # every block held by several ranks: the same bits on each
+        mine = tree_digest(torch, [p2, o2, g])
+        theirs = [torch.zeros_like(mine) for _ in range(world)]
+        dist.all_gather(theirs, mine)
+        keys = [[tuple(mesh.block_index(SH.entry_axes(e), r) if e else 0
+                       for e in spec) for r in range(world)]
+                for spec in specs * 4]          # params, m, v, grads
+        row["replicas_equal"] = all(
+            torch.equal(theirs[r][2 * j:2 * j + 2], mine[2 * j:2 * j + 2])
+            for j, ks in enumerate(keys) for r in range(world)
+            if ks[r] == ks[rank])
+        row["replicated_leaves"] = sum(
+            any(ks[r] == ks[rank] for r in range(world) if r != rank)
+            for ks in keys[:len(specs)])
+        del p2, o2
+        # the gradients against the one-process step's, a block at a time
+        grads_f = np.load(work / f"grads_{impl}.npy", mmap_mode="r")
+        ref_blocks, worst = [], (0.0, None)
+        for i, ((k, leaf), spec) in enumerate(zip(tree_flatten(g), specs)):
+            want_g = block(grads_f, i, spec)
+            e = float((leaf - want_g).abs().max()) / max(
+                one["grad_max"][impl][i], 1e-30)
+            if e > worst[0]:
+                worst = (e, k)
+            ref_blocks.append(want_g)
+        del grads_f
+        row.update(grad_err=worst[0], grad_err_leaf=worst[1])
+        ref_grads = tree_unflatten(g, ref_blocks)
+        del g, ref_blocks
+        # the optimiser alone: the sharded update of the one-process
+        # gradients against the one-process AdamW of them (elementwise
+        # given the clip's scale, so taken a leaf at a time on the blocks)
+        q2 = T.apply_sharded_update(params, ref_grads, opt, 0, m["lr"], hp,
+                                    specs, mesh)[0]
+        norm = torch.tensor(ref["grad_norm"], dtype=torch.float32,
+                            device=dev)
+        scale = torch.clamp(hp.adamw.clip_norm / torch.clamp(norm, min=1e-12),
+                            max=1.0)
+        no_clip = dataclasses.replace(hp.adamw, clip_norm=None)
+        row["opt_param_err"] = 0.0
+        for p_, g_, got in zip(tree_leaves(params), tree_leaves(ref_grads),
+                               tree_leaves(q2)):
+            want_p = adamw_update([p_], [g_ * scale],
+                                  init_opt_state([p_]), 0, m["lr"],
+                                  no_clip)[0][0]
+            row["opt_param_err"] = max(row["opt_param_err"], float(
+                (got - want_p).abs().max()))
+            del want_p
+        del q2, ref_grads, opt
+        if card_run:
+            torch.cuda.empty_cache()
+        row["check_s"] = time.perf_counter() - t_check
+        if not (np.isfinite(loss) and row["loss_err"] <= TRAIN_LOSS_TOL
+                and row["grad_norm_rel_err"] <= TRAIN_NORM_RTOL
+                and row["grad_err"] <= TRAIN_GRAD_TOL
+                and row["opt_param_err"] <= TRAIN_OPT_TOL
+                and row["aux_err"] <= TP_AUX_TOL
+                and (row["load_equal"] or route_counts["near_ties"])
+                and row["replicas_equal"]):
+            failed.append(impl)
+        rows[impl] = row
+    if failed:
+        raise AssertionError(f"rank {rank}: {failed} failed; rows {rows}")
+    return {"rank": rank, "device": str(dev), "rows": rows}
+
+
+def tp_one_process(torch, np, cfg, hp, batch, impls, shape, work, device):
+    """The comparator of a phase 9b run: for each distinct MoE grouping of
+    ``impls``, the one-process step on the card from the seeded state;
+    its gradients written to a float32 file of ``work`` (one vector,
+    leaves in order), its scalars, routes and per-leaf largest
+    |gradient| returned."""
+    from repro_torch.models import layers
+    from repro_torch.models.model import init_model_params
+    from repro_torch.optim.adamw import init_opt_state
+    from repro_torch.train import train_step as T
+    from repro_torch.utils.tree import tree_leaves
+    card_run = torch.device(device).type == "cuda"
+    tbatch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    out = {"impl": {}, "routes": {}, "grad_max": {}, "walls": {},
+           "write_s": 0.0}
+    params = init_model_params(
+        cfg, torch.Generator(device=device).manual_seed(0), device=device)
+    out["digest"] = tree_digest(torch, params).tolist()
+    out["sizes"] = [p.numel() for p in tree_leaves(params)]
+    if card_run:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    done = {}
+    for impl in impls:
+        groups, group_aux = tp_groups(cfg, shape, impl)
+        key = (groups, group_aux)
+        if key in done:
+            for d in ("impl", "routes", "grad_max"):
+                out[d][impl] = out[d][done[key]]
+            (work / f"grads_{impl}.npy").symlink_to(
+                work / f"grads_{done[key]}.npy")
+            continue
+        done[key] = impl
+        layers.ROUTES = []
+        try:
+            _, mts = T.eval_loss(cfg, hp, params, tbatch, moe_groups=groups,
+                                 moe_group_aux=group_aux)
+            out["routes"][impl] = [{k: v.detach().cpu()
+                                    for k, v in r.items()}
+                                   for r in layers.ROUTES]
+        finally:
+            layers.ROUTES = None
+        opt = init_opt_state(params)
+        sync(torch, device)
+        t0 = time.perf_counter()
+        new_p, new_opt, m, grads = T.make_train_step(
+            cfg, hp, moe_groups=groups, moe_group_aux=group_aux)(
+            params, opt, tbatch, 0, with_grads=True)
+        loss = float(m["loss"])
+        out["walls"][impl] = time.perf_counter() - t0
+        del new_p, new_opt
+        out["impl"][impl] = {
+            "loss": loss, "grad_norm": float(m["grad_norm"]),
+            "aux_loss": float(mts["aux_loss"]),
+            "expert_load": mts["expert_load"].cpu().tolist()}
+        del opt, m, mts
+        out["grad_max"][impl] = [float(g.abs().max())
+                                 for g in tree_leaves(grads)]
+        t0 = time.perf_counter()
+        f = np.lib.format.open_memmap(
+            work / f"grads_{impl}.npy", mode="w+", dtype=np.float32,
+            shape=(sum(out["sizes"]),))
+        off = 0
+        for leaf in tree_leaves(grads):
+            n = leaf.numel()
+            f[off:off + n] = leaf.reshape(-1).cpu().numpy()
+            off += n
+        # the ranks read the file's pages from the page cache: no flush
+        del f, grads
+        out["write_s"] += time.perf_counter() - t0
+    out["peak"] = torch.cuda.max_memory_allocated() if card_run else None
+    del params
+    if card_run:
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_phase(torch, np, card, device="cuda", cfg=None, seq=TP_SEQ,
+             runs=TP_RUNS):
+    """Phase 9b (see the module's note).  Returns (rows, the tp path's
+    launches: the ranks' steps').  ``device="cpu"`` with a small ``cfg``
+    and ``seq`` rehearses it on the CPU."""
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.launch.ranks import spawn_ranks
+    from repro_torch.train.train_step import TrainHParams
+    import gc
+    card_run = torch.device(device).type == "cuda"
+    base = cfg or get_config(TP_ARCH)
+    hp = TrainHParams(lr=3e-4, warmup=2, total_steps=100, remat="full",
+                      ce_chunk=min(1024, seq))
+    out, launches = {}, {}
+    if card_run:
+        # the card is shared with up to four ranks: this process keeps
+        # nothing of the earlier phases on it
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"tp: this process holds {torch.cuda.memory_allocated()} B "
+              f"on the card ({torch.cuda.memory_reserved()} B reserved) "
+              "before the phase", flush=True)
+    for tag, shape, n_layers, B, impls in runs:
+        run_cfg = dataclasses.replace(base, n_layers=n_layers)
+        work = ROOT / "build" / "tp_smoke"
+        shutil.rmtree(work, ignore_errors=True)
+        work.mkdir(parents=True)
+        batch = train_batch(np, run_cfg, B, seq)
+        t0 = time.perf_counter()
+        one = tp_one_process(torch, np, run_cfg, hp, batch, impls, shape,
+                             work, device)
+        one_s = time.perf_counter() - t0
+        if card_run:
+            gc.collect()
+            torch.cuda.empty_cache()
+            parent = (torch.cuda.memory_allocated(),
+                      torch.cuda.memory_reserved())
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(
+            int(np.prod(shape)), "chip_smoke:tp_rank",
+            (run_cfg, hp, batch, impls, shape, str(work), one, device),
+            backend="gloo", init_method=f"file://{work / 'store'}",
+            timeout_s=600)
+        ranks_s = time.perf_counter() - t0
+        shutil.rmtree(work, ignore_errors=True)
+        per_step = 2 * layer_counts(run_cfg)["flash_attention"]
+        for r in ranks:
+            for impl, row in r["rows"].items():
+                got = row["launches"]["flash_attention"]
+                if got != (per_step if card_run else 0):
+                    raise AssertionError(
+                        f"tp ({tag}) rank {r['rank']} {impl}: "
+                        f"flash_attention launched {got} times, "
+                        f"{per_step if card_run else 0} expected")
+                for k, v in row["launches"].items():
+                    launches[k] = launches.get(k, 0) + v
+        print(f"tp ({tag}) {run_cfg.name} width {run_cfg.d_model}, "
+              f"{run_cfg.n_layers} layers ({run_cfg.param_count()} params, "
+              f"f32), mesh {dict(zip(TP_AXES, shape))} DEFAULT_RULES, "
+              f"global batch {B} x {seq}, remat {hp.remat}: one-process "
+              f"steps {[round(w, 3) for w in one['walls'].values()]} s, "
+              f"peak {one['peak']} B, gradients to the host file "
+              f"{one['write_s']:.1f} s, with set-up {one_s:.1f} s; "
+              f"{len(ranks)} ranks on {ranks[0]['device']} over gloo "
+              f"({ranks_s:.1f} s with their start; this process holding "
+              f"{parent if card_run else None} B allocated, reserved); "
+              f"{card}", flush=True)
+        for impl in impls:
+            rs = [r["rows"][impl] for r in ranks]
+            ref = one["impl"][impl]
+            print(f"tp ({tag}) {impl}: step wall "
+                  f"{[round(r['wall_s'], 3) for r in rs]} s (a rank's "
+                  f"set-up {rs[0]['setup_s']:.1f} s, routes and stats "
+                  f"forward {rs[0]['eval_s']:.1f} s, checks "
+                  f"{rs[0]['check_s']:.1f} s), loss "
+                  f"{rs[0]['loss']:.6f} (one-process {ref['loss']:.6f}, err "
+                  f"{max(r['loss_err'] for r in rs):.3e}), grad norm rel err "
+                  f"{max(r['grad_norm_rel_err'] for r in rs):.3e}, worst "
+                  f"gradient leaf {rs[0]['grad_err_leaf']} "
+                  f"{max(r['grad_err'] for r in rs):.3e} of its largest "
+                  f"value, AdamW on the one-process gradients "
+                  f"{max(r['opt_param_err'] for r in rs):.3e}, aux_loss err "
+                  f"{max(r['aux_err'] for r in rs):.3e}, expert_load equal "
+                  f"{all(r['load_equal'] for r in rs)}, routes "
+                  f"{rs[0]['routes']}; replicas equal "
+                  f"{all(r['replicas_equal'] for r in rs)} "
+                  f"({rs[0]['replicated_leaves']} leaves replicated on rank "
+                  f"0); peak {[r['peak'] for r in rs]} B a rank; "
+                  f"flash_attention {rs[0]['launches']['flash_attention']} "
+                  f"a rank; backend gloo, staged {rs[0]['staged']}; "
+                  f"collectives (bytes, messages) a rank "
+                  f"{rs[0]['collectives']}", flush=True)
+        out[tag] = {"one_process": {k: v for k, v in one.items()
+                                    if k not in ("routes",)},
+                    "ranks": ranks, "one_s": one_s, "ranks_s": ranks_s}
+    return out, launches
 
 
 # ---------------------------------------------------------------------------
@@ -3548,10 +3993,12 @@ def avail_faults(iters: int, n_shards: int):
 
 
 def cluster_phase(torch, ps, card, device="cuda", groups=AVAIL_GROUPS,
-                  shards=AVAIL_SHARDS, rpc_timeout_s=AVAIL_RPC_TIMEOUT_S):
+                  shards=AVAIL_SHARDS, rpc_timeout_s=AVAIL_RPC_TIMEOUT_S,
+                  fault_shards=None):
     """Slice G, the sharded multi-process cluster.  For each (W, driver)
     of ``groups``, the committed fig10_availability rows of ``shards``
-    (``samhita_s<n>`` clean and ``_fault``) on 'fused', at
+    (``samhita_s<n>`` clean and, for the shard counts of
+    ``fault_shards`` (all by default), ``_fault``) on 'fused', at
     benchmarks/availability.py's settings and max(3, iters // 2)
     iterations for the meta's iters: the recovery program with 8 pages a
     worker run by ``ClusterRuntime`` in n spawned shard processes, each a
@@ -3601,6 +4048,8 @@ def cluster_phase(torch, ps, card, device="cuda", groups=AVAIL_GROUPS,
             digests[i] = state_digest(base)
         for n_shards in shards:
             for fault in (False, True):
+                if fault and n_shards not in (fault_shards or shards):
+                    continue
                 series = f"samhita_s{n_shards}" + ("_fault" if fault else "")
                 name = f"fig10_availability {series} W={W_} {driver}"
                 inj = (FailureInjector(cluster_at=avail_faults(iters,
@@ -4165,7 +4614,7 @@ def main() -> int:
                                           torch, ps, card)
     clusters, cluster_launches = phase(
         "cluster", cluster_phase, torch, ps, card,
-        rpc_timeout_s=CARD_RPC_TIMEOUT_S)
+        rpc_timeout_s=CARD_RPC_TIMEOUT_S, fault_shards=AVAIL_FAULT_SHARDS)
     spills, spill_launches, scans = phase("spill", spill_phase, torch, ps)
     # the rank-select kernels, timed at the spill phase's commonest scan
     kernels.update(phase("rank-select", rank_select_phase, torch, np, ps,
@@ -4177,13 +4626,15 @@ def main() -> int:
     models, model_launches = phase("model", model_phase, torch, np)
     trains, train_launches = phase("train", train_phase, torch, np, card)
     regcs, regc_launches = phase("regc", regc_phase, torch, np, card)
+    tps, tp_launches = phase("tp", tp_phase, torch, np, card)
 
     total = {k: launches[k] + spill_launches[k] + span_launches[k]
              + race_launches[k] + serve_launches[k] + recovery_launches[k]
              + cluster_launches[k] for k in ps.LAUNCHES}
     total.update(ref_launches)
     total.update(model_launches)
-    for k, v in list(train_launches.items()) + list(regc_launches.items()):
+    for k, v in (list(train_launches.items()) + list(regc_launches.items())
+                 + list(tp_launches.items())):
         total[k] = total.get(k, 0) + v
     table = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[SOURCE_OF[name]],
@@ -4198,6 +4649,7 @@ def main() -> int:
     print(f"launches on the model path: {model_launches}", flush=True)
     print(f"launches on the train path: {train_launches}", flush=True)
     print(f"launches on the regc path: {regc_launches}", flush=True)
+    print(f"launches on the tp path: {tp_launches}", flush=True)
     print(f"launches on the span path: {span_launches}", flush=True)
     print(f"launches on the race path: {race_launches}", flush=True)
     print(f"launches on the serving path: {serve_launches}", flush=True)
@@ -4217,6 +4669,7 @@ def main() -> int:
          "reference_points": references, "models": models,
          "train": trains, "launches_train": train_launches,
          "regc": regcs, "launches_regc": regc_launches,
+         "tp": tps, "launches_tp": tp_launches,
          "victim_scans": [[L, k, n] for (L, k), (n, _) in scans.items()],
          "launches_main": launches, "launches_span": span_launches,
          "launches_race": race_launches,

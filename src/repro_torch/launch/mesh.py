@@ -83,20 +83,23 @@ class Mesh:
     def axis_index(self, axis: str) -> int:
         return self._coords[self._key(axis)[0]]
 
-    def block_index(self, axes) -> int:
-        """This rank's index row-major over ``axes`` in the order given:
-        the block of a dimension split over them (``P(axes)``)."""
+    def block_index(self, axes, rank: Optional[int] = None) -> int:
+        """The index of this rank (or of global rank ``rank``) row-major
+        over ``axes`` in the order given: the block of a dimension split
+        over them (``P(axes)``)."""
         axes = (axes,) if isinstance(axes, str) else tuple(axes)
         self._key(axes)
+        coords = (self._coords if rank is None else
+                  dict(zip(self.axes, _unravel(rank, self.shape.values()))))
         i = 0
         for a in axes:
-            i = i * self.shape[a] + self._coords[a]
+            i = i * self.shape[a] + coords[a]
         return i
 
 
 def _unravel(r: int, shape) -> list:
     out = []
-    for s in reversed(shape):
+    for s in reversed(list(shape)):
         out.append(r % s)
         r //= s
     return out[::-1]

@@ -23,8 +23,31 @@ by expert, capacity ``C`` a expert, overflowing choices dropped.  Its
 dispatch is plain torch ops and its expert products ``torch.einsum``, as
 the reference computes them outside any Pallas kernel.  In train mode
 it also returns the router's stats (``aux_loss``, ``expert_load``), which
-the training loss reads.  The expert-parallel ``moe_block_ep`` needs a
-device mesh across processes and waits for ROADMAP item 13e.
+the training loss reads.  ``groups`` > 1 splits the tokens into that
+many contiguous dispatch groups, capacity and dropping counted per
+group, as the reference's ``_moe_groups`` splits them under a mesh: one
+process then computes the function a sharded run computes.
+
+Sharding.  With a ``layout`` (``models.sharding.RankLayout``) the blocks
+run on this rank's batch rows and on parameters whose FSDP dims the
+caller gathered; ``specs`` give each parameter's spec after that gather.
+A dim left split over a mesh axis that does not split the batch is
+tensor parallelism: ``wq``/``wk``/``wv`` column-parallel over their
+heads, ``wo`` row-parallel then a sum over those axes; ``w1``/``w3``
+column- and ``w2`` row-parallel; MoE experts (or, where ``expert``
+falls back, their d_ff) split, each rank computing its part of every
+token's output, then one sum.  Where the kv heads are whole on every
+rank while the q heads are split, a rank pairs its q head ``h`` with kv
+head ``h // G`` of the global numbering.  ``models.collectives`` brackets
+each such region (``copy_to`` in, ``all_reduce`` out) so that every
+rank's gradients are its exact share.  ``moe_block_ep`` is the
+reference's expert-parallel block: each data shard routes its own
+tokens, the rank runs its ``E / ep`` experts (the ``mine`` mask), one
+sum over 'model' combines them, ``aux_loss`` is the mean of the data
+shards' own and ``expert_load`` the experts' slices gathered over
+'model' and summed over the batch axes; it falls back to the dense
+block where the reference does (no 'model' axis, ``E % model``, shared
+experts).
 """
 from __future__ import annotations
 
@@ -34,6 +57,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models.collectives import (all_reduce, copy_to, gather,
+                                            reduce)
+from repro_torch.models.sharding import entry_axes
 
 _NEG_INF = -1e30
 ATTN_IMPLS = ("blocked", "reference")
@@ -169,7 +195,7 @@ def decode_attention(q, k_cache, v_cache, cur_len, *, scale, window=None,
 
 def attention_block(params, x, positions, cfg, spec, *, kv_cache=None,
                     cur_len=None, attn_impl: str = "blocked",
-                    mode: str = "train"):
+                    mode: str = "train", layout=None, specs=None):
     """Full attention layer. x: (B, S, d).
 
     mode='train'   : no cache I/O, causal attention.
@@ -179,7 +205,10 @@ def attention_block(params, x, positions, cfg, spec, *, kv_cache=None,
     mode='decode'  : S==1; writes at cur_len, attends against the cache.
 
     The cache buffers are written in place (the reference returns updated
-    copies): the returned cache is the (k_buf, v_buf) passed in."""
+    copies): the returned cache is the (k_buf, v_buf) passed in.
+
+    With a ``layout`` (train mode), this rank's q heads and their kv
+    heads (see the module's note)."""
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl={attn_impl!r}; allowed: {ATTN_IMPLS}")
     S = x.shape[1]
@@ -187,16 +216,32 @@ def attention_block(params, x, positions, cfg, spec, *, kv_cache=None,
     scale = cfg.query_scale if cfg.query_scale is not None else D ** -0.5
     window = cfg.window if spec.attn_type == "local" else None
 
+    wk, wv, tp, kv_whole = params["wk"], params["wv"], (), False
+    if layout is not None:
+        mesh = layout.mesh
+        tp = layout.tp_axes(specs["wq"][1])
+        tp_kv = layout.tp_axes(specs["wk"][1])
+        if tp_kv not in ((), tp):
+            raise ValueError(f"q heads split over {tp}, kv heads over "
+                             f"{tp_kv}")
+        x = copy_to(x, tp, mesh)
+        kv_whole = bool(tp) and not tp_kv
+        if kv_whole:
+            # every rank holds every kv head and reads some: their
+            # weights' gradients are partial sums over the q heads' ranks
+            wk, wv = copy_to(wk, tp, mesh), copy_to(wv, tp, mesh)
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])          # (B,S,Hq,D)
-    k = torch.einsum("bsd,dhk->bshk", x, params["wk"])          # (B,S,Hkv,D)
-    v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+    k = torch.einsum("bsd,dhk->bshk", x, wk)                    # (B,S,Hkv,D)
+    v = torch.einsum("bsd,dhk->bshk", x, wv)
     rope = apply_mrope if cfg.mrope else apply_rope
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
+    if kv_whole:
+        k, v = _kv_of_heads(k, v, q.shape[2], cfg, layout.mesh.block_index(tp))
 
     if mode in ("train", "prefill"):
         if attn_impl == "reference":
-            G = cfg.n_heads // cfg.n_kv_heads
+            G = q.shape[2] // k.shape[2]
             o = reference_attention(q, repeat_kv(k, G), repeat_kv(v, G),
                                     scale=scale, causal=True, window=window,
                                     softcap=cfg.attn_softcap)
@@ -223,7 +268,23 @@ def attention_block(params, x, positions, cfg, spec, *, kv_cache=None,
 
     o = o.to(x.dtype)
     out = torch.einsum("bshk,hkd->bsd", o, params["wo"])
+    if tp:
+        out = all_reduce(out, tp, layout.mesh)
     return out, new_cache
+
+
+def _kv_of_heads(k, v, hq_local: int, cfg, block: int):
+    """The kv heads that q heads ``block * hq_local + h`` (h < hq_local)
+    of the global numbering read (kv head ``(block * hq_local + h) //
+    G``), from all ``n_kv_heads``: a contiguous run when ``hq_local`` is
+    a multiple of G, else one kv head per q head."""
+    G = cfg.n_heads // cfg.n_kv_heads
+    first = block * hq_local
+    if hq_local % G == 0:
+        return (k.narrow(2, first // G, hq_local // G),
+                v.narrow(2, first // G, hq_local // G))
+    idx = torch.arange(first, first + hq_local, device=k.device) // G
+    return k.index_select(2, idx), v.index_select(2, idx)
 
 
 # ---------------------------------------------------------------------------
@@ -237,11 +298,16 @@ def _act(cfg, h):
     return F.gelu(h, approximate="tanh") if cfg.geglu else F.silu(h)
 
 
-def mlp_block(params, x, cfg):
-    """SwiGLU, or GeGLU when ``cfg.geglu``."""
+def mlp_block(params, x, cfg, layout=None, specs=None):
+    """SwiGLU, or GeGLU when ``cfg.geglu``; with a ``layout``, d_ff split
+    over the axes ``specs`` leave on ``w1``'s."""
+    tp = () if layout is None else layout.tp_axes(specs["w1"][1])
+    if tp:
+        x = copy_to(x, tp, layout.mesh)
     h = _act(cfg, torch.einsum("bsd,df->bsf", x, params["w1"]))
     h = h * torch.einsum("bsd,df->bsf", x, params["w3"])
-    return torch.einsum("bsf,fd->bsd", h, params["w2"])
+    out = torch.einsum("bsf,fd->bsd", h, params["w2"])
+    return all_reduce(out, tp, layout.mesh) if tp else out
 
 
 # ---------------------------------------------------------------------------
@@ -256,22 +322,113 @@ def mlp_block(params, x, cfg):
 ROUTES: Optional[list] = None
 
 
-def moe_block(params, x, cfg, with_stats: bool = True):
-    """Token-choice top-k MoE with the reference's dropping dispatch in
-    one group.  x: (B, S, d).  Returns (out (B, S, d), stats): stats
-    ``aux_loss`` (the Switch load-balance loss, float32 scalar) and
-    ``expert_load`` ((E,) float32, the choices each expert kept), or
-    None unless ``with_stats`` (serving reads neither).
+def moe_groups(cfg, layout, T: int) -> int:
+    """The reference's ``_moe_groups``: dispatch groups aligned to the
+    batch's shards, as many as the rule's batch axes of the mesh hold
+    (halved while they do not divide the ``T`` tokens of the whole
+    batch); 1 without a layout."""
+    if layout is None:
+        return 1
+    ctx = layout.ctx
+    axes = tuple(a for a in (ctx.rules.get("batch") or ())
+                 if a in ctx.mesh.shape)
+    g = ctx.axis_size(axes) if axes else 1
+    while g > 1 and T % g:
+        g //= 2
+    return max(g, 1)
 
-    The (token, k) choices are sorted by expert with a stable sort, so
-    within an expert they keep token order; an expert keeps its first
-    ``C = max(1, int(T * K * capacity_factor) // E)`` and drops the rest
-    to a scratch slot.  At decode (T = B tokens) C is 1."""
+
+def moe_block(params, x, cfg, with_stats: bool = True, *, groups: int = 1,
+              group_aux: bool = False, layout=None, specs=None):
+    """Token-choice top-k MoE with the reference's dropping dispatch.
+    x: (B, S, d).  Returns (out (B, S, d), stats): stats ``aux_loss``
+    (the Switch load-balance loss, float32 scalar) and ``expert_load``
+    ((E,) float32, the choices each expert kept), or None unless
+    ``with_stats`` (serving reads neither).
+
+    The tokens split into ``groups`` contiguous dispatch groups of ``Tg``
+    tokens.  In a group the (token, k) choices are sorted by expert with a
+    stable sort, so within an expert they keep token order; an expert
+    keeps its first ``C = max(1, int(Tg * K * capacity_factor) // E)``
+    and drops the rest to a scratch slot.  At decode (T = B tokens, one
+    group) C is 1.  ``aux_loss`` is the reference's, over all tokens, or
+    with ``group_aux`` the mean of each group's own (the expert-parallel
+    block's definition).
+
+    With a ``layout`` the tokens are this rank's rows, which hold whole
+    groups of the reference's ``moe_groups`` count over the whole batch;
+    ``aux_loss`` and ``expert_load`` are summed over the batch's ranks."""
+    m = cfg.moe
+    if layout is None:
+        return _moe(params, x, cfg, with_stats, groups, group_aux)
+    T = x.shape[0] * x.shape[1]
+    gg, nb = moe_groups(cfg, layout, T * layout.n_blocks), layout.n_blocks
+    if gg % nb:
+        raise NotImplementedError(
+            f"{gg} dispatch groups over {nb} batch blocks: a group across "
+            "ranks")
+    t_e = layout.tp_axes(specs["w1"][0])
+    t_f = layout.tp_axes(specs["w1"][2])
+    mesh = layout.mesh
+    e_loc = m.n_experts // layout.ctx.axis_size(t_e)
+    experts = (mesh.block_index(t_e) * e_loc if t_e else 0, e_loc)
+    tp = tuple(a for a in mesh.axes if a in t_e + t_f)
+    t_sh = layout.tp_axes(specs["shared_w1"][2]) if m.n_shared else tp
+    if t_sh not in ((), tp):
+        raise ValueError(f"shared experts split over {t_sh}, experts "
+                         f"over {tp}")
+    out, stats = _moe(params, x, cfg, True, gg // nb, group_aux=False,
+                      experts=experts, tp=tp, t_shared=t_sh, mesh=mesh,
+                      batch_axes=layout.batch_axes)
+    return out, stats if with_stats else None
+
+
+def moe_block_ep(params, x, cfg, layout, specs):
+    """The reference's ``moe_block_ep`` (see the module's note) on this
+    rank's rows; the dense ``moe_block`` where the reference falls back to
+    it."""
+    m = cfg.moe
+    ctx, mesh = layout.ctx, layout.mesh
+    E = m.n_experts
+    if "model" not in mesh.shape or E % mesh.shape["model"] or m.n_shared:
+        return moe_block(params, x, cfg, layout=layout, specs=specs)
+    B = x.shape[0] * layout.n_blocks
+    ep_axes = tuple(a for a in (ctx.rules.get("batch") or ())
+                    if a in mesh.shape and a != "model")
+    if B % max(1, ctx.axis_size(ep_axes)):
+        ep_axes = ()
+    if ep_axes != layout.batch_axes \
+            or entry_axes(specs["w1"][0]) != ("model",) \
+            or layout.tp_axes(specs["w1"][2]):
+        raise NotImplementedError(
+            f"moe_impl='ep' with the batch split over {layout.batch_axes} "
+            f"(the block routes over {ep_axes}) and the experts laid out "
+            f"as {specs['w1']}: only the experts split over 'model' alone "
+            "and the rows over the rule's other batch axes")
+    e_loc = E // mesh.shape["model"]
+    return _moe(params, x, cfg, True, 1, group_aux=True,
+                experts=(mesh.axis_index("model") * e_loc, e_loc),
+                tp=("model",), t_shared=(), mesh=mesh,
+                batch_axes=layout.batch_axes, ep=True)
+
+
+def _moe(params, x, cfg, with_stats, groups, group_aux, *, experts=None,
+         tp=(), t_shared=(), mesh=None, batch_axes=(), ep=False):
+    """The dispatch of ``moe_block``.  ``experts`` = (first, count): the
+    experts this rank computes (all by default), their weights' local
+    blocks, their d_ff split over the rest of ``tp``; the output is summed
+    over ``tp`` (and the shared experts' over ``t_shared``).  Stats are
+    summed over ``batch_axes`` (``ep``: the aux loss averaged over them,
+    the load gathered from each expert slice over 'model')."""
     m = cfg.moe
     B, S, d = x.shape
     T = B * S
     E, K = m.n_experts, m.top_k
-    C = max(1, int(T * K * m.capacity_factor) // E)
+    G = groups
+    Tg = T // G
+    C = max(1, int(Tg * K * m.capacity_factor) // E)
+    e0, e_loc = experts or (0, E)
+    dev = x.device
 
     xt = x.reshape(T, d)
     logits = torch.matmul(xt, params["router"]).float()
@@ -279,48 +436,91 @@ def moe_block(params, x, cfg, with_stats: bool = True):
     top_w, top_e = torch.topk(probs, K, dim=-1)                 # (T, K)
     top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
 
-    # dispatch: sort the (token, k) choices by expert, stably
-    e_sorted, perm = torch.sort(top_e.reshape(T * K), stable=True)
-    w_sorted = top_w.reshape(T * K).to(x.dtype)[perm]
-    tok_sorted = perm // K                                      # (T*K,)
+    # dispatch: in each group sort the (token, k) choices by expert,
+    # stably; slots run expert-major over (expert, group, position)
+    e_sorted, perm = torch.sort(top_e.reshape(G, Tg * K), dim=-1,
+                                stable=True)
+    w_sorted = torch.gather(top_w.reshape(G, Tg * K).to(x.dtype), 1, perm)
+    first = torch.arange(G, device=dev)[:, None]
+    tok_sorted = perm // K + first * Tg                          # (G, Tg*K)
     group_start = torch.searchsorted(
-        e_sorted, torch.arange(E, device=x.device, dtype=e_sorted.dtype))
-    pos_in_e = torch.arange(T * K, device=x.device) - group_start[e_sorted]
+        e_sorted, torch.arange(E, device=dev, dtype=e_sorted.dtype)
+        .expand(G, E).contiguous())
+    pos_in_e = (torch.arange(Tg * K, device=dev)[None, :]
+                - torch.gather(group_start, 1, e_sorted))
     keep = pos_in_e < C
-    slot = torch.where(keep, e_sorted * C + pos_in_e,
-                       torch.full_like(e_sorted, E * C))        # drop
+    e_local = e_sorted - e0
+    mine = keep & (e_local >= 0) & (e_local < e_loc)
+    n_slots = e_loc * G * C
+    slot = torch.where(mine, e_local * (G * C) + first * C + pos_in_e,
+                       torch.full_like(e_sorted, n_slots))       # drop
+    slot, tok_sorted = slot.reshape(-1), tok_sorted.reshape(-1)
 
-    xe = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device)
-    xe[slot] = xt[tok_sorted]
-    xe = xe[:E * C].reshape(E, C, d)
+    xd = copy_to(xt, tp, mesh) if tp else xt
+    xe = torch.zeros((n_slots + 1, d), dtype=x.dtype, device=dev)
+    xe[slot] = xd[tok_sorted]
+    xe = xe[:n_slots].reshape(e_loc, G * C, d)
     h = _act(cfg, torch.einsum("ecd,edf->ecf", xe, params["w1"]))
     h = h * torch.einsum("ecd,edf->ecf", xe, params["w3"])
-    ye = torch.einsum("ecf,efd->ecd", h, params["w2"]).reshape(E * C, d)
+    ye = torch.einsum("ecf,efd->ecd", h, params["w2"]).reshape(n_slots, d)
 
-    picked = ye[torch.clamp(slot, max=E * C - 1)]
-    picked = torch.where(keep[:, None], picked, torch.zeros((), dtype=x.dtype,
-                                                            device=x.device))
+    picked = ye[torch.clamp(slot, max=n_slots - 1)]
+    picked = torch.where(mine.reshape(-1)[:, None], picked,
+                         torch.zeros((), dtype=x.dtype, device=dev))
+    if tp:
+        w_sorted = copy_to(w_sorted, tp, mesh)
     # the weighted scatter-add: each choice lands in its own (token, k) row
     # (perm is a permutation, so no two additions race on the card), then
     # a token's K rows are summed in k order: the same bits every run
-    out = torch.zeros((T * K, d), dtype=x.dtype, device=x.device).index_add_(
-        0, perm, picked * w_sorted[:, None]).reshape(T, K, d).sum(1)
+    flat_perm = (perm + first * (Tg * K)).reshape(-1)
+    out = torch.zeros((T * K, d), dtype=x.dtype, device=dev).index_add_(
+        0, flat_perm, picked * w_sorted.reshape(-1)[:, None]
+    ).reshape(T, K, d).sum(1)
 
+    shared = None
     if m.n_shared:
-        hs = _act(cfg, torch.einsum("td,sdf->tsf", xt, params["shared_w1"]))
-        hs = hs * torch.einsum("td,sdf->tsf", xt, params["shared_w3"])
-        out = out + torch.einsum("tsf,sfd->td", hs, params["shared_w2"])
+        xs = copy_to(xt, t_shared, mesh) if t_shared else xt
+        hs = _act(cfg, torch.einsum("td,sdf->tsf", xs, params["shared_w1"]))
+        hs = hs * torch.einsum("td,sdf->tsf", xs, params["shared_w3"])
+        shared = torch.einsum("tsf,sfd->td", hs, params["shared_w2"])
+        if t_shared or not tp:
+            out, shared = out + shared, None
+    if tp:
+        out = all_reduce(out, tp, mesh)
+    if shared is not None:
+        out = out + shared
 
     if ROUTES is not None:
-        kept = torch.empty_like(keep)
-        kept[perm] = keep
+        kept = torch.empty_like(keep.reshape(-1))
+        kept[flat_perm] = keep.reshape(-1)
         ROUTES.append({"probs": probs, "top_e": top_e,
                        "keep": kept.reshape(T, K)})
     if not with_stats:
         return out.reshape(B, S, d), None
     # load-balance aux loss (Switch): E * sum_e f_e * p_e
-    f_e = F.one_hot(top_e[:, 0], E).float().mean(0)
-    aux_loss = E * torch.sum(f_e * probs.mean(0))
-    load = torch.zeros((E,), dtype=torch.float32, device=x.device).index_add_(
-        0, e_sorted, keep.float())
+    one_hot = F.one_hot(top_e[:, 0], E).float()
+    if batch_axes and not ep:
+        n = T * mesh.size(batch_axes)
+        f_e = reduce(one_hot.sum(0), batch_axes, mesh) / n
+        p_e = all_reduce(probs.sum(0), batch_axes, mesh) / n
+        aux_loss = E * torch.sum(f_e * p_e)
+    elif group_aux and G > 1:
+        aux_loss = torch.mean(E * torch.sum(
+            one_hot.reshape(G, Tg, E).mean(1)
+            * probs.reshape(G, Tg, E).mean(1), dim=-1))
+    else:
+        aux_loss = E * torch.sum(one_hot.mean(0) * probs.mean(0))
+    if ep and batch_axes:
+        aux_loss = all_reduce(aux_loss, batch_axes, mesh) / mesh.size(
+            batch_axes)
+    if ep:      # this rank's experts' slice, gathered over 'model'
+        idx, counts, n_e = e_local.clamp(0, e_loc - 1), mine, e_loc
+    else:
+        idx, counts, n_e = e_sorted, keep, E
+    load = torch.zeros((n_e,), dtype=torch.float32, device=dev).index_add_(
+        0, idx.reshape(-1), counts.reshape(-1).float())
+    if ep:
+        load = gather(load, 0, ("model",), mesh)
+    if batch_axes:
+        load = reduce(load, batch_axes, mesh)
     return out.reshape(B, S, d), {"aux_loss": aux_loss, "expert_load": load}

@@ -19,7 +19,10 @@ super-block in a non-reentrant ``torch.utils.checkpoint``; ``"dots"``
 and ``"dots_no_batch"`` are selective checkpoints that keep the outputs
 of matrix products (``mm``/``bmm``/``addmm``, or ``mm``/``addmm``) and
 recompute the rest; ``remat_segment`` > 1 checkpoints segments of
-super-blocks as well.  Remat changes memory, never values.
+super-blocks as well.  Remat changes memory, never values.  Under a
+``models.sharding.RankLayout`` the loss runs on one rank's rows and
+parameter blocks, with the collectives of tensor, expert and FSDP
+parallelism (``run_stack``, ``embed_inputs``, ``chunked_ce_loss``).
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.core.config import resolve_device
+from repro_torch.models import collectives as C
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models.params import ParamSpec, init_params
@@ -45,10 +49,14 @@ def _attn_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     d, Hq, Hkv, D = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     s = d ** -0.5
     return {
-        "wq": ParamSpec((d, Hq, D), "normal", s),
-        "wk": ParamSpec((d, Hkv, D), "normal", s),
-        "wv": ParamSpec((d, Hkv, D), "normal", s),
-        "wo": ParamSpec((Hq, D, d), "normal", (Hq * D) ** -0.5),
+        "wq": ParamSpec((d, Hq, D), "normal", s,
+                        ("embed_fsdp", "heads", None)),
+        "wk": ParamSpec((d, Hkv, D), "normal", s,
+                        ("embed_fsdp", "kv_heads", None)),
+        "wv": ParamSpec((d, Hkv, D), "normal", s,
+                        ("embed_fsdp", "kv_heads", None)),
+        "wo": ParamSpec((Hq, D, d), "normal", (Hq * D) ** -0.5,
+                        ("heads", None, "embed_fsdp")),
     }
 
 
@@ -60,27 +68,29 @@ def _ssm_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     H = d_in // s.head_dim
     sc = d ** -0.5
     return {
-        "in_z": ParamSpec((d, d_in), "normal", sc),
-        "in_x": ParamSpec((d, d_in), "normal", sc),
-        "in_B": ParamSpec((d, gn), "normal", sc),
-        "in_C": ParamSpec((d, gn), "normal", sc),
-        "in_dt": ParamSpec((d, H), "normal", sc),
-        "conv_w": ParamSpec((s.d_conv, d_in + 2 * gn), "normal", 0.2),
-        "conv_b": ParamSpec((d_in + 2 * gn,), "zeros"),
-        "A_log": ParamSpec((H,), "ones"),
-        "D": ParamSpec((H,), "ones"),
-        "dt_bias": ParamSpec((H,), "zeros"),
-        "gate_ln": ParamSpec((d_in,), "zeros"),
-        "out_proj": ParamSpec((d_in, d), "normal", d_in ** -0.5),
+        "in_z": ParamSpec((d, d_in), "normal", sc, ("embed_fsdp", "ssm_in")),
+        "in_x": ParamSpec((d, d_in), "normal", sc, ("embed_fsdp", "ssm_in")),
+        "in_B": ParamSpec((d, gn), "normal", sc, ("embed_fsdp", None)),
+        "in_C": ParamSpec((d, gn), "normal", sc, ("embed_fsdp", None)),
+        "in_dt": ParamSpec((d, H), "normal", sc, ("embed_fsdp", None)),
+        "conv_w": ParamSpec((s.d_conv, d_in + 2 * gn), "normal", 0.2,
+                            (None, "ssm_in")),
+        "conv_b": ParamSpec((d_in + 2 * gn,), "zeros", 1.0, ("ssm_in",)),
+        "A_log": ParamSpec((H,), "ones", 1.0, (None,)),
+        "D": ParamSpec((H,), "ones", 1.0, (None,)),
+        "dt_bias": ParamSpec((H,), "zeros", 1.0, (None,)),
+        "gate_ln": ParamSpec((d_in,), "zeros", 1.0, ("ssm_in",)),
+        "out_proj": ParamSpec((d_in, d), "normal", d_in ** -0.5,
+                              ("ssm_in", "embed_fsdp")),
     }
 
 
 def _mlp_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     d, f = cfg.d_model, cfg.d_ff
     return {
-        "w1": ParamSpec((d, f), "normal", d ** -0.5),
-        "w3": ParamSpec((d, f), "normal", d ** -0.5),
-        "w2": ParamSpec((f, d), "normal", f ** -0.5),
+        "w1": ParamSpec((d, f), "normal", d ** -0.5, ("embed_fsdp", "mlp")),
+        "w3": ParamSpec((d, f), "normal", d ** -0.5, ("embed_fsdp", "mlp")),
+        "w2": ParamSpec((f, d), "normal", f ** -0.5, ("mlp", "embed_fsdp")),
     }
 
 
@@ -88,51 +98,67 @@ def _moe_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     m = cfg.moe
     d, f, E = cfg.d_model, m.d_ff_expert, m.n_experts
     sp = {
-        "router": ParamSpec((d, E), "normal", d ** -0.5),
-        "w1": ParamSpec((E, d, f), "normal", d ** -0.5),
-        "w3": ParamSpec((E, d, f), "normal", d ** -0.5),
-        "w2": ParamSpec((E, f, d), "normal", f ** -0.5),
+        "router": ParamSpec((d, E), "normal", d ** -0.5, ("embed_fsdp", None)),
+        "w1": ParamSpec((E, d, f), "normal", d ** -0.5,
+                        ("expert", "embed_fsdp", "mlp")),
+        "w3": ParamSpec((E, d, f), "normal", d ** -0.5,
+                        ("expert", "embed_fsdp", "mlp")),
+        "w2": ParamSpec((E, f, d), "normal", f ** -0.5,
+                        ("expert", "mlp", "embed_fsdp")),
     }
     if m.n_shared:
-        sp["shared_w1"] = ParamSpec((m.n_shared, d, f), "normal", d ** -0.5)
-        sp["shared_w3"] = ParamSpec((m.n_shared, d, f), "normal", d ** -0.5)
-        sp["shared_w2"] = ParamSpec((m.n_shared, f, d), "normal", f ** -0.5)
+        n = m.n_shared
+        sp["shared_w1"] = ParamSpec((n, d, f), "normal", d ** -0.5,
+                                    (None, "embed_fsdp", "mlp"))
+        sp["shared_w3"] = ParamSpec((n, d, f), "normal", d ** -0.5,
+                                    (None, "embed_fsdp", "mlp"))
+        sp["shared_w2"] = ParamSpec((n, f, d), "normal", f ** -0.5,
+                                    (None, "mlp", "embed_fsdp"))
     return sp
 
 
 def _layer_specs(cfg: ModelConfig, spec: LayerSpec) -> Dict[str, ParamSpec]:
     d = cfg.d_model
-    out: Dict[str, ParamSpec] = {"ln": ParamSpec((d,), "zeros")}
+    norm = ParamSpec((d,), "zeros", 1.0, (None,))
+    out: Dict[str, ParamSpec] = {"ln": norm}
     if spec.kind == "attn":
         out.update(_attn_specs(cfg))
     else:
         out.update(_ssm_specs(cfg))
     if cfg.use_post_norm:
-        out["ln_post"] = ParamSpec((d,), "zeros")
+        out["ln_post"] = norm
     if spec.mlp != "none":
-        out["ln_mlp"] = ParamSpec((d,), "zeros")
+        out["ln_mlp"] = norm
         if cfg.use_post_norm:
-            out["ln_mlp_post"] = ParamSpec((d,), "zeros")
+            out["ln_mlp_post"] = norm
         mlp = _mlp_specs(cfg) if spec.mlp == "dense" else _moe_specs(cfg)
         out.update({f"mlp_{k}": v for k, v in mlp.items()})
     return out
 
 
 def _stack(spec_dict: Dict[str, ParamSpec], n: int) -> Dict[str, ParamSpec]:
-    return {k: ParamSpec((n,) + v.shape, v.init, v.scale)
+    return {k: ParamSpec((n,) + v.shape, v.init, v.scale,
+                         ("layers",) + v.axes)
             for k, v in spec_dict.items()}
+
+
+# vocab-only sharding of the table, as the reference's: a 2-axis-sharded
+# table would reshard its token gather; d_model stays replicated
+EMBED_AXES = ("vocab", None)
+LM_HEAD_AXES = ("embed_fsdp", "vocab")
 
 
 def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
     tree: Dict[str, Any] = {
-        "embed": ParamSpec((cfg.vocab_size, cfg.d_model), "normal", 1.0),
-        "final_ln": ParamSpec((cfg.d_model,), "zeros"),
+        "embed": ParamSpec((cfg.vocab_size, cfg.d_model), "normal", 1.0,
+                           EMBED_AXES),
+        "final_ln": ParamSpec((cfg.d_model,), "zeros", 1.0, (None,)),
         "blocks": [_stack(_layer_specs(cfg, spec), cfg.n_superblocks)
                    for spec in cfg.pattern],
     }
     if not cfg.tie_embeddings:
         tree["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab_size), "normal",
-                                    cfg.d_model ** -0.5)
+                                    cfg.d_model ** -0.5, LM_HEAD_AXES)
     return tree
 
 
@@ -142,12 +168,13 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
 
 
 def _apply_layer(cfg, spec: LayerSpec, p, x, positions, *, mode, cache,
-                 cur_len, attn_impl):
+                 cur_len, attn_impl, shard=None, moe=(1, False)):
     h = L.rmsnorm(x, p["ln"], cfg.norm_eps)
+    layout, specs = shard or (None, None)
     if spec.kind == "attn":
         out, new_cache = L.attention_block(
             p, h, positions, cfg, spec, kv_cache=cache, cur_len=cur_len,
-            attn_impl=attn_impl, mode=mode)
+            attn_impl=attn_impl, mode=mode, layout=layout, specs=specs)
     else:
         out, new_cache = S.mamba2_block(p, h, cfg, cache=cache, mode=mode)
     if cfg.use_post_norm:
@@ -157,11 +184,17 @@ def _apply_layer(cfg, spec: LayerSpec, p, x, positions, *, mode, cache,
     if spec.mlp != "none":
         h2 = L.rmsnorm(x, p["ln_mlp"], cfg.norm_eps)
         mp = {k[4:]: v for k, v in p.items() if k.startswith("mlp_")}
+        ms = specs and {k[4:]: v for k, v in specs.items()
+                        if k.startswith("mlp_")}
         if spec.mlp == "dense":
-            out2 = L.mlp_block(mp, h2, cfg)
+            out2 = L.mlp_block(mp, h2, cfg, layout, ms)
+        elif layout is not None and layout.ctx.moe_impl == "ep":
+            out2, stats = L.moe_block_ep(mp, h2, cfg, layout, ms)
         else:
             out2, stats = L.moe_block(mp, h2, cfg,
-                                      with_stats=mode == "train")
+                                      with_stats=mode == "train",
+                                      groups=moe[0], group_aux=moe[1],
+                                      layout=layout, specs=ms)
         if cfg.use_post_norm:
             out2 = L.rmsnorm(out2, p["ln_mlp_post"], cfg.norm_eps)
         x = x + out2
@@ -207,9 +240,21 @@ def _add_stats(acc, stats):
     return stats if acc is None else {k: acc[k] + v for k, v in stats.items()}
 
 
+def _layer_shards(cfg, layout):
+    """Per pattern position, {name: (spec of one layer's slice, its
+    logical axes)} under ``layout``'s ctx."""
+    out = []
+    for spec in cfg.pattern:
+        ps = _layer_specs(cfg, spec)
+        out.append({k: (layout.ctx.spec_for(v.shape, v.axes), v.axes)
+                    for k, v in ps.items()})
+    return out
+
+
 def run_stack(cfg: ModelConfig, params, x, positions, *, mode: str = "train",
               caches=None, cur_len=None, attn_impl: str = "blocked",
-              remat: Optional[str] = None, remat_segment: int = 0):
+              remat: Optional[str] = None, remat_segment: int = 0,
+              layout=None, moe=(1, False)):
     """Apply all layers, a Python loop over super-blocks.  Returns
     (hidden, new_caches, stats_sum); new_caches is None in train mode.
     stats_sum holds ``aux_loss`` and, for an MoE config, ``expert_load``,
@@ -227,8 +272,16 @@ def run_stack(cfg: ModelConfig, params, x, positions, *, mode: str = "train",
     A layer whose new cache is the slice of the stacked buffer it was
     given (attention writes its KV in place) leaves the buffer as it is;
     other new caches (the SSD state and conv tail) are stacked afresh, in
-    the dtype the layer computed them in, as the reference's scan does."""
+    the dtype the layer computed them in, as the reference's scan does.
+
+    With a ``layout`` (train mode; ``models.sharding.RankLayout``) the
+    parameters are this rank's blocks: each layer's FSDP dims are
+    all-gathered before it (inside the remat region, so the recompute
+    gathers again, in the same order on every rank) and freed after it;
+    ``moe`` = (groups, group_aux) is the one-process MoE dispatch's
+    grouping (``moe_block``)."""
     train = mode == "train"
+    shards = None if layout is None else _layer_shards(cfg, layout)
     # one layer's parameters are views of the stacked tensors: unbind
     # hands back one stacked gradient, not a stack-sized one per layer
     layers = [{k: v.unbind(0) for k, v in blk.items()}
@@ -238,11 +291,17 @@ def run_stack(cfg: ModelConfig, params, x, positions, *, mode: str = "train",
         acc, runs = None, []
         for pos, spec in enumerate(cfg.pattern):
             p = {k: v[i] for k, v in layers[pos].items()}
+            shard = None
+            if shards is not None:
+                p = {k: layout.gather_leaf(v, *shards[pos][k])
+                     for k, v in p.items()}
+                shard = (layout, {k: layout.gathered(*shards[pos][k])
+                                  for k in p})
             cache = (None if caches is None else
                      tuple(buf[i] for buf in caches[pos]))
             x, ncache, stats = _apply_layer(
                 cfg, spec, p, x, positions, mode=mode, cache=cache,
-                cur_len=cur_len, attn_impl=attn_impl)
+                cur_len=cur_len, attn_impl=attn_impl, shard=shard, moe=moe)
             runs.append((cache, ncache))
             acc = _add_stats(acc, stats)
         return x, acc, runs
@@ -304,10 +363,36 @@ def run_stack(cfg: ModelConfig, params, x, positions, *, mode: str = "train",
 # ---------------------------------------------------------------------------
 
 
-def embed_inputs(cfg: ModelConfig, params, batch):
+def _table(cfg, params, layout):
+    """The embedding table (V, d) as this rank reads it: gathered over
+    the batch's axes, and the axes it stays split over (vocab-parallel)."""
+    spec = layout.ctx.spec_for((cfg.vocab_size, cfg.d_model), EMBED_AXES)
+    table = layout.gather_leaf(params["embed"], spec, EMBED_AXES)
+    return table, layout.tp_axes(layout.gathered(spec, EMBED_AXES)[0])
+
+
+def embed_inputs(cfg: ModelConfig, params, batch, layout=None):
+    """Token embeddings (Gemma's scaling where the embeddings are tied) or
+    the ``embeds`` input.  With a ``layout`` whose table is split over
+    the vocabulary, each rank looks up the ids in its range, zero
+    elsewhere, then one sum over those axes."""
     if cfg.input_mode == "embeds":
         return batch["embeds"]
-    x = params["embed"][batch["tokens"]]
+    tp = ()
+    if layout is None:
+        x = params["embed"][batch["tokens"]]
+    else:
+        table, tp = _table(cfg, params, layout)
+    if tp:
+        v_loc = table.shape[0]
+        ids = batch["tokens"].long() - layout.mesh.block_index(tp) * v_loc
+        inside = (ids >= 0) & (ids < v_loc)
+        x = torch.where(inside[..., None], table[ids.clamp(0, v_loc - 1)],
+                        torch.zeros((), dtype=table.dtype,
+                                    device=table.device))
+        x = C.all_reduce(x, tp, layout.mesh)
+    elif layout is not None:
+        x = table[batch["tokens"]]
     if cfg.tie_embeddings:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)  # gemma
     return x
@@ -327,19 +412,46 @@ def _logits(cfg, params, hidden_last):
     return logits
 
 
+def _lm_shard(cfg, params, layout):
+    """The LM matrix (d, V) as this rank reads it and the axes its
+    vocabulary stays split over."""
+    if cfg.tie_embeddings:
+        table, tp = _table(cfg, params, layout)
+        return table.T, tp
+    spec = layout.ctx.spec_for((cfg.d_model, cfg.vocab_size), LM_HEAD_AXES)
+    w = layout.gather_leaf(params["lm_head"], spec, LM_HEAD_AXES)
+    return w, layout.tp_axes(layout.gathered(spec, LM_HEAD_AXES)[1])
+
+
 def chunked_ce_loss(cfg: ModelConfig, params, hidden, targets, *,
-                    chunk: int = 1024, mask=None):
+                    chunk: int = 1024, mask=None, layout=None):
     """Mean cross-entropy of ``targets`` (B, S) under the LM head over
     ``hidden`` (B, S, d), a chunk of ``chunk`` positions at a time (float32
     logits of (B, chunk, V) at once), the chunks' sums added in order from
     0 as the reference's scan adds them; ``mask`` (B, S) weights the
-    positions (the count of weighted positions divides)."""
+    positions (the count of weighted positions divides).
+
+    With a ``layout``: the rows are this rank's; where the LM matrix's
+    vocabulary is split, the logsumexp is distributed (a max, then a sum
+    of the shifted exponentials, over those axes) and the target's logit
+    comes from the rank that owns it; the sums and the count are then
+    summed over the batch's ranks, so every rank holds the global mean
+    and its gradient is this rank's share."""
     B, S_, d = hidden.shape
     c = min(chunk, S_)
     if S_ % c:
         raise ValueError(f"sequence {S_} is not a multiple of the CE chunk "
                          f"{c}")
-    w = _lm_matrix(cfg, params).float()
+    tp = ()
+    if layout is None:
+        w = _lm_matrix(cfg, params).float()
+    else:
+        w, tp = _lm_shard(cfg, params, layout)
+        w = w.float()
+        if tp:
+            mesh = layout.mesh
+            hidden = C.copy_to(hidden, tp, mesh)
+            lo = mesh.block_index(tp) * w.shape[1]
     loss = torch.zeros((), dtype=torch.float32, device=hidden.device)
     ntok = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for a in range(0, S_, c):
@@ -347,13 +459,27 @@ def chunked_ce_loss(cfg: ModelConfig, params, hidden, targets, *,
         if cfg.final_softcap is not None:
             logits = cfg.final_softcap * torch.tanh(logits
                                                     / cfg.final_softcap)
-        lse = torch.logsumexp(logits, dim=-1)
-        ll = torch.gather(logits, -1,
-                          targets[:, a:a + c, None].long())[..., 0]
+        tc = targets[:, a:a + c, None].long()
+        if tp:
+            m = C.all_reduce_max(logits.max(-1).values, tp, mesh)
+            lse = m + torch.log(C.all_reduce(
+                torch.exp(logits - m[..., None]).sum(-1), tp, mesh))
+            t_loc = tc - lo
+            inside = (t_loc >= 0) & (t_loc < w.shape[1])
+            ll = torch.where(inside, torch.gather(
+                logits, -1, t_loc.clamp(0, w.shape[1] - 1)),
+                torch.zeros((), device=logits.device))[..., 0]
+            ll = C.all_reduce(ll, tp, mesh)
+        else:
+            lse = torch.logsumexp(logits, dim=-1)
+            ll = torch.gather(logits, -1, tc)[..., 0]
         mc = (torch.ones_like(lse) if mask is None
               else mask[:, a:a + c].float())
         loss = loss + ((lse - ll) * mc).sum()
         ntok = ntok + mc.sum()
+    if layout is not None and layout.batch_axes:
+        loss = C.all_reduce(loss, layout.batch_axes, layout.mesh)
+        ntok = C.reduce(ntok, layout.batch_axes, layout.mesh)
     return loss / torch.clamp(ntok, min=1.0)
 
 
@@ -371,23 +497,31 @@ def make_positions(cfg: ModelConfig, B: int, S: int, offset=0, device=None):
 
 
 def loss_fn(cfg: ModelConfig, params, batch, *, attn_impl="blocked",
-            remat=None, ce_chunk=1024, remat_segment=0):
+            remat=None, ce_chunk=1024, remat_segment=0, layout=None,
+            moe_groups=1, moe_group_aux=False):
     """Training loss.  batch: ``tokens`` (B, S) or ``embeds`` (B, S, d),
     ``targets`` (B, S), optional ``positions`` and ``loss_mask``.
     Returns (loss, metrics): the mean cross-entropy plus, for an MoE
     config, ``router_aux_weight * aux_loss / n_layers``; metrics ``ce``,
-    ``aux_loss`` and, for an MoE config, ``expert_load`` (E,)."""
-    x = embed_inputs(cfg, params, batch)
+    ``aux_loss`` and, for an MoE config, ``expert_load`` (E,).
+
+    With a ``layout`` the batch is this rank's rows and ``params`` its
+    blocks; the loss and metrics are the whole batch's, equal on every
+    rank.  ``moe_groups`` and ``moe_group_aux`` set the one-process MoE
+    dispatch's grouping (``layers.moe_block``)."""
+    x = embed_inputs(cfg, params, batch, layout)
     B, S_ = x.shape[0], x.shape[1]
     positions = batch.get("positions")
     if positions is None:
         positions = make_positions(cfg, B, S_, device=x.device)
     hidden, _, stats = run_stack(cfg, params, x, positions, mode="train",
                                  attn_impl=attn_impl, remat=remat,
-                                 remat_segment=remat_segment)
+                                 remat_segment=remat_segment, layout=layout,
+                                 moe=(moe_groups, moe_group_aux))
     hidden = L.rmsnorm(hidden, params["final_ln"], cfg.norm_eps)
     ce = chunked_ce_loss(cfg, params, hidden, batch["targets"],
-                         chunk=ce_chunk, mask=batch.get("loss_mask"))
+                         chunk=ce_chunk, mask=batch.get("loss_mask"),
+                         layout=layout)
     aux = stats["aux_loss"]
     aux = aux.sum() if aux.dim() else aux
     total = ce

@@ -1,7 +1,7 @@
 """Parameter specs and their seeded initialisation (the reference's
 ``ParamSpec``, ``init_param`` and ``init_params`` of
-``models/sharding.py``, without the sharding axes: the port runs on one
-card).
+``models/sharding.py``).  ``axes`` are the logical axis names of the
+dims, which ``models.sharding`` maps to mesh axes.
 
 The rules and scales are the reference's: ``normal`` draws N(0, scale²),
 ``scaled`` N(0, (scale / sqrt(fan_in))²) with fan_in the last-but-one dim,
@@ -13,7 +13,7 @@ weights across instead (``models/carry.py``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 
@@ -23,6 +23,12 @@ class ParamSpec:
     shape: Tuple[int, ...]
     init: str = "normal"       # 'normal' | 'zeros' | 'ones' | 'scaled'
     scale: float = 1.0         # stddev for 'normal'; fan-in applied for 'scaled'
+    axes: Tuple[Optional[str], ...] = ()
+
+    def __post_init__(self):
+        if self.axes and len(self.axes) != len(self.shape):
+            raise ValueError(f"shape {self.shape} and axes {self.axes} "
+                             "differ in length")
 
 
 def init_param(spec: ParamSpec, generator: torch.Generator,

@@ -1,0 +1,371 @@
+"""Logical-axis sharding over the ranks of a ``torch.distributed`` world
+(the port of the reference's ``models/sharding.py``).
+
+Every parameter carries logical axis names (``ParamSpec.axes``); a rules
+table maps a logical axis to mesh axes.  ``ShardingCtx.spec_for`` gives
+a tensor's spec, one entry a dim: None (replicated), a mesh axis or a
+tuple of mesh axes, the content of the reference's ``PartitionSpec``.
+A mesh axis applies only when the product of the axes' sizes divides
+the dim (the longest prefix of the rule's axes that divides it), and a
+mesh axis used by an earlier dim is dropped from a later one.  It reads
+only the mesh's axis sizes, so ``spec_for_shape`` gives it for a shape
+dict without ranks.
+
+Where the reference lets GSPMD place data and collectives, the port
+places them itself: each rank holds the block of every tensor that its
+spec gives it (``shard_params``, row-major over each dim's axes as
+``launch.mesh.Mesh.block_index`` orders them), and the layers run the
+collectives of ``models.collectives``.  ``RankLayout`` is what the layers
+read: the ctx, the mesh axes the batch rows are split over (the batch
+dim's spec for this batch size) and, for a parameter, which dims are
+gathered before use (``gather_leaf``) and which stay split over the
+model axes.
+
+The training rules are the ported path: ``DEFAULT_RULES``,
+``SMALL_MODEL_RULES`` and ``FSDP_POD_RULES`` with ``gather_fsdp=True``
+and ``moe_impl`` 'dense' or 'ep'.  A rule that maps ``seq``, ``seq_sp``,
+``kv_seq`` or ``embed`` to a mesh axis of the ctx, ``gather_fsdp=False``
+and SSM layers under a ctx wait for ROADMAP item 13f
+(``check_training``).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.models.params import ParamSpec
+
+Rules = Dict[Optional[str], Optional[Tuple[str, ...]]]
+Spec = Tuple[Any, ...]
+
+SERVING_PENDING = ("waits for ROADMAP item 13f (the serving rules, "
+                   "gather_fsdp=False, seq_sp, the SSM split and adamw8bit "
+                   "under a sharding context)")
+
+# Production default: DP over (pod, data), FSDP params over data, TP over
+# model.
+DEFAULT_RULES: Rules = {
+    "batch": ("pod", "data"),
+    "seq": None,
+    "seq_sp": None,     # sequence sharding of SAVED layer boundaries only
+    "kv_seq": None,
+    "embed": None,
+    "embed_fsdp": ("data",),
+    "heads": ("model",),
+    "kv_heads": ("model",),
+    "mlp": ("model",),
+    "vocab": ("model",),
+    "expert": ("model",),
+    "ssm_in": ("model",),
+    "layers": None,
+    "conv": None,
+    "state": None,
+    "groups": None,
+    None: None,
+}
+
+# Small-model training: the 'model' axis is spent on data parallelism.
+SMALL_MODEL_RULES: Rules = dict(
+    DEFAULT_RULES,
+    batch=("pod", "data", "model"),
+    heads=None, kv_heads=None, mlp=None, expert=None, ssm_in=None,
+    vocab=("model",),
+)
+
+# Serving (decode): the KV cache shards its seq dim over 'model'.
+SERVE_RULES: Rules = dict(DEFAULT_RULES, kv_seq=("model",), kv_heads=None)
+
+# Small models at decode: TP stays, FSDP is dropped.
+SMALL_SERVE_RULES: Rules = dict(SERVE_RULES, embed_fsdp=None)
+
+# Long-context decode (global_batch=1): context-parallel KV on every axis.
+LONG_CONTEXT_RULES: Rules = dict(
+    DEFAULT_RULES,
+    batch=None,
+    kv_seq=("pod", "data", "model"),
+    kv_heads=None,
+    seq=None,
+)
+
+# Decode for big dense models: weights stay 2-D sharded, never gathered;
+# activations shard d_model over 'data'.
+DECODE_2D_RULES: Rules = dict(
+    DEFAULT_RULES,
+    batch=None,
+    embed=("data",),
+    kv_seq=("data", "model"),
+    kv_heads=None,
+)
+
+# Sequence-parallel saved boundaries.
+TRAIN_SP_RULES: Rules = dict(DEFAULT_RULES, seq_sp=("model",))
+
+# ZeRO across pods: params shard over both the pod and data axes.
+FSDP_POD_RULES: Rules = dict(DEFAULT_RULES, embed_fsdp=("pod", "data"))
+
+# Long-context decode with the 2-D no-regather treatment.
+LONG_2D_RULES: Rules = dict(LONG_CONTEXT_RULES, embed=("data",))
+
+NAMED_RULES = {
+    "default": None,
+    "decode2d": DECODE_2D_RULES,
+    "long": LONG_CONTEXT_RULES,
+    "long2d": LONG_2D_RULES,
+    "serve": SERVE_RULES,
+    "small": SMALL_MODEL_RULES,
+    "train_sp": TRAIN_SP_RULES,
+    "fsdp_pod": FSDP_POD_RULES,
+}
+
+MOE_IMPLS = ("dense", "ep")
+# logical axes whose mesh sharding (activations on d_model or on the
+# sequence, the KV cache's sequence) belongs to the serving slice
+_SERVING_AXES = ("seq", "seq_sp", "kv_seq", "embed")
+
+
+def entry_axes(entry) -> Tuple[str, ...]:
+    """A spec entry's mesh axes as a tuple (() for None)."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def spec_for_shape(mesh_shape: Dict[str, int], rules: Rules,
+                   shape: Sequence[int],
+                   axes: Sequence[Optional[str]]) -> Spec:
+    """The reference's ``ShardingCtx.spec_for`` on a mesh of axis sizes
+    ``mesh_shape``: one entry a dim, None, an axis name or a tuple of
+    names (a single axis given as its name, as ``PartitionSpec`` keeps
+    it)."""
+    if len(shape) != len(axes):
+        raise ValueError(f"shape {tuple(shape)} and axes {tuple(axes)} "
+                         "differ in length")
+
+    def size(names):
+        return math.prod(mesh_shape[n] for n in names)
+    parts = []
+    for dim, ax in zip(shape, axes):
+        mesh_axes = rules.get(ax)
+        if not mesh_axes:
+            parts.append(None)
+            continue
+        mesh_axes = tuple(m for m in mesh_axes if m in mesh_shape)
+        # divisibility fallback: the longest prefix that divides the dim
+        while mesh_axes and dim % size(mesh_axes) != 0:
+            mesh_axes = mesh_axes[:-1]
+        if mesh_axes:
+            parts.append(mesh_axes if len(mesh_axes) > 1 else mesh_axes[0])
+        else:
+            parts.append(None)
+    # a mesh axis is used once; later dims lose
+    used, clean = set(), []
+    for p in parts:
+        tup = entry_axes(p)
+        if any(t in used for t in tup):
+            clean.append(None)
+        else:
+            used.update(tup)
+            clean.append(p)
+    return tuple(clean)
+
+
+@dataclasses.dataclass
+class ShardingCtx:
+    """Mesh + rules.  ``mesh`` is a ``launch.mesh.Mesh`` (or any object
+    with its ``shape`` dict of axis sizes, enough for ``spec_for``).
+
+    gather_fsdp: gather the FSDP-sharded weight dims before each layer
+    (training's semantics; False waits for 13f).  moe_impl: 'dense' (the
+    dispatch in groups of the batch's shards, experts or their d_ff split
+    over 'model') or 'ep' (each data shard routes its own tokens to the
+    rank's E / ep experts; one sum over 'model')."""
+
+    mesh: Any
+    rules: Rules
+    gather_fsdp: bool = True
+    moe_impl: str = "dense"
+
+    def axis_size(self, names) -> int:
+        return math.prod(self.mesh.shape[n] for n in entry_axes(names))
+
+    def spec_for(self, shape: Sequence[int],
+                 axes: Sequence[Optional[str]]) -> Spec:
+        return spec_for_shape(self.mesh.shape, self.rules, shape, axes)
+
+    def block_shape(self, shape: Sequence[int], spec: Spec) -> Tuple[int, ...]:
+        """The shape of one rank's block of a tensor of ``shape``."""
+        return tuple(n // self.axis_size(entry_axes(e))
+                     for n, e in zip(shape, spec))
+
+
+def constrain(x: torch.Tensor, shape: Sequence[int],
+              axes: Sequence[Optional[str]], ctx: Optional[ShardingCtx]):
+    """The reference's layout constraint.  Without a ctx, the identity;
+    with one, a check that ``x`` is this rank's block of a tensor of the
+    global ``shape`` laid out by ``axes`` (the port's layout is explicit,
+    so nothing moves)."""
+    if ctx is None:
+        return x
+    want = ctx.block_shape(shape, ctx.spec_for(shape, axes))
+    if tuple(x.shape) != want:
+        raise ValueError(f"local block {tuple(x.shape)} is not the block "
+                         f"{want} of {tuple(shape)} laid out as {tuple(axes)}")
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Parameter trees
+# ---------------------------------------------------------------------------
+
+
+def _spec_map(fn, tree):
+    if isinstance(tree, ParamSpec):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _spec_map(fn, tree[k]) for k in sorted(tree)}
+    return type(tree)(_spec_map(fn, v) for v in tree)
+
+
+def spec_leaves(tree) -> list:
+    """The leaves of a tree of ``ParamSpec`` or of specs (whose tuples
+    are leaves), in the parameters' leaf order."""
+    if isinstance(tree, dict):
+        return [s for k in sorted(tree) for s in spec_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [s for v in tree for s in spec_leaves(v)]
+    return [tree]
+
+
+def param_shardings(spec_tree, ctx: ShardingCtx):
+    """The spec of every parameter of a ``ParamSpec`` tree (the
+    reference's ``param_shardings``, a spec tuple in place of each
+    ``NamedSharding``)."""
+    return _spec_map(lambda s: ctx.spec_for(s.shape, s.axes), spec_tree)
+
+
+def _zip_map(fn, tree, specs):
+    """``fn(leaf, spec)`` over a tensor tree and its spec tree (a spec is
+    a tuple, so the spec tree is walked by the tensor tree's shape)."""
+    if isinstance(tree, dict):
+        return {k: _zip_map(fn, tree[k], specs[k]) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)) and not torch.is_tensor(tree):
+        return type(tree)(_zip_map(fn, t, s) for t, s in zip(tree, specs))
+    return fn(tree, specs)
+
+
+def local_block(t: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+    """This rank's block of the full tensor ``t`` under ``spec`` (a view
+    where it can be)."""
+    for dim, entry in enumerate(spec):
+        axes = entry_axes(entry)
+        if not axes:
+            continue
+        n = t.shape[dim] // mesh.size(axes)
+        t = t.narrow(dim, mesh.block_index(axes) * n, n)
+    return t
+
+
+def shard_params(full_tree, ctx: ShardingCtx, specs):
+    """This rank's blocks (contiguous copies) of every leaf of the full
+    tree ``full_tree``, laid out by ``specs`` (``param_shardings``)."""
+    return _zip_map(lambda t, s: local_block(t, s, ctx.mesh).contiguous(),
+                    full_tree, specs)
+
+
+def gather_params(local_tree, ctx: ShardingCtx, specs):
+    """The full tree back from every rank's blocks (an all-gather of each
+    sharded dim, counted in ``models.collectives``); every rank must
+    call it, in the same order."""
+    from repro_torch.models.collectives import gather_full
+    return _zip_map(lambda t, s: gather_full(t.detach(), s, ctx.mesh),
+                    local_tree, specs)
+
+
+def check_training(cfg, ctx: ShardingCtx):
+    """Raise for what this slice does not run under a ctx: the serving
+    rules' axes, ``gather_fsdp=False``, SSM layers (13f) and an unknown
+    ``moe_impl``."""
+    if ctx.moe_impl not in MOE_IMPLS:
+        raise ValueError(f"moe_impl={ctx.moe_impl!r}; allowed: {MOE_IMPLS}")
+    mapped = [a for a in _SERVING_AXES
+              if any(m in ctx.mesh.shape for m in (ctx.rules.get(a) or ()))]
+    if mapped:
+        raise NotImplementedError(
+            f"rules mapping {mapped} to mesh axes {SERVING_PENDING}")
+    if not ctx.gather_fsdp:
+        raise NotImplementedError(f"gather_fsdp=False {SERVING_PENDING}")
+    if any(s.kind != "attn" for s in cfg.pattern):
+        raise NotImplementedError(
+            f"SSM layers under a sharding context {SERVING_PENDING}")
+
+
+# ---------------------------------------------------------------------------
+# What the layers read
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class RankLayout:
+    """A ctx bound to one batch: ``batch_axes`` are the mesh axes the
+    batch rows are split over (the batch dim's spec for the global batch
+    size), in the spec's order; ``batch_size`` is that global size."""
+
+    ctx: ShardingCtx
+    batch_axes: Tuple[str, ...]
+    batch_size: int
+
+    @classmethod
+    def for_batch(cls, ctx: ShardingCtx, batch_size: int) -> "RankLayout":
+        spec = ctx.spec_for((batch_size,), ("batch",))
+        return cls(ctx, entry_axes(spec[0]), batch_size)
+
+    @property
+    def mesh(self):
+        return self.ctx.mesh
+
+    @property
+    def n_blocks(self) -> int:
+        return self.ctx.axis_size(self.batch_axes)
+
+    def rows(self, a: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """This rank's block of ``a``'s rows along ``dim``."""
+        if not self.batch_axes:
+            return a
+        n = a.shape[dim] // self.n_blocks
+        return a.narrow(dim, self.mesh.block_index(self.batch_axes) * n, n)
+
+    def tp_axes(self, entry) -> Tuple[str, ...]:
+        """The axes of a gathered parameter's dim that stay split: those
+        of ``entry`` (after ``gathered``) that do not split the batch and
+        hold more than one rank."""
+        return tuple(a for a in entry_axes(entry)
+                     if a not in self.batch_axes and self.mesh.shape[a] > 1)
+
+    def gathered(self, spec: Spec, axes: Sequence[Optional[str]]) -> Spec:
+        """The spec a parameter has after ``gather_leaf``: its FSDP dims
+        (``embed_fsdp``, gathered whatever their axes) and any dim split
+        over a batch axis (the ranks of that axis hold other rows, so
+        the weight must be whole there) become None."""
+        return tuple(
+            None if (ax == "embed_fsdp"
+                     or any(a in self.batch_axes for a in entry_axes(e)))
+            else e for e, ax in zip(spec, axes))
+
+    def gather_leaf(self, t: torch.Tensor, spec: Spec,
+                    axes: Sequence[Optional[str]]) -> torch.Tensor:
+        """All-gather the dims ``gathered`` clears, differentiably: the
+        backward sums a gradient over the gathered axes that split the
+        batch (the data ranks' shares, exactly once) and takes this
+        rank's block."""
+        from repro_torch.models.collectives import all_gather
+        after = self.gathered(spec, axes)
+        for dim, (e, new) in enumerate(zip(spec, after)):
+            if e is not None and new is None:
+                g_axes = entry_axes(e)
+                t = all_gather(t, dim, g_axes, self.mesh,
+                               tuple(a for a in g_axes
+                                     if a in self.batch_axes))
+        return t

@@ -1063,3 +1063,72 @@ def test_cuda_composed_checkpoint_restores_on_cpu(dev):
         for ev in prog[cut:]:
             trace_fuzz.apply_event(run, ev, g, "batched")
     assert_bit_equal(on_cpu, rt, "card slices -> cpu")
+
+
+def tp_trainer_rank(root: str):
+    """One rank of ``test_tp_trainer_on_card``: the reduced
+    moonshot-v1-16b-a3b under ``DEFAULT_RULES`` with ``moe_impl="ep"`` on
+    a (1, 2) mesh (heads, experts and vocabulary split over 'model'),
+    4 steps, checkpoints every 2, a failure injected at step 3."""
+    from pathlib import Path
+    from repro_torch.configs import get_reduced
+    from repro_torch.data import DataConfig
+    from repro_torch.ft import FailureInjector
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.ranks import rank_device
+    from repro_torch.models import sharding as SH
+    from repro_torch.train.train_step import TrainHParams, gather_state
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.utils.tree import tree_flatten
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = rank_device("cuda")
+    cfg = get_reduced("moonshot-v1-16b-a3b")
+    ctx = SH.ShardingCtx(make_host_mesh((1, 2), ("data", "model")),
+                         SH.DEFAULT_RULES, moe_impl="ep")
+    hp = TrainHParams(lr=1e-3, warmup=2, total_steps=4, remat=None,
+                      ce_chunk=32)
+    tc = TrainerConfig(total_steps=4, ckpt_every=2, log_every=1000,
+                       ckpt_dir=str(Path(root) / "ckpts"))
+    data = DataConfig(kind="synthetic", vocab_size=cfg.vocab_size,
+                      seq_len=32, global_batch=4)
+    out = Trainer(cfg, hp, tc, data, ctx=ctx,
+                  injector=FailureInjector(at_steps=[3]),
+                  log_fn=lambda *_: None, device=dev).run()
+    full = gather_state(cfg, ctx, out["params"])
+    return {"device": str(out["params"]["embed"].device),
+            "step": out["step"], "restarts": out["restarts"],
+            "losses": [h["loss"] for h in out["history"]],
+            "final": {k: v.cpu().numpy() for k, v in tree_flatten(full)}}
+
+
+def test_tp_trainer_on_card(f32_card, tmp_path):
+    """``Trainer(ctx=)`` on two ranks sharing the card over gloo (slice
+    K): both ranks restart once and end at step 4 with the same losses,
+    on the card; the last checkpoint holds the gathered tree in the
+    reference's layout (leaves named by its keystr paths), which the
+    one-process port restores bit for bit."""
+    from repro_torch.checkpoint import load_arrays, restore_checkpoint
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.ranks import spawn_ranks
+    from repro_torch.models.model import param_specs
+    from repro_torch.train.train_step import init_train_state
+    from repro_torch.utils.tree import tree_flatten
+    got = spawn_ranks(2, "test_torch_cuda:tp_trainer_rank", (str(tmp_path),),
+                      backend="gloo", init_method=f"file://{tmp_path / 'st'}",
+                      timeout_s=300)
+    for g in got:
+        assert g["device"].startswith("cuda")
+        assert g["step"] == 4 and g["restarts"] == 1
+        assert all(np.isfinite(x) for x in g["losses"])
+    assert got[0]["losses"] == got[1]["losses"]
+    cfg = get_reduced("moonshot-v1-16b-a3b")
+    arrays, _ = load_arrays(tmp_path / "ckpts", 4)
+    names = [k for k, _ in tree_flatten(param_specs(cfg))]
+    assert {k[len("['params']"):] for k in arrays
+            if k.startswith("['params']")} == set(names)
+    params, opt = init_train_state(cfg, device="cpu")
+    state = restore_checkpoint(tmp_path / "ckpts", 4,
+                               {"params": params, "opt": opt})
+    for k, v in tree_flatten(state["params"]):
+        np.testing.assert_array_equal(v.numpy(), got[0]["final"][k],
+                                      err_msg=k)

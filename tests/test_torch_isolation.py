@@ -10,8 +10,9 @@
 * entry points run on the card by default and raise without one (the
   training ones too: ``Trainer``, ``init_train_state``,
   ``make_pipeline``, ``launch.train``); the explicit RegC train path
-  builds and takes a step in one process, and a sharding context raises,
-  naming ROADMAP item 13e;
+  builds and takes a step in one process, so does a sharding context
+  (equal, on a mesh of one rank, to the one-process step bit for bit),
+  and what waits for ROADMAP item 13f raises, naming it;
 * the knobs of ported slices (race detection and the recovery hooks
   among them, and the reference engine) build a runtime, and the
   reference engine raises on the recovery hooks, naming the slice;
@@ -97,6 +98,17 @@ def test_port_runs_without_jax(tmp_path):
         "assert torch.equal(m3['loss'], m['loss'])\n"
         "assert all(torch.equal(a, b) for a, b in zip(\n"
         "    p2.values(), p3.values()) if torch.is_tensor(a))\n"
+        "from repro_torch.models.sharding import DEFAULT_RULES, ShardingCtx\n"
+        "from repro_torch.train.train_step import shard_state\n"
+        "from repro_torch.utils.tree import tree_leaves\n"
+        "ctx = ShardingCtx(make_host_mesh((1, 1), ('data', 'model')),\n"
+        "                  DEFAULT_RULES)\n"
+        "lp, lo = shard_state(cfg, ctx, p, opt)\n"
+        "p4, _, m4 = make_train_step(cfg, TrainHParams(ce_chunk=16), ctx)(\n"
+        "    lp, lo, batch, step)\n"
+        "assert torch.equal(m4['loss'], m['loss'])\n"
+        "assert all(torch.equal(a, b) for a, b in zip(\n"
+        "    tree_leaves(p2), tree_leaves(p4)))\n"
         "import torch.distributed as dist\n"
         "dist.destroy_process_group()\n"
         "assert 'jax' not in [m for m in sys.modules if sys.modules[m]]\n"
@@ -242,23 +254,57 @@ def test_train_entry_points_default_to_the_card(tmp_path):
 
 
 def test_regc_train_path_raises_naming_13d(tmp_path):
-    """ROADMAP item 13d is ported: the RegC path builds (its Trainer needs
-    a mesh).  What still raises, before a checkpoint directory is made:
-    a sharding context (item 13e) and, on the one-process path, every
-    sync policy but the default (which it would ignore), naming the regc
-    path where the policy applies."""
+    """ROADMAP items 13d and 13e are ported: the RegC path builds (its
+    Trainer needs a mesh) and so do sharding contexts under the training
+    rules (an ``inner_ctx`` whose rules name no dp axis too).  What still
+    raises, before a checkpoint directory is made: what waits for item
+    13f (the serving rules' axes, ``gather_fsdp=False``, SSM layers and
+    ``adamw8bit`` under a ctx), the reference's two refusals of an
+    ``inner_ctx`` (a rule on a dp axis; ``moe_impl='ep'``) and, on the
+    one-process path, every sync policy but the default (which it would
+    ignore), naming the regc path where the policy applies."""
     from repro_torch.configs import get_reduced
     from repro_torch.data import DataConfig
+    from repro_torch.models import sharding as SH
     from repro_torch.regc_sync.policies import RegCSyncPolicy
     from repro_torch.train.train_step import (TrainHParams, make_train_step,
                                               make_train_step_regc)
     from repro_torch.train.trainer import Trainer, TrainerConfig
     cfg = get_reduced("internlm2-1.8b")
-    with pytest.raises(NotImplementedError, match="13e"):
-        make_train_step_regc(cfg, TrainHParams(), mesh=None,
-                             inner_ctx=object())
-    with pytest.raises(NotImplementedError, match="13e"):
-        make_train_step(cfg, TrainHParams(), ctx=object())
+
+    class Shape:            # a mesh's axis sizes, no ranks
+        shape = {"data": 2, "model": 4}
+    mesh = Shape()
+    for rules in (SH.DEFAULT_RULES, SH.SMALL_MODEL_RULES, SH.FSDP_POD_RULES):
+        for impl in SH.MOE_IMPLS:
+            assert callable(make_train_step(cfg, TrainHParams(),
+                                            SH.ShardingCtx(mesh, rules,
+                                                           moe_impl=impl)))
+    arch = "internlm2-1.8b"
+    for ctx, hp, arch in (
+            (SH.ShardingCtx(mesh, SH.SERVE_RULES), TrainHParams(), arch),
+            (SH.ShardingCtx(mesh, SH.DECODE_2D_RULES, gather_fsdp=False),
+             TrainHParams(), arch),
+            (SH.ShardingCtx(mesh, SH.TRAIN_SP_RULES), TrainHParams(), arch),
+            (SH.ShardingCtx(mesh, SH.DEFAULT_RULES, gather_fsdp=False),
+             TrainHParams(), arch),
+            (SH.ShardingCtx(mesh, SH.DEFAULT_RULES),
+             TrainHParams(opt_impl="adamw8bit"), arch),
+            (SH.ShardingCtx(mesh, SH.DEFAULT_RULES), TrainHParams(),
+             "mamba2-2.7b")):
+        with pytest.raises(NotImplementedError, match="13f"):
+            make_train_step(get_reduced(arch), hp, ctx)
+        with pytest.raises(NotImplementedError, match="13f"):
+            Trainer(get_reduced(arch), hp, TrainerConfig(
+                ckpt_dir=str(tmp_path / "ck")), DataConfig(), ctx=ctx,
+                device="cpu")
+    with pytest.raises(ValueError, match="manual axes"):
+        make_train_step_regc(cfg, TrainHParams(), mesh,
+                             inner_ctx=SH.ShardingCtx(mesh, SH.DEFAULT_RULES))
+    with pytest.raises(ValueError, match="shard_map"):
+        make_train_step_regc(cfg, TrainHParams(), mesh, inner_ctx=(
+            SH.ShardingCtx(mesh, dict(SH.DEFAULT_RULES, batch=None,
+                                      embed_fsdp=None), moe_impl="ep")))
     with pytest.raises(ValueError, match="needs a mesh"):
         Trainer(cfg, TrainHParams(), TrainerConfig(
             path="regc", ckpt_dir=str(tmp_path / "ck")), DataConfig(),

@@ -332,13 +332,33 @@ def test_regc_training_csv_row(steps, tag):
 
 
 def test_regc_step_refusals():
-    """The reference's inner_ctx (tensor parallelism inside the RegC path)
-    waits for 13e; a batch that does not split over the ranks raises."""
+    """The reference's refusals of an inner_ctx (tensor parallelism inside
+    the RegC path) stand: rules naming a dp axis and moe_impl='ep' raise,
+    and what waits for 13f raises naming it; the step runs in a world of
+    one."""
     from repro_torch.launch.ranks import init_world
+    from repro_torch.models import sharding as SH
     cfg = get_reduced("internlm2-1.8b")
-    with pytest.raises(NotImplementedError, match="13e"):
-        make_train_step_regc(cfg, TrainHParams(), mesh=None,
-                             inner_ctx=object())
+
+    class Shape:
+        shape = {"data": 1, "model": 2}
+    no_dp = dict(SH.DEFAULT_RULES, batch=None, embed_fsdp=None)
+    with pytest.raises(ValueError, match="manual axes"):
+        make_train_step_regc(cfg, TrainHParams(), Shape(),
+                             inner_ctx=SH.ShardingCtx(Shape(),
+                                                      SH.DEFAULT_RULES))
+    with pytest.raises(ValueError, match="shard_map"):
+        make_train_step_regc(cfg, TrainHParams(), Shape(),
+                             inner_ctx=SH.ShardingCtx(Shape(), no_dp,
+                                                      moe_impl="ep"))
+    with pytest.raises(NotImplementedError, match="13f"):
+        make_train_step_regc(get_reduced("mamba2-2.7b"), TrainHParams(),
+                             Shape(), inner_ctx=SH.ShardingCtx(Shape(),
+                                                               no_dp))
+    with pytest.raises(NotImplementedError, match="13f"):
+        make_train_step_regc(cfg, TrainHParams(), Shape(),
+                             inner_ctx=SH.ShardingCtx(
+                                 Shape(), dict(no_dp, kv_seq=("model",))))
     owned = init_world("gloo")
     try:
         mesh = make_host_mesh((1,), ("data",))

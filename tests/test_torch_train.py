@@ -356,8 +356,24 @@ def test_ssd_chunk_function_grads():
 
 
 def test_train_step_refusals():
+    """A sharding context builds under the training rules; what waits for
+    13f raises naming it; an unknown optimiser raises."""
+    from repro_torch.models import sharding as SH
     cfg = get_reduced("internlm2-1.8b")
-    with pytest.raises(NotImplementedError, match="13e"):
-        T.make_train_step(cfg, T.TrainHParams(), ctx=object())
+
+    class Shape:
+        shape = {"data": 2, "model": 2}
+    assert callable(T.make_train_step(cfg, T.TrainHParams(),
+                                      ctx=SH.ShardingCtx(Shape(),
+                                                         SH.DEFAULT_RULES)))
+    for ctx in (SH.ShardingCtx(Shape(), SH.LONG_2D_RULES),
+                SH.ShardingCtx(Shape(), SH.SMALL_SERVE_RULES),
+                SH.ShardingCtx(Shape(), SH.DEFAULT_RULES,
+                               gather_fsdp=False)):
+        with pytest.raises(NotImplementedError, match="13f"):
+            T.make_train_step(cfg, T.TrainHParams(), ctx=ctx)
+    with pytest.raises(NotImplementedError, match="13f"):
+        T.make_train_step(cfg, T.TrainHParams(opt_impl="adamw8bit"),
+                          ctx=SH.ShardingCtx(Shape(), SH.DEFAULT_RULES))
     with pytest.raises(ValueError, match="opt_impl"):
         T.make_train_step(cfg, T.TrainHParams(opt_impl="sgd"))
