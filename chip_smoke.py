@@ -194,7 +194,7 @@ Phases, in order; any mismatch or exception exits non-zero:
    and the served ones; prints prefill and per-token decode walls,
    tokens/s, peak device memory and a traced wave's device time by
    kernel (the eight largest, and the port's own kernels whatever their
-   rank).  Then each model with depth cut to 2 layers (the only cut)
+   rank).  Then each model with depth cut to 1 layer (the only cut)
    against the same weights on the CPU: MoE routes equal but for near
    ties within 1e-4 of router probability (counted; outputs after a
    route difference in a row not compared), teacher-forced logits within
@@ -245,7 +245,7 @@ Phases, in order; any mismatch or exception exits non-zero:
    heads, 64 experts of d_ff 1408, top-6, vocabulary 163840), remat
    "full", sequences of 1024, ``DEFAULT_RULES`` (what the reference's
    ``rules_for`` gives an MoE train shape), parameters drawn on the card
-   from seed 0.  (a) 2 layers, mesh (1, 2) ("data", "model"), a global
+   from seed 0.  (a) 1 layer, mesh (1, 2) ("data", "model"), a global
    batch of 2, one step each with ``moe_impl`` dense and ep from the
    same state; (b) 1 layer, mesh (2, 2) (FSDP over data, two dispatch
    groups, the data-axis gradient sums), a global batch of 4, ep.  Each
@@ -264,6 +264,31 @@ Phases, in order; any mismatch or exception exits non-zero:
    layer a rank (forward and remat).  Prints each rank's step wall, the
    collectives' bytes and messages a rank by kind and axes, the bytes
    staged through the host, the peak memory a rank and the backend.
+9c. serve-tp phase (slice L): serving under a sharding context, the
+   model phase's first wave of 4 requests left-padded to 496 tokens and
+   16 new ones (float32 caches of 512 positions), float32 parameters
+   drawn on the card from seed 0.  (a) internlm2-1.8b whole (24 layers)
+   under ``SMALL_SERVE_RULES`` on mesh (2, 2) ("data", "model"): rows
+   over data; q heads, vocabulary and the KV cache's positions over
+   model; (b) mamba2-2.7b whole (64 layers), the same rules on (1, 2):
+   the SSD inner dim over model; (c) llama3-405b at full width, 1 of 126
+   layers, ``DECODE_2D_RULES`` with ``gather_fsdp=False`` on (2, 2):
+   d_model over data, heads, d_ff and vocabulary over model, positions
+   over both, no weight ever gathered.  Each run: the one-process
+   ``make_prefill_step`` / ``make_serve_step`` wave, greedy, in this
+   process (logits to a float32 file under ``build/``, the card freed);
+   then 2 or 4 ranks spawned on the card over gloo ((a) and (c) share
+   one start of 4) draw the same parameters a leaf at a time, in turn,
+   keep their blocks and serve the wave fed the one-process tokens: logits within 1e-3 of the one
+   process's at every step, greedy tokens equal but for counted near
+   ties, every rank's tokens equal, every cache buffer the rank's block
+   (``max_len / n`` KV positions, or its conv channels and SSD heads),
+   no parameter gathered in (c), flash_attention launched 24 (a) and 1
+   (c) times a rank and ssd_chunk 64 (b) in the prefill, neither in
+   decode.  Prints a rank's prefill wall and decode ms a token, the
+   collectives' bytes and messages (prefill; decode a token) by kind and
+   axes, the bytes staged through the host, the peak memory a rank and
+   the cache bytes a rank against one process.
 
 TF32 is off for every float comparison (printed at the start).  The
 launch counters are set to 0 just before each of the path phases (the
@@ -320,6 +345,15 @@ FLASH_REGC_SHAPES = (("internlm2-1.8b regc one-process", (2, 16, 8, 2048, 128)),
 # phase 9b's shape a rank: moonshot-v1-16b-a3b's 16 heads split over two
 # model ranks, 2 rows of 1024 a rank in (a) and (b)
 FLASH_TP_SHAPES = (("moonshot-v1-16b-a3b tp rank", (2, 8, 8, 1024, 128)),)
+# phase 9c's prefill shapes a rank (S = 496): (a) internlm2-1.8b, 2 rows,
+# 8 of its 16 q heads reading 4 of its 8 kv heads; (c) llama3-405b, all 4
+# rows, 64 of its 128 q heads reading 4 of its 8 kv heads
+FLASH_SERVE_TP_SHAPES = (
+    ("internlm2-1.8b serve-tp rank", (2, 8, 4, 496, 128)),
+    ("llama3-405b serve-tp rank", (4, 64, 4, 496, 128)))
+# and ssd_chunk's: (b) mamba2-2.7b's 40 of 80 heads a rank, 4 rows of 2
+# chunks of 256 (S = 496 padded), one B/C row per 40 heads
+SSD_SERVE_TP_SHAPE = ("mamba2-2.7b serve-tp rank", (320, 256, 64, 128, 40))
 TPU_KERNELS = {
     "pack_rows": "src/repro/kernels/protocol_sweep.py:134",
     "popcount_rows": "src/repro/kernels/protocol_sweep.py:232",
@@ -1370,7 +1404,9 @@ def model_kernel_phase(torch, np, dev):
     (``FLASH_MODEL_SHAPES``), at the train phase's shape
     (``FLASH_TRAIN_SHAPE``, float32, S = 4096), at the regc phase's
     two (``FLASH_REGC_SHAPES``, float32, S = 2048) and at a rank's of the
-    tp phase (``FLASH_TP_SHAPES``, float32, S = 1024).  Timed at the first
+    tp phase (``FLASH_TP_SHAPES``, float32, S = 1024) and at a rank's of
+    the serve-tp phase (``FLASH_SERVE_TP_SHAPES``, float32, S = 496; SSD
+    at ``SSD_SERVE_TP_SHAPE``).  Timed at the first
     shapes (and in bfloat16, per cell, and at each model, train and regc
     shape); the library yardstick of
     attention is scaled_dot_product_attention (timed, used nowhere in the
@@ -1390,7 +1426,7 @@ def model_kernel_phase(torch, np, dev):
     model_cases = [(f"{arch} prefill", shape)
                    for arch, shape in FLASH_MODEL_SHAPES] + [
                        FLASH_TRAIN_SHAPE, *FLASH_REGC_SHAPES,
-                       *FLASH_TP_SHAPES]
+                       *FLASH_TP_SHAPES, *FLASH_SERVE_TP_SHAPES]
     cases += [(label, shape, f32, {}) for label, shape in model_cases]
     errs, timed = [], {}
     for label, (B, Hq, Hkv, S, D), dtype, kw in cases:
@@ -1441,7 +1477,8 @@ def model_kernel_phase(torch, np, dev):
              ("mamba2 prefill, per-cell B/C", (640, 256, 64, 128, 1), f32),
              ("mamba2 prefill bf16", (640, 256, 64, 128, 80), bf16),
              ("reduced", (32, 32, 16, 16, 8), f32),
-             ("ragged Q=100", (6, 100, 64, 128, 2), f32)]
+             ("ragged Q=100", (6, 100, 64, 128, 2), f32),
+             (SSD_SERVE_TP_SHAPE[0], SSD_SERVE_TP_SHAPE[1], f32)]
     errs, timed = [], {}
     for label, (M, Q, P, N, rep), dtype in cases:
         args = ssd_inputs(torch, np, rng, M, Q, P, N, rep, dtype, dev)
@@ -1455,7 +1492,8 @@ def model_kernel_phase(torch, np, dev):
         print(f"kernel ssd_chunk {label:30s} {(M, Q, P, N, rep)} {dtype}: "
               f"max_abs_err {err:.3e} (tol 1e-4)", flush=True)
         errs.append({"case": label, "max_abs_err": err, "tol": 1e-4})
-        if label.startswith("mamba2 prefill,"):
+        if label.startswith("mamba2 prefill,") or label == \
+                SSD_SERVE_TP_SHAPE[0]:
             timed[rep] = args
     out = {}
     for rep, args in timed.items():
@@ -1471,7 +1509,9 @@ def model_kernel_phase(torch, np, dev):
             flops_per_s=TF32_SPLIT_FLOPS_PER_S)
     results["ssd_chunk"] = dict(
         err=max(e["max_abs_err"] for e in errs), cases=errs,
-        per_cell=out[1], **out[80])
+        per_cell=out[1], models=[dict(out[SSD_SERVE_TP_SHAPE[1][4]],
+                                      case=SSD_SERVE_TP_SHAPE[0])],
+        **out[80])
     return results
 
 
@@ -1555,10 +1595,12 @@ def compare_routes(torch, got, want, first, p0, margin):
 # the model phase's full-width runs: (arch, depth, the CPU twin's depth);
 # depth None is the config's own.  moonshot-v1-16b-a3b keeps 24 of its 48
 # layers and qwen2-vl-72b 8 of its 80 (float32 at full depth, 112 GB and
-# 291 GB, would not fit the card's 80 GB); widths are the published ones
-MODEL_RUNS = (("internlm2-1.8b", None, 2), ("mamba2-2.7b", None, 2),
-              ("moonshot-v1-16b-a3b", 24, 2), ("qwen2-vl-72b", 8, 2),
-              ("musicgen-medium", None, 2))
+# 291 GB, would not fit the card's 80 GB); widths are the published ones.
+# The twins keep 1 layer (2 until the serve-tp phase needed the time:
+# the CPU side of qwen2-vl's 2-layer twin alone took 48 s)
+MODEL_RUNS = (("internlm2-1.8b", None, 1), ("mamba2-2.7b", None, 1),
+              ("moonshot-v1-16b-a3b", 24, 1), ("qwen2-vl-72b", 8, 1),
+              ("musicgen-medium", None, 1))
 # archs that fit no card at full width (a jamba super-block alone holds four
 # MoE layers of 9.66 B parameters): their reduced configs, card against CPU
 REDUCED_RUNS = ("grok-1-314b", "jamba-1.5-large-398b")
@@ -1762,19 +1804,24 @@ def trace_generate(torch, cfg, params, prompt, max_new):
         generate(cfg, params, prompt, max_new_tokens=max_new,
                  device="cuda", walls=walls)
         wall = time.perf_counter() - t0
-    acts = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # the raw trace's device events (ns), as ``traced`` reads them:
+    # ``prof.events()`` would first build the event tree of every host op
+    # (16-47 s a wave on an H100 80GB HBM3 at 700 W, against a 1-3 s
+    # traced wall)
+    acts = [(e.name(), e.start_ns(), e.end_ns())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA
+            and not getattr(e, "is_hidden_event", lambda: False)()]
     if not acts:
         print(f"trace {cfg.name}: torch.profiler recorded no device "
               "activity; busy share not measured", flush=True)
         return {"traced_wall_s": wall, "device_busy_s": None}
     by_name = {}
-    for e in acts:
-        by_name[e.name] = by_name.get(e.name, 0.0) + (
-            e.time_range.end - e.time_range.start) * 1e-6
+    for name, a, b in acts:
+        by_name[name] = by_name.get(name, 0.0) + (b - a) * 1e-9
     busy, end = 0.0, float("-inf")
-    for a, b in sorted((e.time_range.start, e.time_range.end)
-                       for e in acts):
-        busy += max(0.0, b - max(a, end)) * 1e-6
+    for a, b in sorted((a, b) for _, a, b in acts):
+        busy += max(0.0, b - max(a, end)) * 1e-9
         end = max(end, b)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     # the port's own kernels are reported whatever their rank
@@ -1811,7 +1858,7 @@ def model_phase(torch, np):
     layer per wave, decode launching neither.
     Every token lies in the vocabulary; the serving steps, teacher-forced
     with the served tokens, give finite logits whose argmax is the served
-    token.  Then the same model with depth cut to 2 layers (width and
+    token.  Then the same model with depth cut to 1 layer (width and
     every other setting full), parameters drawn on the card from seed 0
     and copied to the CPU: served on the card, then held against the CPU
     by ``twin_compare`` (logits within 1e-3: float32 sums of up to 29568
@@ -2671,12 +2718,13 @@ def regc_phase(torch, np, card, device="cuda", cfg=None, seq=REGC_SEQ,
 
 # moonshot-v1-16b-a3b at full width, DEFAULT_RULES (what the reference's
 # rules_for gives an MoE train shape), remat "full", sequences of 1024:
-# (a) 2 layers on a (1, 2) ("data", "model") mesh, a global batch of 2,
-# one step with moe_impl dense and one with ep from the same state;
-# (b) 1 layer on a (2, 2) mesh (FSDP over data, two dispatch groups), a
-# global batch of 4, ep.  (tag, mesh, layers, batch, impls)
+# (a) 1 layer (2 until the serve-tp phase needed the time) on a (1, 2)
+# ("data", "model") mesh, a global batch of 2, one step with moe_impl
+# dense and one with ep from the same state; (b) 1 layer on a (2, 2)
+# mesh (FSDP over data, two dispatch groups), a global batch of 4, ep.
+# (tag, mesh, layers, batch, impls)
 TP_ARCH, TP_SEQ = "moonshot-v1-16b-a3b", 1024
-TP_RUNS = (("a", (1, 2), 2, 2, ("dense", "ep")),
+TP_RUNS = (("a", (1, 2), 1, 2, ("dense", "ep")),
            ("b", (2, 2), 1, 4, ("ep",)))
 TP_AXES = ("data", "model")
 # aux_loss: float32 sums of the router's probabilities in another order
@@ -2750,7 +2798,7 @@ def tp_rank(cfg, hp, batch, impls, shape, work, one, device):
                                mesh, SH.DEFAULT_RULES))):
         leaf = init_param(pspec, gen, torch.float32)
         digest.append(leaf_digest(torch, leaf))
-        blocks.append(SH.local_block(leaf, spec, mesh).contiguous())
+        blocks.append(SH.owned_block(leaf, spec, mesh))
         del leaf
     if torch.cat(digest).tolist() != one["digest"]:
         raise AssertionError(f"rank {rank}: parameters differ from the "
@@ -3051,6 +3099,372 @@ def tp_phase(torch, np, card, device="cuda", cfg=None, seq=TP_SEQ,
         out[tag] = {"one_process": {k: v for k, v in one.items()
                                     if k not in ("routes",)},
                     "ranks": ranks, "one_s": one_s, "ranks_s": ranks_s}
+    return out, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 9c: serving under a sharding context (slice L)
+# ---------------------------------------------------------------------------
+
+# (tag, arch, depth (None: the config's own), rules, gather_fsdp, mesh):
+# (a) internlm2-1.8b whole under SMALL_SERVE_RULES (what the reference's
+# rules_for gives its decode shape): batch over 'data', q heads, vocab and
+# the KV cache's positions over 'model'; (b) mamba2-2.7b whole, the same
+# rules: ssm_in over 'model'; (c) llama3-405b at full width, 1 of its 126
+# layers, DECODE_2D_RULES with gather_fsdp=False (the no-regather decode
+# the reference wrote that table for): d_model over 'data', heads, d_ff,
+# vocab over 'model', positions over both
+SERVE_TP_RUNS = (
+    ("a", "internlm2-1.8b", None, "SMALL_SERVE_RULES", True, (2, 2)),
+    ("b", "mamba2-2.7b", None, "SMALL_SERVE_RULES", True, (1, 2)),
+    ("c", "llama3-405b", 1, "DECODE_2D_RULES", False, (2, 2)))
+SERVE_TP_AXES = ("data", "model")
+# the model phase's first wave of 4 requests (seed 0), left-padded to 496
+# tokens, and 16 new ones: caches of max_len 512, which 2 and 4 divide
+SERVE_TP_B, SERVE_TP_S, SERVE_TP_NEW = 4, 496, 16
+
+
+def serve_tp_prompt(np, cfg, B=SERVE_TP_B, S=SERVE_TP_S):
+    """The first ``B`` of the model phase's requests (``make_requests``,
+    seed 0, prompts under 512 tokens), left-padded with token 0 to ``S``
+    (a longer one would keep its last ``S``): a (B, S) int32 array."""
+    from repro_torch.launch.serve import make_requests
+    reqs = make_requests(cfg.vocab_size, 2 * B, 528, SERVE_TP_NEW, 0)[:B]
+    toks = np.zeros((B, S), np.int32)
+    for j, p in enumerate(reqs):
+        p = p[-S:]
+        toks[j, S - len(p):] = p
+    return toks
+
+
+def synced(torch, dev) -> float:
+    """The host clock after the device's queued work has ended."""
+    sync(torch, dev)
+    return time.perf_counter()
+
+
+def serve_tp_steps(torch, cfg, params, toks, forced, ctx, new, dev):
+    """One wave through the serving entry points a user calls
+    (``make_prefill_step``, then ``make_serve_step`` on decode batches of
+    one token), float32 caches of ``S + new`` positions, under ``ctx``
+    (None: one process).  The decode is fed ``forced`` (B, new) tokens
+    (teacher forcing: a near tie cannot change what follows) or, without
+    it, its own greedy tokens.  Returns the logits (new, B, V) float32
+    and the greedy tokens (B, new) on the host, the caches, each span's
+    wall (ending in a synchronise), kernel launches, collectives (bytes,
+    messages) by kind and axes and the bytes staged through the host."""
+    from repro_torch.models import collectives as C
+    from repro_torch.serve.decode import make_prefill_step, make_serve_step
+    S = toks.shape[1]
+    prompt = {"tokens": torch.as_tensor(toks, device=dev)}
+    prefill = make_prefill_step(cfg, ctx, max_len=S + new,
+                                cache_dtype=torch.float32)
+    step = make_serve_step(cfg, ctx)
+    out = {}
+
+    def reading():
+        coll = {f"{k} {'x'.join(a)}": (C.COLLECTIVE_BYTES[(k, a)],
+                                       C.COLLECTIVE_MSGS[(k, a)])
+                for k, a in sorted(C.COLLECTIVE_BYTES)}
+        return {"launches": read_counters(), "collectives": coll,
+                "staged": dict(C.STAGED),
+                "param_gathers": dict(C.PARAM_GATHERS)}
+    with torch.no_grad():
+        synced(torch, dev)
+        reset_counters()
+        C.reset_collectives()
+        t0 = time.perf_counter()
+        logits, caches = prefill(params, prompt)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        out["prefill_s"] = synced(torch, dev) - t0
+        out["prefill"] = reading()
+        steps, own = [logits], [tok]
+        reset_counters()
+        C.reset_collectives()
+        t0 = time.perf_counter()
+        for t in range(1, new):
+            feed = tok if forced is None else torch.as_tensor(
+                forced[:, t - 1], device=dev)
+            tok, logits, caches = step(params, {"tokens": feed[:, None]},
+                                       caches, S + t - 1)
+            steps.append(logits)
+            own.append(tok)
+        out["decode_s"] = synced(torch, dev) - t0
+        out["decode"] = reading()
+    out["logits"] = torch.stack(steps).cpu()
+    out["tokens"] = torch.stack(own, dim=1).cpu().numpy()
+    out["caches"] = caches
+    return out
+
+
+def model_launches(reading: dict) -> dict:
+    return {k: reading[k] for k in ("flash_attention", "ssd_chunk")}
+
+
+def cache_bytes(caches) -> int:
+    return sum(t.numel() * t.element_size() for pair in caches
+               for t in pair)
+
+
+def serve_tp_one_process(torch, np, cfg, toks, logits_path, device):
+    """The comparator of a phase 9c run: the seeded parameters on the
+    card, one wave greedy in this process; its logits written to the
+    float32 file ``logits_path``, its tokens, walls, digest and peak
+    returned, and the card freed."""
+    from repro_torch.models.model import init_model_params
+    card_run = torch.device(device).type == "cuda"
+    t0 = time.perf_counter()
+    params = init_model_params(
+        cfg, torch.Generator(device=device).manual_seed(0), device=device)
+    out = {"digest": tree_digest(torch, params).tolist(),
+           "init_s": time.perf_counter() - t0}
+    if card_run:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    run = serve_tp_steps(torch, cfg, params, toks, None, None,
+                         SERVE_TP_NEW, torch.device(device))
+    out["peak"] = torch.cuda.max_memory_allocated() if card_run else None
+    np.save(logits_path, run.pop("logits").numpy())
+    out["cache_bytes"] = cache_bytes(run.pop("caches"))
+    out.update(run)
+    del params
+    if card_run:
+        torch.cuda.empty_cache()
+    return out
+
+
+def serve_tp_rank(runs, shape, work, ones, device):
+    """One rank of phase 9c, for each of ``runs`` (tag, config, rules,
+    gather_fsdp, prompt) on the mesh ``shape`` in turn: the seeded
+    parameters drawn a leaf at a time, one rank after another (one whole
+    leaf on the card at once: llama3's embedding alone is 8.4 GB), cut
+    to this rank's blocks; the wave served under the run's ctx, fed the
+    one-process tokens (``ones[tag]``); checked against the one-process
+    logits (a float32 file of ``work``) and tokens, the other ranks'
+    tokens, the cache blocks, the parameter gathers (none under the
+    no-regather tables) and the launches.  Returns the rows by tag;
+    raises if a check failed."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.ranks import rank_device
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = rank_device(device)
+    mesh = make_host_mesh(shape, SERVE_TP_AXES)
+    rows = {}
+    for tag, cfg, rules, gather_fsdp, toks in runs:
+        rows[tag] = serve_tp_rank_run(cfg, rules, gather_fsdp, mesh, toks,
+                                      Path(work) / f"logits_{tag}.npy",
+                                      ones[tag], dev)
+    return rows
+
+
+def serve_tp_rank_run(cfg, rules, gather_fsdp, mesh, toks, logits_path,
+                      one, dev):
+    """One run of ``serve_tp_rank``: the row; raises if a check failed."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.models import sharding as SH
+    from repro_torch.models.model import param_specs
+    from repro_torch.models.params import init_param
+    from repro_torch.utils.tree import tree_unflatten
+    t_start = time.perf_counter()
+    card_run = dev.type == "cuda"
+    rank, world = dist.get_rank(), dist.get_world_size()
+    ctx = SH.ShardingCtx(mesh, getattr(SH, rules), gather_fsdp=gather_fsdp)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    blocks, digest = [], []
+    for pspec, spec in zip(SH.spec_leaves(param_specs(cfg)),
+                           SH.spec_leaves(SH.param_shardings(
+                               param_specs(cfg), ctx))):
+        for r in range(world):
+            if r == rank:
+                leaf = init_param(pspec, gen, torch.float32)
+                digest.append(leaf_digest(torch, leaf))
+                blocks.append(SH.owned_block(leaf, spec, mesh))
+                del leaf
+                if card_run:
+                    torch.cuda.empty_cache()
+            dist.barrier()
+    if torch.cat(digest).tolist() != one["digest"]:
+        raise AssertionError(f"rank {rank}: parameters differ from the "
+                             "one-process run's")
+    params = tree_unflatten(param_specs(cfg), blocks)
+    del blocks
+    param_bytes = sum(t.numel() * t.element_size() for t in
+                      SH.spec_leaves(params))
+    if card_run:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    setup_s = time.perf_counter() - t_start
+    forced = one["tokens"]
+    run = serve_tp_steps(torch, cfg, params, toks, forced, ctx,
+                         SERVE_TP_NEW, dev)
+    peak = torch.cuda.max_memory_allocated(dev) if card_run else None
+    t_check = time.perf_counter()
+    want = torch.from_numpy(np.load(logits_path))
+    got = run.pop("logits")
+    err = float((got - want).abs().max())
+    # greedy tokens: equal to the one-process ones but at near ties of
+    # its logits (the two tokens' logits within TWIN_TOL)
+    mine = torch.from_numpy(run["tokens"]).long()
+    ref_t = torch.from_numpy(forced).long()
+    differ = (mine != ref_t)
+    gap = (want.gather(-1, ref_t.T[..., None])
+           - want.gather(-1, mine.T[..., None]))[..., 0].T
+    ties = int(differ.sum())
+    tie_ok = bool((gap[differ].abs() <= TWIN_TOL).all())
+    theirs = [torch.zeros_like(mine) for _ in range(world)]
+    dist.all_gather(theirs, mine)
+    ranks_equal = all(torch.equal(t, mine) for t in theirs)
+    # every cache buffer is this rank's block; the KV cache's positions
+    # (or the SSM caches' channels and heads) split as the spec says
+    specs = SH.cache_specs(cfg, ctx, toks.shape[0], toks.shape[1]
+                           + SERVE_TP_NEW)
+    full = SH.cache_shapes(cfg, toks.shape[0], toks.shape[1] + SERVE_TP_NEW)
+    blocks_ok = all(
+        tuple(t.shape) == ctx.block_shape(f, s) and any(e is not None
+                                                        for e in s[2:])
+        for pair, fs, ss in zip(run["caches"], full, specs)
+        for t, f, s in zip(pair, fs, ss))
+    positions = [t.shape[2] for (t, _), ls in zip(run["caches"], cfg.pattern)
+                 if ls.kind == "attn"]
+    n_dec = SERVE_TP_NEW - 1
+    row = {"rank": rank, "device": str(dev), "setup_s": setup_s,
+           "prefill_s": run["prefill_s"],
+           "decode_ms_per_token": run["decode_s"] / n_dec * 1e3,
+           "prefill": run["prefill"], "decode": run["decode"],
+           "decode_per_token": {k: (b / n_dec, m / n_dec) for k, (b, m) in
+                                run["decode"]["collectives"].items()},
+           "peak": peak, "param_bytes": param_bytes,
+           "cache_bytes": cache_bytes(run["caches"]),
+           "kv_positions": positions, "cache_specs": specs,
+           "logits_err": err, "near_ties": ties, "ranks_equal": ranks_equal,
+           "blocks_ok": blocks_ok}
+    del run, params
+    if card_run:
+        torch.cuda.empty_cache()
+    row["check_s"] = time.perf_counter() - t_check
+    n = layer_counts(cfg)
+    expect = n if card_run else dict.fromkeys(n, 0)
+    pre, dec = row["prefill"]["launches"], row["decode"]["launches"]
+    failed = [what for what, ok in (
+        ("logits", err <= TWIN_TOL), ("near ties", tie_ok),
+        ("ranks' tokens", ranks_equal), ("cache blocks", blocks_ok),
+        ("parameter gathers", gather_fsdp or not
+         row["prefill"]["param_gathers"]["messages"]
+         + row["decode"]["param_gathers"]["messages"]),
+        ("prefill launches", all(pre[k] == v for k, v in expect.items())),
+        ("decode launches", all(dec[k] == 0 for k in expect)))
+        if not ok]
+    if failed:
+        raise AssertionError(f"rank {rank}: {failed} failed; row {row}")
+    return row
+
+
+def serve_tp_phase(torch, np, card, device="cuda", runs=SERVE_TP_RUNS,
+                   configs=None):
+    """Phase 9c (see the module's note).  The runs on one mesh share one
+    start of their ranks: each run's one-process comparator first (each
+    freeing the card), then the ranks serve the runs in turn.  Returns
+    (rows, the serve-tp path's launches: the ranks' prefills').
+    ``device="cpu"`` with ``configs`` (tag -> a small config) rehearses
+    it on the CPU."""
+    import gc
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.launch.ranks import spawn_ranks
+    card_run = torch.device(device).type == "cuda"
+    out, launches = {}, {}
+    shapes = list(dict.fromkeys(shape for *_, shape in runs))
+    for shape in shapes:
+        group = [r for r in runs if r[-1] == shape]
+        work = ROOT / "build" / "serve_tp_smoke"
+        shutil.rmtree(work, ignore_errors=True)
+        work.mkdir(parents=True)
+        plan, ones, one_s = [], {}, {}
+        for tag, arch, depth, rules, gf, _ in group:
+            cfg = (configs or {}).get(tag) or get_config(arch)
+            if depth is not None:
+                cfg = dataclasses.replace(cfg, n_layers=depth)
+            if card_run:
+                gc.collect()
+                torch.cuda.empty_cache()
+            toks = serve_tp_prompt(np, cfg)
+            t0 = time.perf_counter()
+            ones[tag] = serve_tp_one_process(torch, np, cfg, toks,
+                                             work / f"logits_{tag}.npy",
+                                             device)
+            one_s[tag] = time.perf_counter() - t0
+            plan.append((tag, cfg, rules, gf, toks))
+        if card_run:
+            gc.collect()
+            torch.cuda.empty_cache()
+            parent = (torch.cuda.memory_allocated(),
+                      torch.cuda.memory_reserved())
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(
+            int(np.prod(shape)), "chip_smoke:serve_tp_rank",
+            (plan, shape, str(work),
+             {t: {"digest": o["digest"], "tokens": o["tokens"]}
+              for t, o in ones.items()}, device),
+            backend="gloo", init_method=f"file://{work / 'store'}",
+            timeout_s=600)
+        ranks_s = time.perf_counter() - t0
+        shutil.rmtree(work, ignore_errors=True)
+        print(f"serve-tp {[t for t, *_ in plan]}: {len(ranks)} ranks on "
+              f"{ranks[0][plan[0][0]]['device']} over gloo, "
+              f"{dict(zip(SERVE_TP_AXES, shape))}, {ranks_s:.1f} s with "
+              f"their start (this process holding "
+              f"{parent if card_run else None} B allocated, reserved); "
+              f"{card}", flush=True)
+        for tag, cfg, rules, gf, toks in plan:
+            rows = [r[tag] for r in ranks]
+            one, r0 = ones[tag], rows[0]
+            for r in rows:
+                for k, v in r["prefill"]["launches"].items():
+                    launches[k] = launches.get(k, 0) + v
+            print(f"serve-tp ({tag}) {cfg.name} width {cfg.d_model}, "
+                  f"{cfg.n_layers} layers ({cfg.param_count()} params, "
+                  f"f32), mesh {dict(zip(SERVE_TP_AXES, shape))} {rules} "
+                  f"gather_fsdp={gf}, {toks.shape[0]} x {toks.shape[1]} "
+                  f"prompt + {SERVE_TP_NEW} new: one process prefill "
+                  f"{one['prefill_s']:.4f} s, decode "
+                  f"{one['decode_s'] / (SERVE_TP_NEW - 1) * 1e3:.3f} ms a "
+                  f"token, peak {one['peak']} B, caches "
+                  f"{one['cache_bytes']} B (with set-up {one_s[tag]:.1f} s)"
+                  f"; {card}", flush=True)
+            print(f"serve-tp ({tag}) ranks: prefill "
+                  f"{[round(r['prefill_s'], 4) for r in rows]} s, decode "
+                  f"{[round(r['decode_ms_per_token'], 3) for r in rows]} ms "
+                  f"a token (set-up {r0['setup_s']:.1f} s, checks "
+                  f"{r0['check_s']:.1f} s); logits err "
+                  f"{max(r['logits_err'] for r in rows):.3e} (tol "
+                  f"{TWIN_TOL}), near ties {r0['near_ties']}, ranks' tokens "
+                  f"equal {all(r['ranks_equal'] for r in rows)}, cache "
+                  f"blocks {all(r['blocks_ok'] for r in rows)} (KV "
+                  f"positions a rank {sorted(set(r0['kv_positions']))}, "
+                  f"cache {r0['cache_bytes']} B a rank against "
+                  f"{one['cache_bytes']} B); parameters "
+                  f"{r0['param_bytes']} B a rank, gathered in prefill "
+                  f"{r0['prefill']['param_gathers']} and decode "
+                  f"{r0['decode']['param_gathers']}; peak "
+                  f"{[r['peak'] for r in rows]} B a rank; launches prefill "
+                  f"{model_launches(r0['prefill']['launches'])} decode "
+                  f"{model_launches(r0['decode']['launches'])} a rank; "
+                  "backend gloo", flush=True)
+            print(f"serve-tp ({tag}) a rank's collectives (bytes, "
+                  f"messages): prefill {r0['prefill']['collectives']}, "
+                  f"staged {r0['prefill']['staged']}; decode a token "
+                  f"{r0['decode_per_token']}, staged "
+                  f"{r0['decode']['staged']} in {SERVE_TP_NEW - 1} tokens",
+                  flush=True)
+            one["tokens"] = one["tokens"].tolist()
+            out[tag] = {"one_process": one, "ranks": rows,
+                        "one_s": one_s[tag], "ranks_s": ranks_s,
+                        "mesh": list(shape)}
     return out, launches
 
 
@@ -4627,6 +5041,8 @@ def main() -> int:
     trains, train_launches = phase("train", train_phase, torch, np, card)
     regcs, regc_launches = phase("regc", regc_phase, torch, np, card)
     tps, tp_launches = phase("tp", tp_phase, torch, np, card)
+    serve_tps, serve_tp_launches = phase("serve-tp", serve_tp_phase, torch,
+                                         np, card)
 
     total = {k: launches[k] + spill_launches[k] + span_launches[k]
              + race_launches[k] + serve_launches[k] + recovery_launches[k]
@@ -4634,7 +5050,8 @@ def main() -> int:
     total.update(ref_launches)
     total.update(model_launches)
     for k, v in (list(train_launches.items()) + list(regc_launches.items())
-                 + list(tp_launches.items())):
+                 + list(tp_launches.items())
+                 + list(serve_tp_launches.items())):
         total[k] = total.get(k, 0) + v
     table = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[SOURCE_OF[name]],
@@ -4650,6 +5067,7 @@ def main() -> int:
     print(f"launches on the train path: {train_launches}", flush=True)
     print(f"launches on the regc path: {regc_launches}", flush=True)
     print(f"launches on the tp path: {tp_launches}", flush=True)
+    print(f"launches on the serve-tp path: {serve_tp_launches}", flush=True)
     print(f"launches on the span path: {span_launches}", flush=True)
     print(f"launches on the race path: {race_launches}", flush=True)
     print(f"launches on the serving path: {serve_launches}", flush=True)
@@ -4670,6 +5088,7 @@ def main() -> int:
          "train": trains, "launches_train": train_launches,
          "regc": regcs, "launches_regc": regc_launches,
          "tp": tps, "launches_tp": tp_launches,
+         "serve_tp": serve_tps, "launches_serve_tp": serve_tp_launches,
          "victim_scans": [[L, k, n] for (L, k), (n, _) in scans.items()],
          "launches_main": launches, "launches_span": span_launches,
          "launches_race": race_launches,

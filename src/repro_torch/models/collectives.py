@@ -17,7 +17,11 @@ constraints, and ``moe_block_ep`` has one ``lax.psum``).
 * ``all_reduce_max(x, axes, mesh)``: the max, no gradient (the
   distributed logsumexp's shift);
 * ``gather_full(t, spec, mesh)``: every sharded dim of ``t`` gathered,
-  no gradient (checkpoints and checks).
+  no gradient (checkpoints and checks);
+* ``reduce(x, axes, mesh, op)`` and ``gather(x, dim, axes, mesh)``: the
+  sum or max, and the all-gather, without autograd (serving: the
+  vocab-parallel logits' gather, the q heads' gather before a
+  context-parallel decode, the softmax combine's max and sums).
 
 Each runs in the process group of the ``launch.mesh.Mesh`` axes and is
 skipped when the group holds one rank.  The ranks run gloo, which takes
@@ -26,7 +30,10 @@ explicitly, as ``regc_sync.policies`` stages it.  Each call counts, by
 (kind, axes), the bytes of this rank's operand and one message in
 ``COLLECTIVE_BYTES`` / ``COLLECTIVE_MSGS``, and the bytes copied either
 way and the messages staged in ``STAGED``; ``reset_collectives`` zeroes
-them.  Where the gathered axes do not all split the batch (an FSDP dim
+them.  A parameter's gather (``all_gather(..., param=True)``, the FSDP
+gather of ``RankLayout.gather_leaf``) also counts its bytes and one
+message in ``PARAM_GATHERS``: zero under the no-regather decode tables.
+Where the gathered axes do not all split the batch (an FSDP dim
 on an axis the batch is not split over, where the ranks' gradients are
 alike), the backward sums over the others only and takes this rank's
 block.
@@ -42,6 +49,7 @@ KINDS = ("all-reduce", "all-gather", "reduce-scatter")
 COLLECTIVE_BYTES: Dict[Tuple[str, Tuple[str, ...]], int] = {}
 COLLECTIVE_MSGS: Dict[Tuple[str, Tuple[str, ...]], int] = {}
 STAGED = {"bytes": 0, "messages": 0}
+PARAM_GATHERS = {"bytes": 0, "messages": 0}
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
@@ -50,6 +58,7 @@ def reset_collectives():
     COLLECTIVE_BYTES.clear()
     COLLECTIVE_MSGS.clear()
     STAGED.update(bytes=0, messages=0)
+    PARAM_GATHERS.update(bytes=0, messages=0)
 
 
 def _count(kind: str, axes: Tuple[str, ...], t: torch.Tensor):
@@ -182,10 +191,14 @@ def copy_to(x: torch.Tensor, axes, mesh) -> torch.Tensor:
 
 
 def all_gather(x: torch.Tensor, dim: int, axes, mesh,
-               sum_axes: Sequence[str] = ()) -> torch.Tensor:
+               sum_axes: Sequence[str] = (), param: bool = False
+               ) -> torch.Tensor:
     axes = _axes(axes)
     if not axes or mesh.size(axes) == 1:
         return x
+    if param:
+        PARAM_GATHERS["bytes"] += x.numel() * x.element_size()
+        PARAM_GATHERS["messages"] += 1
     return _AllGather.apply(x, dim, axes, mesh, tuple(sum_axes))
 
 

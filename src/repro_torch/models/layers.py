@@ -48,6 +48,22 @@ shards' own and ``expert_load`` the experts' slices gathered over
 'model' and summed over the batch axes; it falls back to the dense
 block where the reference does (no 'model' axis, ``E % model``, shared
 experts).
+
+Serving under a layout (prefill and decode; ``RankLayout.for_serving``).
+Where the ``embed`` rule splits d_model, the activations are this rank's
+block of it: the norms sum their squares over those axes, every
+projection is a partial product over the rank's d block summed in one
+message (``contract_d``: q/k/v together, w1/w3 together, the router's
+logits before its top-k), and a down projection writes the rank's block
+(``out_d``).  With ``gather_fsdp=False`` the weights keep their FSDP d
+blocks, so no weight is gathered.  The KV cache holds the rank's block
+of positions (``write_block`` writes only the positions it holds); a
+decode step attends over it and returns its partial softmax
+(``decode_attention_block``), which ``combine_blocks`` merges over the
+kv_seq axes: the max of the blocks' maxima, then one sum of the
+rescaled outputs and sums.  When the q heads are split over an axis the
+positions are also split over, the ranks of that group gather every q
+head first and keep their own heads' output after the combine.
 """
 from __future__ import annotations
 
@@ -57,8 +73,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.collectives import (all_reduce, copy_to, gather,
-                                            reduce)
+from repro_torch.models.collectives import (all_gather, all_reduce,
+                                            all_reduce_max, copy_to, gather,
+                                            own_block, reduce)
 from repro_torch.models.sharding import entry_axes
 
 _NEG_INF = -1e30
@@ -70,9 +87,21 @@ ATTN_IMPLS = ("blocked", "reference")
 # ---------------------------------------------------------------------------
 
 
-def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5):
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5,
+            layout=None):
+    """RMSNorm over the last dim.  With a serving ``layout`` whose
+    activations split d_model over ``embed_axes``, ``x`` is this rank's
+    block: the sum of squares is summed over those axes, and the block
+    of ``w`` scales it."""
     xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    ex = () if layout is None else layout.embed_axes
+    if ex:
+        mesh = layout.mesh
+        ss = reduce((xf * xf).sum(-1, keepdim=True), ex, mesh)
+        var = ss / (x.shape[-1] * mesh.size(ex))
+        w = own_block(w, 0, ex, mesh)
+    else:
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
     return (out * (1.0 + w.float())).to(x.dtype)
 
@@ -211,6 +240,9 @@ def attention_block(params, x, positions, cfg, spec, *, kv_cache=None,
     heads (see the module's note)."""
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl={attn_impl!r}; allowed: {ATTN_IMPLS}")
+    if layout is not None and mode != "train":
+        return _attention_serve(params, x, positions, cfg, spec, kv_cache,
+                                cur_len, attn_impl, mode, layout, specs)
     S = x.shape[1]
     D = cfg.head_dim
     scale = cfg.query_scale if cfg.query_scale is not None else D ** -0.5
@@ -273,6 +305,182 @@ def attention_block(params, x, positions, cfg, spec, *, kv_cache=None,
     return out, new_cache
 
 
+# ---------------------------------------------------------------------------
+# Serving under a layout: d_model blocks, context-parallel decode
+# ---------------------------------------------------------------------------
+
+
+def contract_d(x, ws, w_dim: int, layout, w_entry):
+    """``x`` (..., d_x) and weights ``ws`` whose dim ``w_dim`` is d_model,
+    cut to one block of d_model: returns (x, ws, axes) such that the sum
+    over ``axes`` of the products of the pieces is the whole product.
+    ``x``'s d is split over the layout's ``embed_axes``, the weights'
+    over the (kept) axes of their spec entry ``w_entry``; whichever is
+    whole is cut to the other's block."""
+    ex, ew = layout.embed_axes, layout.tp_axes(w_entry)
+    mesh = layout.mesh
+    if ex == ew:
+        return x, ws, ex
+    if not ex:
+        return own_block(x, -1, ew, mesh), ws, ew
+    if not ew:
+        return x, [own_block(w, w_dim, ex, mesh) for w in ws], ex
+    raise ValueError(f"activations' d_model split over {ex}, a weight's "
+                     f"over {ew}")
+
+
+def out_d(w, w_dim: int, layout, w_entry):
+    """A weight whose dim ``w_dim`` is the output d_model, cut to the
+    activations' block: returns (w, axes to all-gather the product over
+    after its sum), the axes non-empty only where the weight's d is split
+    and the activations' is whole."""
+    ex, ew = layout.embed_axes, layout.tp_axes(w_entry)
+    if ex == ew:
+        return w, ()
+    if not ew:
+        return own_block(w, w_dim, ex, layout.mesh), ()
+    if not ex:
+        return w, ew
+    raise ValueError(f"activations' d_model split over {ex}, a weight's "
+                     f"output over {ew}")
+
+
+def sum_parts(parts, axes, mesh, dim: int = -1):
+    """The partial products ``parts`` summed over ``axes`` in one message
+    (concatenated on ``dim``)."""
+    if not axes:
+        return parts
+    widths = [t.shape[dim] for t in parts]
+    return list(torch.split(reduce(torch.cat(parts, dim=dim), axes, mesh),
+                            widths, dim=dim))
+
+
+def write_block(buf, new, off: int, layout):
+    """Write ``new`` (B, S, ...), the entries of global positions
+    [off, off + S), into this rank's block ``buf`` (B, L, ...) of a cache
+    whose ``max_len`` positions are split over ``layout.kv_axes``: only
+    the positions the block holds."""
+    L, S = buf.shape[1], new.shape[1]
+    lo = (layout.mesh.block_index(layout.kv_axes) * L
+          if layout.kv_axes else 0)
+    a, b = max(off, lo), min(off + S, lo + L)
+    if a < b:
+        buf[:, a - lo:b - lo] = new[:, a - off:b - off].to(buf.dtype)
+
+
+def decode_attention_block(q, k_cache, v_cache, cur_len, first: int, *,
+                           scale, window=None, softcap=None):
+    """``decode_attention`` over one block of a cache, the block's
+    positions starting at global ``first``: returns the block's partial
+    softmax, (m, l, o): the max score (B, Hkv, G, 1), the sum of the
+    shifted exponentials and the unnormalised output (B, Hkv, G, 1, D),
+    float32.  Positions past ``cur_len`` or outside the window weigh 0,
+    so a block with none valid gives l = o = 0 (and m = ``_NEG_INF``)."""
+    B, L, Hkv, D = k_cache.shape
+    G = q.shape[2] // Hkv
+    qg = q.float().reshape(B, 1, Hkv, G, D)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k_cache.float()) * scale
+    s = _softcap(s, softcap)
+    pos = first + torch.arange(L, device=q.device)
+    mask = (pos < cur_len)[None, :].expand(B, L)
+    if window is not None:
+        mask = mask & (pos >= cur_len - window)[None, :]
+    mask = mask[:, None, None, None, :]
+    s = torch.where(mask, s, torch.full((), _NEG_INF, device=q.device))
+    m = s.amax(-1)
+    p = torch.where(mask, torch.exp(s - m[..., None]),
+                    torch.zeros((), device=q.device))
+    return m, p.sum(-1), torch.einsum("bhgqk,bkhd->bhgqd", p,
+                                      v_cache.float())
+
+
+def combine_blocks(m, l_, o, axes, mesh):
+    """The softmax output from every rank's block of ``axes``: the max
+    of the blocks' maxima, then one sum of each block's (o, l) rescaled
+    to it.  (B, Hkv, G, 1, D) float32."""
+    m_all = all_reduce_max(m, axes, mesh)
+    a = torch.exp(m - m_all)              # 0 for a block with none valid
+    ol = reduce(torch.cat([o * a[..., None], (l_ * a)[..., None]], -1),
+                axes, mesh)
+    return ol[..., :-1] / ol[..., -1:]
+
+
+def _attention_serve(params, x, positions, cfg, spec, kv_cache, cur_len,
+                     attn_impl, mode, layout, specs):
+    """``attention_block``'s prefill and decode on this rank's rows, its
+    block of d_model and its q heads (see the module's note)."""
+    S = x.shape[1]
+    D = cfg.head_dim
+    scale = cfg.query_scale if cfg.query_scale is not None else D ** -0.5
+    window = cfg.window if spec.attn_type == "local" else None
+    mesh = layout.mesh
+    h_ax = layout.tp_axes(specs["wq"][1])
+    kv_ax = layout.tp_axes(specs["wk"][1])
+    if kv_ax not in ((), h_ax):
+        raise ValueError(f"q heads split over {h_ax}, kv heads over {kv_ax}")
+    names = ("wq", "wk", "wv")
+    xu, ws, red = contract_d(x, [params[n] for n in names], 0, layout,
+                             specs["wq"][0])
+    q, k, v = sum_parts([torch.einsum("bsd,dhk->bshk", xu, w) for w in ws],
+                         red, mesh, dim=2)
+    rope = apply_mrope if cfg.mrope else apply_rope
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    kv_whole = bool(h_ax) and not kv_ax
+    hq, block = q.shape[2], mesh.block_index(h_ax) if h_ax else 0
+    if kv_cache is not None and kv_cache[0].shape[2] != k.shape[2]:
+        raise ValueError(f"the cache block holds {kv_cache[0].shape[2]} kv "
+                         f"heads, the projections {k.shape[2]}")
+    off = 0 if cur_len is None else int(cur_len)
+    if kv_cache is not None:
+        write_block(kv_cache[0], k, off, layout)
+        write_block(kv_cache[1], v, off, layout)
+    if mode == "prefill":
+        kq, vq = _kv_of_heads(k, v, hq, cfg, block) if kv_whole else (k, v)
+        if attn_impl == "reference":
+            G = q.shape[2] // kq.shape[2]
+            o = reference_attention(q, repeat_kv(kq, G), repeat_kv(vq, G),
+                                    scale=scale, causal=True, window=window,
+                                    softcap=cfg.attn_softcap)
+        else:
+            o = flash_attention(q.transpose(1, 2), kq.transpose(1, 2),
+                                vq.transpose(1, 2), scale=scale, causal=True,
+                                window=window,
+                                softcap=cfg.attn_softcap).transpose(1, 2)
+    else:
+        k_c, v_c = kv_cache
+        kv_s = layout.kv_axes
+        if not kv_s:
+            if kv_whole:
+                k_c, v_c = _kv_of_heads(k_c, v_c, hq, cfg, block)
+            o = decode_attention(q, k_c, v_c, off + S, scale=scale,
+                                 window=window, softcap=cfg.attn_softcap)
+        else:
+            # every rank of the kv_seq group must work on the same q heads:
+            # where the heads are split over one of its axes, all of them
+            gather_q = bool(set(h_ax) & set(kv_s))
+            if gather_q:
+                if kv_ax:
+                    raise ValueError(f"kv heads split over {kv_ax} and "
+                                     f"positions over {kv_s}")
+                q = gather(q, 2, h_ax, mesh)
+            elif kv_whole:
+                k_c, v_c = _kv_of_heads(k_c, v_c, hq, cfg, block)
+            first = mesh.block_index(kv_s) * k_c.shape[1]
+            m, l_, o = decode_attention_block(
+                q, k_c, v_c, off + S, first, scale=scale, window=window,
+                softcap=cfg.attn_softcap)
+            o = combine_blocks(m, l_, o, kv_s, mesh)
+            B_, Hkv_, G_ = o.shape[:3]
+            o = o.permute(0, 3, 1, 2, 4).reshape(B_, 1, Hkv_ * G_, D)
+            if gather_q:
+                o = own_block(o, 2, h_ax, mesh)
+    o = o.to(x.dtype)
+    wo, g_ax = out_d(params["wo"], 2, layout, specs["wo"][2])
+    out = reduce(torch.einsum("bshk,hkd->bsd", o, wo), h_ax, mesh)
+    return (gather(out, -1, g_ax, mesh) if g_ax else out), kv_cache
+
+
 def _kv_of_heads(k, v, hq_local: int, cfg, block: int):
     """The kv heads that q heads ``block * hq_local + h`` (h < hq_local)
     of the global numbering read (kv head ``(block * hq_local + h) //
@@ -302,6 +510,18 @@ def mlp_block(params, x, cfg, layout=None, specs=None):
     """SwiGLU, or GeGLU when ``cfg.geglu``; with a ``layout``, d_ff split
     over the axes ``specs`` leave on ``w1``'s."""
     tp = () if layout is None else layout.tp_axes(specs["w1"][1])
+    if layout is not None and (layout.embed_axes
+                               or layout.tp_axes(specs["w1"][0])):
+        # serving on d_model blocks: partial products, one sum each way
+        mesh = layout.mesh
+        xu, ws, red = contract_d(x, [params["w1"], params["w3"]], 0, layout,
+                                 specs["w1"][0])
+        h1, h3 = sum_parts([torch.einsum("bsd,df->bsf", xu, w)
+                             for w in ws], red, mesh)
+        w2, g_ax = out_d(params["w2"], 1, layout, specs["w2"][1])
+        out = reduce(torch.einsum("bsf,fd->bsd", _act(cfg, h1) * h3, w2),
+                     tp, mesh)
+        return gather(out, -1, g_ax, mesh) if g_ax else out
     if tp:
         x = copy_to(x, tp, layout.mesh)
     h = _act(cfg, torch.einsum("bsd,df->bsf", x, params["w1"]))
@@ -377,21 +597,28 @@ def moe_block(params, x, cfg, with_stats: bool = True, *, groups: int = 1,
     if t_sh not in ((), tp):
         raise ValueError(f"shared experts split over {t_sh}, experts "
                          f"over {tp}")
-    out, stats = _moe(params, x, cfg, True, gg // nb, group_aux=False,
-                      experts=experts, tp=tp, t_shared=t_sh, mesh=mesh,
-                      batch_axes=layout.batch_axes)
-    return out, stats if with_stats else None
+    dsplit = None
+    if layout.embed_axes or layout.tp_axes(specs["w1"][1]):
+        dsplit = (layout, specs)
+    return _moe(params, x, cfg, with_stats, gg // nb, group_aux=False,
+                experts=experts, tp=tp, t_shared=t_sh, mesh=mesh,
+                batch_axes=layout.batch_axes, dsplit=dsplit)
 
 
-def moe_block_ep(params, x, cfg, layout, specs):
+def moe_block_ep(params, x, cfg, layout, specs, with_stats: bool = True):
     """The reference's ``moe_block_ep`` (see the module's note) on this
     rank's rows; the dense ``moe_block`` where the reference falls back to
-    it."""
+    it.  Its experts take whole d_model rows, as the reference's
+    ``shard_map`` takes them: serving on d_model blocks, the rows are
+    gathered over the ``embed`` axes and the router's and experts' d
+    dims over theirs (parameter gathers), and the output cut back to the
+    rank's block."""
     m = cfg.moe
     ctx, mesh = layout.ctx, layout.mesh
     E = m.n_experts
     if "model" not in mesh.shape or E % mesh.shape["model"] or m.n_shared:
-        return moe_block(params, x, cfg, layout=layout, specs=specs)
+        return moe_block(params, x, cfg, with_stats, layout=layout,
+                         specs=specs)
     B = x.shape[0] * layout.n_blocks
     ep_axes = tuple(a for a in (ctx.rules.get("batch") or ())
                     if a in mesh.shape and a != "model")
@@ -405,21 +632,51 @@ def moe_block_ep(params, x, cfg, layout, specs):
             f"(the block routes over {ep_axes}) and the experts laid out "
             f"as {specs['w1']}: only the experts split over 'model' alone "
             "and the rows over the rule's other batch axes")
+    whole = dict(params)
+    for k, dim in (("router", 0), ("w1", 1), ("w3", 1), ("w2", 2)):
+        ax = layout.tp_axes(specs[k][dim])
+        if ax:
+            whole[k] = all_gather(params[k], dim, ax, mesh, param=True)
+    ex = layout.embed_axes
     e_loc = E // mesh.shape["model"]
-    return _moe(params, x, cfg, True, 1, group_aux=True,
-                experts=(mesh.axis_index("model") * e_loc, e_loc),
-                tp=("model",), t_shared=(), mesh=mesh,
-                batch_axes=layout.batch_axes, ep=True)
+    out, stats = _moe(whole, gather(x, -1, ex, mesh) if ex else x, cfg,
+                      with_stats, 1, group_aux=True,
+                      experts=(mesh.axis_index("model") * e_loc, e_loc),
+                      tp=("model",), t_shared=(), mesh=mesh,
+                      batch_axes=layout.batch_axes, ep=True)
+    return (own_block(out, -1, ex, mesh) if ex else out), stats
+
+
+def _glu(cfg, xe, params, names, dsplit, mesh):
+    """The gated first product of experts stacked on dim 0 (``xe``
+    (E, C, d)) and their down matrix: returns (act(xe w1) * xe w3, w2,
+    axes to gather the down product's d over).  With ``dsplit`` the
+    first products are partial over d_model blocks, summed in one
+    message, and w2 is cut to the activations' block (``out_d``)."""
+    w1, w3, w2 = (params[n] for n in names)
+    if dsplit is None:
+        h = _act(cfg, torch.einsum("ecd,edf->ecf", xe, w1))
+        return h * torch.einsum("ecd,edf->ecf", xe, w3), w2, ()
+    lay, sp = dsplit
+    xu, ws, red = contract_d(xe, [w1, w3], 1, lay, sp[names[0]][1])
+    h1, h3 = sum_parts([torch.einsum("ecd,edf->ecf", xu, w) for w in ws],
+                        red, mesh)
+    w2, g_ax = out_d(w2, 2, lay, sp[names[2]][2])
+    return _act(cfg, h1) * h3, w2, g_ax
 
 
 def _moe(params, x, cfg, with_stats, groups, group_aux, *, experts=None,
-         tp=(), t_shared=(), mesh=None, batch_axes=(), ep=False):
+         tp=(), t_shared=(), mesh=None, batch_axes=(), ep=False,
+         dsplit=None):
     """The dispatch of ``moe_block``.  ``experts`` = (first, count): the
     experts this rank computes (all by default), their weights' local
     blocks, their d_ff split over the rest of ``tp``; the output is summed
     over ``tp`` (and the shared experts' over ``t_shared``).  Stats are
     summed over ``batch_axes`` (``ep``: the aux loss averaged over them,
-    the load gathered from each expert slice over 'model')."""
+    the load gathered from each expert slice over 'model').
+    ``dsplit`` = (layout, specs) when serving on d_model blocks: ``x``
+    is this rank's block, the router's logits and the experts' first
+    products are summed over the d axes before use (``contract_d``)."""
     m = cfg.moe
     B, S, d = x.shape
     T = B * S
@@ -431,7 +688,13 @@ def _moe(params, x, cfg, with_stats, groups, group_aux, *, experts=None,
     dev = x.device
 
     xt = x.reshape(T, d)
-    logits = torch.matmul(xt, params["router"]).float()
+    if dsplit is None:
+        logits = torch.matmul(xt, params["router"]).float()
+    else:
+        lay, sp = dsplit
+        xu, (wr,), red = contract_d(xt, [params["router"]], 0, lay,
+                                    sp["router"][0])
+        logits = reduce(torch.matmul(xu, wr), red, mesh).float()
     probs = torch.softmax(logits, dim=-1)
     top_w, top_e = torch.topk(probs, K, dim=-1)                 # (T, K)
     top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
@@ -460,9 +723,10 @@ def _moe(params, x, cfg, with_stats, groups, group_aux, *, experts=None,
     xe = torch.zeros((n_slots + 1, d), dtype=x.dtype, device=dev)
     xe[slot] = xd[tok_sorted]
     xe = xe[:n_slots].reshape(e_loc, G * C, d)
-    h = _act(cfg, torch.einsum("ecd,edf->ecf", xe, params["w1"]))
-    h = h * torch.einsum("ecd,edf->ecf", xe, params["w3"])
-    ye = torch.einsum("ecf,efd->ecd", h, params["w2"]).reshape(n_slots, d)
+    h, w2, g_ax = _glu(cfg, xe, params, ("w1", "w3", "w2"), dsplit, mesh)
+    ye = torch.einsum("ecf,efd->ecd", h, w2)
+    d = ye.shape[-1]
+    ye = ye.reshape(n_slots, d)
 
     picked = ye[torch.clamp(slot, max=n_slots - 1)]
     picked = torch.where(mine.reshape(-1)[:, None], picked,
@@ -480,15 +744,24 @@ def _moe(params, x, cfg, with_stats, groups, group_aux, *, experts=None,
     shared = None
     if m.n_shared:
         xs = copy_to(xt, t_shared, mesh) if t_shared else xt
-        hs = _act(cfg, torch.einsum("td,sdf->tsf", xs, params["shared_w1"]))
-        hs = hs * torch.einsum("td,sdf->tsf", xs, params["shared_w3"])
-        shared = torch.einsum("tsf,sfd->td", hs, params["shared_w2"])
+        if dsplit is None:
+            hs = _act(cfg, torch.einsum("td,sdf->tsf", xs,
+                                        params["shared_w1"]))
+            hs = hs * torch.einsum("td,sdf->tsf", xs, params["shared_w3"])
+            shared = torch.einsum("tsf,sfd->td", hs, params["shared_w2"])
+        else:
+            hs, w2s, _ = _glu(cfg, xs[None].expand(m.n_shared, -1, -1),
+                              params, ("shared_w1", "shared_w3",
+                                       "shared_w2"), dsplit, mesh)
+            shared = torch.einsum("stf,sfd->td", hs, w2s)
         if t_shared or not tp:
             out, shared = out + shared, None
     if tp:
         out = all_reduce(out, tp, mesh)
     if shared is not None:
         out = out + shared
+    if dsplit is not None and g_ax:
+        out = gather(out, -1, g_ax, mesh)
 
     if ROUTES is not None:
         kept = torch.empty_like(keep.reshape(-1))

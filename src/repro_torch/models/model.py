@@ -23,6 +23,19 @@ super-blocks as well.  Remat changes memory, never values.  Under a
 ``models.sharding.RankLayout`` the loss runs on one rank's rows and
 parameter blocks, with the collectives of tensor, expert and FSDP
 parallelism (``run_stack``, ``embed_inputs``, ``chunked_ce_loss``).
+
+Serving under a ``models.sharding.ShardingCtx`` (``prefill``,
+``decode_step`` and ``forward_hidden`` with ``ctx=``): every rank of
+``ctx.mesh`` calls with the same global batch, its own blocks of the
+parameters (``sharding.shard_params``) and of the caches
+(``sharding.RankCaches``, from ``init_caches(ctx=)`` or
+``sharding.shard_caches``).  It runs on its rows, its block of d_model
+where the ``embed`` rule splits it (the 2-D no-regather tables, with
+``gather_fsdp=False``: no parameter is gathered, partial products of
+activation rows are summed) and its block of the KV cache's positions
+where ``kv_seq`` splits them (a distributed softmax in decode); the
+logits are vocab-parallel, then gathered, so every rank returns the
+same (B, V) float32 logits.
 """
 from __future__ import annotations
 
@@ -38,6 +51,9 @@ from repro_torch.models import collectives as C
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models.params import ParamSpec, init_params
+from repro_torch.models.sharding import (RankCaches, RankLayout,
+                                         cache_shapes, cache_specs,
+                                         check_serving)
 
 
 # ---------------------------------------------------------------------------
@@ -169,34 +185,36 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
 
 def _apply_layer(cfg, spec: LayerSpec, p, x, positions, *, mode, cache,
                  cur_len, attn_impl, shard=None, moe=(1, False)):
-    h = L.rmsnorm(x, p["ln"], cfg.norm_eps)
     layout, specs = shard or (None, None)
+    h = L.rmsnorm(x, p["ln"], cfg.norm_eps, layout)
     if spec.kind == "attn":
         out, new_cache = L.attention_block(
             p, h, positions, cfg, spec, kv_cache=cache, cur_len=cur_len,
             attn_impl=attn_impl, mode=mode, layout=layout, specs=specs)
     else:
-        out, new_cache = S.mamba2_block(p, h, cfg, cache=cache, mode=mode)
+        out, new_cache = S.mamba2_block(p, h, cfg, cache=cache, mode=mode,
+                                        layout=layout, specs=specs)
     if cfg.use_post_norm:
-        out = L.rmsnorm(out, p["ln_post"], cfg.norm_eps)
+        out = L.rmsnorm(out, p["ln_post"], cfg.norm_eps, layout)
     x = x + out
     stats = None
     if spec.mlp != "none":
-        h2 = L.rmsnorm(x, p["ln_mlp"], cfg.norm_eps)
+        h2 = L.rmsnorm(x, p["ln_mlp"], cfg.norm_eps, layout)
         mp = {k[4:]: v for k, v in p.items() if k.startswith("mlp_")}
         ms = specs and {k[4:]: v for k, v in specs.items()
                         if k.startswith("mlp_")}
         if spec.mlp == "dense":
             out2 = L.mlp_block(mp, h2, cfg, layout, ms)
         elif layout is not None and layout.ctx.moe_impl == "ep":
-            out2, stats = L.moe_block_ep(mp, h2, cfg, layout, ms)
+            out2, stats = L.moe_block_ep(mp, h2, cfg, layout, ms,
+                                         with_stats=mode == "train")
         else:
             out2, stats = L.moe_block(mp, h2, cfg,
                                       with_stats=mode == "train",
                                       groups=moe[0], group_aux=moe[1],
                                       layout=layout, specs=ms)
         if cfg.use_post_norm:
-            out2 = L.rmsnorm(out2, p["ln_mlp_post"], cfg.norm_eps)
+            out2 = L.rmsnorm(out2, p["ln_mlp_post"], cfg.norm_eps, layout)
         x = x + out2
     return x, new_cache, stats
 
@@ -274,10 +292,11 @@ def run_stack(cfg: ModelConfig, params, x, positions, *, mode: str = "train",
     other new caches (the SSD state and conv tail) are stacked afresh, in
     the dtype the layer computed them in, as the reference's scan does.
 
-    With a ``layout`` (train mode; ``models.sharding.RankLayout``) the
-    parameters are this rank's blocks: each layer's FSDP dims are
-    all-gathered before it (inside the remat region, so the recompute
-    gathers again, in the same order on every rank) and freed after it;
+    With a ``layout`` (``models.sharding.RankLayout``) the parameters
+    are this rank's blocks: each layer's FSDP dims (not under a serving
+    ctx with ``gather_fsdp=False``) are all-gathered before it (inside
+    the remat region, so the recompute gathers again, in the same order
+    on every rank) and freed after it;
     ``moe`` = (groups, group_aux) is the one-process MoE dispatch's
     grouping (``moe_block``)."""
     train = mode == "train"
@@ -375,25 +394,36 @@ def embed_inputs(cfg: ModelConfig, params, batch, layout=None):
     """Token embeddings (Gemma's scaling where the embeddings are tied) or
     the ``embeds`` input.  With a ``layout`` whose table is split over
     the vocabulary, each rank looks up the ids in its range, zero
-    elsewhere, then one sum over those axes."""
+    elsewhere, then one sum over those axes; serving on d_model blocks,
+    the table's columns of this rank's block."""
     if cfg.input_mode == "embeds":
         return batch["embeds"]
+    return embed_tokens(cfg, params, batch["tokens"], layout,
+                        scale=cfg.tie_embeddings)
+
+
+def embed_tokens(cfg: ModelConfig, params, tokens, layout=None, *,
+                 scale: bool = False):
+    """The token table's rows of ``tokens`` (see ``embed_inputs``; ``scale``
+    multiplies by sqrt(d_model), Gemma's scaling)."""
     tp = ()
     if layout is None:
-        x = params["embed"][batch["tokens"]]
+        x = params["embed"][tokens]
     else:
         table, tp = _table(cfg, params, layout)
+        if layout.embed_axes:
+            table = C.own_block(table, 1, layout.embed_axes, layout.mesh)
     if tp:
         v_loc = table.shape[0]
-        ids = batch["tokens"].long() - layout.mesh.block_index(tp) * v_loc
+        ids = tokens.long() - layout.mesh.block_index(tp) * v_loc
         inside = (ids >= 0) & (ids < v_loc)
         x = torch.where(inside[..., None], table[ids.clamp(0, v_loc - 1)],
                         torch.zeros((), dtype=table.dtype,
                                     device=table.device))
         x = C.all_reduce(x, tp, layout.mesh)
     elif layout is not None:
-        x = table[batch["tokens"]]
-    if cfg.tie_embeddings:
+        x = table[tokens]
+    if scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)  # gemma
     return x
 
@@ -404,9 +434,30 @@ def _lm_matrix(cfg, params):
     return params["lm_head"]
 
 
-def _logits(cfg, params, hidden_last):
-    """(B, d) last hidden states -> (B, V) float32 logits."""
-    logits = torch.matmul(hidden_last.float(), _lm_matrix(cfg, params).float())
+def _logits(cfg, params, hidden_last, layout=None):
+    """(B, d) last hidden states -> (B, V) float32 logits.  With a serving
+    ``layout``: this rank's rows and block of d_model against its block
+    of the LM matrix, the partial products summed over the d axes, the
+    vocabulary's blocks then gathered and the rows too, so that every
+    rank returns the whole batch's logits."""
+    if layout is None:
+        logits = torch.matmul(hidden_last.float(),
+                              _lm_matrix(cfg, params).float())
+    else:
+        if cfg.tie_embeddings:
+            table, v_ax = _table(cfg, params, layout)
+            w, d_entry = table.T, None
+        else:
+            spec = layout.ctx.spec_for((cfg.d_model, cfg.vocab_size),
+                                       LM_HEAD_AXES)
+            w = layout.gather_leaf(params["lm_head"], spec, LM_HEAD_AXES)
+            after = layout.gathered(spec, LM_HEAD_AXES)
+            d_entry, v_ax = after[0], layout.tp_axes(after[1])
+        hu, (wu,), red = L.contract_d(hidden_last.float(), [w.float()], 0,
+                                      layout, d_entry)
+        logits = C.reduce(torch.matmul(hu, wu), red, layout.mesh)
+        logits = C.gather(logits, 1, v_ax, layout.mesh)
+        logits = C.gather(logits, 0, layout.batch_axes, layout.mesh)
     if cfg.final_softcap is not None:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
     return logits
@@ -535,31 +586,53 @@ def loss_fn(cfg: ModelConfig, params, batch, *, attn_impl="blocked",
 
 
 def init_caches(cfg: ModelConfig, B: int, max_len: int,
-                dtype=torch.bfloat16, device=None):
-    """Per-position stacked cache buffers (leading dim n_superblocks)."""
-    n = cfg.n_superblocks
+                dtype=torch.bfloat16, device=None, ctx=None):
+    """Per-position stacked cache buffers (leading dim n_superblocks); the
+    SSM state in float32.  With ``ctx``, this rank's blocks of them
+    (``sharding.cache_specs``), as ``sharding.RankCaches``."""
     caches = []
-    for spec in cfg.pattern:
-        if spec.kind == "attn":
-            kv_shape = (n, B, max_len, cfg.n_kv_heads, cfg.head_dim)
-            caches.append((torch.zeros(kv_shape, dtype=dtype, device=device),
-                           torch.zeros(kv_shape, dtype=dtype, device=device)))
-        else:
-            s = cfg.ssm
-            d_in = s.expand * cfg.d_model
-            H = d_in // s.head_dim
-            conv_dim = d_in + 2 * s.n_groups * s.d_state
-            caches.append((
-                torch.zeros((n, B, s.d_conv - 1, conv_dim), dtype=dtype,
-                            device=device),
-                torch.zeros((n, B, H, s.head_dim, s.d_state),
-                            dtype=torch.float32, device=device)))
-    return caches
+    specs = (cache_specs(cfg, ctx, B, max_len) if ctx is not None
+             else [(None, None)] * len(cfg.pattern))
+    for spec, shapes, sp in zip(cfg.pattern, cache_shapes(cfg, B, max_len),
+                                specs):
+        dtypes = (dtype, dtype if spec.kind == "attn" else torch.float32)
+        caches.append(tuple(
+            torch.zeros(shape if s_ is None else ctx.block_shape(shape, s_),
+                        dtype=dt, device=device)
+            for shape, s_, dt in zip(shapes, sp, dtypes)))
+    return caches if ctx is None else RankCaches(caches, max_len)
 
 
-def forward_hidden(cfg, params, batch, *, mode, caches, cur_len,
-                   attn_impl="blocked"):
-    x = embed_inputs(cfg, params, batch)
+def rank_batch(batch, layout):
+    """This rank's part of a global serving batch: its rows of
+    ``tokens`` / ``embeds`` / ``positions`` ((B, S) or (3, B, S)), and its
+    block of the embeddings' d_model."""
+    out = {}
+    for k, v in batch.items():
+        if k == "positions":
+            v = layout.rows(v, v.dim() - 2)
+        elif k in ("tokens", "embeds"):
+            v = layout.rows(v)
+            if k == "embeds" and layout.embed_axes:
+                v = C.own_block(v, -1, layout.embed_axes, layout.mesh)
+        out[k] = v
+    return out
+
+
+def _forward(cfg, params, batch, ctx, *, mode, caches, cur_len, attn_impl):
+    """``forward_hidden`` and the layout it ran under (None without a
+    ctx)."""
+    layout = None
+    if ctx is not None:
+        check_serving(cfg, ctx)
+        if not isinstance(caches, RankCaches):
+            raise TypeError("under a sharding context the caches are this "
+                            "rank's blocks, a sharding.RankCaches")
+        x = batch["tokens"] if "tokens" in batch else batch["embeds"]
+        layout = RankLayout.for_serving(ctx, cfg, x.shape[0],
+                                        caches.max_len)
+        batch = rank_batch(batch, layout)
+    x = embed_inputs(cfg, params, batch, layout)
     B, S_ = x.shape[0], x.shape[1]
     positions = batch.get("positions")
     if positions is None:
@@ -567,33 +640,59 @@ def forward_hidden(cfg, params, batch, *, mode, caches, cur_len,
                                    device=x.device)
     hidden, new_caches, _ = run_stack(cfg, params, x, positions, mode=mode,
                                       caches=caches, cur_len=cur_len,
-                                      attn_impl=attn_impl)
-    return L.rmsnorm(hidden, params["final_ln"], cfg.norm_eps), new_caches
+                                      attn_impl=attn_impl, layout=layout)
+    hidden = L.rmsnorm(hidden, params["final_ln"], cfg.norm_eps, layout)
+    if layout is not None:
+        new_caches = RankCaches(new_caches, caches.max_len)
+    return hidden, new_caches, layout
 
 
-def decode_step(cfg: ModelConfig, params, batch, caches, cur_len):
+def forward_hidden(cfg, params, batch, ctx=None, *, mode, caches, cur_len,
+                   attn_impl="blocked"):
+    """The final-normed hidden states and the new caches; under ``ctx``
+    this rank's rows and block of d_model, and its cache blocks."""
+    hidden, new_caches, _ = _forward(cfg, params, batch, ctx, mode=mode,
+                                     caches=caches, cur_len=cur_len,
+                                     attn_impl=attn_impl)
+    return hidden, new_caches
+
+
+def decode_step(cfg: ModelConfig, params, batch, caches, cur_len, ctx=None):
     """One-token decode. batch: tokens (B, 1) or embeds (B, 1, d), and
     ``positions`` ((3, B, 1) under M-RoPE) unless the default ones from
     ``cur_len`` apply.  Returns
     (next_token_logits (B, V) float32, new_caches).  The KV buffers of
-    ``caches`` are written in place."""
-    hidden, new_caches = forward_hidden(cfg, params, batch, mode="decode",
-                                        caches=caches, cur_len=int(cur_len))
-    return _logits(cfg, params, hidden[:, -1]), new_caches
+    ``caches`` are written in place.  Under ``ctx`` (see the module's
+    note) ``params`` and ``caches`` are this rank's blocks and the logits
+    the whole batch's, the same on every rank."""
+    hidden, new_caches, layout = _forward(
+        cfg, params, batch, ctx, mode="decode", caches=caches,
+        cur_len=int(cur_len), attn_impl="blocked")
+    return _logits(cfg, params, hidden[:, -1], layout), new_caches
 
 
-def prefill(cfg: ModelConfig, params, batch, max_len: int,
+def prefill(cfg: ModelConfig, params, batch, max_len: int, ctx=None,
             attn_impl="blocked", cache_dtype=torch.bfloat16):
     """Run the prompt (``tokens`` (B, S) or ``embeds`` (B, S, d), as
     ``cfg.input_mode`` says, and optional ``positions``), returning
-    (last_hidden, primed caches, prompt_len)."""
+    (last_hidden, primed caches, prompt_len).  Under ``ctx`` the hidden
+    states are this rank's rows and block of d_model and the caches its
+    blocks (``sharding.RankCaches``)."""
+    hidden, new_caches, _ = _prefill(cfg, params, batch, max_len, ctx,
+                                     attn_impl, cache_dtype)
+    return hidden, new_caches, _prompt_len(batch)
+
+
+def _prompt_len(batch) -> int:
+    return batch.get("tokens", batch.get("embeds")).shape[1]
+
+
+def _prefill(cfg, params, batch, max_len, ctx, attn_impl, cache_dtype):
     x = batch["tokens"] if cfg.input_mode == "tokens" else batch["embeds"]
-    B, S_ = x.shape[0], x.shape[1]
-    caches = init_caches(cfg, B, max_len, cache_dtype, device=x.device)
-    hidden, new_caches = forward_hidden(cfg, params, batch, mode="prefill",
-                                        caches=caches, cur_len=0,
-                                        attn_impl=attn_impl)
-    return hidden, new_caches, S_
+    caches = init_caches(cfg, x.shape[0], max_len, cache_dtype,
+                         device=x.device, ctx=ctx)
+    return _forward(cfg, params, batch, ctx, mode="prefill", caches=caches,
+                    cur_len=0, attn_impl=attn_impl)
 
 
 def init_model_params(cfg: ModelConfig,

@@ -21,12 +21,25 @@ dim's spec for this batch size) and, for a parameter, which dims are
 gathered before use (``gather_leaf``) and which stay split over the
 model axes.
 
-The training rules are the ported path: ``DEFAULT_RULES``,
-``SMALL_MODEL_RULES`` and ``FSDP_POD_RULES`` with ``gather_fsdp=True``
-and ``moe_impl`` 'dense' or 'ep'.  A rule that maps ``seq``, ``seq_sp``,
-``kv_seq`` or ``embed`` to a mesh axis of the ctx, ``gather_fsdp=False``
-and SSM layers under a ctx wait for ROADMAP item 13f
-(``check_training``).
+Training runs ``DEFAULT_RULES``, ``SMALL_MODEL_RULES`` and
+``FSDP_POD_RULES`` with ``gather_fsdp=True`` and ``moe_impl`` 'dense' or
+'ep'.  A rule that maps ``seq``, ``seq_sp``, ``kv_seq`` or ``embed`` to a
+mesh axis of the ctx, ``gather_fsdp=False``, SSM layers and ``adamw8bit``
+under a ctx wait for ROADMAP item 13g (``check_training``).
+
+Serving (prefill and decode) runs every table, the five serving tables
+with the ``gather_fsdp`` the reference pairs them with (False for
+``DECODE_2D_RULES`` and ``LONG_2D_RULES``), and ``moe_impl`` 'dense' or
+'ep'.  ``RankLayout.for_serving`` adds what a serving rank reads: the
+``embed`` axes that split the activations' d_model (the residual stream,
+norms and every projection work on this rank's block of it, partial
+products summed over those axes) and the ``kv_seq`` axes that split the
+KV cache's positions (each rank holds ``max_len / n`` of them; decode
+combines the ranks' partial softmaxes).  ``cache_specs`` is the
+reference's ``cache_logical_axes`` laid out; ``shard_caches`` /
+``gather_caches`` move between the reference's ``init_caches`` layout
+and a rank's blocks, which travel as ``RankCaches`` (the blocks and the
+global ``max_len`` they are blocks of).
 """
 from __future__ import annotations
 
@@ -41,9 +54,9 @@ from repro_torch.models.params import ParamSpec
 Rules = Dict[Optional[str], Optional[Tuple[str, ...]]]
 Spec = Tuple[Any, ...]
 
-SERVING_PENDING = ("waits for ROADMAP item 13f (the serving rules, "
-                   "gather_fsdp=False, seq_sp, the SSM split and adamw8bit "
-                   "under a sharding context)")
+SERVING_PENDING = ("waits for ROADMAP item 13g (training under the serving "
+                   "rules' axes, gather_fsdp=False, seq_sp, SSM layers and "
+                   "adamw8bit under a sharding context)")
 
 # Production default: DP over (pod, data), FSDP params over data, TP over
 # model.
@@ -178,10 +191,12 @@ class ShardingCtx:
     with its ``shape`` dict of axis sizes, enough for ``spec_for``).
 
     gather_fsdp: gather the FSDP-sharded weight dims before each layer
-    (training's semantics; False waits for 13f).  moe_impl: 'dense' (the
-    dispatch in groups of the batch's shards, experts or their d_ff split
-    over 'model') or 'ep' (each data shard routes its own tokens to the
-    rank's E / ep experts; one sum over 'model')."""
+    (training's semantics); False keeps them split and sums partial
+    products of the activations instead (decode's trade; serving only).
+    moe_impl: 'dense' (the dispatch in groups of the batch's shards,
+    experts or their d_ff split over 'model') or 'ep' (each data shard
+    routes its own tokens to the rank's E / ep experts; one sum over
+    'model')."""
 
     mesh: Any
     rules: Rules
@@ -268,11 +283,21 @@ def local_block(t: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
     return t
 
 
+def owned_block(t: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+    """This rank's block of ``t`` as a tensor of its own: a contiguous
+    copy wherever the spec splits ``t`` (a view, even a contiguous one
+    such as a block of rows, would keep the whole of ``t``'s storage
+    alive), ``t`` itself where it does not."""
+    b = local_block(t, spec, mesh)
+    return t if b.shape == t.shape else b.clone(
+        memory_format=torch.contiguous_format)
+
+
 def shard_params(full_tree, ctx: ShardingCtx, specs):
-    """This rank's blocks (contiguous copies) of every leaf of the full
+    """This rank's blocks (``owned_block``) of every leaf of the full
     tree ``full_tree``, laid out by ``specs`` (``param_shardings``)."""
-    return _zip_map(lambda t, s: local_block(t, s, ctx.mesh).contiguous(),
-                    full_tree, specs)
+    return _zip_map(lambda t, s: owned_block(t, s, ctx.mesh), full_tree,
+                    specs)
 
 
 def gather_params(local_tree, ctx: ShardingCtx, specs):
@@ -285,21 +310,105 @@ def gather_params(local_tree, ctx: ShardingCtx, specs):
 
 
 def check_training(cfg, ctx: ShardingCtx):
-    """Raise for what this slice does not run under a ctx: the serving
-    rules' axes, ``gather_fsdp=False``, SSM layers (13f) and an unknown
+    """Raise for what training does not run under a ctx: the serving
+    rules' axes, ``gather_fsdp=False``, SSM layers (13g) and an unknown
     ``moe_impl``."""
-    if ctx.moe_impl not in MOE_IMPLS:
-        raise ValueError(f"moe_impl={ctx.moe_impl!r}; allowed: {MOE_IMPLS}")
+    _check_moe_impl(ctx)
     mapped = [a for a in _SERVING_AXES
               if any(m in ctx.mesh.shape for m in (ctx.rules.get(a) or ()))]
     if mapped:
         raise NotImplementedError(
-            f"rules mapping {mapped} to mesh axes {SERVING_PENDING}")
+            f"training under rules mapping {mapped} to mesh axes "
+            f"{SERVING_PENDING}")
     if not ctx.gather_fsdp:
-        raise NotImplementedError(f"gather_fsdp=False {SERVING_PENDING}")
+        raise NotImplementedError(
+            f"training with gather_fsdp=False {SERVING_PENDING}")
     if any(s.kind != "attn" for s in cfg.pattern):
         raise NotImplementedError(
-            f"SSM layers under a sharding context {SERVING_PENDING}")
+            f"SSM layers in a training step under a sharding context "
+            f"{SERVING_PENDING}")
+
+
+def check_serving(cfg, ctx: ShardingCtx):
+    """Raise for what the reference's serving refuses under a ctx: an
+    unknown ``moe_impl`` (its ``_apply_layer`` reads any other value as
+    'dense'; the port names the two).  Every rules table serves, with
+    either ``gather_fsdp`` and ``moe_impl`` 'dense' or 'ep' (the
+    reference's prefill and decode run 'ep' under ``SERVE_RULES`` and
+    ``DECODE_2D_RULES`` on 8 host devices)."""
+    _check_moe_impl(ctx)
+
+
+def _check_moe_impl(ctx: ShardingCtx):
+    if ctx.moe_impl not in MOE_IMPLS:
+        raise ValueError(f"moe_impl={ctx.moe_impl!r}; allowed: {MOE_IMPLS}")
+
+
+# ---------------------------------------------------------------------------
+# Caches
+# ---------------------------------------------------------------------------
+
+KV_AXES = ("layers", "batch", "kv_seq", "kv_heads", None)
+TAIL_AXES = ("layers", "batch", None, "ssm_in")
+STATE_AXES = ("layers", "batch", "ssm_in", None, None)
+
+
+def cache_shapes(cfg, B: int, max_len: int) -> list:
+    """The shapes of the reference's ``init_caches``: one (k, v) or
+    (conv_tail, ssm_state) pair a pattern position, stacked on
+    ``n_superblocks``."""
+    n, out = cfg.n_superblocks, []
+    for spec in cfg.pattern:
+        if spec.kind == "attn":
+            kv = (n, B, max_len, cfg.n_kv_heads, cfg.head_dim)
+            out.append((kv, kv))
+        else:
+            s = cfg.ssm
+            d_in = s.expand * cfg.d_model
+            conv_dim = d_in + 2 * s.n_groups * s.d_state
+            out.append(((n, B, s.d_conv - 1, conv_dim),
+                        (n, B, d_in // s.head_dim, s.head_dim, s.d_state)))
+    return out
+
+
+def cache_specs(cfg, ctx: ShardingCtx, B: int, max_len: int) -> list:
+    """The spec of every cache buffer (the reference's
+    ``cache_logical_axes`` under ``ctx``), in ``cache_shapes``'s
+    structure."""
+    out = []
+    for spec, (a, b) in zip(cfg.pattern, cache_shapes(cfg, B, max_len)):
+        axes = (KV_AXES, KV_AXES) if spec.kind == "attn" else (TAIL_AXES,
+                                                                 STATE_AXES)
+        out.append((ctx.spec_for(a, axes[0]), ctx.spec_for(b, axes[1])))
+    return out
+
+
+class RankCaches(list):
+    """This rank's cache blocks, a list in ``init_caches``'s structure,
+    and the global ``max_len`` they are blocks of (which the decode step
+    needs to place its block's positions)."""
+
+    def __init__(self, blocks, max_len: int):
+        super().__init__(blocks)
+        self.max_len = max_len
+
+
+def shard_caches(cfg, ctx: ShardingCtx, full, max_len: int) -> RankCaches:
+    """This rank's blocks of caches in the reference's layout (``full``,
+    as ``init_caches`` makes them for ``max_len`` positions)."""
+    B = full[0][0].shape[1]
+    return RankCaches(_zip_map(
+        lambda t, s: owned_block(t, s, ctx.mesh), list(full),
+        cache_specs(cfg, ctx, B, max_len)), max_len)
+
+
+def gather_caches(cfg, ctx: ShardingCtx, local: RankCaches, B: int) -> list:
+    """The caches of a global batch of ``B`` in the reference's layout,
+    from every rank's blocks (every rank must call it, in the same
+    order)."""
+    from repro_torch.models.collectives import gather_full
+    return _zip_map(lambda t, s: gather_full(t, s, ctx.mesh), list(local),
+                    cache_specs(cfg, ctx, B, local.max_len))
 
 
 # ---------------------------------------------------------------------------
@@ -311,16 +420,38 @@ def check_training(cfg, ctx: ShardingCtx):
 class RankLayout:
     """A ctx bound to one batch: ``batch_axes`` are the mesh axes the
     batch rows are split over (the batch dim's spec for the global batch
-    size), in the spec's order; ``batch_size`` is that global size."""
+    size), in the spec's order; ``batch_size`` is that global size.
+
+    Serving (``for_serving``) adds ``embed_axes``, the axes the
+    activations' d_model is split over (the ``embed`` rule; () in
+    training), and ``kv_axes``, the axes the KV cache's ``max_len``
+    positions are split over (the ``kv_seq`` entry of ``cache_specs``),
+    each without one-rank axes."""
 
     ctx: ShardingCtx
     batch_axes: Tuple[str, ...]
     batch_size: int
+    embed_axes: Tuple[str, ...] = ()
+    kv_axes: Tuple[str, ...] = ()
+    max_len: Optional[int] = None
 
     @classmethod
     def for_batch(cls, ctx: ShardingCtx, batch_size: int) -> "RankLayout":
         spec = ctx.spec_for((batch_size,), ("batch",))
         return cls(ctx, entry_axes(spec[0]), batch_size)
+
+    @classmethod
+    def for_serving(cls, ctx: ShardingCtx, cfg, batch_size: int,
+                    max_len: int) -> "RankLayout":
+        """The layout of a prefill or decode step of ``batch_size`` rows
+        into caches of ``max_len`` positions."""
+        act = ctx.spec_for((batch_size, 1, cfg.d_model),
+                           ("batch", "seq", "embed"))
+        kv = ctx.spec_for((1, batch_size, max_len, 1, 1), KV_AXES)
+        many = lambda e: tuple(a for a in entry_axes(e)  # noqa: E731
+                               if ctx.mesh.shape[a] > 1)
+        return cls(ctx, entry_axes(act[0]), batch_size, many(act[2]),
+                   many(kv[2]), max_len)
 
     @property
     def mesh(self):
@@ -346,11 +477,13 @@ class RankLayout:
 
     def gathered(self, spec: Spec, axes: Sequence[Optional[str]]) -> Spec:
         """The spec a parameter has after ``gather_leaf``: its FSDP dims
-        (``embed_fsdp``, gathered whatever their axes) and any dim split
-        over a batch axis (the ranks of that axis hold other rows, so
-        the weight must be whole there) become None."""
+        (``embed_fsdp``, gathered whatever their axes, unless
+        ``ctx.gather_fsdp`` is False, the reference's ``run_stack``
+        keeping them split for decode) and any dim split over a batch
+        axis (the ranks of that axis hold other rows, so the weight must
+        be whole there) become None."""
         return tuple(
-            None if (ax == "embed_fsdp"
+            None if ((ax == "embed_fsdp" and self.ctx.gather_fsdp)
                      or any(a in self.batch_axes for a in entry_axes(e)))
             else e for e, ax in zip(spec, axes))
 
@@ -359,7 +492,7 @@ class RankLayout:
         """All-gather the dims ``gathered`` clears, differentiably: the
         backward sums a gradient over the gathered axes that split the
         batch (the data ranks' shares, exactly once) and takes this
-        rank's block."""
+        rank's block.  Each gather counts in ``PARAM_GATHERS``."""
         from repro_torch.models.collectives import all_gather
         after = self.gathered(spec, axes)
         for dim, (e, new) in enumerate(zip(spec, after)):
@@ -367,5 +500,5 @@ class RankLayout:
                 g_axes = entry_axes(e)
                 t = all_gather(t, dim, g_axes, self.mesh,
                                tuple(a for a in g_axes
-                                     if a in self.batch_axes))
+                                     if a in self.batch_axes), param=True)
         return t

@@ -10,6 +10,22 @@ and its tests hold them equal to the Pallas kernel
 (``tests/test_kernels.py``).  Across chunks the recurrence is a Python
 loop carrying the (B, H, P, N) state.  Decode is the O(1)-per-token
 recurrence, plain torch on every device.
+
+Serving under a ``models.sharding.RankLayout`` (the reference's
+``ssm_in`` split, its ``models/ssm.py:150-219``): ``in_z``, ``in_x``,
+``gate_ln`` and ``out_proj`` hold this rank's block of the inner dim,
+``in_B``/``in_C``/``in_dt``/``A_log``/``D``/``dt_bias`` are whole.  The
+packed conv channels (x, then B, then C) are split by their own spec,
+whose block boundaries do not meet the x/B/C boundaries: the rank
+gathers the x channels (an activation), convolves its block of the
+packed channels with its blocks of ``conv_w``/``conv_b`` and its block
+of the conv tail cache, and gathers the conv output back, from which it
+takes its x channels and the whole B and C.  The SSD runs on the heads
+of the rank's block of the state cache, the gated RMSNorm's sum of
+squares is summed over the ranks of the inner dim and ``out_proj`` is
+row-parallel, one sum.  Both caches hold the blocks the reference's
+``cache_logical_axes`` give, so ``sharding.gather_caches`` returns its
+layout.
 """
 from __future__ import annotations
 
@@ -17,6 +33,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_chunk import ssd_chunk
+from repro_torch.models.collectives import gather, own_block, reduce
+from repro_torch.models.layers import contract_d, out_d, sum_parts
+from repro_torch.models.sharding import STATE_AXES, entry_axes
 
 
 def ssd_chunked(x, dt, A, B_, C_, *, chunk: int, initial_state=None):
@@ -126,10 +145,15 @@ def _causal_conv(seq, w, b, tail=None):
     return F.silu(out + b[None, None, :]), new_tail
 
 
-def mamba2_block(params, x, cfg, *, cache=None, mode: str = "train"):
+def mamba2_block(params, x, cfg, *, cache=None, mode: str = "train",
+                 layout=None, specs=None):
     """mode: 'train' | 'prefill' | 'decode'.
     cache (decode): (conv_tail (B,K-1,conv_dim), ssm_state (B,H,P,N)).
-    Returns (out, new_cache); new_cache is None for train."""
+    Returns (out, new_cache); new_cache is None for train.  With a
+    serving ``layout``, this rank's rows, blocks and caches (see the
+    module's note)."""
+    if layout is not None:
+        return _mamba2_sharded(params, x, cfg, cache, mode, layout, specs)
     s = cfg.ssm
     B, S, _ = x.shape
     d_in = s.expand * cfg.d_model
@@ -182,5 +206,88 @@ def mamba2_block(params, x, cfg, *, cache=None, mode: str = "train"):
     y = y.to(x.dtype)
     out = torch.einsum("bse,ed->bsd", y, params["out_proj"])
 
+    new_cache = None if mode == "train" else (new_tail, new_state)
+    return out, new_cache
+
+
+def _mamba2_sharded(params, x, cfg, cache, mode, layout, specs):
+    s = cfg.ssm
+    B, S, _ = x.shape
+    d_in = s.expand * cfg.d_model
+    gn = s.n_groups * s.d_state
+    H, P, G = d_in // s.head_dim, s.head_dim, s.n_groups
+    mesh = layout.mesh
+    x_ax = layout.tp_axes(specs["in_x"][1])      # inner channels
+    k_ax = layout.tp_axes(specs["conv_w"][1])    # packed conv channels
+    state = layout.ctx.spec_for((1, layout.batch_size, H, P, s.d_state),
+                                STATE_AXES)
+    h_ax = tuple(a for a in entry_axes(state[2]) if mesh.shape[a] > 1)
+    names = ("in_z", "in_x", "in_B", "in_C", "in_dt")
+    xu, ws, red = contract_d(x, [params[n] for n in names], 0, layout,
+                             specs["in_z"][0])
+    z, xr, Br, Cr, dtr = sum_parts(
+        [torch.einsum("bsd,de->bse", xu, w) for w in ws], red, mesh)
+
+    conv_in = torch.cat([gather(xr, -1, x_ax, mesh) if x_ax else xr,
+                         Br, Cr], dim=-1)
+    if k_ax:
+        conv_in = own_block(conv_in, -1, k_ax, mesh)
+    tail_in = cache[0] if cache is not None else None
+    conv_out, new_tail = _causal_conv(conv_in, params["conv_w"],
+                                      params["conv_b"], tail=tail_in)
+    if k_ax:
+        conv_out = gather(conv_out, -1, k_ax, mesh)
+
+    # the SSD on the heads of this rank's block of the state
+    hl = H // (mesh.size(h_ax) if h_ax else 1)
+    h0 = (mesh.block_index(h_ax) if h_ax else 0) * hl
+    xh = conv_out[..., h0 * P:(h0 + hl) * P].reshape(B, S, hl, P)
+    Bm = conv_out[..., d_in:d_in + gn].reshape(B, S, G, s.d_state)
+    Cm = conv_out[..., d_in + gn:].reshape(B, S, G, s.d_state)
+    hg = H // G
+    if G > 1:
+        if h0 % hg == 0 and hl % hg == 0:
+            Bm = Bm[:, :, h0 // hg:(h0 + hl) // hg]
+            Cm = Cm[:, :, h0 // hg:(h0 + hl) // hg]
+        else:       # one group a head
+            Bm = Bm.repeat_interleave(hg, dim=2)[:, :, h0:h0 + hl]
+            Cm = Cm.repeat_interleave(hg, dim=2)[:, :, h0:h0 + hl]
+    heads = slice(h0, h0 + hl)
+    dt = F.softplus(dtr[..., heads].float() + params["dt_bias"][heads])
+    A = -torch.exp(params["A_log"][heads].float())
+
+    init_state = cache[1] if cache is not None else None
+    if mode == "decode" and S == 1:
+        h = init_state.float()
+        g_loc = Bm.shape[2]
+        Bh = Bm.repeat_interleave(hl // g_loc, dim=2)[:, 0]
+        Ch = Cm.repeat_interleave(hl // g_loc, dim=2)[:, 0]
+        dt0 = dt[:, 0]
+        h = h * torch.exp(dt0 * A)[..., None, None] + torch.einsum(
+            "bh,bhn,bhp->bhpn", dt0, Bh, xh[:, 0].float())
+        y = torch.einsum("bhn,bhpn->bhp", Ch, h)[:, None]
+        new_state = h
+    else:
+        y, new_state = ssd_chunked(xh, dt, A, Bm, Cm, chunk=s.chunk,
+                                   initial_state=init_state)
+
+    y = y + xh.float() * params["D"][heads].float()[:, None]
+    y = y.reshape(B, S, hl * P)
+    if h_ax != x_ax:        # z on this rank's heads' channels
+        z = (gather(z, -1, x_ax, mesh) if x_ax else z)[
+            ..., h0 * P:(h0 + hl) * P]
+    y = y * F.silu(z.float())
+    # gated RMSNorm: the sum of squares over every rank's channels
+    ss = reduce((y * y).sum(-1, keepdim=True), h_ax, mesh)
+    y = y * torch.rsqrt(ss / d_in + cfg.norm_eps)
+    if h_ax != x_ax:        # this rank's block of the inner channels
+        xl = d_in // (mesh.size(x_ax) if x_ax else 1)
+        x0 = (mesh.block_index(x_ax) if x_ax else 0) * xl - h0 * P
+        y = y[..., x0:x0 + xl]
+    y = (y * (1.0 + params["gate_ln"].float())).to(x.dtype)
+    w_out, g_ax = out_d(params["out_proj"], 1, layout, specs["out_proj"][1])
+    out = reduce(torch.einsum("bse,ed->bsd", y, w_out), x_ax, mesh)
+    if g_ax:
+        out = gather(out, -1, g_ax, mesh)
     new_cache = None if mode == "train" else (new_tail, new_state)
     return out, new_cache

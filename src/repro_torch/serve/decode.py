@@ -1,8 +1,17 @@
 """Serving steps: batched prefill plus single-token decode, greedy
 sampling, and the generation driver.  The port of the reference's
-``serve/decode.py``."""
+``serve/decode.py``.
+
+Each takes a ``ctx`` (``models.sharding.ShardingCtx``) as the
+reference's does: every rank of ``ctx.mesh`` then calls it with the same
+global batch and its own blocks of the parameters
+(``sharding.shard_params``) and caches (``sharding.RankCaches``), and
+gets the whole batch's logits and tokens back, the same on every rank
+(the greedy argmax, the first maximum, taken over the gathered
+logits)."""
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Optional
 
@@ -11,17 +20,19 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.config import resolve_device
 from repro_torch.models import model as M
+from repro_torch.models.sharding import RankLayout
 
 
-def make_prefill_step(cfg: ModelConfig, *, max_len: Optional[int] = None,
-                      attn_impl="blocked", cache_dtype=torch.bfloat16):
+def make_prefill_step(cfg: ModelConfig, ctx=None, *,
+                      max_len: Optional[int] = None, attn_impl="blocked",
+                      cache_dtype=torch.bfloat16):
     """Returns fn(params, batch) -> (first_token_logits (B, V), caches)."""
 
     def prefill_step(params, batch):
-        hidden, caches, _ = M.prefill(
-            cfg, params, batch, max_len=max_len or prompt_len(batch),
-            attn_impl=attn_impl, cache_dtype=cache_dtype)
-        return M._logits(cfg, params, hidden[:, -1]), caches
+        hidden, caches, layout = M._prefill(
+            cfg, params, batch, max_len or prompt_len(batch), ctx,
+            attn_impl, cache_dtype)
+        return M._logits(cfg, params, hidden[:, -1], layout), caches
 
     return prefill_step
 
@@ -32,7 +43,7 @@ def prompt_len(batch) -> int:
     return batch.get("tokens", batch.get("embeds")).shape[1]
 
 
-def make_serve_step(cfg: ModelConfig):
+def make_serve_step(cfg: ModelConfig, ctx=None):
     """One new token with an existing KV/SSM cache.
 
     fn(params, batch, caches, cur_len) -> (next_token (B,), logits,
@@ -40,20 +51,28 @@ def make_serve_step(cfg: ModelConfig):
 
     def serve_step(params, batch, caches, cur_len):
         logits, new_caches = M.decode_step(cfg, params, batch, caches,
-                                           cur_len)
+                                           cur_len, ctx)
         next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
         return next_tok, logits, new_caches
 
     return serve_step
 
 
-def step_batch(cfg: ModelConfig, params, tok: torch.Tensor, cur: int):
+def step_batch(cfg: ModelConfig, params, tok: torch.Tensor, cur: int,
+               layout=None):
     """The decode batch of the (B,) tokens ``tok`` at position ``cur``:
     ``tokens`` (B, 1), or in an ``embeds`` config their rows of the token
     table, (B, 1, d); under M-RoPE also ``positions``, (3, B, 1) filled
-    with ``cur``."""
+    with ``cur``.  With a serving ``layout`` the rows come from this
+    rank's block of the table (the vocab-parallel lookup), whole on
+    every rank."""
     if cfg.input_mode == "embeds":
-        batch = {"embeds": params["embed"][tok][:, None]}
+        if layout is None:
+            batch = {"embeds": params["embed"][tok][:, None]}
+        else:
+            whole = dataclasses.replace(layout, embed_axes=())
+            batch = {"embeds": M.embed_tokens(cfg, params, tok[:, None],
+                                              whole)}
     else:
         batch = {"tokens": tok[:, None]}
     if cfg.mrope:
@@ -63,8 +82,8 @@ def step_batch(cfg: ModelConfig, params, tok: torch.Tensor, cur: int):
 
 
 def generate(cfg: ModelConfig, params, prompt_batch, *, max_new_tokens: int,
-             attn_impl="blocked", cache_dtype=torch.float32, device="cuda",
-             walls: Optional[dict] = None):
+             ctx=None, attn_impl="blocked", cache_dtype=torch.float32,
+             device="cuda", walls: Optional[dict] = None):
     """Greedy generation (prefill, then a decode loop) on ``device`` (the
     card unless the CPU is asked for; raises without a card).  The
     parameters must already lie there; the prompt batch (``tokens`` or
@@ -72,7 +91,9 @@ def generate(cfg: ModelConfig, params, prompt_batch, *, max_new_tokens: int,
     config each decode step embeds its token with the token table (the
     reference's modality-frontend stub); under M-RoPE it passes the
     position ``cur`` on all three axes.  Returns (B, max_new_tokens) int32
-    tokens on ``device``.
+    tokens on ``device``.  Under ``ctx`` (see the module's note) every
+    rank passes the same prompt and its blocks of the parameters, and
+    gets the same tokens.
 
     ``walls``, when given, receives ``prefill_s`` and ``decode_s``: host
     seconds, each span ending in a device synchronise."""
@@ -83,10 +104,14 @@ def generate(cfg: ModelConfig, params, prompt_batch, *, max_new_tokens: int,
     prompt = {k: torch.as_tensor(v, device=dev)
               for k, v in prompt_batch.items()}
     S = prompt_len(prompt)
-    prefill_step = make_prefill_step(cfg, max_len=S + max_new_tokens,
+    prefill_step = make_prefill_step(cfg, ctx, max_len=S + max_new_tokens,
                                      attn_impl=attn_impl,
                                      cache_dtype=cache_dtype)
-    serve_step = make_serve_step(cfg)
+    serve_step = make_serve_step(cfg, ctx)
+    layout = None
+    if ctx is not None:
+        B = prompt.get("tokens", prompt.get("embeds")).shape[0]
+        layout = RankLayout.for_serving(ctx, cfg, B, S + max_new_tokens)
 
     def sync():
         if dev.type == "cuda":
@@ -101,7 +126,7 @@ def generate(cfg: ModelConfig, params, prompt_batch, *, max_new_tokens: int,
     out = [tok]
     cur = S
     for _ in range(max_new_tokens - 1):
-        batch = step_batch(cfg, params, tok, cur)
+        batch = step_batch(cfg, params, tok, cur, layout)
         tok, _, caches = serve_step(params, batch, caches, cur)
         out.append(tok)
         cur += 1

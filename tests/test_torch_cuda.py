@@ -1132,3 +1132,85 @@ def test_tp_trainer_on_card(f32_card, tmp_path):
     for k, v in tree_flatten(state["params"]):
         np.testing.assert_array_equal(v.numpy(), got[0]["final"][k],
                                       err_msg=k)
+
+
+def serve_tp_rank(prompt, max_new):
+    """One rank of ``test_serve_tp_on_card``: the reduced
+    jamba-1.5-large-398b (SSD, attention and MoE layers) under
+    ``DECODE_2D_RULES`` with ``gather_fsdp=False`` on a (2, 1) mesh
+    (d_model and the KV cache's positions split over 'data'), its blocks
+    of the seeded parameters on the card: the prefill's logits and
+    launches, then ``generate(ctx=)``'s tokens."""
+    import dataclasses as dc
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_chunk as sc
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.ranks import rank_device
+    from repro_torch.models import collectives as C
+    from repro_torch.models import sharding as SH
+    from repro_torch.models.model import init_model_params, param_specs
+    from repro_torch.serve.decode import generate, make_prefill_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = rank_device("cuda")
+    cfg = get_reduced("jamba-1.5-large-398b")
+    cfg = dc.replace(cfg, moe=dc.replace(cfg.moe, capacity_factor=4.0))
+    ctx = SH.ShardingCtx(make_host_mesh((2, 1), ("data", "model")),
+                         SH.DECODE_2D_RULES, gather_fsdp=False)
+    full = init_model_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             device=dev)
+    params = SH.shard_params(full, ctx, SH.param_shardings(param_specs(cfg),
+                                                           ctx))
+    del full
+    batch = {"tokens": torch.as_tensor(prompt, device=dev)}
+    fa.reset_launches()
+    sc.reset_launches()
+    C.reset_collectives()
+    with torch.no_grad():
+        logits, caches = make_prefill_step(
+            cfg, ctx, max_len=prompt.shape[1] + max_new,
+            cache_dtype=torch.float32)(params, batch)
+        launches = {**fa.LAUNCHES, **sc.LAUNCHES}
+        tokens = generate(cfg, params, batch, max_new_tokens=max_new,
+                          ctx=ctx, device=dev)
+    return {"device": str(logits.device), "logits": logits.cpu().numpy(),
+            "tokens": tokens.cpu().numpy(), "launches": launches,
+            "param_gathers": C.PARAM_GATHERS["messages"],
+            "kv_positions": caches[4][0].shape[2]}
+
+
+def test_serve_tp_on_card(f32_card, tmp_path):
+    """Serving under a ctx on two ranks sharing the card over gloo
+    (slice L): the reduced jamba under the no-regather decode table
+    against one process on the card: prefill logits within 1e-4, the
+    same greedy tokens on both ranks and in one process, the kernels
+    launched once per attention or SSD layer in each rank's prefill, no
+    parameter gathered, each rank holding half the KV cache's
+    positions."""
+    import dataclasses as dc
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.ranks import spawn_ranks
+    from repro_torch.models.model import init_model_params
+    from repro_torch.serve.decode import generate, make_prefill_step
+    cfg = get_reduced("jamba-1.5-large-398b")
+    cfg = dc.replace(cfg, moe=dc.replace(cfg.moe, capacity_factor=4.0))
+    prompt = np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (4, 24)).astype(np.int32)
+    got = spawn_ranks(2, "test_torch_cuda:serve_tp_rank", (prompt, 6),
+                      backend="gloo", init_method=f"file://{tmp_path / 'st'}",
+                      timeout_s=300)
+    params = init_model_params(cfg, torch.Generator(device="cuda")
+                               .manual_seed(0), device="cuda")
+    batch = {"tokens": torch.as_tensor(prompt, device="cuda")}
+    with torch.no_grad():
+        want, _ = make_prefill_step(cfg, max_len=30,
+                                    cache_dtype=torch.float32)(params, batch)
+        tokens = generate(cfg, params, batch, max_new_tokens=6,
+                          device="cuda").cpu().numpy()
+    for g in got:
+        assert g["device"].startswith("cuda")
+        np.testing.assert_allclose(g["logits"], want.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-4)
+        np.testing.assert_array_equal(g["tokens"], tokens)
+        assert g["launches"] == {"flash_attention": 1, "ssd_chunk": 7}
+        assert g["param_gathers"] == 0 and g["kv_positions"] == 15

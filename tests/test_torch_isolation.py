@@ -12,7 +12,8 @@
   ``make_pipeline``, ``launch.train``); the explicit RegC train path
   builds and takes a step in one process, so does a sharding context
   (equal, on a mesh of one rank, to the one-process step bit for bit),
-  and what waits for ROADMAP item 13f raises, naming it;
+  and what waits for ROADMAP item 13g raises, naming it; the serving
+  entry points take a ``ctx`` where ``import jax`` fails;
 * the knobs of ported slices (race detection and the recovery hooks
   among them, and the reference engine) build a runtime, and the
   reference engine raises on the recovery hooks, naming the slice;
@@ -110,6 +111,62 @@ def test_port_runs_without_jax(tmp_path):
         "assert all(torch.equal(a, b) for a, b in zip(\n"
         "    tree_leaves(p2), tree_leaves(p4)))\n"
         "import torch.distributed as dist\n"
+        "dist.destroy_process_group()\n"
+        "assert 'jax' not in [m for m in sys.modules if sys.modules[m]]\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=tmp_path, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_serving_under_a_ctx_runs_without_jax(tmp_path):
+    """The serving entry points with ``ctx=`` import and run where
+    ``import jax`` fails: on a one-rank mesh, under every serving table,
+    ``generate``, ``make_prefill_step`` and ``make_serve_step`` give the
+    one-process port's tokens and logits bit for bit."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "import torch\n"
+        "import torch.distributed as dist\n"
+        "from repro_torch.configs import get_reduced\n"
+        "from repro_torch.launch.mesh import make_host_mesh\n"
+        "from repro_torch.launch.ranks import init_world\n"
+        "from repro_torch.models import sharding as SH\n"
+        "from repro_torch.models.model import init_model_params, "
+        "param_specs\n"
+        "from repro_torch.serve.decode import (generate, make_prefill_step,\n"
+        "                                      make_serve_step)\n"
+        "assert init_world('gloo')\n"
+        "mesh = make_host_mesh((1, 1), ('data', 'model'))\n"
+        "prompt = {'tokens': torch.arange(8, dtype=torch.int32)"
+        ".reshape(2, 4)}\n"
+        "for arch in ('internlm2-1.8b', 'mamba2-2.7b'):\n"
+        "    cfg = get_reduced(arch)\n"
+        "    p = init_model_params(cfg, device='cpu')\n"
+        "    want = generate(cfg, p, prompt, max_new_tokens=3, device='cpu')\n"
+        "    l0, c0 = make_prefill_step(cfg, max_len=8)(p, prompt)\n"
+        "    for rules, gf in (('SERVE_RULES', True), ('SMALL_SERVE_RULES', "
+        "True),\n"
+        "                      ('LONG_CONTEXT_RULES', True), "
+        "('DECODE_2D_RULES', False),\n"
+        "                      ('LONG_2D_RULES', False)):\n"
+        "        ctx = SH.ShardingCtx(mesh, getattr(SH, rules), "
+        "gather_fsdp=gf)\n"
+        "        lp = SH.shard_params(p, ctx, SH.param_shardings(\n"
+        "            param_specs(cfg), ctx))\n"
+        "        got = generate(cfg, lp, prompt, max_new_tokens=3, ctx=ctx,\n"
+        "                       device='cpu')\n"
+        "        assert torch.equal(got, want), (arch, rules)\n"
+        "        l1, c1 = make_prefill_step(cfg, ctx, max_len=8)(lp, prompt)\n"
+        "        assert torch.equal(l1, l0), (arch, rules)\n"
+        "        t0, _, _ = make_serve_step(cfg)(p, {'tokens': want[:, :1]},"
+        " c0, 4)\n"
+        "        t1, _, _ = make_serve_step(cfg, ctx)(lp, {'tokens': "
+        "want[:, :1]}, c1, 4)\n"
+        "        assert torch.equal(t0, t1), (arch, rules)\n"
         "dist.destroy_process_group()\n"
         "assert 'jax' not in [m for m in sys.modules if sys.modules[m]]\n"
         "print('ok')\n")
@@ -258,9 +315,10 @@ def test_regc_train_path_raises_naming_13d(tmp_path):
     Trainer needs a mesh) and so do sharding contexts under the training
     rules (an ``inner_ctx`` whose rules name no dp axis too).  What still
     raises, before a checkpoint directory is made: what waits for item
-    13f (the serving rules' axes, ``gather_fsdp=False``, SSM layers and
-    ``adamw8bit`` under a ctx), the reference's two refusals of an
-    ``inner_ctx`` (a rule on a dp axis; ``moe_impl='ep'``) and, on the
+    13g (training under the serving rules' axes, ``gather_fsdp=False``,
+    SSM layers and ``adamw8bit`` under a ctx), the reference's two
+    refusals of an ``inner_ctx`` (a rule on a dp axis; ``moe_impl='ep'``)
+    and, on the
     one-process path, every sync policy but the default (which it would
     ignore), naming the regc path where the policy applies."""
     from repro_torch.configs import get_reduced
@@ -292,9 +350,9 @@ def test_regc_train_path_raises_naming_13d(tmp_path):
              TrainHParams(opt_impl="adamw8bit"), arch),
             (SH.ShardingCtx(mesh, SH.DEFAULT_RULES), TrainHParams(),
              "mamba2-2.7b")):
-        with pytest.raises(NotImplementedError, match="13f"):
+        with pytest.raises(NotImplementedError, match="13g"):
             make_train_step(get_reduced(arch), hp, ctx)
-        with pytest.raises(NotImplementedError, match="13f"):
+        with pytest.raises(NotImplementedError, match="13g"):
             Trainer(get_reduced(arch), hp, TrainerConfig(
                 ckpt_dir=str(tmp_path / "ck")), DataConfig(), ctx=ctx,
                 device="cpu")

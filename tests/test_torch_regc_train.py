@@ -334,7 +334,7 @@ def test_regc_training_csv_row(steps, tag):
 def test_regc_step_refusals():
     """The reference's refusals of an inner_ctx (tensor parallelism inside
     the RegC path) stand: rules naming a dp axis and moe_impl='ep' raise,
-    and what waits for 13f raises naming it; the step runs in a world of
+    and what waits for 13g raises naming it; the step runs in a world of
     one."""
     from repro_torch.launch.ranks import init_world
     from repro_torch.models import sharding as SH
@@ -351,11 +351,11 @@ def test_regc_step_refusals():
         make_train_step_regc(cfg, TrainHParams(), Shape(),
                              inner_ctx=SH.ShardingCtx(Shape(), no_dp,
                                                       moe_impl="ep"))
-    with pytest.raises(NotImplementedError, match="13f"):
+    with pytest.raises(NotImplementedError, match="13g"):
         make_train_step_regc(get_reduced("mamba2-2.7b"), TrainHParams(),
                              Shape(), inner_ctx=SH.ShardingCtx(Shape(),
                                                                no_dp))
-    with pytest.raises(NotImplementedError, match="13f"):
+    with pytest.raises(NotImplementedError, match="13g"):
         make_train_step_regc(cfg, TrainHParams(), Shape(),
                              inner_ctx=SH.ShardingCtx(
                                  Shape(), dict(no_dp, kv_seq=("model",))))

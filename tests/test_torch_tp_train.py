@@ -505,22 +505,26 @@ class _Shape:
 
 
 def test_sharded_refusals_name_13f():
+    """The training refusals that stay after serving under a ctx was
+    ported (ROADMAP 13f): the serving tables' axes in a training step,
+    ``gather_fsdp=False``, ``adamw8bit`` and SSM layers under a ctx now
+    name item 13g; an unknown ``moe_impl`` is a ``ValueError``."""
     cfg = get_reduced("internlm2-1.8b")
     mesh = _Shape(data=2, model=4)
     hp = T.TrainHParams()
     for rules in (SH.SERVE_RULES, SH.SMALL_SERVE_RULES, SH.DECODE_2D_RULES,
                   SH.LONG_CONTEXT_RULES, SH.LONG_2D_RULES,
                   SH.TRAIN_SP_RULES):
-        with pytest.raises(NotImplementedError, match="13f"):
+        with pytest.raises(NotImplementedError, match="13g"):
             T.make_train_step(cfg, hp, SH.ShardingCtx(mesh, rules))
-    with pytest.raises(NotImplementedError, match="13f"):
+    with pytest.raises(NotImplementedError, match="13g"):
         T.make_train_step(cfg, hp, SH.ShardingCtx(mesh, SH.DEFAULT_RULES,
                                                   gather_fsdp=False))
-    with pytest.raises(NotImplementedError, match="13f"):
+    with pytest.raises(NotImplementedError, match="13g"):
         T.make_train_step(cfg, T.TrainHParams(opt_impl="adamw8bit"),
                           SH.ShardingCtx(mesh, SH.DEFAULT_RULES))
     for arch in ("mamba2-2.7b", "jamba-1.5-large-398b"):
-        with pytest.raises(NotImplementedError, match="13f"):
+        with pytest.raises(NotImplementedError, match="13g"):
             T.make_train_step(get_reduced(arch), hp,
                               SH.ShardingCtx(mesh, SH.DEFAULT_RULES))
     with pytest.raises(ValueError, match="moe_impl"):
