@@ -195,7 +195,8 @@ Phases, in order; any mismatch or exception exits non-zero:
    tokens/s, peak device memory and a traced wave's device time by
    kernel (the eight largest, and the port's own kernels whatever their
    rank).  Then each model with depth cut to 1 layer (the only cut)
-   against the same weights on the CPU: MoE routes equal but for near
+   against the same weights on the CPU on its first wave (both waves
+   until the sp phase needed the time): MoE routes equal but for near
    ties within 1e-4 of router probability (counted; outputs after a
    route difference in a row not compared), teacher-forced logits within
    1e-3 and greedy tokens equal but for near ties.  grok-1-314b and
@@ -266,7 +267,7 @@ Phases, in order; any mismatch or exception exits non-zero:
    staged through the host, the peak memory a rank and the backend.
 9c. serve-tp phase (slice L): serving under a sharding context, the
    model phase's first wave of 4 requests left-padded to 496 tokens and
-   16 new ones (float32 caches of 512 positions), float32 parameters
+   8 new ones (float32 caches of 504 positions), float32 parameters
    drawn on the card from seed 0.  (a) internlm2-1.8b whole (24 layers)
    under ``SMALL_SERVE_RULES`` on mesh (2, 2) ("data", "model"): rows
    over data; q heads, vocabulary and the KV cache's positions over
@@ -289,6 +290,31 @@ Phases, in order; any mismatch or exception exits non-zero:
    collectives' bytes and messages (prefill; decode a token) by kind and
    axes, the bytes staged through the host, the peak memory a rank and
    the cache bytes a rank against one process.
+9d. sp phase (slice M): training under the serving half's mechanisms,
+   float32 parameters drawn on the card from seed 0, sequences of 1024,
+   remat "full", mesh (2, 2) ("data", "model").  (a) mamba2-2.7b at full
+   width, 2 of its 64 layers, ``TRAIN_SP_RULES`` (the residual saved at
+   each super-block boundary split over model, the SSD inner dim over
+   model, FSDP over data), ``adamw8bit``, a global batch of 4; (b)
+   internlm2-1.8b at full width, 1 of its 24 layers, ``DECODE_2D_RULES``
+   with ``gather_fsdp=False`` (batch whole; d_model over data; heads,
+   d_ff and vocabulary over model), AdamW, a global batch of 2.  Each
+   run's one-process ``make_train_step`` step first (its gradients to a
+   float32 file under ``build/``, the card freed), after 9c's
+   comparators; then the 4 ranks of 9c's (a) and (c), in the same start
+   and after serving, draw the same parameters a leaf at a time, keep
+   their blocks and take both sharded steps: loss within
+   1e-4, grad norm 1e-4 relative, every gradient block within 1e-3 of
+   its leaf's largest |value|, the sharded optimiser on the one-process
+   gradients against the one-process optimiser on the same gradients
+   and square norm ((a): int8 codes and scales bit-equal; (b): within
+   1e-6), every block held by several ranks bit-equal, each checkpoint
+   of (a) saving 512 of the 1024 positions, no parameter gathered in
+   (b), ssd_chunk launched 4 times a rank in (a) and flash_attention 2
+   in (b) (forward and remat).  Prints a rank's step wall and peak
+   memory and the one process's, the collectives' bytes and messages by
+   kind and axes, the bytes staged through the host and the optimiser
+   state's bytes a rank against AdamW's.
 
 TF32 is off for every float comparison (printed at the start).  The
 launch counters are set to 0 just before each of the path phases (the
@@ -351,9 +377,14 @@ FLASH_TP_SHAPES = (("moonshot-v1-16b-a3b tp rank", (2, 8, 8, 1024, 128)),)
 FLASH_SERVE_TP_SHAPES = (
     ("internlm2-1.8b serve-tp rank", (2, 8, 4, 496, 128)),
     ("llama3-405b serve-tp rank", (4, 64, 4, 496, 128)))
-# and ssd_chunk's: (b) mamba2-2.7b's 40 of 80 heads a rank, 4 rows of 2
-# chunks of 256 (S = 496 padded), one B/C row per 40 heads
-SSD_SERVE_TP_SHAPE = ("mamba2-2.7b serve-tp rank", (320, 256, 64, 128, 40))
+# phase 9d's shape a rank: (b) internlm2-1.8b, both rows of 1024, 8 of
+# its 16 q heads reading 4 of its 8 kv heads
+FLASH_SP_SHAPES = (("internlm2-1.8b sp rank", (2, 8, 4, 1024, 128)),)
+# and ssd_chunk's: 9c's (b) mamba2-2.7b's 40 of 80 heads a rank, 4 rows of
+# 2 chunks of 256 (S = 496 padded), one B/C row per 40 heads; 9d's (a)
+# the same cells: 2 rows of 4 chunks of 256, 40 heads
+SSD_SERVE_TP_SHAPE = ("mamba2-2.7b serve-tp and sp rank",
+                      (320, 256, 64, 128, 40))
 TPU_KERNELS = {
     "pack_rows": "src/repro/kernels/protocol_sweep.py:134",
     "popcount_rows": "src/repro/kernels/protocol_sweep.py:232",
@@ -1406,7 +1437,9 @@ def model_kernel_phase(torch, np, dev):
     two (``FLASH_REGC_SHAPES``, float32, S = 2048) and at a rank's of the
     tp phase (``FLASH_TP_SHAPES``, float32, S = 1024) and at a rank's of
     the serve-tp phase (``FLASH_SERVE_TP_SHAPES``, float32, S = 496; SSD
-    at ``SSD_SERVE_TP_SHAPE``).  Timed at the first
+    at ``SSD_SERVE_TP_SHAPE``, also the sp phase's) and at a rank's of
+    the sp phase (``FLASH_SP_SHAPES``, float32, S = 1024).  Timed at the
+    first
     shapes (and in bfloat16, per cell, and at each model, train and regc
     shape); the library yardstick of
     attention is scaled_dot_product_attention (timed, used nowhere in the
@@ -1426,7 +1459,8 @@ def model_kernel_phase(torch, np, dev):
     model_cases = [(f"{arch} prefill", shape)
                    for arch, shape in FLASH_MODEL_SHAPES] + [
                        FLASH_TRAIN_SHAPE, *FLASH_REGC_SHAPES,
-                       *FLASH_TP_SHAPES, *FLASH_SERVE_TP_SHAPES]
+                       *FLASH_TP_SHAPES, *FLASH_SERVE_TP_SHAPES,
+                       *FLASH_SP_SHAPES]
     cases += [(label, shape, f32, {}) for label, shape in model_cases]
     errs, timed = [], {}
     for label, (B, Hq, Hkv, S, D), dtype, kw in cases:
@@ -1861,7 +1895,8 @@ def model_phase(torch, np):
     token.  Then the same model with depth cut to 1 layer (width and
     every other setting full), parameters drawn on the card from seed 0
     and copied to the CPU: served on the card, then held against the CPU
-    by ``twin_compare`` (logits within 1e-3: float32 sums of up to 29568
+    on its first wave by ``twin_compare`` (logits within 1e-3: float32
+    sums of up to 29568
     terms in another order on each side, through two layers and the LM
     head; MoE routes equal but for near ties).
     (b) Each of ``reduced`` (grok-1-314b; jamba-1.5-large-398b, where MoE
@@ -1948,8 +1983,11 @@ def model_phase(torch, np):
                                     batch, max_new)
         t0 = time.perf_counter()
         cpu_params = to_device(params, "cpu")
+        # a full-width twin against the CPU on its first wave: the second
+        # repeats the mechanism and doubled the CPU's share of the phase
+        n_cmp = 1 if twin_depth is not None else len(prompts)
         err, ties, routes = twin_compare(torch, np, cfg, params, cpu_params,
-                                         prompts, tokens)
+                                         prompts[:n_cmp], tokens[:n_cmp])
         twin_s = time.perf_counter() - t0
         print(f"model {arch} width {cfg.d_model}, {cfg.n_layers} layers: "
               f"card vs CPU logits max abs err {err:.3e} (tol {TWIN_TOL}), "
@@ -3120,8 +3158,21 @@ SERVE_TP_RUNS = (
     ("c", "llama3-405b", 1, "DECODE_2D_RULES", False, (2, 2)))
 SERVE_TP_AXES = ("data", "model")
 # the model phase's first wave of 4 requests (seed 0), left-padded to 496
-# tokens, and 16 new ones: caches of max_len 512, which 2 and 4 divide
-SERVE_TP_B, SERVE_TP_S, SERVE_TP_NEW = 4, 496, 16
+# tokens, and 8 new ones (16 until the sp phase needed the time): caches
+# of max_len 504, which 2 and 4 divide
+SERVE_TP_B, SERVE_TP_S, SERVE_TP_NEW = 4, 496, 8
+# phase 9d, in the start of 9c's ranks on its mesh (2, 2):
+# (tag, arch, depth, rules, gather_fsdp, optimiser, global batch), all on
+# a (2, 2) ("data", "model") mesh, sequences of 1024, remat "full":
+# (a) mamba2-2.7b at full width, 2 of its 64 layers, TRAIN_SP_RULES
+# (seq_sp and ssm_in over model, FSDP over data), adamw8bit, 4 rows;
+# (b) internlm2-1.8b at full width, 1 of its 24 layers, DECODE_2D_RULES
+# with gather_fsdp=False (batch whole; d_model over data; heads, d_ff
+# and vocabulary over model; no weight gathered), AdamW, 2 rows
+SP_RUNS = (("a", "mamba2-2.7b", 2, "TRAIN_SP_RULES", True, "adamw8bit", 4),
+           ("b", "internlm2-1.8b", 1, "DECODE_2D_RULES", False, "adamw", 2))
+SP_SHAPE, SP_SEQ = (2, 2), 1024
+SP_AXES = ("data", "model")
 
 
 def serve_tp_prompt(np, cfg, B=SERVE_TP_B, S=SERVE_TP_S):
@@ -3129,7 +3180,8 @@ def serve_tp_prompt(np, cfg, B=SERVE_TP_B, S=SERVE_TP_S):
     seed 0, prompts under 512 tokens), left-padded with token 0 to ``S``
     (a longer one would keep its last ``S``): a (B, S) int32 array."""
     from repro_torch.launch.serve import make_requests
-    reqs = make_requests(cfg.vocab_size, 2 * B, 528, SERVE_TP_NEW, 0)[:B]
+    # the model phase's requests: their max_new of 16 sets the lengths
+    reqs = make_requests(cfg.vocab_size, 2 * B, 528, 16, 0)[:B]
     toks = np.zeros((B, S), np.int32)
     for j, p in enumerate(reqs):
         p = p[-S:]
@@ -3233,7 +3285,7 @@ def serve_tp_one_process(torch, np, cfg, toks, logits_path, device):
     return out
 
 
-def serve_tp_rank(runs, shape, work, ones, device):
+def serve_tp_rank(runs, shape, work, ones, device, sp=None):
     """One rank of phase 9c, for each of ``runs`` (tag, config, rules,
     gather_fsdp, prompt) on the mesh ``shape`` in turn: the seeded
     parameters drawn a leaf at a time, one rank after another (one whole
@@ -3242,8 +3294,10 @@ def serve_tp_rank(runs, shape, work, ones, device):
     one-process tokens (``ones[tag]``); checked against the one-process
     logits (a float32 file of ``work``) and tokens, the other ranks'
     tokens, the cache blocks, the parameter gathers (none under the
-    no-regather tables) and the launches.  Returns the rows by tag;
-    raises if a check failed."""
+    no-regather tables) and the launches; then, with ``sp`` = (runs,
+    comparators) on phase 9d's mesh, its runs in the same start
+    (``sp_rank_run``).  Returns (the rows by tag, phase 9d's rows by tag
+    or None); raises if a check failed."""
     import torch
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_host_mesh
@@ -3257,7 +3311,13 @@ def serve_tp_rank(runs, shape, work, ones, device):
         rows[tag] = serve_tp_rank_run(cfg, rules, gather_fsdp, mesh, toks,
                                       Path(work) / f"logits_{tag}.npy",
                                       ones[tag], dev)
-    return rows
+    if sp is None:
+        return rows, None
+    sp_runs, sp_ones = sp
+    return rows, {tag: sp_rank_run(tag, cfg, rules, gf, opt_impl, batch, mesh,
+                                   Path(work) / f"grads_sp_{tag}.npy",
+                                   sp_ones[tag], dev)
+                  for tag, cfg, rules, gf, opt_impl, batch in sp_runs}
 
 
 def serve_tp_rank_run(cfg, rules, gather_fsdp, mesh, toks, logits_path,
@@ -3365,20 +3425,26 @@ def serve_tp_rank_run(cfg, rules, gather_fsdp, mesh, toks, logits_path,
 
 
 def serve_tp_phase(torch, np, card, device="cuda", runs=SERVE_TP_RUNS,
-                   configs=None):
-    """Phase 9c (see the module's note).  The runs on one mesh share one
-    start of their ranks: each run's one-process comparator first (each
-    freeing the card), then the ranks serve the runs in turn.  Returns
-    (rows, the serve-tp path's launches: the ranks' prefills').
-    ``device="cpu"`` with ``configs`` (tag -> a small config) rehearses
-    it on the CPU."""
+                   configs=None, sp_runs=SP_RUNS, sp_configs=None,
+                   sp_seq=SP_SEQ):
+    """Phases 9c and 9d (see the module's note).  The runs on one mesh
+    share one start of their ranks: each run's one-process comparator
+    first (each freeing the card), then the ranks serve the runs in
+    turn; on phase 9d's mesh they then take its sharded steps
+    (``sp_runs``; none when empty).  Returns (rows, the serve-tp path's
+    launches: the ranks' prefills', phase 9d's rows and the sp path's
+    launches).  ``device="cpu"`` with ``configs`` and ``sp_configs``
+    (tag -> a small config) and a short ``sp_seq`` rehearses it on the
+    CPU."""
     import gc
     import shutil
     from repro_torch.configs import get_config
     from repro_torch.launch.ranks import spawn_ranks
     card_run = torch.device(device).type == "cuda"
-    out, launches = {}, {}
+    out, launches, sp_out, sp_launches = {}, {}, {}, {}
     shapes = list(dict.fromkeys(shape for *_, shape in runs))
+    if sp_runs and SP_SHAPE not in shapes:
+        raise ValueError(f"phase 9d's mesh {SP_SHAPE} is none of 9c's")
     for shape in shapes:
         group = [r for r in runs if r[-1] == shape]
         work = ROOT / "build" / "serve_tp_smoke"
@@ -3399,21 +3465,29 @@ def serve_tp_phase(torch, np, card, device="cuda", runs=SERVE_TP_RUNS,
                                              device)
             one_s[tag] = time.perf_counter() - t0
             plan.append((tag, cfg, rules, gf, toks))
+        sp = None
+        if sp_runs and shape == SP_SHAPE:
+            sp = sp_comparators(torch, np, sp_runs, work, device,
+                                sp_configs, sp_seq)
         if card_run:
             gc.collect()
             torch.cuda.empty_cache()
             parent = (torch.cuda.memory_allocated(),
                       torch.cuda.memory_reserved())
         t0 = time.perf_counter()
-        ranks = spawn_ranks(
+        got = spawn_ranks(
             int(np.prod(shape)), "chip_smoke:serve_tp_rank",
             (plan, shape, str(work),
              {t: {"digest": o["digest"], "tokens": o["tokens"]}
-              for t, o in ones.items()}, device),
+              for t, o in ones.items()}, device, sp and sp[:2]),
             backend="gloo", init_method=f"file://{work / 'store'}",
-            timeout_s=600)
+            timeout_s=900)
         ranks_s = time.perf_counter() - t0
         shutil.rmtree(work, ignore_errors=True)
+        ranks = [r for r, _ in got]
+        if sp is not None:
+            sp_out, sp_launches = sp_report(sp, [r for _, r in got],
+                                            ranks_s, card)
         print(f"serve-tp {[t for t, *_ in plan]}: {len(ranks)} ranks on "
               f"{ranks[0][plan[0][0]]['device']} over gloo, "
               f"{dict(zip(SERVE_TP_AXES, shape))}, {ranks_s:.1f} s with "
@@ -3465,8 +3539,386 @@ def serve_tp_phase(torch, np, card, device="cuda", runs=SERVE_TP_RUNS,
             out[tag] = {"one_process": one, "ranks": rows,
                         "one_s": one_s[tag], "ranks_s": ranks_s,
                         "mesh": list(shape)}
-    return out, launches
+    return out, launches, sp_out, sp_launches
 
+
+# ---------------------------------------------------------------------------
+# phase 9d: training under the serving half's mechanisms (slice M)
+# ---------------------------------------------------------------------------
+
+
+
+def sp_hp(opt_impl, seq=SP_SEQ):
+    from repro_torch.train.train_step import TrainHParams
+    return TrainHParams(lr=3e-4, warmup=2, total_steps=100, remat="full",
+                        ce_chunk=min(1024, seq), opt_impl=opt_impl)
+
+
+def sp_zero_state(torch, cfg, ctx, params, opt_impl):
+    """This rank's blocks of the zero optimiser state, laid out as
+    ``sharding.opt_shardings`` lays it out, made on the blocks (no whole
+    leaf): AdamW's moments as the parameters' blocks; the int8 codes as
+    the parameter's block and the scales as their own spec's."""
+    from repro_torch.models import sharding as SH
+    from repro_torch.models.model import param_specs
+    from repro_torch.optim.adamw import init_opt_state
+    from repro_torch.optim.quantized import scale_shape
+    from repro_torch.utils.tree import tree_leaves, tree_unflatten
+    if opt_impl == "adamw":
+        return init_opt_state(params)
+    out = []
+    for s, p in zip(SH.spec_leaves(param_specs(cfg)), tree_leaves(params)):
+        sc = ctx.block_shape(scale_shape(s.shape), SH.q8_specs(s, ctx)[1])
+        out.append({"m_q": torch.zeros_like(p, dtype=torch.int8),
+                    "m_s": torch.zeros(sc, device=p.device),
+                    "v_q": torch.zeros_like(p, dtype=torch.int8),
+                    "v_s": torch.zeros(sc, device=p.device)})
+    return tree_unflatten(params, out)
+
+
+def sp_one_process(torch, np, cfg, hp, batch, grads_path, device):
+    """The comparator of a phase 9d run: the one-process ``make_train_step``
+    step from the seeded parameters on the card; its gradients written to
+    the float32 file ``grads_path`` (one vector, leaves in order), its
+    scalars, per-leaf largest |gradient|, digest, wall and peak returned,
+    and the card freed."""
+    from repro_torch.models.model import init_model_params
+    from repro_torch.optim.adamw import init_opt_state
+    from repro_torch.optim.quantized import init_opt_state_q8
+    from repro_torch.train import train_step as T
+    from repro_torch.utils.tree import tree_leaves
+    card_run = torch.device(device).type == "cuda"
+    tbatch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    params = init_model_params(
+        cfg, torch.Generator(device=device).manual_seed(0), device=device)
+    out = {"digest": tree_digest(torch, params).tolist(),
+           "sizes": [p.numel() for p in tree_leaves(params)]}
+    opt = (init_opt_state_q8(params) if hp.opt_impl == "adamw8bit"
+           else init_opt_state(params))
+    if card_run:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    new_p, new_o, m, grads = T.make_train_step(cfg, hp)(
+        params, opt, tbatch, 0, with_grads=True)
+    out.update(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+               lr=float(m["lr"]), wall_s=time.perf_counter() - t0)
+    out["peak"] = torch.cuda.max_memory_allocated() if card_run else None
+    out["opt_bytes"] = sum(t.numel() * t.element_size()
+                           for t in tree_leaves(new_o))
+    del new_p, new_o, opt
+    out["grad_max"] = [float(g.abs().max()) for g in tree_leaves(grads)]
+    t0 = time.perf_counter()
+    f = np.lib.format.open_memmap(grads_path, mode="w+", dtype=np.float32,
+                                  shape=(sum(out["sizes"]),))
+    off = 0
+    for leaf in tree_leaves(grads):
+        n = leaf.numel()
+        f[off:off + n] = leaf.reshape(-1).cpu().numpy()
+        off += n
+    del f, grads, params
+    out["write_s"] = time.perf_counter() - t0
+    if card_run:
+        torch.cuda.empty_cache()
+    return out
+
+
+def sp_saved_positions(torch, cfg, hp, ctx, params, tbatch, seq):
+    """The positions of the residual each checkpoint of the loss's
+    forward saves (a forward alone, under ``hp.remat``): the dim 1 of
+    every saved tensor of this rank's (rows, *, d_model) shape whose
+    positions are the sequence's or a block of it."""
+    from repro_torch.models.model import loss_fn
+    from repro_torch.train import train_step as T
+    from repro_torch.utils.tree import tree_leaves, tree_unflatten
+    layout = T.batch_layout(cfg, ctx, tbatch)
+    rows = tbatch["targets"].shape[0] // layout.n_blocks
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    saved = []
+
+    def pack(t):
+        if t.dim() == 3 and t.shape[0] == rows \
+                and t.shape[2] == cfg.d_model and seq % t.shape[1] == 0:
+            saved.append(int(t.shape[1]))
+        return t
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        loss_fn(cfg, tree_unflatten(params, leaves),
+                T.local_rows(cfg, tbatch, layout), attn_impl=hp.attn_impl,
+                remat=hp.remat, ce_chunk=hp.ce_chunk, layout=layout)
+    return saved
+
+
+def sp_rank_run(tag, cfg, rules, gather_fsdp, opt_impl, batch, mesh,
+                grads_path, one, dev):
+    """One run of ``sp_rank``: the seeded parameters drawn a leaf at a
+    time and cut to this rank's blocks; the sharded step under the run's
+    ctx from the zero optimiser state; checked against the one-process
+    step (loss, grad norm, gradient blocks from ``grads_path``), the
+    sharded optimiser on the one-process gradients against the
+    one-process optimiser on them (int8 codes and scales bit-equal, or
+    AdamW within ``TRAIN_OPT_TOL``), the replicas, the saved boundary's
+    positions (``seq_sp``), the parameter gathers (none without
+    ``gather_fsdp``) and the launches.  Returns the row."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.models import collectives as C
+    from repro_torch.models import sharding as SH
+    from repro_torch.models.model import param_specs
+    from repro_torch.models.params import init_param
+    from repro_torch.optim.adamw import adamw_update, init_opt_state
+    from repro_torch.optim.quantized import (adamw8bit_update,
+                                             init_opt_state_q8)
+    from repro_torch.train import train_step as T
+    from repro_torch.utils.tree import (tree_flatten, tree_leaves,
+                                        tree_unflatten)
+    t_start = time.perf_counter()
+    card_run = dev.type == "cuda"
+    rank, world = dist.get_rank(), dist.get_world_size()
+    ctx = SH.ShardingCtx(mesh, getattr(SH, rules), gather_fsdp=gather_fsdp)
+    hp = sp_hp(opt_impl, batch["targets"].shape[1])
+    specs = T.leaf_specs(cfg, ctx)
+    pspecs = SH.spec_leaves(param_specs(cfg))
+    offs = np.cumsum([0] + one["sizes"])
+    gen = torch.Generator(device=dev).manual_seed(0)
+    blocks, digest = [], []
+    for pspec, spec in zip(pspecs, specs):
+        leaf = init_param(pspec, gen, torch.float32)
+        digest.append(leaf_digest(torch, leaf))
+        blocks.append(SH.owned_block(leaf, spec, mesh))
+        del leaf
+    if torch.cat(digest).tolist() != one["digest"]:
+        raise AssertionError(f"rank {rank}: parameters differ from the "
+                             "one-process step's")
+    params = tree_unflatten(param_specs(cfg), blocks)
+    del blocks
+    if card_run:
+        torch.cuda.empty_cache()
+    tbatch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    opt = sp_zero_state(torch, cfg, ctx, params, opt_impl)
+    opt_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(opt))
+    adamw_bytes = 8 * sum(t.numel() for t in tree_leaves(params))
+    if card_run:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    setup_s = time.perf_counter() - t_start
+    reset_counters()
+    C.reset_collectives()
+    t0 = time.perf_counter()
+    p2, o2, m, g = T.make_train_step(cfg, hp, ctx)(params, opt, tbatch, 0,
+                                                   with_grads=True)
+    loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) if card_run else None
+    launched = read_counters()
+    coll = {f"{k} {'x'.join(a)}": (C.COLLECTIVE_BYTES[(k, a)],
+                                   C.COLLECTIVE_MSGS[(k, a)])
+            for k, a in sorted(C.COLLECTIVE_BYTES)}
+    staged, gathers = dict(C.STAGED), dict(C.PARAM_GATHERS)
+    t_check = time.perf_counter()
+    row = {"rank": rank, "device": str(dev), "wall_s": wall,
+           "setup_s": setup_s, "loss": loss, "grad_norm": gnorm,
+           "loss_err": abs(loss - one["loss"]),
+           "grad_norm_rel_err": abs(gnorm - one["grad_norm"])
+           / one["grad_norm"], "collectives": coll, "staged": staged,
+           "param_gathers": gathers, "peak": peak, "launches": launched,
+           "opt_bytes": opt_bytes, "adamw_bytes": adamw_bytes}
+    # every block held by several ranks: the same bits on each
+    ospecs = SH.spec_leaves(SH.opt_shardings(param_specs(cfg), ctx,
+                                             opt_impl))
+    mine = tree_digest(torch, [p2, o2, g])
+    theirs = [torch.zeros_like(mine) for _ in range(world)]
+    dist.all_gather(theirs, mine)
+    keys = [[tuple(mesh.block_index(SH.entry_axes(e), r) if e else 0
+                   for e in spec) for r in range(world)]
+            for spec in specs + ospecs + specs]
+    row["replicas_equal"] = all(
+        torch.equal(theirs[r][2 * j:2 * j + 2], mine[2 * j:2 * j + 2])
+        for j, ks in enumerate(keys) for r in range(world)
+        if ks[r] == ks[rank])
+    del p2, o2
+    # the gradient blocks against the one-process step's
+    grads_f = np.load(grads_path, mmap_mode="r")
+
+    def whole(i):
+        return grads_f[offs[i]:offs[i + 1]].reshape(pspecs[i].shape)
+
+    def block(i, spec):
+        a = whole(i)
+        for dim, e in enumerate(spec):
+            axes = SH.entry_axes(e)
+            if axes:
+                n = a.shape[dim] // mesh.size(axes)
+                a = np.take(a, range(mesh.block_index(axes) * n,
+                                     (mesh.block_index(axes) + 1) * n),
+                            axis=dim)
+        return torch.from_numpy(np.array(a)).to(dev)
+    worst, ref_blocks = (0.0, None), []
+    for i, ((k, leaf), spec) in enumerate(zip(tree_flatten(g), specs)):
+        want = block(i, spec)
+        e = float((leaf - want).abs().max()) / max(one["grad_max"][i],
+                                                    1e-30)
+        if e > worst[0]:
+            worst = (e, k)
+        ref_blocks.append(want)
+    row.update(grad_err=worst[0], grad_err_leaf=worst[1])
+    ref_grads = tree_unflatten(g, ref_blocks)
+    del g, ref_blocks
+    # the sharded optimiser on the one-process gradients against the
+    # one-process optimiser on the same gradients and square norm, a
+    # leaf at a time (elementwise given the clip's scale; a whole leaf on
+    # the card at once)
+    lr = torch.tensor(one["lr"], dtype=torch.float32, device=dev)
+    sq = T.sharded_sq_norm(ref_grads, specs, mesh)
+    q8 = T.q8_shards(cfg, ctx) if opt_impl == "adamw8bit" else None
+    q2, qo, _ = T.apply_sharded_update(params, ref_grads, opt, 0, lr, hp,
+                                       specs, mesh, q8)
+    row["opt_err"] = 0.0
+    if opt_impl == "adamw8bit":
+        row["opt_bits_equal"] = True
+        state = tree_leaves(qo)
+        for i, (pspec, spec) in enumerate(zip(pspecs, specs)):
+            full_g = torch.from_numpy(np.array(whole(i))).to(dev)
+            zero = torch.zeros_like(full_g)
+            _, st, _ = adamw8bit_update([zero], [full_g],
+                                        init_opt_state_q8([zero]), 0, lr,
+                                        hp.adamw, sq_norm=sq)
+            del full_g, zero
+            got = state[4 * i:4 * i + 4]        # m_q, m_s, v_q, v_s
+            sspec = SH.q8_specs(pspec, ctx)
+            for (name, want), t in zip(sorted(st[0].items()), got):
+                sp = sspec[0] if name.endswith("_q") else sspec[1]
+                want_b = SH.local_block(want, sp, mesh)
+                if not torch.equal(want_b, t):
+                    row["opt_bits_equal"] = False
+                    row["opt_err"] = max(row["opt_err"], float(
+                        (want_b.float() - t.float()).abs().max()))
+            del st
+    else:
+        norm = torch.sqrt(sq)
+        scale = torch.clamp(hp.adamw.clip_norm / torch.clamp(norm, min=1e-12),
+                            max=1.0)
+        no_clip = dataclasses.replace(hp.adamw, clip_norm=None)
+        for p_, g_, got in zip(tree_leaves(params), tree_leaves(ref_grads),
+                               tree_leaves(q2)):
+            want_p = adamw_update([p_], [g_ * scale], init_opt_state([p_]),
+                                  0, lr, no_clip)[0][0]
+            row["opt_err"] = max(row["opt_err"], float(
+                (got - want_p).abs().max()))
+            del want_p
+    del q2, qo, ref_grads, grads_f
+    # the residual each checkpoint saves: this rank's block of positions
+    # over the seq_sp axes
+    seq = batch["targets"].shape[1]
+    row["saved_positions"] = sp_saved_positions(torch, cfg, hp, ctx, params,
+                                                tbatch, seq)
+    layout = T.batch_layout(cfg, ctx, tbatch)
+    row["sp_block"] = seq // (mesh.size(layout.sp_axes) if layout.sp_axes
+                              else 1)
+    del params, opt
+    if card_run:
+        torch.cuda.empty_cache()
+    row["check_s"] = time.perf_counter() - t_check
+    n = layer_counts(cfg)
+    expect = {k: 2 * v if card_run else 0 for k, v in n.items()}
+    # under seq_sp nothing else saves (rows, S / n, d_model)
+    saved_ok = not layout.sp_axes or (row["saved_positions"].count(
+        row["sp_block"]) == cfg.n_superblocks)
+    failed = [what for what, ok in (
+        ("loss", np.isfinite(loss) and row["loss_err"] <= TRAIN_LOSS_TOL),
+        ("grad norm", row["grad_norm_rel_err"] <= TRAIN_NORM_RTOL),
+        ("gradients", row["grad_err"] <= TRAIN_GRAD_TOL),
+        ("optimiser", row.get("opt_bits_equal", True)
+         and row["opt_err"] <= TRAIN_OPT_TOL),
+        ("replicas", row["replicas_equal"]),
+        ("saved boundary", saved_ok),
+        ("parameter gathers", gather_fsdp or not gathers["messages"]),
+        ("launches", all(launched[k] == v for k, v in expect.items())))
+        if not ok]
+    if failed:
+        raise AssertionError(f"rank {rank} ({tag}): {failed} failed; row "
+                             f"{row}")
+    row["run_s"] = time.perf_counter() - t_start
+    return row
+
+
+def sp_comparators(torch, np, runs, work, device, configs=None, seq=SP_SEQ):
+    """Phase 9d's one-process steps, one a run (its gradients to
+    ``work``'s ``grads_sp_<tag>.npy``, the card freed after each): the
+    runs as the ranks take them, their comparators and walls."""
+    import gc
+    from repro_torch.configs import get_config
+    card_run = torch.device(device).type == "cuda"
+    plan, ones, one_s = [], {}, {}
+    for tag, arch, depth, rules, gf, opt_impl, B in runs:
+        cfg = (configs or {}).get(tag) or dataclasses.replace(
+            get_config(arch), n_layers=depth)
+        batch = train_batch(np, cfg, B, seq)
+        t0 = time.perf_counter()
+        ones[tag] = sp_one_process(torch, np, cfg, sp_hp(opt_impl, seq),
+                                   batch, work / f"grads_sp_{tag}.npy",
+                                   device)
+        one_s[tag] = time.perf_counter() - t0
+        plan.append((tag, cfg, rules, gf, opt_impl, batch))
+        if card_run:
+            gc.collect()
+            torch.cuda.empty_cache()
+    return plan, ones, one_s
+
+
+def sp_report(sp, ranks, ranks_s, card):
+    """Phase 9d's lines from the comparators ``sp`` (``sp_comparators``)
+    and the ranks' rows: (rows, the sp path's launches: the ranks'
+    steps')."""
+    plan, ones, one_s = sp
+    out, launches = {}, {}
+    walls = [sum(r[t]["run_s"] for t in r) for r in ranks]
+    print(f"sp {[t for t, *_ in plan]}: {len(ranks)} ranks on "
+          f"{ranks[0][plan[0][0]]['device']} over gloo in serve-tp's start, "
+          f"{dict(zip(SP_AXES, SP_SHAPE))}; the runs "
+          f"{max(walls):.1f} s a rank (the start and serving: "
+          f"{ranks_s - max(walls):.1f} s), the comparators "
+          f"{sum(one_s.values()):.1f} s; {card}", flush=True)
+    for tag, cfg, rules, gf, opt_impl, batch in plan:
+        rows = [r[tag] for r in ranks]
+        one, r0 = ones[tag], rows[0]
+        for r in rows:
+            for k, v in r["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        B, S = batch["targets"].shape
+        print(f"sp ({tag}) {cfg.name} width {cfg.d_model}, {cfg.n_layers} "
+              f"layers ({cfg.param_count()} params, f32), mesh "
+              f"{dict(zip(SP_AXES, SP_SHAPE))} {rules} gather_fsdp={gf}, "
+              f"{opt_impl}, global batch {B} x {S}, remat full: one-process "
+              f"step {one['wall_s']:.3f} s, peak {one['peak']} B, optimiser "
+              f"state {one['opt_bytes']} B, gradients to the host file "
+              f"{one['write_s']:.1f} s (with set-up {one_s[tag]:.1f} s); "
+              f"{card}", flush=True)
+        print(f"sp ({tag}) ranks: step wall "
+              f"{[round(r['wall_s'], 3) for r in rows]} s (set-up "
+              f"{r0['setup_s']:.1f} s, checks {r0['check_s']:.1f} s), loss "
+              f"{r0['loss']:.6f} (one-process {one['loss']:.6f}, err "
+              f"{max(r['loss_err'] for r in rows):.3e}), grad norm rel err "
+              f"{max(r['grad_norm_rel_err'] for r in rows):.3e}, worst "
+              f"gradient leaf {r0['grad_err_leaf']} "
+              f"{max(r['grad_err'] for r in rows):.3e} of its largest value, "
+              f"{opt_impl} on the one-process gradients: bits equal "
+              f"{all(r.get('opt_bits_equal', True) for r in rows)}, err "
+              f"{max(r['opt_err'] for r in rows):.3e}; replicas equal "
+              f"{all(r['replicas_equal'] for r in rows)}; saved boundary "
+              f"positions {sorted(set(r0['saved_positions']))} (block "
+              f"{r0['sp_block']} of {S}); parameters gathered "
+              f"{r0['param_gathers']}; peak {[r['peak'] for r in rows]} B a "
+              f"rank; optimiser state {r0['opt_bytes']} B a rank (AdamW's "
+              f"{r0['adamw_bytes']} B); launches "
+              f"{model_launches(r0['launches'])} a rank; backend gloo",
+              flush=True)
+        print(f"sp ({tag}) a rank's collectives (bytes, messages): "
+              f"{r0['collectives']}, staged {r0['staged']}", flush=True)
+        out[tag] = {"one_process": {k: v for k, v in one.items()
+                                    if k not in ("digest",)},
+                    "ranks": rows, "one_s": one_s[tag], "ranks_s": ranks_s}
+    return out, launches
 
 # ---------------------------------------------------------------------------
 # main-path phase
@@ -5041,8 +5493,8 @@ def main() -> int:
     trains, train_launches = phase("train", train_phase, torch, np, card)
     regcs, regc_launches = phase("regc", regc_phase, torch, np, card)
     tps, tp_launches = phase("tp", tp_phase, torch, np, card)
-    serve_tps, serve_tp_launches = phase("serve-tp", serve_tp_phase, torch,
-                                         np, card)
+    serve_tps, serve_tp_launches, sps, sp_launches = phase(
+        "serve-tp and sp", serve_tp_phase, torch, np, card)
 
     total = {k: launches[k] + spill_launches[k] + span_launches[k]
              + race_launches[k] + serve_launches[k] + recovery_launches[k]
@@ -5051,7 +5503,8 @@ def main() -> int:
     total.update(model_launches)
     for k, v in (list(train_launches.items()) + list(regc_launches.items())
                  + list(tp_launches.items())
-                 + list(serve_tp_launches.items())):
+                 + list(serve_tp_launches.items())
+                 + list(sp_launches.items())):
         total[k] = total.get(k, 0) + v
     table = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[SOURCE_OF[name]],
@@ -5068,6 +5521,7 @@ def main() -> int:
     print(f"launches on the regc path: {regc_launches}", flush=True)
     print(f"launches on the tp path: {tp_launches}", flush=True)
     print(f"launches on the serve-tp path: {serve_tp_launches}", flush=True)
+    print(f"launches on the sp path: {sp_launches}", flush=True)
     print(f"launches on the span path: {span_launches}", flush=True)
     print(f"launches on the race path: {race_launches}", flush=True)
     print(f"launches on the serving path: {serve_launches}", flush=True)
@@ -5089,6 +5543,7 @@ def main() -> int:
          "regc": regcs, "launches_regc": regc_launches,
          "tp": tps, "launches_tp": tp_launches,
          "serve_tp": serve_tps, "launches_serve_tp": serve_tp_launches,
+         "sp": sps, "launches_sp": sp_launches,
          "victim_scans": [[L, k, n] for (L, k), (n, _) in scans.items()],
          "launches_main": launches, "launches_span": span_launches,
          "launches_race": race_launches,

@@ -14,8 +14,18 @@ constraints, and ``moe_block_ep`` has one ``lax.psum``).
   of the gradient summed over ``sum_axes`` (the FSDP gather's
   reduce-scatter: the data ranks' shares of a weight's gradient summed
   exactly once);
+* ``shared_sum(x, axes, mesh)``: the sum over ``axes`` in both
+  directions, forward and backward (a sum of squares that each rank
+  then applies to its own block of the activations: ``all_reduce``
+  then ``copy_to``);
+* ``seq_block(x, dim, axes, mesh)``: forward this rank's block of
+  ``dim`` over ``axes`` (a copy of its own), backward the gradient's
+  blocks all-gathered (the sequence-parallel boundary of a saved
+  residual; the next super-block gathers it with ``all_gather`` and
+  empty ``sum_axes``, whose backward takes the own block);
 * ``all_reduce_max(x, axes, mesh)``: the max, no gradient (the
-  distributed logsumexp's shift);
+  distributed logsumexp's shift, the int8 state's absmax of a block
+  that spans ranks);
 * ``gather_full(t, spec, mesh)``: every sharded dim of ``t`` gathered,
   no gradient (checkpoints and checks);
 * ``reduce(x, axes, mesh, op)`` and ``gather(x, dim, axes, mesh)``: the
@@ -160,6 +170,18 @@ class _CopyTo(torch.autograd.Function):
         return reduce(g, ctx.axes, ctx.mesh), None, None
 
 
+class _SeqBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, axes, mesh):
+        ctx.dim, ctx.axes, ctx.mesh = dim, axes, mesh
+        return own_block(x, dim, axes, mesh).clone(
+            memory_format=torch.contiguous_format)
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather(g, ctx.dim, ctx.axes, ctx.mesh), None, None, None
+
+
 class _AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, axes, mesh, sum_axes):
@@ -188,6 +210,17 @@ def copy_to(x: torch.Tensor, axes, mesh) -> torch.Tensor:
     if not axes or mesh.size(axes) == 1:
         return x
     return _CopyTo.apply(x, axes, mesh)
+
+
+def shared_sum(x: torch.Tensor, axes, mesh) -> torch.Tensor:
+    return copy_to(all_reduce(x, axes, mesh), axes, mesh)
+
+
+def seq_block(x: torch.Tensor, dim: int, axes, mesh) -> torch.Tensor:
+    axes = _axes(axes)
+    if not axes or mesh.size(axes) == 1:
+        return x
+    return _SeqBlock.apply(x, dim, axes, mesh)
 
 
 def all_gather(x: torch.Tensor, dim: int, axes, mesh,

@@ -49,14 +49,20 @@ shards' own and ``expert_load`` the experts' slices gathered over
 block where the reference does (no 'model' axis, ``E % model``, shared
 experts).
 
-Serving under a layout (prefill and decode; ``RankLayout.for_serving``).
-Where the ``embed`` rule splits d_model, the activations are this rank's
-block of it: the norms sum their squares over those axes, every
-projection is a partial product over the rank's d block summed in one
-message (``contract_d``: q/k/v together, w1/w3 together, the router's
-logits before its top-k), and a down projection writes the rank's block
-(``out_d``).  With ``gather_fsdp=False`` the weights keep their FSDP d
-blocks, so no weight is gathered.  The KV cache holds the rank's block
+On d_model blocks (serving, ``RankLayout.for_serving``, and training
+under the 2-D tables, ``RankLayout.for_batch``).  Where the ``embed``
+rule splits d_model, the activations are this rank's block of it: the
+norms sum their squares over those axes, every projection is a partial
+product over the rank's d block summed in one message (``contract_d``:
+q/k/v together, w1/w3 together, the router's logits before its top-k),
+and a down projection writes the rank's block (``out_d``).  With
+``gather_fsdp=False`` the weights keep their FSDP d blocks, so no
+weight is gathered.  In training each message has its backward: a sum
+of partial products is ``all_reduce``; a sum of squares each rank
+applies to its own block is summed both ways (``shared_sum``); an
+input alike on ranks that then read different blocks of it (a down
+projection's input, a whole weight or activation cut to a block)
+enters through ``copy_to``.  The KV cache holds the rank's block
 of positions (``write_block`` writes only the positions it holds); a
 decode step attends over it and returns its partial softmax
 (``decode_attention_block``), which ``combine_blocks`` merges over the
@@ -75,7 +81,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.collectives import (all_gather, all_reduce,
                                             all_reduce_max, copy_to, gather,
-                                            own_block, reduce)
+                                            own_block, reduce, shared_sum)
 from repro_torch.models.sharding import entry_axes
 
 _NEG_INF = -1e30
@@ -89,17 +95,18 @@ ATTN_IMPLS = ("blocked", "reference")
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5,
             layout=None):
-    """RMSNorm over the last dim.  With a serving ``layout`` whose
-    activations split d_model over ``embed_axes``, ``x`` is this rank's
-    block: the sum of squares is summed over those axes, and the block
-    of ``w`` scales it."""
+    """RMSNorm over the last dim.  With a ``layout`` whose activations
+    split d_model over ``embed_axes``, ``x`` is this rank's block: the
+    sum of squares is summed over those axes (in the backward too: each
+    rank applies it to its own block), and the block of ``w`` scales it
+    (``w``'s gradient summed over those axes)."""
     xf = x.float()
     ex = () if layout is None else layout.embed_axes
     if ex:
         mesh = layout.mesh
-        ss = reduce((xf * xf).sum(-1, keepdim=True), ex, mesh)
+        ss = shared_sum((xf * xf).sum(-1, keepdim=True), ex, mesh)
         var = ss / (x.shape[-1] * mesh.size(ex))
-        w = own_block(w, 0, ex, mesh)
+        w = own_block(copy_to(w, ex, mesh), 0, ex, mesh)
     else:
         var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
@@ -237,10 +244,13 @@ def attention_block(params, x, positions, cfg, spec, *, kv_cache=None,
     copies): the returned cache is the (k_buf, v_buf) passed in.
 
     With a ``layout`` (train mode), this rank's q heads and their kv
-    heads (see the module's note)."""
+    heads (see the module's note); on a block of d_model (the ``embed``
+    axes, or weights whose d stays split), the serving path's
+    projections, differentiable."""
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl={attn_impl!r}; allowed: {ATTN_IMPLS}")
-    if layout is not None and mode != "train":
+    if layout is not None and (mode != "train" or d_blocks(layout, specs,
+                                                            "wq")):
         return _attention_serve(params, x, positions, cfg, spec, kv_cache,
                                 cur_len, attn_impl, mode, layout, specs)
     S = x.shape[1]
@@ -310,49 +320,63 @@ def attention_block(params, x, positions, cfg, spec, *, kv_cache=None,
 # ---------------------------------------------------------------------------
 
 
+def d_blocks(layout, specs, name: str) -> bool:
+    """Whether a block runs on d_model blocks: the activations' d split
+    over ``embed`` axes, or weight ``name``'s d (its dim 0) left split."""
+    return bool(layout.embed_axes or layout.tp_axes(specs[name][0]))
+
+
 def contract_d(x, ws, w_dim: int, layout, w_entry):
     """``x`` (..., d_x) and weights ``ws`` whose dim ``w_dim`` is d_model,
     cut to one block of d_model: returns (x, ws, axes) such that the sum
     over ``axes`` of the products of the pieces is the whole product.
     ``x``'s d is split over the layout's ``embed_axes``, the weights'
     over the (kept) axes of their spec entry ``w_entry``; whichever is
-    whole is cut to the other's block."""
+    whole is cut to the other's block, entering through ``copy_to``
+    over those axes (each rank reads another block of it)."""
     ex, ew = layout.embed_axes, layout.tp_axes(w_entry)
     mesh = layout.mesh
     if ex == ew:
         return x, ws, ex
     if not ex:
-        return own_block(x, -1, ew, mesh), ws, ew
+        return own_block(copy_to(x, ew, mesh), -1, ew, mesh), ws, ew
     if not ew:
-        return x, [own_block(w, w_dim, ex, mesh) for w in ws], ex
+        return x, [own_block(copy_to(w, ex, mesh), w_dim, ex, mesh)
+                   for w in ws], ex
     raise ValueError(f"activations' d_model split over {ex}, a weight's "
                      f"over {ew}")
 
 
-def out_d(w, w_dim: int, layout, w_entry):
-    """A weight whose dim ``w_dim`` is the output d_model, cut to the
-    activations' block: returns (w, axes to all-gather the product over
-    after its sum), the axes non-empty only where the weight's d is split
-    and the activations' is whole."""
+def out_d(h, w, w_dim: int, layout, w_entry):
+    """The input ``h`` and the weight ``w`` (whose dim ``w_dim`` is the
+    output d_model) of a down projection, the weight cut to the
+    activations' block: returns (h, w, axes to all-gather the product
+    over after its sum), the axes non-empty only where the weight's d is
+    split and the activations' is whole.  ``h``, alike on the ranks
+    whose output blocks differ, enters through ``copy_to`` over their
+    axes (and a whole ``w`` cut to a block through ``copy_to`` too)."""
     ex, ew = layout.embed_axes, layout.tp_axes(w_entry)
+    mesh = layout.mesh
     if ex == ew:
-        return w, ()
+        return copy_to(h, ex, mesh), w, ()
     if not ew:
-        return own_block(w, w_dim, ex, layout.mesh), ()
+        return (copy_to(h, ex, mesh),
+                own_block(copy_to(w, ex, mesh), w_dim, ex, mesh), ())
     if not ex:
-        return w, ew
+        return copy_to(h, ew, mesh), w, ew
     raise ValueError(f"activations' d_model split over {ex}, a weight's "
                      f"output over {ew}")
 
 
 def sum_parts(parts, axes, mesh, dim: int = -1):
     """The partial products ``parts`` summed over ``axes`` in one message
-    (concatenated on ``dim``)."""
+    (concatenated on ``dim``; ``all_reduce``: every rank then uses the
+    sums alike)."""
     if not axes:
         return parts
     widths = [t.shape[dim] for t in parts]
-    return list(torch.split(reduce(torch.cat(parts, dim=dim), axes, mesh),
-                            widths, dim=dim))
+    return list(torch.split(all_reduce(torch.cat(parts, dim=dim), axes,
+                                       mesh), widths, dim=dim))
 
 
 def write_block(buf, new, off: int, layout):
@@ -408,7 +432,10 @@ def combine_blocks(m, l_, o, axes, mesh):
 def _attention_serve(params, x, positions, cfg, spec, kv_cache, cur_len,
                      attn_impl, mode, layout, specs):
     """``attention_block``'s prefill and decode on this rank's rows, its
-    block of d_model and its q heads (see the module's note)."""
+    block of d_model and its q heads (see the module's note); train mode
+    runs prefill's attention without a cache, differentiably: ``x``
+    enters the heads' ranks through ``copy_to``, and so do the kv
+    weights where every rank holds every kv head."""
     S = x.shape[1]
     D = cfg.head_dim
     scale = cfg.query_scale if cfg.query_scale is not None else D ** -0.5
@@ -418,15 +445,17 @@ def _attention_serve(params, x, positions, cfg, spec, kv_cache, cur_len,
     kv_ax = layout.tp_axes(specs["wk"][1])
     if kv_ax not in ((), h_ax):
         raise ValueError(f"q heads split over {h_ax}, kv heads over {kv_ax}")
+    kv_whole = bool(h_ax) and not kv_ax
     names = ("wq", "wk", "wv")
-    xu, ws, red = contract_d(x, [params[n] for n in names], 0, layout,
+    ws = [params[n] if n == "wq" or not kv_whole
+          else copy_to(params[n], h_ax, mesh) for n in names]
+    xu, ws, red = contract_d(copy_to(x, h_ax, mesh), ws, 0, layout,
                              specs["wq"][0])
     q, k, v = sum_parts([torch.einsum("bsd,dhk->bshk", xu, w) for w in ws],
                          red, mesh, dim=2)
     rope = apply_mrope if cfg.mrope else apply_rope
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    kv_whole = bool(h_ax) and not kv_ax
     hq, block = q.shape[2], mesh.block_index(h_ax) if h_ax else 0
     if kv_cache is not None and kv_cache[0].shape[2] != k.shape[2]:
         raise ValueError(f"the cache block holds {kv_cache[0].shape[2]} kv "
@@ -435,7 +464,7 @@ def _attention_serve(params, x, positions, cfg, spec, kv_cache, cur_len,
     if kv_cache is not None:
         write_block(kv_cache[0], k, off, layout)
         write_block(kv_cache[1], v, off, layout)
-    if mode == "prefill":
+    if mode in ("prefill", "train"):
         kq, vq = _kv_of_heads(k, v, hq, cfg, block) if kv_whole else (k, v)
         if attn_impl == "reference":
             G = q.shape[2] // kq.shape[2]
@@ -475,10 +504,10 @@ def _attention_serve(params, x, positions, cfg, spec, kv_cache, cur_len,
             o = o.permute(0, 3, 1, 2, 4).reshape(B_, 1, Hkv_ * G_, D)
             if gather_q:
                 o = own_block(o, 2, h_ax, mesh)
-    o = o.to(x.dtype)
-    wo, g_ax = out_d(params["wo"], 2, layout, specs["wo"][2])
-    out = reduce(torch.einsum("bshk,hkd->bsd", o, wo), h_ax, mesh)
-    return (gather(out, -1, g_ax, mesh) if g_ax else out), kv_cache
+    o, wo, g_ax = out_d(o.to(x.dtype), params["wo"], 2, layout,
+                        specs["wo"][2])
+    out = all_reduce(torch.einsum("bshk,hkd->bsd", o, wo), h_ax, mesh)
+    return (all_gather(out, -1, g_ax, mesh) if g_ax else out), kv_cache
 
 
 def _kv_of_heads(k, v, hq_local: int, cfg, block: int):
@@ -510,18 +539,18 @@ def mlp_block(params, x, cfg, layout=None, specs=None):
     """SwiGLU, or GeGLU when ``cfg.geglu``; with a ``layout``, d_ff split
     over the axes ``specs`` leave on ``w1``'s."""
     tp = () if layout is None else layout.tp_axes(specs["w1"][1])
-    if layout is not None and (layout.embed_axes
-                               or layout.tp_axes(specs["w1"][0])):
-        # serving on d_model blocks: partial products, one sum each way
+    if layout is not None and d_blocks(layout, specs, "w1"):
+        # on d_model blocks: partial products, one sum each way
         mesh = layout.mesh
-        xu, ws, red = contract_d(x, [params["w1"], params["w3"]], 0, layout,
+        xu, ws, red = contract_d(copy_to(x, tp, mesh),
+                                 [params["w1"], params["w3"]], 0, layout,
                                  specs["w1"][0])
         h1, h3 = sum_parts([torch.einsum("bsd,df->bsf", xu, w)
                              for w in ws], red, mesh)
-        w2, g_ax = out_d(params["w2"], 1, layout, specs["w2"][1])
-        out = reduce(torch.einsum("bsf,fd->bsd", _act(cfg, h1) * h3, w2),
-                     tp, mesh)
-        return gather(out, -1, g_ax, mesh) if g_ax else out
+        h, w2, g_ax = out_d(_act(cfg, h1) * h3, params["w2"], 1, layout,
+                            specs["w2"][1])
+        out = all_reduce(torch.einsum("bsf,fd->bsd", h, w2), tp, mesh)
+        return all_gather(out, -1, g_ax, mesh) if g_ax else out
     if tp:
         x = copy_to(x, tp, layout.mesh)
     h = _act(cfg, torch.einsum("bsd,df->bsf", x, params["w1"]))
@@ -639,12 +668,13 @@ def moe_block_ep(params, x, cfg, layout, specs, with_stats: bool = True):
             whole[k] = all_gather(params[k], dim, ax, mesh, param=True)
     ex = layout.embed_axes
     e_loc = E // mesh.shape["model"]
-    out, stats = _moe(whole, gather(x, -1, ex, mesh) if ex else x, cfg,
-                      with_stats, 1, group_aux=True,
+    out, stats = _moe(whole, all_gather(x, -1, ex, mesh) if ex else x,
+                      cfg, with_stats, 1, group_aux=True,
                       experts=(mesh.axis_index("model") * e_loc, e_loc),
                       tp=("model",), t_shared=(), mesh=mesh,
                       batch_axes=layout.batch_axes, ep=True)
-    return (own_block(out, -1, ex, mesh) if ex else out), stats
+    return (own_block(copy_to(out, ex, mesh), -1, ex, mesh) if ex
+            else out), stats
 
 
 def _glu(cfg, xe, params, names, dsplit, mesh):
@@ -661,8 +691,7 @@ def _glu(cfg, xe, params, names, dsplit, mesh):
     xu, ws, red = contract_d(xe, [w1, w3], 1, lay, sp[names[0]][1])
     h1, h3 = sum_parts([torch.einsum("ecd,edf->ecf", xu, w) for w in ws],
                         red, mesh)
-    w2, g_ax = out_d(w2, 2, lay, sp[names[2]][2])
-    return _act(cfg, h1) * h3, w2, g_ax
+    return out_d(_act(cfg, h1) * h3, w2, 2, lay, sp[names[2]][2])
 
 
 def _moe(params, x, cfg, with_stats, groups, group_aux, *, experts=None,
@@ -694,7 +723,7 @@ def _moe(params, x, cfg, with_stats, groups, group_aux, *, experts=None,
         lay, sp = dsplit
         xu, (wr,), red = contract_d(xt, [params["router"]], 0, lay,
                                     sp["router"][0])
-        logits = reduce(torch.matmul(xu, wr), red, mesh).float()
+        logits = all_reduce(torch.matmul(xu, wr), red, mesh).float()
     probs = torch.softmax(logits, dim=-1)
     top_w, top_e = torch.topk(probs, K, dim=-1)                 # (T, K)
     top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
@@ -731,8 +760,16 @@ def _moe(params, x, cfg, with_stats, groups, group_aux, *, experts=None,
     picked = ye[torch.clamp(slot, max=n_slots - 1)]
     picked = torch.where(mine.reshape(-1)[:, None], picked,
                          torch.zeros((), dtype=x.dtype, device=dev))
-    if tp:
-        w_sorted = copy_to(w_sorted, tp, mesh)
+    # the routing weights, alike on every rank, scale this rank's experts
+    # and, on d_model blocks, its block of their outputs: their gradient
+    # is summed over both
+    w_ax = tp
+    if dsplit is not None:
+        lay, sp = dsplit
+        d_ax = lay.embed_axes or lay.tp_axes(sp["w2"][2])
+        w_ax = tuple(a for a in mesh.axes if a in tp + d_ax)
+    if w_ax:
+        w_sorted = copy_to(w_sorted, w_ax, mesh)
     # the weighted scatter-add: each choice lands in its own (token, k) row
     # (perm is a permutation, so no two additions race on the card), then
     # a token's K rows are summed in k order: the same bits every run
@@ -761,7 +798,7 @@ def _moe(params, x, cfg, with_stats, groups, group_aux, *, experts=None,
     if shared is not None:
         out = out + shared
     if dsplit is not None and g_ax:
-        out = gather(out, -1, g_ax, mesh)
+        out = all_gather(out, -1, g_ax, mesh)
 
     if ROUTES is not None:
         kept = torch.empty_like(keep.reshape(-1))

@@ -53,7 +53,7 @@ from repro_torch.models import ssm as S
 from repro_torch.models.params import ParamSpec, init_params
 from repro_torch.models.sharding import (RankCaches, RankLayout,
                                          cache_shapes, cache_specs,
-                                         check_serving)
+                                         check_ctx)
 
 
 # ---------------------------------------------------------------------------
@@ -293,20 +293,33 @@ def run_stack(cfg: ModelConfig, params, x, positions, *, mode: str = "train",
     the dtype the layer computed them in, as the reference's scan does.
 
     With a ``layout`` (``models.sharding.RankLayout``) the parameters
-    are this rank's blocks: each layer's FSDP dims (not under a serving
-    ctx with ``gather_fsdp=False``) are all-gathered before it (inside
-    the remat region, so the recompute gathers again, in the same order
-    on every rank) and freed after it;
+    are this rank's blocks: each layer's FSDP dims (not under a ctx with
+    ``gather_fsdp=False``) are all-gathered before it (inside the remat
+    region, so the recompute gathers again, in the same order on every
+    rank) and freed after it.  In train mode, where the layout's
+    ``sp_axes`` split the saved residual's positions (``seq_sp``), each
+    super-block's input is this rank's block of them (``seq_block``,
+    outside the remat region, so that is what a checkpoint saves) and
+    the super-block gathers it first (inside the region: the recompute
+    gathers again); the last super-block's output stays whole.
     ``moe`` = (groups, group_aux) is the one-process MoE dispatch's
     grouping (``moe_block``)."""
     train = mode == "train"
     shards = None if layout is None else _layer_shards(cfg, layout)
+    sp = layout.sp_axes if (train and layout is not None) else ()
+
+    def enter(x):
+        """The residual at a super-block boundary: this rank's block of
+        its positions over the ``seq_sp`` axes."""
+        return C.seq_block(x, 1, sp, layout.mesh) if sp else x
     # one layer's parameters are views of the stacked tensors: unbind
     # hands back one stacked gradient, not a stack-sized one per layer
     layers = [{k: v.unbind(0) for k, v in blk.items()}
               for blk in params["blocks"]]
 
     def superblock(x, i):
+        if sp:      # the boundary's block, gathered (backward: own block)
+            x = C.all_gather(x, 1, sp, layout.mesh)
         acc, runs = None, []
         for pos, spec in enumerate(cfg.pattern):
             p = {k: v[i] for k, v in layers[pos].items()}
@@ -338,14 +351,14 @@ def run_stack(cfg: ModelConfig, params, x, positions, *, mode: str = "train",
         def segment(x, first):
             accs = []
             for i in range(first, first + inner):
-                x, acc = body(x, i)
+                x, acc = body(x if i == first else enter(x), i)
                 accs.append(acc)
             return x, accs
 
         if inner < n_sb:
             segment = remat_wrap(segment, "full")
         for first in range(0, n_sb, inner):
-            x, accs = segment(x, first)
+            x, accs = segment(enter(x), first)
             per_block += [a for a in accs if a is not None]
     else:
         for i in range(n_sb):
@@ -412,7 +425,8 @@ def embed_tokens(cfg: ModelConfig, params, tokens, layout=None, *,
     else:
         table, tp = _table(cfg, params, layout)
         if layout.embed_axes:
-            table = C.own_block(table, 1, layout.embed_axes, layout.mesh)
+            ex, mesh = layout.embed_axes, layout.mesh
+            table = C.own_block(C.copy_to(table, ex, mesh), 1, ex, mesh)
     if tp:
         v_loc = table.shape[0]
         ids = tokens.long() - layout.mesh.block_index(tp) * v_loc
@@ -464,14 +478,15 @@ def _logits(cfg, params, hidden_last, layout=None):
 
 
 def _lm_shard(cfg, params, layout):
-    """The LM matrix (d, V) as this rank reads it and the axes its
-    vocabulary stays split over."""
+    """The LM matrix (d, V) as this rank reads it, the spec entry of its
+    d and the axes its vocabulary stays split over."""
     if cfg.tie_embeddings:
         table, tp = _table(cfg, params, layout)
-        return table.T, tp
+        return table.T, None, tp
     spec = layout.ctx.spec_for((cfg.d_model, cfg.vocab_size), LM_HEAD_AXES)
     w = layout.gather_leaf(params["lm_head"], spec, LM_HEAD_AXES)
-    return w, layout.tp_axes(layout.gathered(spec, LM_HEAD_AXES)[1])
+    after = layout.gathered(spec, LM_HEAD_AXES)
+    return w, after[0], layout.tp_axes(after[1])
 
 
 def chunked_ce_loss(cfg: ModelConfig, params, hidden, targets, *,
@@ -482,31 +497,36 @@ def chunked_ce_loss(cfg: ModelConfig, params, hidden, targets, *,
     0 as the reference's scan adds them; ``mask`` (B, S) weights the
     positions (the count of weighted positions divides).
 
-    With a ``layout``: the rows are this rank's; where the LM matrix's
-    vocabulary is split, the logsumexp is distributed (a max, then a sum
-    of the shifted exponentials, over those axes) and the target's logit
-    comes from the rank that owns it; the sums and the count are then
-    summed over the batch's ranks, so every rank holds the global mean
-    and its gradient is this rank's share."""
+    With a ``layout``: the rows are this rank's; on d_model blocks (the
+    ``embed`` axes, or an LM matrix whose d stays split) the logits are
+    one partial product summed over those axes (``layers.contract_d``);
+    where the LM matrix's vocabulary is split, the logsumexp is
+    distributed (a max, then a sum of the shifted exponentials, over
+    those axes) and the target's logit comes from the rank that owns it;
+    the sums and the count are then summed over the batch's ranks, so
+    every rank holds the global mean and its gradient is this rank's
+    share."""
     B, S_, d = hidden.shape
     c = min(chunk, S_)
     if S_ % c:
         raise ValueError(f"sequence {S_} is not a multiple of the CE chunk "
                          f"{c}")
-    tp = ()
+    tp, red = (), ()
     if layout is None:
         w = _lm_matrix(cfg, params).float()
     else:
-        w, tp = _lm_shard(cfg, params, layout)
-        w = w.float()
+        mesh = layout.mesh
+        w, d_entry, tp = _lm_shard(cfg, params, layout)
+        hidden, (w,), red = L.contract_d(C.copy_to(hidden, tp, mesh),
+                                         [w.float()], 0, layout, d_entry)
         if tp:
-            mesh = layout.mesh
-            hidden = C.copy_to(hidden, tp, mesh)
             lo = mesh.block_index(tp) * w.shape[1]
     loss = torch.zeros((), dtype=torch.float32, device=hidden.device)
     ntok = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for a in range(0, S_, c):
         logits = torch.matmul(hidden[:, a:a + c].float(), w)
+        if red:
+            logits = C.all_reduce(logits, red, mesh)
         if cfg.final_softcap is not None:
             logits = cfg.final_softcap * torch.tanh(logits
                                                     / cfg.final_softcap)
@@ -569,7 +589,7 @@ def loss_fn(cfg: ModelConfig, params, batch, *, attn_impl="blocked",
                                  attn_impl=attn_impl, remat=remat,
                                  remat_segment=remat_segment, layout=layout,
                                  moe=(moe_groups, moe_group_aux))
-    hidden = L.rmsnorm(hidden, params["final_ln"], cfg.norm_eps)
+    hidden = L.rmsnorm(hidden, params["final_ln"], cfg.norm_eps, layout)
     ce = chunked_ce_loss(cfg, params, hidden, batch["targets"],
                          chunk=ce_chunk, mask=batch.get("loss_mask"),
                          layout=layout)
@@ -624,7 +644,7 @@ def _forward(cfg, params, batch, ctx, *, mode, caches, cur_len, attn_impl):
     ctx)."""
     layout = None
     if ctx is not None:
-        check_serving(cfg, ctx)
+        check_ctx(cfg, ctx)
         if not isinstance(caches, RankCaches):
             raise TypeError("under a sharding context the caches are this "
                             "rank's blocks, a sharding.RankCaches")

@@ -21,11 +21,20 @@ dim's spec for this batch size) and, for a parameter, which dims are
 gathered before use (``gather_leaf``) and which stay split over the
 model axes.
 
-Training runs ``DEFAULT_RULES``, ``SMALL_MODEL_RULES`` and
-``FSDP_POD_RULES`` with ``gather_fsdp=True`` and ``moe_impl`` 'dense' or
-'ep'.  A rule that maps ``seq``, ``seq_sp``, ``kv_seq`` or ``embed`` to a
-mesh axis of the ctx, ``gather_fsdp=False``, SSM layers and ``adamw8bit``
-under a ctx wait for ROADMAP item 13g (``check_training``).
+Training runs every table, with either ``gather_fsdp``, ``moe_impl``
+'dense' or 'ep', attention, SSM and hybrid archs and either optimiser
+(``check_ctx`` refuses only an unknown ``moe_impl``, as the reference
+does).  ``RankLayout.for_batch`` with the config and the
+sequence length gives a training rank what it reads: the batch axes
+(empty where ``batch`` is None: every rank holds every row), the
+``embed`` axes of the activations' d_model (the 2-D tables) and the
+``seq_sp`` axes of the residual saved at each super-block boundary.
+``kv_seq`` splits nothing in training (no cache), and no table maps
+``seq``.  ``opt_shardings`` lays out the optimiser state as the
+reference's ``launch/specs.py`` ``opt_specs`` does: AdamW's moments as
+the parameters, the int8 state's codes as the parameter and its scales
+on the parameter's axes, the reduced last dim falling back to
+replication where it no longer divides.
 
 Serving (prefill and decode) runs every table, the five serving tables
 with the ``gather_fsdp`` the reference pairs them with (False for
@@ -53,10 +62,6 @@ from repro_torch.models.params import ParamSpec
 
 Rules = Dict[Optional[str], Optional[Tuple[str, ...]]]
 Spec = Tuple[Any, ...]
-
-SERVING_PENDING = ("waits for ROADMAP item 13g (training under the serving "
-                   "rules' axes, gather_fsdp=False, seq_sp, SSM layers and "
-                   "adamw8bit under a sharding context)")
 
 # Production default: DP over (pod, data), FSDP params over data, TP over
 # model.
@@ -134,9 +139,6 @@ NAMED_RULES = {
 }
 
 MOE_IMPLS = ("dense", "ep")
-# logical axes whose mesh sharding (activations on d_model or on the
-# sequence, the KV cache's sequence) belongs to the serving slice
-_SERVING_AXES = ("seq", "seq_sp", "kv_seq", "embed")
 
 
 def entry_axes(entry) -> Tuple[str, ...]:
@@ -192,7 +194,7 @@ class ShardingCtx:
 
     gather_fsdp: gather the FSDP-sharded weight dims before each layer
     (training's semantics); False keeps them split and sums partial
-    products of the activations instead (decode's trade; serving only).
+    products of the activations instead (decode's trade).
     moe_impl: 'dense' (the dispatch in groups of the batch's shards,
     experts or their d_ff split over 'model') or 'ep' (each data shard
     routes its own tokens to the rank's E / ep experts; one sum over
@@ -309,37 +311,44 @@ def gather_params(local_tree, ctx: ShardingCtx, specs):
                     local_tree, specs)
 
 
-def check_training(cfg, ctx: ShardingCtx):
-    """Raise for what training does not run under a ctx: the serving
-    rules' axes, ``gather_fsdp=False``, SSM layers (13g) and an unknown
-    ``moe_impl``."""
-    _check_moe_impl(ctx)
-    mapped = [a for a in _SERVING_AXES
-              if any(m in ctx.mesh.shape for m in (ctx.rules.get(a) or ()))]
-    if mapped:
-        raise NotImplementedError(
-            f"training under rules mapping {mapped} to mesh axes "
-            f"{SERVING_PENDING}")
-    if not ctx.gather_fsdp:
-        raise NotImplementedError(
-            f"training with gather_fsdp=False {SERVING_PENDING}")
-    if any(s.kind != "attn" for s in cfg.pattern):
-        raise NotImplementedError(
-            f"SSM layers in a training step under a sharding context "
-            f"{SERVING_PENDING}")
+def opt_shardings(spec_tree, ctx: ShardingCtx, opt_impl: str = "adamw"):
+    """The spec of every optimiser-state leaf (the reference's
+    ``opt_specs``' shardings): ``{"m": specs, "v": specs}`` for AdamW;
+    for ``adamw8bit`` the parameters' tree with, a leaf, ``m_q``/``v_q``
+    laid out as the parameter and ``m_s``/``v_s`` (its scales, one per
+    128 of the last dim) on the parameter's axes, through ``spec_for``,
+    so the reduced last dim falls back where it no longer divides."""
+    if opt_impl == "adamw":
+        sh = param_shardings(spec_tree, ctx)
+        return {"m": sh, "v": sh}
+    if opt_impl != "adamw8bit":
+        raise ValueError(f"opt_impl={opt_impl!r}; allowed: 'adamw', "
+                         "'adamw8bit'")
+
+    def leaf(s):
+        q, sc = q8_specs(s, ctx)
+        return {"m_q": q, "m_s": sc, "v_q": q, "v_s": sc}
+    return _spec_map(leaf, spec_tree)
 
 
-def check_serving(cfg, ctx: ShardingCtx):
-    """Raise for what the reference's serving refuses under a ctx: an
-    unknown ``moe_impl`` (its ``_apply_layer`` reads any other value as
-    'dense'; the port names the two).  Every rules table serves, with
-    either ``gather_fsdp`` and ``moe_impl`` 'dense' or 'ep' (the
-    reference's prefill and decode run 'ep' under ``SERVE_RULES`` and
+def q8_specs(s: ParamSpec, ctx: ShardingCtx) -> Tuple[Spec, Spec]:
+    """(the codes' spec, the scales' spec) of parameter ``s``'s int8
+    state (``opt_shardings``)."""
+    from repro_torch.optim.quantized import scale_shape
+    sshape = scale_shape(s.shape)
+    saxes = (tuple(s.axes) if len(sshape) == len(s.shape)
+             else tuple(s.axes) + (None,))[:len(sshape)]
+    return ctx.spec_for(s.shape, s.axes), ctx.spec_for(sshape, saxes)
+
+
+def check_ctx(cfg, ctx: ShardingCtx):
+    """Raise for what the reference refuses under a ctx, in training and
+    serving alike: an unknown ``moe_impl`` (its ``_apply_layer`` reads
+    any other value as 'dense'; the port names the two).  Every rules
+    table trains and serves, with either ``gather_fsdp``, attention, SSM
+    and hybrid layers and ``moe_impl`` 'dense' or 'ep' (the reference's
+    prefill and decode run 'ep' under ``SERVE_RULES`` and
     ``DECODE_2D_RULES`` on 8 host devices)."""
-    _check_moe_impl(ctx)
-
-
-def _check_moe_impl(ctx: ShardingCtx):
     if ctx.moe_impl not in MOE_IMPLS:
         raise ValueError(f"moe_impl={ctx.moe_impl!r}; allowed: {MOE_IMPLS}")
 
@@ -422,11 +431,14 @@ class RankLayout:
     batch rows are split over (the batch dim's spec for the global batch
     size), in the spec's order; ``batch_size`` is that global size.
 
-    Serving (``for_serving``) adds ``embed_axes``, the axes the
-    activations' d_model is split over (the ``embed`` rule; () in
-    training), and ``kv_axes``, the axes the KV cache's ``max_len``
-    positions are split over (the ``kv_seq`` entry of ``cache_specs``),
-    each without one-rank axes."""
+    ``embed_axes`` are the axes the activations' d_model is split over
+    (the ``embed`` rule), ``kv_axes`` (serving, ``for_serving``) the
+    axes the KV cache's ``max_len`` positions are split over (the
+    ``kv_seq`` entry of ``cache_specs``) and ``sp_axes`` (training,
+    ``for_batch`` given the sequence length) the axes the residual saved
+    at a super-block boundary splits its positions over (the ``seq_sp``
+    entry of the reference's ``("batch", "seq_sp", "embed")``
+    constraint), each without one-rank axes."""
 
     ctx: ShardingCtx
     batch_axes: Tuple[str, ...]
@@ -434,11 +446,23 @@ class RankLayout:
     embed_axes: Tuple[str, ...] = ()
     kv_axes: Tuple[str, ...] = ()
     max_len: Optional[int] = None
+    sp_axes: Tuple[str, ...] = ()
 
     @classmethod
-    def for_batch(cls, ctx: ShardingCtx, batch_size: int) -> "RankLayout":
-        spec = ctx.spec_for((batch_size,), ("batch",))
-        return cls(ctx, entry_axes(spec[0]), batch_size)
+    def for_batch(cls, ctx: ShardingCtx, batch_size: int, cfg=None,
+                  seq_len: Optional[int] = None) -> "RankLayout":
+        """The layout of a training step's (micro)batch of
+        ``batch_size`` rows; with ``cfg`` and ``seq_len``, its ``embed``
+        and ``seq_sp`` axes too (else none)."""
+        if cfg is None:
+            spec = ctx.spec_for((batch_size,), ("batch",))
+            return cls(ctx, entry_axes(spec[0]), batch_size)
+        act = ctx.spec_for((batch_size, seq_len, cfg.d_model),
+                           ("batch", "seq_sp", "embed"))
+        many = lambda e: tuple(a for a in entry_axes(e)  # noqa: E731
+                               if ctx.mesh.shape[a] > 1)
+        return cls(ctx, entry_axes(act[0]), batch_size, many(act[2]),
+                   sp_axes=many(act[1]))
 
     @classmethod
     def for_serving(cls, ctx: ShardingCtx, cfg, batch_size: int,

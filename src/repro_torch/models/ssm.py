@@ -11,8 +11,9 @@ and its tests hold them equal to the Pallas kernel
 loop carrying the (B, H, P, N) state.  Decode is the O(1)-per-token
 recurrence, plain torch on every device.
 
-Serving under a ``models.sharding.RankLayout`` (the reference's
-``ssm_in`` split, its ``models/ssm.py:150-219``): ``in_z``, ``in_x``,
+Under a ``models.sharding.RankLayout`` (serving and training; the
+reference's ``ssm_in`` split, its ``models/ssm.py:150-219``): ``in_z``,
+``in_x``,
 ``gate_ln`` and ``out_proj`` hold this rank's block of the inner dim,
 ``in_B``/``in_C``/``in_dt``/``A_log``/``D``/``dt_bias`` are whole.  The
 packed conv channels (x, then B, then C) are split by their own spec,
@@ -25,7 +26,15 @@ of the rank's block of the state cache, the gated RMSNorm's sum of
 squares is summed over the ranks of the inner dim and ``out_proj`` is
 row-parallel, one sum.  Both caches hold the blocks the reference's
 ``cache_logical_axes`` give, so ``sharding.gather_caches`` returns its
-layout.
+layout.  In training every message has its backward: ``x`` enters the
+inner channels' ranks through ``copy_to``; B, C and dt, whole on every
+rank, enter the conv's blocks and the heads through ``copy_to``; the
+gradients of the gathered x channels and of the gathered conv output
+are summed over the ranks that read different parts of them and cut to
+the rank's block (a reduce-scatter); the gated norm's sum of squares is
+summed both ways; ``out_proj`` is row-parallel, its input entering the
+d_model blocks' ranks through ``copy_to`` under the 2-D tables.  The
+SSD always runs on the rank's heads over the whole sequence.
 """
 from __future__ import annotations
 
@@ -33,7 +42,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_chunk import ssd_chunk
-from repro_torch.models.collectives import gather, own_block, reduce
+from repro_torch.models.collectives import (all_gather, all_reduce,
+                                            copy_to, own_block, shared_sum)
 from repro_torch.models.layers import contract_d, out_d, sum_parts
 from repro_torch.models.sharding import STATE_AXES, entry_axes
 
@@ -210,6 +220,17 @@ def mamba2_block(params, x, cfg, *, cache=None, mode: str = "train",
     return out, new_cache
 
 
+def _alike_to(x, dim, axes, diff, mesh):
+    """``x``, this rank's block of ``dim`` over ``axes``, gathered whole
+    (each rank then holding the same tensor), where the ranks of
+    ``diff`` then read different parts of it: the backward sums the
+    gradient over ``diff`` and takes this rank's block (a reduce-scatter
+    where ``diff`` is ``axes``)."""
+    if axes:
+        return all_gather(x, dim, axes, mesh, sum_axes=diff)
+    return copy_to(x, diff, mesh)
+
+
 def _mamba2_sharded(params, x, cfg, cache, mode, layout, specs):
     s = cfg.ssm
     B, S, _ = x.shape
@@ -222,21 +243,29 @@ def _mamba2_sharded(params, x, cfg, cache, mode, layout, specs):
     state = layout.ctx.spec_for((1, layout.batch_size, H, P, s.d_state),
                                 STATE_AXES)
     h_ax = tuple(a for a in entry_axes(state[2]) if mesh.shape[a] > 1)
-    names = ("in_z", "in_x", "in_B", "in_C", "in_dt")
-    xu, ws, red = contract_d(x, [params[n] for n in names], 0, layout,
+    # z and x: this rank's inner channels (x enters through copy_to over
+    # their axes); B, C and dt: whole on every rank, entering work that
+    # differs between ranks (the conv's blocks, the heads) through
+    # copy_to over those axes
+    xu, ws, red = contract_d(copy_to(x, x_ax, mesh),
+                             [params["in_z"], params["in_x"]], 0, layout,
                              specs["in_z"][0])
+    xw, wb, _ = contract_d(x, [params[n] for n in ("in_B", "in_C",
+                                                    "in_dt")], 0, layout,
+                           specs["in_B"][0])
     z, xr, Br, Cr, dtr = sum_parts(
-        [torch.einsum("bsd,de->bse", xu, w) for w in ws], red, mesh)
+        [torch.einsum("bsd,de->bse", xu, w) for w in ws]
+        + [torch.einsum("bsd,de->bse", xw, w) for w in wb], red, mesh)
+    BC = copy_to(torch.cat([Br, Cr], dim=-1), k_ax, mesh)
+    dtr = copy_to(dtr, h_ax, mesh)
 
-    conv_in = torch.cat([gather(xr, -1, x_ax, mesh) if x_ax else xr,
-                         Br, Cr], dim=-1)
+    conv_in = torch.cat([_alike_to(xr, -1, x_ax, k_ax, mesh), BC], dim=-1)
     if k_ax:
         conv_in = own_block(conv_in, -1, k_ax, mesh)
     tail_in = cache[0] if cache is not None else None
     conv_out, new_tail = _causal_conv(conv_in, params["conv_w"],
                                       params["conv_b"], tail=tail_in)
-    if k_ax:
-        conv_out = gather(conv_out, -1, k_ax, mesh)
+    conv_out = _alike_to(conv_out, -1, k_ax, h_ax, mesh)
 
     # the SSD on the heads of this rank's block of the state
     hl = H // (mesh.size(h_ax) if h_ax else 1)
@@ -253,8 +282,10 @@ def _mamba2_sharded(params, x, cfg, cache, mode, layout, specs):
             Bm = Bm.repeat_interleave(hg, dim=2)[:, :, h0:h0 + hl]
             Cm = Cm.repeat_interleave(hg, dim=2)[:, :, h0:h0 + hl]
     heads = slice(h0, h0 + hl)
-    dt = F.softplus(dtr[..., heads].float() + params["dt_bias"][heads])
-    A = -torch.exp(params["A_log"][heads].float())
+    dt_bias, A_log, D_ = (copy_to(params[n], h_ax, mesh)[heads]
+                          for n in ("dt_bias", "A_log", "D"))
+    dt = F.softplus(dtr[..., heads].float() + dt_bias)
+    A = -torch.exp(A_log.float())
 
     init_state = cache[1] if cache is not None else None
     if mode == "decode" and S == 1:
@@ -271,23 +302,23 @@ def _mamba2_sharded(params, x, cfg, cache, mode, layout, specs):
         y, new_state = ssd_chunked(xh, dt, A, Bm, Cm, chunk=s.chunk,
                                    initial_state=init_state)
 
-    y = y + xh.float() * params["D"][heads].float()[:, None]
+    y = y + xh.float() * D_.float()[:, None]
     y = y.reshape(B, S, hl * P)
     if h_ax != x_ax:        # z on this rank's heads' channels
-        z = (gather(z, -1, x_ax, mesh) if x_ax else z)[
-            ..., h0 * P:(h0 + hl) * P]
+        z = _alike_to(z, -1, x_ax, h_ax, mesh)[..., h0 * P:(h0 + hl) * P]
     y = y * F.silu(z.float())
     # gated RMSNorm: the sum of squares over every rank's channels
-    ss = reduce((y * y).sum(-1, keepdim=True), h_ax, mesh)
+    ss = shared_sum((y * y).sum(-1, keepdim=True), h_ax, mesh)
     y = y * torch.rsqrt(ss / d_in + cfg.norm_eps)
     if h_ax != x_ax:        # this rank's block of the inner channels
         xl = d_in // (mesh.size(x_ax) if x_ax else 1)
         x0 = (mesh.block_index(x_ax) if x_ax else 0) * xl - h0 * P
-        y = y[..., x0:x0 + xl]
+        y = copy_to(y, x_ax, mesh)[..., x0:x0 + xl]
     y = (y * (1.0 + params["gate_ln"].float())).to(x.dtype)
-    w_out, g_ax = out_d(params["out_proj"], 1, layout, specs["out_proj"][1])
-    out = reduce(torch.einsum("bse,ed->bsd", y, w_out), x_ax, mesh)
+    y, w_out, g_ax = out_d(y, params["out_proj"], 1, layout,
+                           specs["out_proj"][1])
+    out = all_reduce(torch.einsum("bse,ed->bsd", y, w_out), x_ax, mesh)
     if g_ax:
-        out = gather(out, -1, g_ax, mesh)
+        out = all_gather(out, -1, g_ax, mesh)
     new_cache = None if mode == "train" else (new_tail, new_state)
     return out, new_cache

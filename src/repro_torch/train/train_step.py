@@ -9,17 +9,22 @@ the optimiser update (``adamw`` or ``adamw8bit``) at the schedule's
 rate.
 
 With a sharding context (``models.sharding.ShardingCtx`` over a
-``launch.mesh.Mesh``) it is the reference's GSPMD step made explicit on
-every rank of the mesh: each rank passes the same global batch and keeps
-its block of every (micro)batch's rows over the rule's batch axes
-(M-RoPE positions split on dim 1), holds its blocks of the parameters
-and optimiser state (``shard_state``), runs the loss with the
-collectives of tensor, expert and FSDP parallelism, then sums each
-gradient leaf over the batch axes it is not split on (an FSDP dim's sum
-is the gather's backward: not summed twice), takes the global grad norm
-(each leaf's square norm summed over exactly the axes it is split on),
-clips and updates its blocks with AdamW.  Leaves held alike on several
-ranks stay bit-equal.
+``launch.mesh.Mesh``; every rules table, either ``gather_fsdp``) it is
+the reference's GSPMD step made explicit on every rank of the mesh: each
+rank passes the same global batch and keeps its block of every
+(micro)batch's rows over the rule's batch axes (all of them where
+``batch`` is None; M-RoPE positions split on dim 1; ``embeds`` cut to
+the activations' d_model block under the 2-D tables), holds its blocks
+of the parameters and optimiser state (``shard_state``: AdamW's moments,
+or the int8 state laid out as the reference's ``opt_specs``), runs the
+loss with the collectives of tensor, expert, FSDP and sequence
+parallelism (``RankLayout.for_batch``), then sums each gradient leaf
+over the batch axes it is not split on (an FSDP dim's sum is the
+gather's backward: not summed twice), takes the global grad norm (each
+leaf's square norm summed over exactly the axes it is split on), clips
+and updates its blocks with AdamW or ``adamw8bit`` (whose codes and
+scales are the whole leaf's, ``optim.quantized``).  Leaves held alike
+on several ranks stay bit-equal.
 
 ``make_train_step_regc`` is the explicit RegC path over the ranks of a
 ``torch.distributed`` world (the reference's ``shard_map`` manual over
@@ -43,8 +48,9 @@ from repro_torch.core.config import resolve_device
 from repro_torch.models import collectives as C
 from repro_torch.models import model as M
 from repro_torch.models.sharding import (
-    SERVING_PENDING, RankLayout, ShardingCtx, check_training, constrain,
-    entry_axes, param_shardings, shard_params, spec_leaves,
+    RankLayout, ShardingCtx, check_ctx, constrain, entry_axes,
+    gather_params, opt_shardings, param_shardings, q8_specs, shard_params,
+    spec_leaves,
 )
 from repro_torch.optim.adamw import (
     AdamWConfig, adamw_update, clip_by_global_norm, init_opt_state,
@@ -122,11 +128,27 @@ def batch_logical_axes(cfg: ModelConfig, key: str, ndim: int):
 
 def local_rows(cfg, batch, layout):
     """This rank's block of every leaf's rows under ``layout`` (the
-    reference's ``_constrain_batch``)."""
+    reference's ``_constrain_batch``), and of the ``embeds``' d_model
+    where the activations split it."""
     bdim = _bdim(cfg)
-    return {k: constrain(layout.rows(v, bdim(k)), v.shape,
+
+    def block(k, v):
+        v = layout.rows(v, bdim(k))
+        if k == "embeds" and layout.embed_axes:
+            v = C.own_block(v, -1, layout.embed_axes, layout.mesh)
+        return v
+    return {k: constrain(block(k, v), v.shape,
                          batch_logical_axes(cfg, k, v.dim()), layout.ctx)
             for k, v in batch.items()}
+
+
+def batch_layout(cfg, ctx: ShardingCtx, batch, n_micro: int = 1
+                 ) -> RankLayout:
+    """The layout of one microbatch of the global ``batch``."""
+    b, s_len = batch["targets"].shape
+    if b % n_micro:
+        raise ValueError(f"batch of {b} rows in {n_micro} microbatches")
+    return RankLayout.for_batch(ctx, b // n_micro, cfg, s_len)
 
 
 def make_train_step(cfg: ModelConfig, hp: TrainHParams,
@@ -162,11 +184,7 @@ def make_train_step(cfg: ModelConfig, hp: TrainHParams,
                          "'adamw8bit'")
 
     if ctx is not None:
-        check_training(cfg, ctx)
-        if hp.opt_impl != "adamw":
-            raise NotImplementedError(
-                f"opt_impl={hp.opt_impl!r} under a sharding context "
-                f"{SERVING_PENDING}")
+        check_ctx(cfg, ctx)
         return _sharded_step(cfg, hp, ctx, sched)
     loss_f = _loss_f(cfg, hp, moe_groups=moe_groups,
                      moe_group_aux=moe_group_aux)
@@ -260,32 +278,56 @@ def sharded_sq_norm(grads, specs, mesh):
     return total
 
 
+def _opt_impl_of(opt_state) -> str:
+    """'adamw' for a state ``{"m", "v"}``, 'adamw8bit' for the int8
+    tree (the parameters' structure, a dict of codes and scales a
+    leaf)."""
+    return "adamw" if set(opt_state) == {"m", "v"} else "adamw8bit"
+
+
 def shard_state(cfg, ctx: ShardingCtx, params, opt_state=None):
     """This rank's blocks of full ``params`` (and of an AdamW state
-    ``{"m", "v"}``, each a tree of the parameters' structure)."""
-    specs = param_shardings(M.param_specs(cfg), ctx)
-    local = shard_params(params, ctx, specs)
+    ``{"m", "v"}`` or an int8 state, laid out by ``opt_shardings``)."""
+    spec_tree = M.param_specs(cfg)
+    local = shard_params(params, ctx, param_shardings(spec_tree, ctx))
     if opt_state is None:
         return local
-    return local, {k: shard_params(v, ctx, specs)
-                   for k, v in opt_state.items()}
+    return local, shard_params(opt_state, ctx, opt_shardings(
+        spec_tree, ctx, _opt_impl_of(opt_state)))
 
 
 def gather_state(cfg, ctx: ShardingCtx, params, opt_state=None):
     """The full trees back from every rank's blocks (collective)."""
-    from repro_torch.models.sharding import gather_params
-    specs = param_shardings(M.param_specs(cfg), ctx)
-    full = gather_params(params, ctx, specs)
+    spec_tree = M.param_specs(cfg)
+    full = gather_params(params, ctx, param_shardings(spec_tree, ctx))
     if opt_state is None:
         return full
-    return full, {k: gather_params(v, ctx, specs)
-                  for k, v in opt_state.items()}
+    return full, gather_params(opt_state, ctx, opt_shardings(
+        spec_tree, ctx, _opt_impl_of(opt_state)))
 
 
-def apply_sharded_update(params, grads, opt_state, step, lr, hp, specs, mesh):
+def q8_shards(cfg, ctx: ShardingCtx):
+    """Per parameter leaf, the axes (of more than one rank) its last dim
+    and its int8 scales' last dim are split over: ``adamw8bit_update``'s
+    ``shards``."""
+    def last(spec):
+        return tuple(a for a in entry_axes(spec[-1])
+                     if ctx.mesh.shape[a] > 1) if spec else ()
+    return [tuple(last(sp) for sp in q8_specs(s, ctx))
+            for s in spec_leaves(M.param_specs(cfg))]
+
+
+def apply_sharded_update(params, grads, opt_state, step, lr, hp, specs, mesh,
+                         q8=None):
     """(new params, new opt state, grad norm): the global norm of the
-    synced sharded ``grads``, the clip, and AdamW on this rank's blocks."""
+    synced sharded ``grads``, the clip, and the update on this rank's
+    blocks: AdamW, or with ``hp.opt_impl == "adamw8bit"`` the int8 update
+    (``q8``: ``q8_shards`` of the ctx)."""
     sq = sharded_sq_norm(grads, specs, mesh)
+    if hp.opt_impl == "adamw8bit":
+        from repro_torch.optim.quantized import adamw8bit_update
+        return adamw8bit_update(params, grads, opt_state, step, lr,
+                                hp.adamw, sq_norm=sq, shards=(q8, mesh))
     if hp.adamw.clip_norm is not None:
         clipped, gnorm = clip_by_global_norm(
             tree_map(lambda g: g.float(), grads), hp.adamw.clip_norm,
@@ -300,15 +342,11 @@ def apply_sharded_update(params, grads, opt_state, step, lr, hp, specs, mesh):
 
 def _sharded_step(cfg, hp, ctx, sched):
     specs = leaf_specs(cfg, ctx)
+    q8 = q8_shards(cfg, ctx) if hp.opt_impl == "adamw8bit" else None
     bdim = _bdim(cfg)
 
     def train_step(params, opt_state, batch, step, *, with_grads=False):
-        b = next(iter(batch.values()))
-        b = b.shape[bdim(next(iter(batch)))]
-        if b % hp.n_micro:
-            raise ValueError(f"batch of {b} rows in {hp.n_micro} "
-                             "microbatches")
-        layout = RankLayout.for_batch(ctx, b // hp.n_micro)
+        layout = batch_layout(cfg, ctx, batch, hp.n_micro)
         loss_f = _loss_f(cfg, hp, layout)
         if hp.n_micro == 1:
             (loss, metrics), grads = value_and_grad(
@@ -330,7 +368,7 @@ def _sharded_step(cfg, hp, ctx, sched):
         lr = sched(step, loss.device)
         with torch.no_grad():
             new_params, new_opt, gnorm = apply_sharded_update(
-                params, grads, opt_state, step, lr, hp, specs, ctx.mesh)
+                params, grads, opt_state, step, lr, hp, specs, ctx.mesh, q8)
         out_metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr}
         out_metrics.update({k: v for k, v in metrics.items()
                             if v.dim() == 0})
@@ -349,9 +387,8 @@ def eval_loss(cfg: ModelConfig, hp: TrainHParams, params, batch,
     the step computes them (one microbatch)."""
     layout = None
     if ctx is not None:
-        check_training(cfg, ctx)
-        b = batch["targets"].shape[0]
-        layout = RankLayout.for_batch(ctx, b)
+        check_ctx(cfg, ctx)
+        layout = batch_layout(cfg, ctx, batch)
         batch = local_rows(cfg, batch, layout)
     with torch.no_grad():
         return _loss_f(cfg, hp, layout, moe_groups, moe_group_aux)(
@@ -371,7 +408,7 @@ def _check_inner_ctx(cfg, inner_ctx, dp_axes):
     if on_dp:
         raise ValueError(f"the inner context's rules {on_dp} name the "
                          f"manual axes {tuple(dp_axes)} of the RegC path")
-    check_training(cfg, inner_ctx)
+    check_ctx(cfg, inner_ctx)
 
 
 def make_train_step_regc(cfg: ModelConfig, hp: TrainHParams, mesh,
@@ -420,8 +457,8 @@ def make_train_step_regc(cfg: ModelConfig, hp: TrainHParams, mesh,
     def step_fn(params, opt_state, batch, step, *, with_grads=False):
         batch = {k: local_rows(k, v) for k, v in batch.items()}
         if inner_ctx is not None:
-            b = batch["targets"].shape[0] // hp.n_micro
-            loss_f = _loss_f(cfg, hp, RankLayout.for_batch(inner_ctx, b))
+            loss_f = _loss_f(cfg, hp, batch_layout(cfg, inner_ctx, batch,
+                                                   hp.n_micro))
         else:
             loss_f = _loss_f(cfg, hp)
         if hp.n_micro == 1:

@@ -93,9 +93,15 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _init_state(self):
-        """The full seeded tree (every rank draws the same)."""
+        """The full seeded tree (every rank draws the same); the
+        optimiser state the step updates: AdamW's moments, or with
+        ``opt_impl="adamw8bit"`` on the GSPMD path the int8 state."""
         gen = torch.Generator(device=self.device).manual_seed(self.tc.seed)
-        return init_train_state(self.cfg, gen, device=self.device)
+        params, opt = init_train_state(self.cfg, gen, device=self.device)
+        if self.hp.opt_impl == "adamw8bit" and self.tc.path == "gspmd":
+            from repro_torch.optim.quantized import init_opt_state_q8
+            opt = init_opt_state_q8(params)
+        return params, opt
 
     def _barrier(self):
         if self.ranks:

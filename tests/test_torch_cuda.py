@@ -1214,3 +1214,95 @@ def test_serve_tp_on_card(f32_card, tmp_path):
         np.testing.assert_array_equal(g["tokens"], tokens)
         assert g["launches"] == {"flash_attention": 1, "ssd_chunk": 7}
         assert g["param_gathers"] == 0 and g["kv_positions"] == 15
+
+
+def sp_train_rank(batch):
+    """One rank of ``test_sp_q8_train_on_card``: the reduced mamba2-2.7b
+    (two super-blocks) under ``TRAIN_SP_RULES`` on a (1, 2) mesh (the
+    residual's saved positions and the SSD inner dim over 'model'),
+    ``adamw8bit``, remat "full": its blocks of the seeded parameters on
+    the card, one step; the gathered gradients, parameters and int8
+    state, and the launches."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels import ssd_chunk as sc
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.ranks import rank_device
+    from repro_torch.models import sharding as SH
+    from repro_torch.models.model import init_model_params
+    from repro_torch.optim.quantized import init_opt_state_q8
+    from repro_torch.train import train_step as T
+    from repro_torch.utils.tree import tree_flatten
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = rank_device("cuda")
+    cfg = get_reduced("mamba2-2.7b", n_periods=2)
+    ctx = SH.ShardingCtx(make_host_mesh((1, 2), ("data", "model")),
+                         SH.TRAIN_SP_RULES)
+    full = init_model_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             device=dev)
+    lp, lo = T.shard_state(cfg, ctx, full, init_opt_state_q8(full))
+    del full
+    hp = T.TrainHParams(remat="full", ce_chunk=32, opt_impl="adamw8bit")
+    sc.reset_launches()
+    p2, o2, m, g = T.make_train_step(cfg, hp, ctx)(
+        lp, lo, {k: torch.as_tensor(v, device=dev) for k, v in batch.items()},
+        0, with_grads=True)
+    launches = dict(sc.LAUNCHES)
+    fg = T.gather_state(cfg, ctx, g)
+    fp, fo = T.gather_state(cfg, ctx, p2, o2)
+    flat = lambda t: {k: v.cpu().numpy() for k, v in  # noqa: E731
+                      tree_flatten(t)}
+    return {"device": str(p2["embed"].device), "loss": float(m["loss"]),
+            "grad_norm": float(m["grad_norm"]), "launches": launches,
+            "grads": flat(fg), "params": flat(fp), "opt": flat(fo)}
+
+
+def test_sp_q8_train_on_card(f32_card, tmp_path):
+    """Training under the serving half's mechanisms on two ranks sharing
+    the card over gloo (slice M): the reduced mamba2 under
+    ``TRAIN_SP_RULES`` with ``adamw8bit`` against one process on the
+    card: loss within 1e-5 relative, grad norm and every gradient leaf
+    within 1e-4 (of the leaf's largest value), parameters at rtol 5e-3 /
+    atol 5e-5, int8 scales within 1e-5 relative and codes within 1, both
+    ranks alike, ssd_chunk launched twice a layer (forward and remat)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.ranks import spawn_ranks
+    from repro_torch.models.model import init_model_params
+    from repro_torch.optim.quantized import init_opt_state_q8
+    from repro_torch.train import train_step as T
+    from repro_torch.utils.tree import tree_flatten
+    cfg = get_reduced("mamba2-2.7b", n_periods=2)
+    rng = np.random.default_rng(5)
+    batch = {k: rng.integers(0, cfg.vocab_size, (4, 64)).astype(np.int32)
+             for k in ("tokens", "targets")}
+    got = spawn_ranks(2, "test_torch_cuda:sp_train_rank", (batch,),
+                      backend="gloo", init_method=f"file://{tmp_path / 'st'}",
+                      timeout_s=300)
+    params = init_model_params(cfg, torch.Generator(device="cuda")
+                               .manual_seed(0), device="cuda")
+    hp = T.TrainHParams(remat="full", ce_chunk=32, opt_impl="adamw8bit")
+    p1, o1, m1, g1 = T.make_train_step(cfg, hp)(
+        params, init_opt_state_q8(params),
+        {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}, 0,
+        with_grads=True)
+    assert got[0]["loss"] == got[1]["loss"]
+    for g in got:
+        assert g["device"].startswith("cuda")
+        assert g["launches"] == {"ssd_chunk": 2 * cfg.n_layers}
+        np.testing.assert_allclose(g["loss"], float(m1["loss"]), rtol=1e-5)
+        np.testing.assert_allclose(g["grad_norm"], float(m1["grad_norm"]),
+                                   rtol=1e-4)
+        for k, v in tree_flatten(g1):
+            v = v.cpu().numpy()
+            assert np.abs(g["grads"][k] - v).max() <= 1e-4 * max(
+                np.abs(v).max(), 1e-30), k
+        for k, v in tree_flatten(p1):
+            np.testing.assert_allclose(g["params"][k], v.cpu().numpy(),
+                                       rtol=5e-3, atol=5e-5, err_msg=k)
+        for k, v in tree_flatten(o1):
+            v = v.cpu().numpy()
+            if v.dtype == np.int8:
+                assert np.abs(g["opt"][k].astype(np.int32)
+                              - v.astype(np.int32)).max() <= 1, k
+            else:
+                np.testing.assert_allclose(g["opt"][k], v, rtol=1e-5,
+                                           err_msg=k)

@@ -1,7 +1,8 @@
 """Isolation and entry-point rules of the port:
 
-* no file under ``src/repro_torch/``, nor ``chip_smoke.py`` or
-  ``rank_select_probe.py``, imports ``jax`` or anything of ``repro``
+* no file under ``src/repro_torch/``, nor ``chip_smoke.py``,
+  ``rank_select_probe.py`` or ``sp_probe.py``, imports ``jax`` or
+  anything of ``repro``
   (AST scan);
 * ``repro_torch`` imports and runs a small CPU trace in a process where
   ``import jax`` fails, and there ``repro_torch.cluster`` imports and
@@ -12,8 +13,9 @@
   ``make_pipeline``, ``launch.train``); the explicit RegC train path
   builds and takes a step in one process, so does a sharding context
   (equal, on a mesh of one rank, to the one-process step bit for bit),
-  and what waits for ROADMAP item 13g raises, naming it; the serving
-  entry points take a ``ctx`` where ``import jax`` fails;
+  under every rules table, with either optimiser and SSM layers too
+  (ROADMAP item 13g), where ``import jax`` fails; the serving entry
+  points take a ``ctx`` where ``import jax`` fails;
 * the knobs of ported slices (race detection and the recovery hooks
   among them, and the reference engine) build a runtime, and the
   reference engine raises on the recovery hooks, naming the slice;
@@ -35,7 +37,8 @@ from repro_torch.ft import FailureInjector, StragglerMonitor
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "rank_select_probe.py"]
+    ROOT / "chip_smoke.py", ROOT / "rank_select_probe.py",
+    ROOT / "sp_probe.py"]
 
 
 def _imported_modules(path: Path):
@@ -111,6 +114,72 @@ def test_port_runs_without_jax(tmp_path):
         "assert all(torch.equal(a, b) for a, b in zip(\n"
         "    tree_leaves(p2), tree_leaves(p4)))\n"
         "import torch.distributed as dist\n"
+        "dist.destroy_process_group()\n"
+        "assert 'jax' not in [m for m in sys.modules if sys.modules[m]]\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=tmp_path, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_training_under_every_table_runs_without_jax(tmp_path):
+    """The training paths of ROADMAP item 13g (the seq_sp boundary, SSM
+    layers in a sharded step, ``adamw8bit`` under a ctx, the serving
+    tables and ``gather_fsdp=False``) import and run where ``import
+    jax`` fails: on a one-rank mesh, under every table of
+    ``NAMED_RULES`` with the ``gather_fsdp`` the reference pairs it with
+    and ``DEFAULT_RULES`` with ``gather_fsdp=False``, attention, SSM and
+    hybrid configs take a step with AdamW and ``adamw8bit`` equal to the
+    one-process step bit for bit, and ``eval_loss(ctx=)`` gives its
+    loss."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "import torch\n"
+        "import torch.distributed as dist\n"
+        "from repro_torch.configs import get_reduced\n"
+        "from repro_torch.launch.mesh import make_host_mesh\n"
+        "from repro_torch.launch.ranks import init_world\n"
+        "from repro_torch.models import sharding as SH\n"
+        "from repro_torch.optim.adamw import init_opt_state\n"
+        "from repro_torch.optim.quantized import init_opt_state_q8\n"
+        "from repro_torch.train import train_step as T\n"
+        "from repro_torch.utils.tree import tree_leaves\n"
+        "torch.set_num_threads(1)\n"
+        "assert init_world('gloo')\n"
+        "mesh = make_host_mesh((1, 1), ('data', 'model'))\n"
+        "g = torch.Generator().manual_seed(1)\n"
+        "batch = {k: torch.randint(0, 256, (2, 32), generator=g)\n"
+        "         for k in ('tokens', 'targets')}\n"
+        "tables = [(r, r not in (SH.DECODE_2D_RULES, SH.LONG_2D_RULES))\n"
+        "          for r in SH.NAMED_RULES.values() if r is not None]\n"
+        "tables += [(SH.DEFAULT_RULES, True), (SH.DEFAULT_RULES, False)]\n"
+        "for arch in ('internlm2-1.8b', 'mamba2-2.7b', "
+        "'jamba-1.5-large-398b'):\n"
+        "    cfg = get_reduced(arch)\n"
+        "    p, _ = T.init_train_state(cfg, torch.Generator().manual_seed(0),"
+        "\n"
+        "                              device='cpu')\n"
+        "    for opt_impl, init in (('adamw', init_opt_state),\n"
+        "                           ('adamw8bit', init_opt_state_q8)):\n"
+        "        hp = T.TrainHParams(ce_chunk=16, remat=None, "
+        "opt_impl=opt_impl)\n"
+        "        p1, o1, m1 = T.make_train_step(cfg, hp)(p, init(p), batch, 0)"
+        "\n"
+        "        for rules, gf in tables:\n"
+        "            ctx = SH.ShardingCtx(mesh, rules, gather_fsdp=gf)\n"
+        "            lp, lo = T.shard_state(cfg, ctx, p, init(p))\n"
+        "            p2, o2, m2 = T.make_train_step(cfg, hp, ctx)(\n"
+        "                lp, lo, batch, 0)\n"
+        "            assert torch.equal(m2['loss'], m1['loss']), (arch, "
+        "rules)\n"
+        "            assert all(torch.equal(a, b) for a, b in zip(\n"
+        "                tree_leaves([p1, o1]), tree_leaves([p2, o2]))), "
+        "(arch, rules)\n"
+        "            l2, _ = T.eval_loss(cfg, hp, lp, batch, ctx)\n"
+        "            assert torch.equal(l2, m1['loss']), (arch, rules)\n"
         "dist.destroy_process_group()\n"
         "assert 'jax' not in [m for m in sys.modules if sys.modules[m]]\n"
         "print('ok')\n")
@@ -311,16 +380,17 @@ def test_train_entry_points_default_to_the_card(tmp_path):
 
 
 def test_regc_train_path_raises_naming_13d(tmp_path):
-    """ROADMAP items 13d and 13e are ported: the RegC path builds (its
-    Trainer needs a mesh) and so do sharding contexts under the training
-    rules (an ``inner_ctx`` whose rules name no dp axis too).  What still
-    raises, before a checkpoint directory is made: what waits for item
-    13g (training under the serving rules' axes, ``gather_fsdp=False``,
-    SSM layers and ``adamw8bit`` under a ctx), the reference's two
-    refusals of an ``inner_ctx`` (a rule on a dp axis; ``moe_impl='ep'``)
-    and, on the
-    one-process path, every sync policy but the default (which it would
-    ignore), naming the regc path where the policy applies."""
+    """ROADMAP items 13d, 13e and 13g are ported: the RegC path builds
+    (its Trainer needs a mesh) and so do sharding contexts under every
+    rules table (an ``inner_ctx`` whose rules name no dp axis too),
+    ``gather_fsdp=False``, SSM layers and ``adamw8bit`` under a ctx, the
+    step and the Trainer (in a world of one rank).  What still raises,
+    before a checkpoint directory is made: the reference's two refusals
+    of an ``inner_ctx`` (a rule on a dp axis; ``moe_impl='ep'``) and, on
+    the one-process path, every sync policy but the default (which it
+    would ignore), naming the regc path where the policy applies."""
+    import torch.distributed as dist
+    from repro_torch.launch.ranks import init_world
     from repro_torch.configs import get_reduced
     from repro_torch.data import DataConfig
     from repro_torch.models import sharding as SH
@@ -350,12 +420,16 @@ def test_regc_train_path_raises_naming_13d(tmp_path):
              TrainHParams(opt_impl="adamw8bit"), arch),
             (SH.ShardingCtx(mesh, SH.DEFAULT_RULES), TrainHParams(),
              "mamba2-2.7b")):
-        with pytest.raises(NotImplementedError, match="13g"):
-            make_train_step(get_reduced(arch), hp, ctx)
-        with pytest.raises(NotImplementedError, match="13g"):
-            Trainer(get_reduced(arch), hp, TrainerConfig(
-                ckpt_dir=str(tmp_path / "ck")), DataConfig(), ctx=ctx,
+        assert callable(make_train_step(get_reduced(arch), hp, ctx))
+        owned = init_world("gloo")
+        try:
+            tr = Trainer(get_reduced(arch), hp, TrainerConfig(
+                ckpt_dir=str(tmp_path / "built")), DataConfig(), ctx=ctx,
                 device="cpu")
+            assert tr.ctx is ctx and callable(tr.step_fn)
+        finally:
+            if owned:
+                dist.destroy_process_group()
     with pytest.raises(ValueError, match="manual axes"):
         make_train_step_regc(cfg, TrainHParams(), mesh,
                              inner_ctx=SH.ShardingCtx(mesh, SH.DEFAULT_RULES))

@@ -333,9 +333,9 @@ def test_regc_training_csv_row(steps, tag):
 
 def test_regc_step_refusals():
     """The reference's refusals of an inner_ctx (tensor parallelism inside
-    the RegC path) stand: rules naming a dp axis and moe_impl='ep' raise,
-    and what waits for 13g raises naming it; the step runs in a world of
-    one."""
+    the RegC path) stand: rules naming a dp axis and moe_impl='ep' raise;
+    SSM layers and a rule on ``kv_seq`` (ROADMAP 13g) build a step; the
+    step runs in a world of one."""
     from repro_torch.launch.ranks import init_world
     from repro_torch.models import sharding as SH
     cfg = get_reduced("internlm2-1.8b")
@@ -351,14 +351,10 @@ def test_regc_step_refusals():
         make_train_step_regc(cfg, TrainHParams(), Shape(),
                              inner_ctx=SH.ShardingCtx(Shape(), no_dp,
                                                       moe_impl="ep"))
-    with pytest.raises(NotImplementedError, match="13g"):
-        make_train_step_regc(get_reduced("mamba2-2.7b"), TrainHParams(),
-                             Shape(), inner_ctx=SH.ShardingCtx(Shape(),
-                                                               no_dp))
-    with pytest.raises(NotImplementedError, match="13g"):
+    with pytest.raises(ValueError, match="moe_impl"):
         make_train_step_regc(cfg, TrainHParams(), Shape(),
-                             inner_ctx=SH.ShardingCtx(
-                                 Shape(), dict(no_dp, kv_seq=("model",))))
+                             inner_ctx=SH.ShardingCtx(Shape(), no_dp,
+                                                      moe_impl="ring"))
     owned = init_world("gloo")
     try:
         mesh = make_host_mesh((1,), ("data",))
@@ -374,6 +370,13 @@ def test_regc_step_refusals():
                          "targets": torch.zeros((1, 16), dtype=torch.int32)},
                         0)
         assert torch.isfinite(m["loss"])
+        mesh2 = make_host_mesh((1, 1), ("data", "model"))
+        assert callable(make_train_step_regc(
+            get_reduced("mamba2-2.7b"), TrainHParams(), mesh2,
+            inner_ctx=SH.ShardingCtx(mesh2, no_dp)))
+        assert callable(make_train_step_regc(
+            cfg, TrainHParams(), mesh2,
+            inner_ctx=SH.ShardingCtx(mesh2, dict(no_dp, kv_seq=("model",)))))
     finally:
         if owned:
             import torch.distributed as dist

@@ -499,8 +499,8 @@ def test_check_serving_refuses_what_the_reference_refuses():
                   "DECODE_2D_RULES", "LONG_2D_RULES", "DEFAULT_RULES",
                   "TRAIN_SP_RULES"):
         for impl in SH.MOE_IMPLS:
-            SH.check_serving(cfg, SH.ShardingCtx(
+            SH.check_ctx(cfg, SH.ShardingCtx(
                 _Shape(), getattr(SH, rules), moe_impl=impl))
     with pytest.raises(ValueError, match="moe_impl"):
-        SH.check_serving(cfg, SH.ShardingCtx(_Shape(), SH.SERVE_RULES,
+        SH.check_ctx(cfg, SH.ShardingCtx(_Shape(), SH.SERVE_RULES,
                                              moe_impl="ring"))
