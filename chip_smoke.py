@@ -176,8 +176,9 @@ Phases, in order; any mismatch or exception exits non-zero:
 7. profile phase: the device busy share and device activities of the
    two samhita fig6_weak points (lock, reduction), of fig4_refetch and
    fig7_md_spill and of the reference engine's W=256 Jacobi with
-   values, each from a separate torch.profiler run; the lock point may
-   issue at most twice the reduction point's device activities;
+   values, each from a separate torch.profiler run that traces the
+   device's activities only; the lock point may issue at most twice the
+   reduction point's device activities;
 8. model phase (slices M and H): one model resident at a time, float32
    weights drawn on the card from seed 0, serves 8 requests (the
    reference server's, prompts up to 511 tokens, 16 new tokens) in waves
@@ -244,8 +245,9 @@ Phases, in order; any mismatch or exception exits non-zero:
 9b. tp phase (slice K): tensor, expert and FSDP parallelism of
    training.  moonshot-v1-16b-a3b at full width (d_model 2048, 16
    heads, 64 experts of d_ff 1408, top-6, vocabulary 163840), remat
-   "full", sequences of 1024, ``DEFAULT_RULES`` (what the reference's
-   ``rules_for`` gives an MoE train shape), parameters drawn on the card
+   "full", sequences of 1024, ``DEFAULT_RULES`` (what
+   ``launch.specs.rules_for`` gives an MoE train shape, as the
+   reference's), parameters drawn on the card
    from seed 0.  (a) 1 layer, mesh (1, 2) ("data", "model"), a global
    batch of 2, one step each with ``moe_impl`` dense and ep from the
    same state; (b) 1 layer, mesh (2, 2) (FSDP over data, two dispatch
@@ -315,6 +317,18 @@ Phases, in order; any mismatch or exception exits non-zero:
    memory and the one process's, the collectives' bytes and messages by
    kind and axes, the bytes staged through the host and the optimiser
    state's bytes a rank against AdamW's.
+9e. launch phase (slice N): the launch analysis (``launch.dryrun``) on
+   walls and counters the phases above took; no step runs on the card.
+   (a) The train phase's cell, counted on ``meta`` as the one rank of
+   an ``AbstractMesh``: counted FLOPs and ``model_flops``, model TFLOP/s
+   of each over the train phase's step walls, the roofline bound and its
+   dominant term at ``PEAK_FLOPS_F32``, ``total_live`` against the
+   train phase's ``max_memory_allocated``; ``memory_per_device.
+   arguments`` equal to the bytes of the parameters, optimiser state and
+   batch the train phase held, no kernel launched.  (b) 9d's cell (b)
+   on an ``AbstractMesh`` at each of its 4 ranks: each rank's collective
+   bytes and messages by (kind, axes) equal to what that rank counted in
+   9d, no parameter gathered.  Prints the phase's wall.
 
 TF32 is off for every float comparison (printed at the start).  The
 launch counters are set to 0 just before each of the path phases (the
@@ -2224,7 +2238,7 @@ def train_phase(torch, np, card, steps=TRAIN_STEPS, device="cuda",
     from repro_torch.ft import FailureInjector
     from repro_torch.train.train_step import (TrainHParams, init_train_state,
                                               make_train_step)
-    from repro_torch.utils.tree import tree_leaves
+    from repro_torch.utils.tree import tree_bytes, tree_leaves
     rows, launches = {}, {}
 
     def count(reading):
@@ -2259,6 +2273,8 @@ def train_phase(torch, np, card, steps=TRAIN_STEPS, device="cuda",
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     params, opt = draw(cfg)
+    # what the step holds before it runs (the launch phase's arguments)
+    held = {"params": tree_bytes(params), "opt_state": tree_bytes(opt)}
     step_fn = make_train_step(cfg, hp)
     pipe = make_pipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                                     global_batch=TRAIN_BATCH),
@@ -2268,6 +2284,7 @@ def train_phase(torch, np, card, steps=TRAIN_STEPS, device="cuda",
     try:
         for _ in range(steps):
             step, batch = next(pipe)
+            held.setdefault("batch", tree_bytes(batch))
             sync(torch, device)
             t0 = time.perf_counter()
             params, opt, m = step_fn(params, opt, batch, step)
@@ -2296,7 +2313,8 @@ def train_phase(torch, np, card, steps=TRAIN_STEPS, device="cuda",
                     "remat": hp.remat, "walls_s": walls,
                     "tokens_per_s": [tokens / w for w in walls],
                     "model_tflops": tflops, "metrics": metrics,
-                    "max_memory_allocated": peak, "launches": reading}
+                    "max_memory_allocated": peak, "launches": reading,
+                    "held_bytes": held}
     print(f"train {cfg.name} width {cfg.d_model}, {cfg.n_layers} layers "
           f"({n} params, f32), batch {TRAIN_BATCH} x {seq}, remat "
           f"{hp.remat}: wall per step {[round(w, 4) for w in walls]} s, "
@@ -2754,8 +2772,8 @@ def regc_phase(torch, np, card, device="cuda", cfg=None, seq=REGC_SEQ,
 # phase 9b: tensor, expert and FSDP parallelism of training (slice K)
 # ---------------------------------------------------------------------------
 
-# moonshot-v1-16b-a3b at full width, DEFAULT_RULES (what the reference's
-# rules_for gives an MoE train shape), remat "full", sequences of 1024:
+# moonshot-v1-16b-a3b at full width, DEFAULT_RULES (``launch.specs.
+# rules_for`` at train_4k, an MoE's), remat "full", sequences of 1024:
 # (a) 1 layer (2 until the serve-tp phase needed the time) on a (1, 2)
 # ("data", "model") mesh, a global batch of 2, one step with moe_impl
 # dense and one with ep from the same state; (b) 1 layer on a (2, 2)
@@ -2827,13 +2845,14 @@ def tp_rank(cfg, hp, batch, impls, shape, work, one, device):
 
     # the seeded parameters drawn a leaf at a time, in init_params's
     # order, each digested and cut to this rank's block before the next
-    # (every impl lays them out alike: DEFAULT_RULES): a full leaf at most
+    # (every impl lays them out alike: ``rules_for``'s table for an MoE
+    # train shape, DEFAULT_RULES): a full leaf at most
     # on the card at once
     gen = torch.Generator(device=dev).manual_seed(0)
     blocks, digest = [], []
+    rules = getattr(SH, run_rules(cfg, "train_4k"))
     for pspec, spec in zip(SH.spec_leaves(param_specs(cfg)),
-                           T.leaf_specs(cfg, SH.ShardingCtx(
-                               mesh, SH.DEFAULT_RULES))):
+                           T.leaf_specs(cfg, SH.ShardingCtx(mesh, rules))):
         leaf = init_param(pspec, gen, torch.float32)
         digest.append(leaf_digest(torch, leaf))
         blocks.append(SH.owned_block(leaf, spec, mesh))
@@ -2849,7 +2868,7 @@ def tp_rank(cfg, hp, batch, impls, shape, work, one, device):
     setup_s = time.perf_counter() - t_start
     rows, failed = {}, []
     for impl in impls:
-        ctx = SH.ShardingCtx(mesh, SH.DEFAULT_RULES, moe_impl=impl)
+        ctx = SH.ShardingCtx(mesh, rules, moe_impl=impl)
         specs = T.leaf_specs(cfg, ctx)
         t_eval = time.perf_counter()
         layers.ROUTES = []
@@ -3100,7 +3119,8 @@ def tp_phase(torch, np, card, device="cuda", cfg=None, seq=TP_SEQ,
                     launches[k] = launches.get(k, 0) + v
         print(f"tp ({tag}) {run_cfg.name} width {run_cfg.d_model}, "
               f"{run_cfg.n_layers} layers ({run_cfg.param_count()} params, "
-              f"f32), mesh {dict(zip(TP_AXES, shape))} DEFAULT_RULES, "
+              f"f32), mesh {dict(zip(TP_AXES, shape))} "
+              f"{run_rules(run_cfg, 'train_4k')}, "
               f"global batch {B} x {seq}, remat {hp.remat}: one-process "
               f"steps {[round(w, 3) for w in one['walls'].values()]} s, "
               f"peak {one['peak']} B, gradients to the host file "
@@ -3145,17 +3165,19 @@ def tp_phase(torch, np, card, device="cuda", cfg=None, seq=TP_SEQ,
 # ---------------------------------------------------------------------------
 
 # (tag, arch, depth (None: the config's own), rules, gather_fsdp, mesh):
-# (a) internlm2-1.8b whole under SMALL_SERVE_RULES (what the reference's
-# rules_for gives its decode shape): batch over 'data', q heads, vocab and
+# (a) internlm2-1.8b whole under SMALL_SERVE_RULES (what rules_for gives
+# its decode shape): batch over 'data', q heads, vocab and
 # the KV cache's positions over 'model'; (b) mamba2-2.7b whole, the same
 # rules: ssm_in over 'model'; (c) llama3-405b at full width, 1 of its 126
 # layers, DECODE_2D_RULES with gather_fsdp=False (the no-regather decode
 # the reference wrote that table for): d_model over 'data', heads, d_ff,
 # vocab over 'model', positions over both
+# (the rules: ``launch.specs.rules_for`` at a shape of the registry, with
+# an override of ``NAMED_RULES`` or none; ``run_rules``)
 SERVE_TP_RUNS = (
-    ("a", "internlm2-1.8b", None, "SMALL_SERVE_RULES", True, (2, 2)),
-    ("b", "mamba2-2.7b", None, "SMALL_SERVE_RULES", True, (1, 2)),
-    ("c", "llama3-405b", 1, "DECODE_2D_RULES", False, (2, 2)))
+    ("a", "internlm2-1.8b", None, ("decode_32k", None), True, (2, 2)),
+    ("b", "mamba2-2.7b", None, ("decode_32k", None), True, (1, 2)),
+    ("c", "llama3-405b", 1, ("decode_32k", "decode2d"), False, (2, 2)))
 SERVE_TP_AXES = ("data", "model")
 # the model phase's first wave of 4 requests (seed 0), left-padded to 496
 # tokens, and 8 new ones (16 until the sp phase needed the time): caches
@@ -3169,10 +3191,26 @@ SERVE_TP_B, SERVE_TP_S, SERVE_TP_NEW = 4, 496, 8
 # (b) internlm2-1.8b at full width, 1 of its 24 layers, DECODE_2D_RULES
 # with gather_fsdp=False (batch whole; d_model over data; heads, d_ff
 # and vocabulary over model; no weight gathered), AdamW, 2 rows
-SP_RUNS = (("a", "mamba2-2.7b", 2, "TRAIN_SP_RULES", True, "adamw8bit", 4),
-           ("b", "internlm2-1.8b", 1, "DECODE_2D_RULES", False, "adamw", 2))
+SP_RUNS = (("a", "mamba2-2.7b", 2, ("train_4k", "train_sp"), True,
+            "adamw8bit", 4),
+           ("b", "internlm2-1.8b", 1, ("train_4k", "decode2d"), False,
+            "adamw", 2))
 SP_SHAPE, SP_SEQ = (2, 2), 1024
 SP_AXES = ("data", "model")
+
+
+def run_rules(cfg, shape_name, override=None) -> str:
+    """The name in ``models.sharding`` of a run's rules table:
+    ``launch.specs.rules_for`` of ``cfg`` at the registry's shape
+    ``shape_name``, given the ``NAMED_RULES`` entry ``override`` (or
+    none)."""
+    from repro_torch.configs import get_shape
+    from repro_torch.launch.specs import rules_for
+    from repro_torch.models import sharding as SH
+    rules = rules_for(cfg, get_shape(shape_name),
+                      SH.NAMED_RULES[override] if override else None)
+    return next(k for k, v in vars(SH).items()
+                if k.endswith("_RULES") and v is rules)
 
 
 def serve_tp_prompt(np, cfg, B=SERVE_TP_B, S=SERVE_TP_S):
@@ -3464,7 +3502,7 @@ def serve_tp_phase(torch, np, card, device="cuda", runs=SERVE_TP_RUNS,
                                              work / f"logits_{tag}.npy",
                                              device)
             one_s[tag] = time.perf_counter() - t0
-            plan.append((tag, cfg, rules, gf, toks))
+            plan.append((tag, cfg, run_rules(cfg, *rules), gf, toks))
         sp = None
         if sp_runs and shape == SP_SHAPE:
             sp = sp_comparators(torch, np, sp_runs, work, device,
@@ -3859,7 +3897,8 @@ def sp_comparators(torch, np, runs, work, device, configs=None, seq=SP_SEQ):
                                    batch, work / f"grads_sp_{tag}.npy",
                                    device)
         one_s[tag] = time.perf_counter() - t0
-        plan.append((tag, cfg, rules, gf, opt_impl, batch))
+        plan.append((tag, cfg, run_rules(cfg, *rules), gf, opt_impl,
+                     batch))
         if card_run:
             gc.collect()
             torch.cuda.empty_cache()
@@ -3919,6 +3958,135 @@ def sp_report(sp, ranks, ranks_s, card):
                                     if k not in ("digest",)},
                     "ranks": rows, "one_s": one_s[tag], "ranks_s": ranks_s}
     return out, launches
+
+# ---------------------------------------------------------------------------
+# launch phase: launch analysis (slice N)
+# ---------------------------------------------------------------------------
+
+
+def collective_rows(C) -> dict:
+    """The collectives' counters as phase 9d's rows keep them:
+    ``"<kind> <axes>"`` -> (bytes, messages)."""
+    return {f"{k} {'x'.join(a)}": (C.COLLECTIVE_BYTES[(k, a)],
+                                   C.COLLECTIVE_MSGS[(k, a)])
+            for k, a in sorted(C.COLLECTIVE_BYTES)}
+
+
+def launch_phase(torch, np, card, trains, sps, cfg=None, sp_cfg=None,
+                 sp_seq=SP_SEQ):
+    """Slice N, the launch analysis, on walls and counters that earlier
+    phases took (no step runs on the card).  (a) The train phase's cell
+    (``cfg``, by default internlm2-1.8b whole; float32, the train phase's
+    batch and sequence, remat "full", AdamW) counted on ``meta`` as rank
+    0 of a one-rank ``AbstractMesh``: counted FLOPs and ``model_flops``,
+    the model TFLOP/s of each over the train phase's step walls, the
+    roofline bound and its dominant term at ``PEAK_FLOPS_F32``, and
+    ``total_live`` beside the train phase's ``max_memory_allocated``.
+    Checks: ``memory_per_device.arguments`` equal to the bytes the train
+    phase held as parameters, optimiser state and batch, and no kernel
+    launched.  (b) Phase 9d's cell (b) (``sp_cfg``, by default
+    internlm2-1.8b at full width, 1 layer; ``DECODE_2D_RULES`` with
+    ``gather_fsdp=False``, AdamW, 2 x ``sp_seq``) on an ``AbstractMesh``
+    at each of its 4 ranks: every rank's ``COLLECTIVE_BYTES`` and
+    ``COLLECTIVE_MSGS`` by (kind, axes) equal to what that rank counted
+    in 9d, and no parameter gathered.  Returns the rows; raises if a
+    check failed."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.dryrun import (count_step, peak_flops,
+                                           roofline_terms)
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.launch.specs import model_flops
+    from repro_torch.models import collectives as C
+    from repro_torch.models import sharding as SH
+    rows = {}
+
+    # (a) the train phase's cell
+    full = trains["full"]
+    cfg = cfg or get_config(TRAIN_ARCH)
+    shape = ShapeConfig("train", "train", full["seq"], full["batch"])
+    reset_counters()
+    mem, st, count_s = count_step(
+        cfg, shape, AbstractMesh((1, 1), ("data", "model")),
+        hp=sp_hp("adamw", full["seq"]), param_dtype=torch.float32)
+    launched = read_counters()
+    mf = model_flops(cfg, shape)
+    roof = roofline_terms(st, 1, mf, peak_flops(torch.float32))
+    held = sum(full["held_bytes"].values())
+    peak = full["max_memory_allocated"]
+    ratio = mem["total_live"] / peak if peak else None
+    rows["train"] = {
+        "arch": cfg.name, "batch": full["batch"], "seq": full["seq"],
+        "count_s": count_s, "flops": st.flops, "model_flops": mf,
+        "dot_count": st.dot_count, "ops": st.ops,
+        "tflops_counted": [st.flops / w / 1e12 for w in full["walls_s"]],
+        "tflops_model": [mf / w / 1e12 for w in full["walls_s"]],
+        "memory_per_device": mem, "held_bytes": full["held_bytes"],
+        "max_memory_allocated": peak, "live_over_peak": ratio,
+        "roofline": roof, "launches": launched}
+    print(f"launch (a) {cfg.name}, {cfg.n_layers} layers, f32, batch "
+          f"{full['batch']} x {full['seq']}, remat full, AdamW, counted on "
+          f"meta in {count_s:.2f} s ({st.ops} ops, {st.dot_count:.0f} "
+          f"matmuls): counted {st.flops:.6e} FLOPs, model_flops {mf:.6e} "
+          f"(model/counted {mf / st.flops:.4f}); TFLOP/s over the train "
+          f"phase's step walls: counted "
+          f"{[round(t, 2) for t in rows['train']['tflops_counted']]}, "
+          f"model {[round(t, 2) for t in rows['train']['tflops_model']]}; "
+          f"roofline at {roof['peak_flops']:.4g} FLOP/s: compute "
+          f"{roof['t_compute_s']:.4f} s, memory {roof['t_memory_s']:.4f} "
+          f"s, bound {roof['bound_s']:.4f} s ({roof['dominant']}); "
+          f"total_live {mem['total_live']} B (arguments "
+          f"{mem['arguments']} + created {mem['peak_created']}) against "
+          f"max_memory_allocated {peak} B, ratio "
+          f"{ratio if ratio is None else round(ratio, 4)}; {card}",
+          flush=True)
+    failed = [what for what, ok in (
+        ("arguments", mem["arguments"] == held),
+        ("launches", not any(launched.values()))) if not ok]
+    if failed:
+        raise AssertionError(f"launch (a): {failed}: arguments "
+                             f"{mem['arguments']} B against {held} B held "
+                             f"({full['held_bytes']}), launches {launched}")
+
+    # (b) phase 9d's cell (b) at each of its ranks
+    tag, arch, depth, rules, gf, opt_impl, B = next(
+        r for r in SP_RUNS if r[0] == "b")
+    sp_cfg = sp_cfg or dataclasses.replace(get_config(arch),
+                                           n_layers=depth)
+    table = getattr(SH, run_rules(sp_cfg, *rules))
+    shape = ShapeConfig("sp", "train", sp_seq, B)
+    ranks = sps[tag]["ranks"]
+    got, t0 = [], time.perf_counter()
+    for r in range(len(ranks)):
+        _, st, _ = count_step(
+            sp_cfg, shape, AbstractMesh(SP_SHAPE, SP_AXES, r),
+            hp=sp_hp(opt_impl, sp_seq), param_dtype=torch.float32,
+            rules_override=table, gather_fsdp=gf)
+        got.append({"rank": r, "collectives": collective_rows(C),
+                    "param_gathers": dict(C.PARAM_GATHERS),
+                    "flops": st.flops})
+    count_s = time.perf_counter() - t0
+    bad = [r for r, (g, row) in enumerate(zip(got, ranks))
+           if row["rank"] != r or g["collectives"] != row["collectives"]
+           or g["param_gathers"]["messages"] or g["param_gathers"]["bytes"]]
+    rows["sp"] = {"arch": sp_cfg.name, "layers": sp_cfg.n_layers,
+                  "rules": run_rules(sp_cfg, *rules), "count_s": count_s,
+                  "ranks": got, "equal": not bad}
+    print(f"launch (b) {sp_cfg.name}, {sp_cfg.n_layers} layer(s), "
+          f"{rows['sp']['rules']} gather_fsdp={gf}, mesh "
+          f"{dict(zip(SP_AXES, SP_SHAPE))}, batch {B} x {sp_seq}: "
+          f"{len(got)} abstract ranks counted in {count_s:.2f} s; a rank's "
+          f"collectives (bytes, messages) {got[0]['collectives']}, counted "
+          f"FLOPs {[g['flops'] for g in got]}; equal to 9d's ranks "
+          f"{not bad}, parameters gathered "
+          f"{[g['param_gathers']['messages'] for g in got]}", flush=True)
+    if bad:
+        raise AssertionError(
+            f"launch (b): ranks {bad} differ from phase 9d's: abstract "
+            f"{[got[r] for r in bad]}, 9d "
+            f"{[(ranks[r]['rank'], ranks[r]['collectives']) for r in bad]}")
+    return rows
+
 
 # ---------------------------------------------------------------------------
 # main-path phase
@@ -5300,14 +5468,15 @@ def reference_phase(torch, np, device="cuda", W_=W,
 
 def traced(torch, run):
     """Run ``run`` (which returns (anything, wall seconds)) under
-    torch.profiler: its wall, the number of device activities recorded
-    (kernels, copies, sets), the union of their intervals (device busy
-    seconds) and the idle share of the wall; busy and idle are None when
-    the trace holds no device activity."""
+    torch.profiler, tracing the device's activities only (host ops are
+    not recorded: their events cost the reference Jacobi's run more than
+    its wall to record and collect): its wall, the number of device
+    activities recorded (kernels, copies, sets), the union of their
+    intervals (device busy seconds) and the idle share of the wall; busy
+    and idle are None when the trace holds no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _, wall = run()
     # the raw trace's device events (in µs), the ones ``prof.events()``
     # turns into FunctionEvents: reading them here skips building the
@@ -5495,6 +5664,7 @@ def main() -> int:
     tps, tp_launches = phase("tp", tp_phase, torch, np, card)
     serve_tps, serve_tp_launches, sps, sp_launches = phase(
         "serve-tp and sp", serve_tp_phase, torch, np, card)
+    launch_rows = phase("launch", launch_phase, torch, np, card, trains, sps)
 
     total = {k: launches[k] + spill_launches[k] + span_launches[k]
              + race_launches[k] + serve_launches[k] + recovery_launches[k]
@@ -5543,7 +5713,7 @@ def main() -> int:
          "regc": regcs, "launches_regc": regc_launches,
          "tp": tps, "launches_tp": tp_launches,
          "serve_tp": serve_tps, "launches_serve_tp": serve_tp_launches,
-         "sp": sps, "launches_sp": sp_launches,
+         "sp": sps, "launches_sp": sp_launches, "launch": launch_rows,
          "victim_scans": [[L, k, n] for (L, k), (n, _) in scans.items()],
          "launches_main": launches, "launches_span": span_launches,
          "launches_race": race_launches,

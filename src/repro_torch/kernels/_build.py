@@ -166,10 +166,19 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
 
 def on_card(t: torch.Tensor) -> bool:
     """True for a tensor on a CUDA device (launch the kernel), False for
-    one on the CPU (run the plain version); any other device raises."""
+    one on the CPU or on ``meta`` (run the plain version); any other
+    device raises.
+
+    ``meta`` is the launch analysis's device (``launch.dryrun``): a step
+    run on shapes alone, counted op by op.  There the attention and SSD
+    kernels count as their plain versions' whole products, the causal
+    mask's upper half included: the definition of the reference's XLA
+    count of ``blocked_attention``.  The card's causal flash_attention
+    skips the blocks above the diagonal and does about half of those
+    products."""
     if t.is_cuda:
         return True
-    if not t.is_cpu:
+    if not (t.is_cpu or t.is_meta):
         raise ValueError(f"unsupported device {t.device}")
     return False
 

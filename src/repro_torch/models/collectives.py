@@ -34,9 +34,13 @@ constraints, and ``moe_block_ep`` has one ``lax.psum``).
   context-parallel decode, the softmax combine's max and sums).
 
 Each runs in the process group of the ``launch.mesh.Mesh`` axes and is
-skipped when the group holds one rank.  The ranks run gloo, which takes
-only host tensors, so a card's operand is staged to the host and back,
-explicitly, as ``regc_sync.policies`` stages it.  Each call counts, by
+skipped when the group holds one rank.  On a ``launch.mesh.AbstractMesh``
+(the launch analysis's one rank of a mesh that does not exist) a
+message counts as on a real rank and returns an empty tensor of its
+result's shape, dtype and device: nothing is sent or staged.  The
+ranks run gloo, which takes only host tensors, so a card's operand is
+staged to the host and back, explicitly, as ``regc_sync.policies``
+stages it.  Each call counts, by
 (kind, axes), the bytes of this rank's operand and one message in
 ``COLLECTIVE_BYTES`` / ``COLLECTIVE_MSGS``, and the bytes copied either
 way and the messages staged in ``STAGED``; ``reset_collectives`` zeroes
@@ -54,6 +58,8 @@ from typing import Dict, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.launch.mesh import AbstractMesh
 
 KINDS = ("all-reduce", "all-gather", "reduce-scatter")
 COLLECTIVE_BYTES: Dict[Tuple[str, Tuple[str, ...]], int] = {}
@@ -103,6 +109,8 @@ def reduce(x: torch.Tensor, axes, mesh, op: str = "sum") -> torch.Tensor:
         return x
     group, _ = mesh.group(axes)
     _count("all-reduce", axes, x)
+    if isinstance(mesh, AbstractMesh):
+        return torch.empty_like(x, memory_format=torch.contiguous_format)
     out = _host(x, group)
     dist.all_reduce(out, _OPS[op], group=group)
     return out.to(x.device)
@@ -116,6 +124,10 @@ def gather(x: torch.Tensor, dim: int, axes, mesh) -> torch.Tensor:
         return x
     group, ranks = mesh.group(axes)
     _count("all-gather", axes, x)
+    if isinstance(mesh, AbstractMesh):
+        shape = list(x.shape)
+        shape[dim] *= len(ranks)
+        return x.new_empty(shape)
     send = _host(x, group)
     parts = [torch.empty_like(send) for _ in ranks]
     dist.all_gather(parts, send, group=group)
@@ -133,6 +145,10 @@ def reduce_scatter(x: torch.Tensor, dim: int, axes, mesh) -> torch.Tensor:
     group, ranks = mesh.group(axes)
     _count("reduce-scatter", axes, x)
     n = x.shape[dim] // len(ranks)
+    if isinstance(mesh, AbstractMesh):
+        shape = list(x.shape)
+        shape[dim] = n
+        return x.new_empty(shape)
     host = _host(x, group)
     parts = [host.narrow(dim, mesh.block_index(axes, r) * n, n).contiguous()
              for r in ranks]

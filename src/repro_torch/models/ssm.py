@@ -195,8 +195,9 @@ def mamba2_block(params, x, cfg, *, cache=None, mode: str = "train",
         # O(1) recurrence
         h = init_state.float()
         hg = H // G
-        Bh = Bm.repeat_interleave(hg, dim=2)[:, 0]       # (B,H,N)
-        Ch = Cm.repeat_interleave(hg, dim=2)[:, 0]
+        # float32 as the state (jnp.einsum promotes a bf16 operand)
+        Bh = Bm.repeat_interleave(hg, dim=2)[:, 0].float()   # (B,H,N)
+        Ch = Cm.repeat_interleave(hg, dim=2)[:, 0].float()
         dt0 = dt[:, 0]                                   # (B,H)
         dec = torch.exp(dt0 * A)
         h = h * dec[..., None, None] + torch.einsum(
@@ -291,8 +292,8 @@ def _mamba2_sharded(params, x, cfg, cache, mode, layout, specs):
     if mode == "decode" and S == 1:
         h = init_state.float()
         g_loc = Bm.shape[2]
-        Bh = Bm.repeat_interleave(hl // g_loc, dim=2)[:, 0]
-        Ch = Cm.repeat_interleave(hl // g_loc, dim=2)[:, 0]
+        Bh = Bm.repeat_interleave(hl // g_loc, dim=2)[:, 0].float()
+        Ch = Cm.repeat_interleave(hl // g_loc, dim=2)[:, 0].float()
         dt0 = dt[:, 0]
         h = h * torch.exp(dt0 * A)[..., None, None] + torch.einsum(
             "bh,bhn,bhp->bhpn", dt0, Bh, xh[:, 0].float())

@@ -15,7 +15,9 @@
   (equal, on a mesh of one rank, to the one-process step bit for bit),
   under every rules table, with either optimiser and SSM layers too
   (ROADMAP item 13g), where ``import jax`` fails; the serving entry
-  points take a ``ctx`` where ``import jax`` fails;
+  points take a ``ctx`` where ``import jax`` fails; the dry run and the
+  roofline table run there too, on ``meta``, and write nothing under
+  ``artifacts/``;
 * the knobs of ported slices (race detection and the recovery hooks
   among them, and the reference engine) build a runtime, and the
   reference engine raises on the recovery hooks, naming the slice;
@@ -244,6 +246,51 @@ def test_serving_under_a_ctx_runs_without_jax(tmp_path):
                          text=True, env=env, cwd=tmp_path, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def _tree_listing(root: Path):
+    return sorted((str(p.relative_to(root)), p.stat().st_mtime_ns,
+                   p.stat().st_size) for p in root.rglob("*"))
+
+
+def test_dryrun_runs_without_jax(tmp_path):
+    """``launch.dryrun`` and ``launch.roofline`` run where ``import jax``
+    fails, on ``meta`` by default, and write their records under
+    ``build/dryrun`` of the working directory: nothing under the repo's
+    ``artifacts/``, and an ``--out`` there is refused."""
+    before = _tree_listing(ROOT / "artifacts")
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "import json, runpy\n"
+        "from pathlib import Path\n"
+        "sys.argv = ['dryrun', '--arch', 'internlm2-1.8b', '--shape',\n"
+        "            'decode_32k']\n"
+        "runpy.run_module('repro_torch.launch.dryrun', run_name='__main__')\n"
+        "rec = json.loads(Path('build/dryrun/internlm2-1.8b__decode_32k__'\n"
+        "                      '16x16__baseline.json').read_text())\n"
+        "assert rec['ok'] and rec['device'] == 'meta', rec\n"
+        "assert rec['per_device']['flops'] > 0\n"
+        "from repro_torch.launch import dryrun, roofline\n"
+        "md = roofline.to_markdown(roofline.load('baseline', '16x16',\n"
+        "                          Path('build/dryrun')), title='t')\n"
+        "assert 'internlm2-1.8b | decode_32k' in md, md\n"
+        "try:\n"
+        f"    dryrun.main(['--arch', 'internlm2-1.8b', '--shape',\n"
+        f"                 'decode_32k', '--out', "
+        f"'{ROOT / 'artifacts' / 'dryrun'}'])\n"
+        "except SystemExit as e:\n"
+        "    assert 'artifacts' in str(e), e\n"
+        "else:\n"
+        "    raise AssertionError('an --out under artifacts/ ran')\n"
+        "assert 'jax' not in [m for m in sys.modules if sys.modules[m]]\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=tmp_path, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"
+    assert _tree_listing(ROOT / "artifacts") == before
 
 
 def test_default_device_is_the_card():

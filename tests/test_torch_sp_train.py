@@ -25,9 +25,18 @@ under ``LONG_2D_RULES`` with ``gather_fsdp=False`` on (2, 2, 2)
 ``("pod", "data", "model")``; moonshot-v1-16b-a3b (MoE with shared
 experts) under ``DECODE_2D_RULES`` with ``gather_fsdp=False`` (the
 routing weights scale each rank's d_model block of the experts'
-outputs).  ``FUZZ_TORCH=1`` adds internlm2 under
+outputs); musicgen-medium (``embeds``, N(0, 1) from ``PRNGKey(2)``, cut
+to each rank's d_model block) under ``DECODE_2D_RULES`` with
+``gather_fsdp=False``.  ``FUZZ_TORCH=1`` adds internlm2 under
 ``SERVE_RULES`` and under ``DEFAULT_RULES`` with ``gather_fsdp=False``,
-and grok-1-314b under ``TRAIN_SP_RULES`` with ``moe_impl="ep"``.
+grok-1-314b under ``TRAIN_SP_RULES`` with ``moe_impl="ep"`` and under
+``DECODE_2D_RULES`` with ep (which gathers its experts' d blocks),
+musicgen under ``TRAIN_SP_RULES`` and under ``LONG_2D_RULES`` on (2, 2,
+2) with ``adamw8bit``, qwen2-vl-72b (``embeds``, M-RoPE positions of
+distinct t/h/w axes) under ``DECODE_2D_RULES`` and under
+``TRAIN_SP_RULES`` with ``adamw8bit``, gemma2-27b under
+``DECODE_2D_RULES`` and ``TRAIN_SP_RULES``, and granite-20b under
+``TRAIN_SP_RULES`` in 2 microbatches.
 
 Eight spawned gloo ranks run the port from the carried parameters, each
 on its blocks.  Checked: loss within 1e-5 relative; gathered gradients
@@ -111,12 +120,30 @@ CASES = (
      "dense", 1, "adamw"),
     ("moonshot_2d", "moonshot-v1-16b-a3b", 2, "2x4", "DECODE_2D_RULES",
      False, "dense", 1, "adamw"),
+    ("musicgen_2d", "musicgen-medium", 2, "2x4", "DECODE_2D_RULES", False,
+     "dense", 1, "adamw"),
 ) + ((
     ("internlm2_serve", "internlm2-1.8b", 2, "2x4", "SERVE_RULES", True,
      "dense", 1, "adamw"),
     ("internlm2_nogather", "internlm2-1.8b", 2, "2x4", "DEFAULT_RULES",
      False, "dense", 1, "adamw"),
     ("grok_sp_ep", "grok-1-314b", 2, "2x4", "TRAIN_SP_RULES", True, "ep",
+     1, "adamw"),
+    ("musicgen_sp", "musicgen-medium", 2, "2x4", "TRAIN_SP_RULES", True,
+     "dense", 1, "adamw"),
+    ("musicgen_long2d_q8", "musicgen-medium", 2, "2x2x2", "LONG_2D_RULES",
+     False, "dense", 1, "adamw8bit"),
+    ("qwen2_vl_2d", "qwen2-vl-72b", 2, "2x4", "DECODE_2D_RULES", False,
+     "dense", 1, "adamw"),
+    ("qwen2_vl_sp_q8", "qwen2-vl-72b", 2, "2x4", "TRAIN_SP_RULES", True,
+     "dense", 1, "adamw8bit"),
+    ("gemma2_2d", "gemma2-27b", 2, "2x4", "DECODE_2D_RULES", False, "dense",
+     1, "adamw"),
+    ("gemma2_sp", "gemma2-27b", 2, "2x4", "TRAIN_SP_RULES", True, "dense",
+     1, "adamw"),
+    ("granite_sp_micro", "granite-20b", 2, "2x4", "TRAIN_SP_RULES", True,
+     "dense", 2, "adamw"),
+    ("grok_2d_ep", "grok-1-314b", 2, "2x4", "DECODE_2D_RULES", False, "ep",
      1, "adamw"),
 ) if FUZZ else ())
 SP_TAG = "sp_internlm2"         # also run under remat "dots" and None
@@ -219,6 +246,18 @@ for (tag, arch, periods, mesh_key, rules, gather_fsdp, impl, n_micro,
     batch = {"tokens": jax.random.randint(ks[0], (B, S), 0, cfg.vocab_size),
              "targets": jax.random.randint(ks[1], (B, S), 0,
                                            cfg.vocab_size)}
+    if cfg.input_mode == "embeds":
+        del batch["tokens"]
+        batch["embeds"] = jax.random.normal(jax.random.PRNGKey(2),
+                                            (B, S, cfg.d_model))
+    if cfg.mrope:
+        # text then an image grid: the t, h and w sections turn apart
+        i = np.arange(S - 4)
+        grid = np.stack([np.r_[np.arange(4), np.full(i.size, 4)],
+                         np.r_[np.arange(4), 4 + i // 8],
+                         np.r_[np.arange(4), 4 + i % 8]])
+        pos = grid[:, None, :] + np.arange(B)[None, :, None]
+        batch["positions"] = jnp.asarray(pos.astype(np.int32))
     ctx = SH.ShardingCtx(mesh=meshes[mesh_key], rules=getattr(SH, rules),
                          gather_fsdp=gather_fsdp, moe_impl=impl)
     hp = TrainHParams(remat=None, ce_chunk=32, n_micro=n_micro,
@@ -597,9 +636,12 @@ def test_no_parameter_gathered_without_gather_fsdp(steps, tag):
     """Under the 2-D tables with gather_fsdp=False no weight moves in
     the whole step, backward included."""
     _, got = steps
-    rules = getattr(SH, _case(tag)[4])
+    _, _, _, _, rules, _, impl, *_ = _case(tag)
+    rules = getattr(SH, rules)
     for g in got:
-        if rules["batch"] is None:
+        # moe_impl 'ep' takes whole d_model rows into its experts (the
+        # reference's shard_map does): it gathers their d blocks
+        if rules["batch"] is None and impl != "ep":
             assert g[tag]["param_gathers"] == {"bytes": 0, "messages": 0}
         assert sum(g[tag]["msgs"].values()) > 0
 

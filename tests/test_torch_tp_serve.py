@@ -25,7 +25,13 @@ window across cache blocks); qwen2-vl-72b under ``SERVE_RULES``
 llama3-405b at B = 1 on mesh (2, 2, 2) ``("pod", "data", "model")``
 under ``LONG_CONTEXT_RULES`` (also with ``gather_fsdp=False``: whole
 activations against weights whose d_model stays split over 'data') and
-``LONG_2D_RULES`` (positions split 8 ways).
+``LONG_2D_RULES`` (positions split 8 ways); musicgen-medium
+(``embeds``: each decode step's embedding a vocab-parallel lookup)
+under ``DECODE_2D_RULES``.  ``FUZZ_TORCH=1`` adds musicgen under
+``SERVE_RULES`` and ``LONG_2D_RULES``, qwen2-vl under
+``DECODE_2D_RULES`` and ``LONG_CONTEXT_RULES``, granite-20b and
+grok-1-314b under ``DECODE_2D_RULES`` and mamba2 under
+``LONG_2D_RULES`` (no attention layer: no softmax combine).
 
 Eight spawned gloo ranks run the port, each on its blocks of the same
 parameters.  Checked: logits within the reference's own tolerances
@@ -61,6 +67,7 @@ from repro_torch.serve.decode import generate, make_prefill_step
 from repro_torch.utils.tree import tree_flatten, tree_unflatten
 
 ROOT = Path(__file__).resolve().parents[1]
+FUZZ = os.environ.get("FUZZ_TORCH") == "1"
 
 WORLD = 8
 S, MAX_LEN, NEW = 16, 32, 4
@@ -100,7 +107,23 @@ CASES = (
      "dense", 1),
     ("llama_long_split_weights", "llama3-405b", "2x2x2",
      "LONG_CONTEXT_RULES", False, "dense", 1),
-)
+    ("musicgen_2d", "musicgen-medium", "2x4", "DECODE_2D_RULES", False,
+     "dense", 4),
+) + ((
+    ("musicgen_serve", "musicgen-medium", "2x4", "SERVE_RULES", True,
+     "dense", 4),
+    ("musicgen_long_2d", "musicgen-medium", "2x2x2", "LONG_2D_RULES", False,
+     "dense", 1),
+    ("qwen2_vl_2d", "qwen2-vl-72b", "2x4", "DECODE_2D_RULES", False, "dense",
+     4),
+    ("qwen2_vl_long", "qwen2-vl-72b", "2x2x2", "LONG_CONTEXT_RULES", True,
+     "dense", 1),
+    ("granite_2d", "granite-20b", "2x4", "DECODE_2D_RULES", False, "dense",
+     4),
+    ("grok_2d", "grok-1-314b", "2x4", "DECODE_2D_RULES", False, "dense", 4),
+    ("mamba2_long_2d", "mamba2-2.7b", "2x2x2", "LONG_2D_RULES", False,
+     "dense", 1),
+) if FUZZ else ())
 NO_REGATHER = ("DECODE_2D_RULES", "LONG_2D_RULES")
 
 
@@ -470,6 +493,7 @@ def test_no_regather_tables_gather_no_parameter(served, tag):
     ``shard_map`` does, so it gathers their d blocks.)"""
     _, got = served
     _, arch, mesh_key, *_ = _case(tag)
+    attention = any(ls.kind == "attn" for ls in _cfg(arch).pattern)
     kv = ("data", "model") if mesh_key == "2x4" else ("pod", "data",
                                                       "model")
     allowed = {("all-reduce", ("data",)), ("all-reduce", ("model",)),
@@ -479,7 +503,8 @@ def test_no_regather_tables_gather_no_parameter(served, tag):
         assert row["param_gathers"] == 0
         assert set(row["decode_msgs"]) <= allowed, (
             tag, set(row["decode_msgs"]) - allowed)
-        assert ("all-reduce", kv) in row["decode_msgs"]   # the combine
+        if attention:       # the softmax combine
+            assert ("all-reduce", kv) in row["decode_msgs"]
 
 
 def test_serving_tables_regather_parameters(served):
